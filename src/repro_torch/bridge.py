@@ -1,0 +1,78 @@
+"""Carry the reference's weights into the port.
+
+Two sources:
+  * the reference's ``nn.values(params)`` tree handed over as numpy
+    arrays (nested dicts, lists for layer stacks);
+  * a reference checkpoint's flat ``arrays.npz``, whose keys are the
+    tree paths joined by ``/`` (``values/item_emb/centroids``,
+    ``values/user_mlp/layers/0/w``).
+Every leaf must match the port's shape and dtype exactly, so codes and
+centroids arrive bit-identical.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def unflatten(flat, prefix: str = "values"):
+    """Flat ``/``-joined keys -> nested dicts, integer path parts as
+    list indices.  Only keys under ``prefix`` are kept."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        top, *parts = key.split(_SEP)
+        if top != prefix or not parts:
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(arr)
+    return _lists(tree)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
+
+
+def _copy_tree(dst, src, path: str):
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            got = sorted(src) if isinstance(src, dict) else type(src)
+            raise ValueError(f"{path or '<root>'}: keys {got} != "
+                             f"{sorted(dst)}")
+        for k in dst:
+            _copy_tree(dst[k], src[k], f"{path}/{k}")
+        return
+    if isinstance(dst, list):
+        if not isinstance(src, (list, tuple)) or len(src) != len(dst):
+            raise ValueError(f"{path}: expected a list of {len(dst)}")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_tree(d, s, f"{path}/{i}")
+        return
+    arr = np.asarray(src)
+    want = torch.empty((), dtype=dst.dtype).numpy().dtype
+    if tuple(arr.shape) != tuple(dst.shape) or arr.dtype != want:
+        raise ValueError(f"{path}: {arr.dtype}{tuple(arr.shape)} != "
+                         f"{want}{tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.from_numpy(np.array(arr, copy=True)))
+
+
+def load_values(model, values) -> None:
+    """Copy a reference values tree into ``model`` (in place)."""
+    _copy_tree(model.params(), values, "")
+    emb = model.params().get("item_emb", {})
+    if "codes" in emb and int(emb["codes"].max()) >= model.emb.cfg.b:
+        raise ValueError(f"codes must be < b={model.emb.cfg.b}")
+
+
+def load_npz(model, path, prefix: str = "values") -> None:
+    """Copy a reference checkpoint's ``arrays.npz`` into ``model``."""
+    with np.load(path) as z:
+        load_values(model, unflatten({k: z[k] for k in z.files}, prefix))

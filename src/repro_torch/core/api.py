@@ -1,0 +1,117 @@
+"""Uniform embedding interface over {full, jpq} (``qr`` is not yet
+ported)."""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import full as _full
+from repro_torch.core import jpq as _jpq
+
+
+def _qr_not_ported():
+    raise NotImplementedError("kind='qr' is not yet ported to repro_torch")
+
+
+def _qr_base(n_items: int) -> int:
+    return math.isqrt(max(n_items - 1, 0)) + 1 if n_items > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingConfig:
+    n_items: int
+    d: int
+    kind: str = "full"            # full | jpq | qr (qr: not yet ported)
+    m: int = 8                    # jpq: code length
+    b: int = 256                  # jpq: centroids per split
+    assignment: str = "svd"       # jpq: random | svd | bpr
+    use_kernel: bool = False      # jpq: jpq_scores kernel for logits
+    init_scale: Optional[float] = None
+
+    def float_param_count(self) -> int:
+        if self.kind == "full":
+            return self.n_items * self.d
+        if self.kind == "jpq":
+            return self.b * self.d
+        if self.kind == "qr":
+            q = _qr_base(self.n_items)
+            return ((self.n_items + q - 1) // q + q) * self.d
+        raise ValueError(self.kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class Embedding:
+    cfg: EmbeddingConfig
+
+    def init(self, gen: torch.Generator, *, codes=None, dtype=torch.float32,
+             device="cuda"):
+        c = self.cfg
+        if c.kind == "full":
+            return _full.init(gen, c.n_items, c.d, dtype=dtype,
+                              init_scale=c.init_scale, device=device)
+        if c.kind == "jpq":
+            return _jpq.init(gen, c.n_items, c.d, c.m, c.b, codes=codes,
+                             dtype=dtype, init_scale=c.init_scale,
+                             device=device)
+        if c.kind == "qr":
+            _qr_not_ported()
+        raise ValueError(c.kind)
+
+    def lookup(self, p, ids):
+        c = self.cfg
+        if c.kind == "full":
+            return _full.lookup(p, ids)
+        if c.kind == "jpq":
+            return _jpq.lookup(p, ids)
+        _qr_not_ported()
+
+    def logits(self, p, h):
+        c = self.cfg
+        if c.kind == "full":
+            return _full.logits(p, h)
+        if c.kind == "jpq":
+            return _jpq.logits(p, h, use_kernel=c.use_kernel)
+        _qr_not_ported()
+
+    def bag_lookup(self, p, ids, segment_ids, num_segments: int,
+                   *, combiner: str = "sum", weights=None):
+        """EmbeddingBag: ids [nnz], segment_ids [nnz] (the bag of each
+        id) -> [num_segments, d], as gather + segment sum."""
+        emb = self.lookup(p, ids)                       # [nnz, d]
+        if weights is not None:
+            emb = emb * weights[:, None].to(emb.dtype)
+        seg = segment_ids.long()
+        out = torch.zeros((num_segments, emb.shape[-1]), dtype=emb.dtype,
+                          device=emb.device).index_add_(0, seg, emb)
+        if combiner == "mean":
+            cnt = torch.zeros((num_segments,), dtype=emb.dtype,
+                              device=emb.device).index_add_(
+                0, seg, torch.ones_like(seg, dtype=emb.dtype))
+            out = out / torch.clamp(cnt, min=1.0)[:, None]
+        return out
+
+
+def make_embedding(cfg: EmbeddingConfig) -> Embedding:
+    return Embedding(cfg)
+
+
+def compression_report(cfg: EmbeddingConfig) -> dict:
+    """Paper Table-2-style memory analysis for one table config."""
+    base_bytes = cfg.n_items * cfg.d * 4
+    if cfg.kind == "jpq":
+        float_bytes = cfg.b * cfg.d * 4
+        code_bytes = cfg.n_items * cfg.m * (1 if cfg.b <= 256 else 4)
+        comp = float_bytes + code_bytes
+    elif cfg.kind == "qr":
+        comp = cfg.float_param_count() * 4
+    else:
+        comp = base_bytes
+    return {
+        "kind": cfg.kind, "n_items": cfg.n_items, "d": cfg.d,
+        "base_bytes": base_bytes, "compressed_bytes": comp,
+        "ratio": base_bytes / max(comp, 1),
+        "pct_of_base": 100.0 * comp / base_bytes,
+    }

@@ -1,0 +1,76 @@
+"""RecJPQ embedding: codebook of sub-item centroid ids + centroid tensor.
+
+The embedding table ``[n_items, d]`` is replaced by
+  codes      [n_items, m] uint8 (int32 when b > 256) — frozen, a buffer
+  centroids  [m, b, d//m] float                      — trainable
+Item i's embedding = concat_j centroids[j, codes[i, j]].
+
+``p`` is a dict ``{"codes": ..., "centroids": ...}`` of tensors, the
+port's counterpart of the reference's parameter subtree.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def init(gen: torch.Generator, n_items: int, d: int, m: int, b: int = 256,
+         *, codes=None, dtype=torch.float32, init_scale: float | None = None,
+         device="cuda"):
+    """Random codes (unless given) and normal centroids, drawn from
+    ``gen`` (a generator on ``device``)."""
+    if d % m:
+        raise ValueError(f"embedding dim {d} must be divisible by code "
+                         f"length {m}")
+    code_dtype = torch.uint8 if b <= 256 else torch.int32
+    if codes is None:
+        codes = torch.randint(0, b, (n_items, m), generator=gen,
+                              device=device, dtype=torch.int32)
+    codes = torch.as_tensor(codes, device=device).to(code_dtype)
+    if tuple(codes.shape) != (n_items, m):
+        raise ValueError(f"codes shape {tuple(codes.shape)} != "
+                         f"{(n_items, m)}")
+    scale = init_scale if init_scale is not None else d ** -0.5
+    cent = scale * torch.randn((m, b, d // m), generator=gen, device=device)
+    return {"codes": codes.contiguous(), "centroids": cent.to(dtype)}
+
+
+def lookup(p, ids):
+    """ids int[...] -> embeddings [..., d]."""
+    cent = p["centroids"]
+    m = cent.shape[0]
+    codes = p["codes"][ids.long()].long()                 # [..., m]
+    emb = cent[torch.arange(m, device=cent.device), codes]  # [..., m, dk]
+    return emb.reshape(*ids.shape, -1)
+
+
+def partial_scores(p, h):
+    """h [..., d] -> P [..., m, b] partial-score lookup table (fp32)."""
+    cent = p["centroids"]
+    m, b, dk = cent.shape
+    hs = h.reshape(*h.shape[:-1], m, dk)
+    return torch.einsum("...mk,mbk->...mb", hs.float(), cent.float())
+
+
+def logits(p, h, *, use_kernel: bool = False):
+    """h [..., d] -> scores [..., n_items], summed in split order."""
+    if use_kernel:
+        raise NotImplementedError(
+            "use_kernel=True needs the jpq_scores kernel, which the "
+            "training slice of the port brings")
+    part = partial_scores(p, h)
+    codes = p["codes"].long()
+    s = part[..., 0, :][..., codes[:, 0]]
+    for j in range(1, codes.shape[1]):
+        s = s + part[..., j, :][..., codes[:, j]]
+    return s
+
+
+def reconstruct_table(p):
+    """Materialise the full [n_items, d] table (tests / tiny catalogues)."""
+    n = p["codes"].shape[0]
+    return lookup(p, torch.arange(n, device=p["codes"].device))
+
+
+def embedding_param_count(n_items: int, d: int, m: int, b: int = 256):
+    """(compressed float params, full-table float params, codebook ints)."""
+    return b * d, n_items * d, n_items * m

@@ -9,6 +9,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+                   "skips inside the test when torch.cuda is unavailable")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _bound_live_executables():
     """XLA's CPU client can segfault in ``backend_compile`` once several
