@@ -21,11 +21,32 @@ Phases, each of which raises on failure (exit code != 0, no result):
      each run and must show its kernel ran; one request is held against
      the materialise-then-top-k path (bit-equal);
   5. timing with CUDA events at the main path's shapes: kernel, plain
-     version and the least time the card could take (bound).
+     version and the least time the card could take (bound);
+  6. parity of the training kernels on the card: jpq_scores forward at
+     T=512 over the full catalogue (N=1,000,002), bit-equal to its plain
+     version on normal and quantised LUTs; its backward against the
+     plain version in float64 within the worst-case fp32 recursive-sum
+     bound, and bit-identical across two calls; jpq_lookup forward
+     (bit-equal) and backward (the same way) at T=3,200;
+  7. main path, training: full-width RecJPQ SASRec (d=512, 2 layers, 4
+     heads, N=1,000,000 items, svd codebook over the synthetic data)
+     trains through ``repro_torch.train.loop.Trainer`` for 1 + 20 steps
+     of B=16 x S=200 with the full_ce loss; launch counters zeroed just
+     before and each of the four training kernels must show launches;
+     losses finite and falling; one step at B=2 held against the same
+     step through PyTorch gathers (use_kernel=False); then score_last
+     for 256 eval users through jpq_scores, NDCG@10 / HR@10, bit-equal
+     to the plain version on the same LUT;
+  8. the four training kernels at the main path's shapes (T=3,200, the
+     trained weights, a training batch's ids): each held against its
+     plain version as in phase 6 (jpq_scores' float64 backward in row
+     blocks of 512); then kernel, plain version, bound, and one PyTorch
+     library call timed.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
 JAX or of the JAX package.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +66,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FADD_PER_S = 67e12 / 2
 LOOKUP_PER_S = 67e12 / 8
 REQUESTS = 20
+U = 2.0 ** -24                     # fp32 unit roundoff
 
 
 def check(cond, msg):
@@ -59,6 +81,364 @@ def phase(name):
 
 def done(t0):
     print(f"   ok ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean ms per call over ``iters`` calls after one warm-up, by CUDA
+    events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_, ops):
+    """(bound ms, bound_by): bytes over HBM against each operation type
+    over its own rate (``ops``: {name: (count, rate)})."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = max([n / r * 1e3 for n, r in ops.values()], default=0.0)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# the full-width training configuration (the repo's SeqRecConfig defaults
+# with the paper's RecJPQ table) and its batch
+N_ITEMS, SEQ_LEN, TRAIN_B = 1_000_000, 200, 16
+EVAL_USERS, TRAIN_STEPS = 256, 20
+
+
+def train_phases(torch, np, dev, smi):
+    """Phases 6-8: the training kernels' parity, the training main path
+    and the kernels' timing.  Returns their entries of the kernels line."""
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.core.assign import build_codebook
+    from repro_torch.data.sequences import SeqDataConfig, SyntheticSequences
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_lookup import ref as lref
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
+    from repro_torch.models.sequential import _xent
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.metrics import hr_at_k, ndcg_at_k
+    from repro_torch.train.optimizer import OptConfig
+
+    def bits_equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def scores_fwd_err(P, codes, what):
+        """jpq_scores against its plain version: bit-equal; returns the
+        max |kernel - plain| of that comparison (0)."""
+        kern = sc.jpq_scores(P, codes)
+        plain = sref.jpq_scores_lut_ref(P, codes)
+        check(bits_equal(kern, plain), f"jpq_scores != plain ({what})")
+        e = float(kern.sub_(plain).abs_().max())
+        del kern, plain
+        torch.cuda.empty_cache()
+        return e
+
+    def scores_bwd_err(dS, codes, what):
+        """jpq_scores' backward: bit-identical across two calls, and
+        |kernel - float64| <= (chain - 1) u sum|terms|, chain the longest
+        run of fp32 adds into one output (within a chunk's warp, a lane
+        group's sum, the chunk partials).  The float64 plain version runs
+        in row blocks of 512.  Returns (max |err|, largest bound, chain)."""
+        d1 = sc.jpq_scores_bwd(dS, codes, BC)
+        check(bits_equal(d1, sc.jpq_scores_bwd(dS, codes, BC)),
+              f"jpq_scores backward differs between calls ({what})")
+        want = torch.empty(d1.shape, dtype=torch.float64, device=dev)
+        mass = torch.empty_like(want)
+        for r in range(0, dS.shape[0], 512):
+            blk = dS[r:r + 512].double()
+            want[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk, codes, BC)
+            mass[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk.abs_(), codes,
+                                                          BC)
+            del blk
+        chain = sc.BWD_CHUNK // 32 + 32 + -(-codes.shape[0] // sc.BWD_CHUNK)
+        lim = chain * U * mass
+        diff = (d1.double() - want).abs()
+        check(bool((diff <= lim).all()),
+              f"jpq_scores backward outside the fp32 sum bound ({what})")
+        out = float(diff.max()), float(lim.max()), chain
+        del d1, want, mass, lim, diff
+        torch.cuda.empty_cache()
+        return out
+
+    def lookup_errs(ids, codes, cent, dout, what):
+        """jpq_lookup bit-equal to its plain version; its backward
+        bit-identical across two calls and |kernel - float64| <=
+        T u sum|terms| (positions summed in order).  Returns the max
+        |err| of each comparison."""
+        kern = lc.jpq_lookup(ids, codes, cent)
+        plain = lref.jpq_lookup_ref(ids, codes, cent)
+        check(bits_equal(kern, plain), f"jpq_lookup != plain ({what})")
+        e_fwd = float((kern - plain).abs().max())
+        g1 = lc.jpq_lookup_bwd(ids, codes, dout, BC)
+        check(bits_equal(g1, lc.jpq_lookup_bwd(ids, codes, dout, BC)),
+              f"jpq_lookup backward differs between calls ({what})")
+        want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), BC)
+        mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), BC)
+        diff = (g1.double() - want).abs()
+        check(bool((diff <= ids.numel() * U * mass).all()),
+              f"jpq_lookup backward outside the fp32 sum bound ({what})")
+        return e_fwd, float(diff.max())
+
+    err = {}
+    n_rows = N_ITEMS + 2
+    T = TRAIN_B * SEQ_LEN
+    dk = 512 // M
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    t0 = phase(f"training kernels' parity: jpq_scores T=512 N={n_rows}, "
+               f"jpq_lookup T={T}")
+    codes = torch.randint(0, BC, (n_rows, M), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    luts = {"normal": torch.randn((512, M, BC), generator=gen, device=dev),
+            "quantised": torch.randint(-2, 3, (512, M, BC), generator=gen,
+                                       device=dev).float()}
+    err["jpq_scores"] = max(scores_fwd_err(P, codes, f"{name} LUT, T=512")
+                            for name, P in luts.items())
+    del luts
+    dS = torch.randn((512, n_rows), generator=gen, device=dev)
+    err["jpq_scores_bwd"], worst, chain = scores_bwd_err(dS, codes, "T=512")
+    print(f"   jpq_scores: forward bit-equal (normal, quantised LUT); "
+          f"backward deterministic, max |err| vs float64 "
+          f"{err['jpq_scores_bwd']:.3e} (bound (chain={chain}) u sum|dS|,"
+          f" largest {worst:.3e})")
+    del dS
+    cent = torch.randn((M, BC, dk), generator=gen, device=dev)
+    ids = torch.randint(0, n_rows, (T,), generator=gen, device=dev)
+    ids[: T * 9 // 10] = 0                 # the main path's left padding
+    ids = ids[torch.randperm(T, generator=gen, device=dev)]
+    dout = torch.randn((T, M, dk), generator=gen, device=dev)
+    err["jpq_lookup"], err["jpq_lookup_bwd"] = lookup_errs(
+        ids, codes, cent, dout, f"T={T}")
+    print(f"   jpq_lookup: forward bit-equal; backward deterministic, "
+          f"max |err| vs float64 {err['jpq_lookup_bwd']:.3e}")
+    del codes, cent, ids, dout
+    torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase(f"main path: full-width RecJPQ SASRec training, B={TRAIN_B} "
+               f"S={SEQ_LEN} N={N_ITEMS}, 1 + {TRAIN_STEPS} steps")
+    t1 = time.perf_counter()
+    data = SyntheticSequences(SeqDataConfig(n_items=N_ITEMS,
+                                            seq_len=SEQ_LEN, seed=0))
+    t_data = time.perf_counter() - t1
+    u, i = data.train_interactions()
+    t1 = time.perf_counter()
+    codes_np = build_codebook("svd", n_rows, M, BC, interactions=(u, i + 1),
+                              n_users=data.n_users_eff, seed=0)
+    t_codes = time.perf_counter() - t1
+    print(f"   set-up on the host: data {t_data:.1f}s "
+          f"({data.n_users_eff} users, {len(u)} train interactions), "
+          f"svd codebook {t_codes:.1f}s")
+    cfg = SeqRecConfig(arch="sasrec", n_items=N_ITEMS, max_len=SEQ_LEN,
+                       embedding=EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
+                                                 assignment="svd",
+                                                 use_kernel=True))
+    model = SeqRecModel(cfg, codes=codes_np, device=dev)
+    trainer = Trainer(model, OptConfig(lr=3e-3),
+                      TrainConfig(steps=1 + TRAIN_STEPS, batch_size=TRAIN_B,
+                                  log_every=1, eval_every=0),
+                      data_fn=lambda s: data.train_batch(s, TRAIN_B))
+    torch.cuda.reset_peak_memory_stats(dev)
+    sc.reset_launches()
+    lc.reset_launches()
+    params, hist = trainer.run(
+        generator=torch.Generator(device=dev).manual_seed(0))
+    launches = {**sc.launches, **lc.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, n in launches.items():
+        check(n > 0, f"the training run never launched {name}")
+    losses = [h["loss"] for h in hist if "loss" in h]
+    secs = [h["sec"] for h in hist if "loss" in h][1:]
+    check(len(losses) == 1 + TRAIN_STEPS and all(np.isfinite(losses)),
+          f"losses not finite: {losses}")
+    check(np.mean(losses[-5:]) < losses[0],
+          f"loss did not fall: first {losses[0]}, last 5 {losses[-5:]}")
+    step_ms = float(np.median(secs)) * 1e3
+    print(f"   losses {' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"   median step {step_ms:.1f} ms (steps 1-{TRAIN_STEPS}), peak "
+          f"memory {peak_gb:.2f} GB, launches {launches} on {smi}")
+
+    # one step at B=2 through the kernels and through PyTorch gathers, on
+    # the trained weights: loss within 1e-5 relative, every gradient
+    # within 1e-4 of its largest entry (the sums run in other orders)
+    plain = SeqRecModel(dataclasses.replace(cfg, embedding=dataclasses.replace(
+        cfg.embedding, use_kernel=False)), codes=codes_np, device=dev)
+    small = {k: torch.as_tensor(v[:2], device=dev)
+             for k, v in data.train_batch(10_000, 2).items()}
+    floats = [x for x in model.parameters()]
+    res = {}
+    for name, m in (("kernels", model), ("gathers", plain)):
+        loss, _ = m.train_loss(params, small)
+        res[name] = (float(loss.detach()),
+                     torch.autograd.grad(loss, floats))
+    (lk, gk), (lg, gg) = res["kernels"], res["gathers"]
+    check(abs(lk - lg) <= 1e-5 * abs(lg),
+          f"B=2 loss through kernels {lk} != gathers {lg}")
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(gk, gg))
+    check(worst <= 1e-4, f"B=2 gradients differ by {worst:.3e} of their "
+          f"largest entry")
+    print(f"   B=2 step: loss {lk:.6f} (kernels) vs {lg:.6f} (gathers), "
+          f"gradients within {worst:.2e} of their largest entry")
+    del res, gk, gg, plain
+
+    ev = data.eval_batch(range(EVAL_USERS), split="test")
+    seq = torch.as_tensor(ev["seq"], device=dev)
+    target = torch.as_tensor(ev["target"], device=dev)
+    sc.reset_launches()
+    with torch.no_grad():
+        scores = model.score_last(params, seq)
+        check(sc.launches["jpq_scores"] > 0, "eval never launched jpq_scores")
+        h = model.encode(params, seq)[:, -1]
+        P = jpq_mod.partial_scores(params["item_emb"], h).contiguous()
+        kern = sc.jpq_scores(P, params["item_emb"]["codes"])
+        ref = sref.jpq_scores_lut_ref(P, params["item_emb"]["codes"])
+    check(tuple(scores.shape) == (EVAL_USERS, n_rows)
+          and bool(torch.isfinite(scores).all()), "eval scores malformed")
+    check(bits_equal(kern, ref), "eval scores != plain on the same LUT")
+    kern[:, 0] = kern[:, -1] = -1e9
+    check(bits_equal(scores, kern), "score_last != kernel scores, masked")
+    ndcg = float(ndcg_at_k(scores, target).mean())
+    hr = float(hr_at_k(scores, target).mean())
+    print(f"   eval {EVAL_USERS} users: NDCG@10 {ndcg:.4f} HR@10 {hr:.4f}; "
+          f"scores bit-equal to the plain version on the same LUT")
+    del scores, kern, ref, h, P
+    torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase("the training kernels at the main path's shapes: parity, "
+               "then timing (CUDA events)")
+    codes = params["item_emb"]["codes"]
+    cent = params["item_emb"]["centroids"].detach()
+    batch = data.train_batch(0, TRAIN_B)
+    seq = torch.as_tensor(batch["seq"], device=dev)
+    ids = seq.reshape(-1)
+    with torch.no_grad():
+        P = jpq_mod.partial_scores(params["item_emb"],
+                                   model.encode(params, seq)).reshape(
+            T, M, BC).contiguous()
+    # the kernels against their plain versions on these inputs, one
+    # output alive at a time
+    err["jpq_scores"] = max(err["jpq_scores"],
+                            scores_fwd_err(P, codes, f"main path, T={T}"))
+    dS = torch.randn((T, n_rows), generator=gen, device=dev)
+    e, worst, _ = scores_bwd_err(dS, codes, f"main path, T={T}")
+    err["jpq_scores_bwd"] = max(err["jpq_scores_bwd"], e)
+    print(f"   at T={T}: jpq_scores forward bit-equal to plain on the "
+          f"trained LUT; backward deterministic, max |err| vs float64 "
+          f"{e:.3e} (largest bound {worst:.3e})")
+    dout = torch.randn((T, M, dk), generator=gen, device=dev)
+    e, e_bwd = lookup_errs(ids, codes, cent, dout, f"main path, T={T}")
+    err["jpq_lookup"] = max(err["jpq_lookup"], e)
+    err["jpq_lookup_bwd"] = max(err["jpq_lookup_bwd"], e_bwd)
+    print(f"   at T={T}: jpq_lookup forward bit-equal to plain on the "
+          f"batch's ids and trained centroids; backward deterministic, max "
+          f"|err| vs float64 {e_bwd:.3e}")
+    # the one-hot of the codes as a sparse [N, m*b] matrix (and its
+    # transpose): one library call computes scores (transposed) and dP
+    col = (codes.long() + BC * torch.arange(M, device=dev)).reshape(-1)
+    onehot = torch.sparse_csr_tensor(
+        torch.arange(0, n_rows * M + 1, M, device=dev), col,
+        torch.ones(n_rows * M, device=dev), size=(n_rows, M * BC),
+        check_invariants=False)
+    onehot_t = onehot.to_sparse_coo().t().coalesce().to_sparse_csr()
+    flat = (codes[ids].long() + BC * torch.arange(M, device=dev)).reshape(-1)
+    cent2 = cent.reshape(M * BC, dk)
+    P2t = P.reshape(T, M * BC).t().contiguous()
+    times = {
+        "jpq_scores": (
+            cuda_ms(lambda: sc.jpq_scores(P, codes), 5),
+            cuda_ms(lambda: sref.jpq_scores_lut_ref(P, codes), 2),
+            cuda_ms(lambda: torch.sparse.mm(onehot, P2t), 2)),
+        "jpq_scores_bwd": (
+            cuda_ms(lambda: sc.jpq_scores_bwd(dS, codes, BC), 3),
+            cuda_ms(lambda: sref.jpq_scores_lut_bwd_ref(dS, codes, BC), 2),
+            cuda_ms(lambda: torch.sparse.mm(onehot_t, dS.t()), 2)),
+        "jpq_lookup": (
+            cuda_ms(lambda: lc.jpq_lookup(ids, codes, cent), 50),
+            cuda_ms(lambda: lref.jpq_lookup_ref(ids, codes, cent), 20),
+            cuda_ms(lambda: torch.index_select(cent2, 0, flat), 50)),
+        "jpq_lookup_bwd": (
+            cuda_ms(lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC), 50),
+            cuda_ms(lambda: lref.jpq_lookup_bwd_ref(ids, codes, dout, BC), 20),
+            cuda_ms(lambda: torch.zeros_like(cent2).index_add_(
+                0, flat, dout.reshape(T * M, dk)), 50)),
+    }
+    lut_b, out_b = T * M * BC * 4, T * n_rows * 4
+    rows_b = T * M                               # the code rows the ids name
+    look_b = T * 8 + rows_b + M * BC * dk * 4 + T * M * dk * 4
+    work = {   # bytes, {op type: (count, rate)}
+        "jpq_scores": (n_rows * M + lut_b + out_b,
+                       {"LUT lookups": (T * n_rows * M, LOOKUP_PER_S),
+                        "fp32 adds": (T * n_rows * (M - 1), FADD_PER_S)}),
+        "jpq_scores_bwd": (out_b + n_rows * M + lut_b,
+                           {"histogram updates": (T * n_rows * M,
+                                                  LOOKUP_PER_S),
+                            "fp32 adds": (T * n_rows * M, FADD_PER_S)}),
+        "jpq_lookup": (look_b, {}),
+        "jpq_lookup_bwd": (look_b, {"fp32 adds": (T * M * dk, FADD_PER_S)}),
+    }
+    line = {"jpq_scores": 60, "jpq_lookup": 62}
+    out = []
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        base = name.replace("_bwd", "")
+        b_ms, b_by = bound(*work[name])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{base}.cu",
+            "replaces": f"src/repro/kernels/{base}/{base}.py:{line[base]}",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms})
+        print(f"   {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"{lib_ms:.4f} ms library, bound {b_ms:.4f} ms ({b_by}), "
+              f"{launches[name]} launches in the training run, T={T} on "
+              f"{smi}")
+    print("   library calls: torch.sparse.mm with the codes' one-hot (CSR) "
+          "for jpq_scores (output transposed) and its backward; "
+          "index_select / index_add_ on a precomputed flat index for "
+          "jpq_lookup and its backward")
+    # what a step spends: the four kernels once each, the cross-entropy
+    # forward and backward over [T, N] logits, and the encoder's forward
+    # and backward, each timed alone at the step's shapes
+    del dS, dout, onehot, onehot_t, P2t
+    torch.cuda.empty_cache()
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    valid = labels > 0
+    logits = torch.randn((TRAIN_B, SEQ_LEN, n_rows), generator=gen,
+                         device=dev).requires_grad_()
+
+    def ce_pass():
+        ce = _xent(logits, labels)
+        torch.autograd.grad(torch.sum(ce * valid) / valid.sum(), logits)
+
+    enc = list(model.parameters())
+    split = {"kernels": sum(times[n][0] for n in times),
+             "cross-entropy": cuda_ms(ce_pass, 3),
+             "encoder": cuda_ms(lambda: torch.autograd.grad(
+                 model.encode(params, seq).sum(), enc), 5)}
+    del logits
+    print(f"   step split (each part alone, ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; median step {step_ms:.1f} ms")
+    print(json.dumps({"train": {
+        "losses": losses, "median_step_ms": step_ms, "peak_gb": peak_gb,
+        "launches": launches, "ndcg10": ndcg, "hr10": hr,
+        "step_split_ms": split, "card": smi}}))
+    done(t0)
+    return out
 
 
 def main() -> int:
@@ -219,18 +599,6 @@ def main() -> int:
 
     t0 = phase("timing at the main path's shapes (CUDA events)")
 
-    def cuda_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
     k = 10
     codes = params["item_emb"]["codes"]
     with torch.inference_mode():
@@ -310,6 +678,10 @@ def main() -> int:
     print(f"   pruned sweep swept {swept_items} of {n_rows} items "
           f"(skip map: {int(skip.sum())} of {skip.numel()} group-tiles)")
     done(t0)
+
+    del P, st, codes, params, model, h
+    torch.cuda.empty_cache()
+    kernels += train_phases(torch, np, dev, smi)
 
     print(json.dumps({"serve": {
         n: {key: r[key] for key in ("path", "p50_ms", "p99_ms", "skip",

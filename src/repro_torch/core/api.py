@@ -28,7 +28,10 @@ class EmbeddingConfig:
     m: int = 8                    # jpq: code length
     b: int = 256                  # jpq: centroids per split
     assignment: str = "svd"       # jpq: random | svd | bpr
-    use_kernel: bool = False      # jpq: jpq_scores kernel for logits
+    # jpq: the hand-written kernels, forward and backward — jpq_scores
+    # for logits and (in the port; the reference has no lookup switch)
+    # jpq_lookup for lookup
+    use_kernel: bool = False
     init_scale: Optional[float] = None
 
     def float_param_count(self) -> int:
@@ -65,7 +68,7 @@ class Embedding:
         if c.kind == "full":
             return _full.lookup(p, ids)
         if c.kind == "jpq":
-            return _jpq.lookup(p, ids)
+            return _jpq.lookup(p, ids, use_kernel=c.use_kernel)
         _qr_not_ported()
 
     def logits(self, p, h):

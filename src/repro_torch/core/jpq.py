@@ -7,6 +7,11 @@ Item i's embedding = concat_j centroids[j, codes[i, j]].
 
 ``p`` is a dict ``{"codes": ..., "centroids": ...}`` of tensors, the
 port's counterpart of the reference's parameter subtree.
+
+``use_kernel=True`` sends ``logits`` through the jpq_scores kernels and
+``lookup`` through the jpq_lookup kernels (forward and backward, so the
+model trains through them); on a CPU tensor they run their plain
+versions.  ``use_kernel=False`` keeps the PyTorch gathers.
 """
 from __future__ import annotations
 
@@ -34,9 +39,12 @@ def init(gen: torch.Generator, n_items: int, d: int, m: int, b: int = 256,
     return {"codes": codes.contiguous(), "centroids": cent.to(dtype)}
 
 
-def lookup(p, ids):
+def lookup(p, ids, *, use_kernel: bool = False):
     """ids int[...] -> embeddings [..., d]."""
     cent = p["centroids"]
+    if use_kernel:
+        from repro_torch.kernels.jpq_lookup import ops as kops
+        return kops.jpq_lookup(ids, p["codes"], cent)
     m = cent.shape[0]
     codes = p["codes"][ids.long()].long()                 # [..., m]
     emb = cent[torch.arange(m, device=cent.device), codes]  # [..., m, dk]
@@ -53,11 +61,12 @@ def partial_scores(p, h):
 
 def logits(p, h, *, use_kernel: bool = False):
     """h [..., d] -> scores [..., n_items], summed in split order."""
-    if use_kernel:
-        raise NotImplementedError(
-            "use_kernel=True needs the jpq_scores kernel, which the "
-            "training slice of the port brings")
     part = partial_scores(p, h)
+    if use_kernel:
+        from repro_torch.kernels.jpq_scores.ops import JPQScores
+        m, b = part.shape[-2:]
+        flat = part.reshape(-1, m, b).contiguous()
+        return JPQScores.apply(flat, p["codes"]).reshape(*h.shape[:-1], -1)
     codes = p["codes"].long()
     s = part[..., 0, :][..., codes[:, 0]]
     for j in range(1, codes.shape[1]):

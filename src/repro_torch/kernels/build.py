@@ -5,7 +5,8 @@ shared library with a plain C interface (seconds to build; no PyTorch
 headers), named by a hash of the sources and flags so an edited source
 never loads a stale library.  The libraries go to ``build/kernels/`` at
 the repository root, which ``.gitignore`` lists.  Nothing here runs at
-import time.
+import time.  The ctypes helpers at the end are shared by the kernels'
+wrappers (``kernels/*/cuda.py``).
 """
 from __future__ import annotations
 
@@ -17,11 +18,13 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("jpq_topk", "jpq_topk_pruned")
+SOURCES = ("jpq_topk", "jpq_topk_pruned", "jpq_scores", "jpq_lookup")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -79,3 +82,58 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+P, I = ctypes.c_void_p, ctypes.c_int   # pointer (and stream), int
+_FNS: dict = {}
+
+
+def fn(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """``fn_name`` of ``csrc/<lib_name>.cu`` with its ctypes signature."""
+    key = (lib_name, fn_name)
+    if key not in _FNS:
+        f = getattr(load(lib_name), fn_name)
+        f.argtypes, f.restype = argtypes, restype
+        _FNS[key] = f
+    return _FNS[key]
+
+
+def check(t, what: str, dtypes, shape, device):
+    """Raise unless ``t`` is a contiguous tensor on ``device`` with one
+    of ``dtypes`` and exactly ``shape``."""
+    if not isinstance(t, torch.Tensor) or t.device != device:
+        raise ValueError(f"{what} must be a tensor on {device}, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def code_bytes(codes, b: int) -> int:
+    """Bytes per code the kernels read: uint8 codes address b <= 256."""
+    if codes.dtype == torch.uint8:
+        if b > 256:
+            raise ValueError(f"uint8 codes address at most 256 centroids, "
+                             f"b={b}")
+        return 1
+    return 4
+
+
+def raise_on(rc: int, lib_name: str):
+    """Raise for a launcher's return code: < 0 refused arguments, > 0 a
+    CUDA error."""
+    if rc == 0:
+        return
+    if rc < 0:
+        raise ValueError(f"{lib_name}: the kernel refused its arguments "
+                         f"(code {rc})")
+    msg = fn(lib_name, "jpq_error_string", [I], ctypes.c_char_p)(rc)
+    raise RuntimeError(f"{lib_name}: CUDA error {rc}: {msg.decode()}")
+
+
+def stream(dev) -> int:
+    """PyTorch's current stream on ``dev``, as the launchers take it."""
+    return torch.cuda.current_stream(dev).cuda_stream

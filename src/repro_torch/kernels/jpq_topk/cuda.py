@@ -29,38 +29,7 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FNS: dict = {}
-
-
-def _fn(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
-    key = (lib_name, fn_name)
-    if key not in _FNS:
-        f = getattr(_build.load(lib_name), fn_name)
-        f.argtypes, f.restype = argtypes, restype
-        _FNS[key] = f
-    return _FNS[key]
-
-
-def _check(t, what: str, dtypes, shape, device):
-    if not isinstance(t, torch.Tensor) or t.device != device:
-        raise ValueError(f"{what} must be a tensor on {device}, got "
-                         f"{getattr(t, 'device', type(t))}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{what} dtype {t.dtype} not in {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-
-
-def _code_bytes(codes, b: int) -> int:
-    if codes.dtype == torch.uint8:
-        if b > 256:
-            raise ValueError(f"uint8 codes address at most 256 centroids, "
-                             f"b={b}")
-        return 1
-    return 4
+_P, _I = _build.P, _build.I
 
 
 def _check_common(partial, codes, k: int, name: str):
@@ -73,27 +42,18 @@ def _check_common(partial, codes, k: int, name: str):
     B, m, b = partial.shape
     N = codes.shape[0]
     dev = partial.device
-    _check(partial, "partial", (torch.float32,), (B, m, b), dev)
-    _check(codes, "codes", (torch.uint8, torch.int32), (N, m), dev)
+    _build.check(partial, "partial", (torch.float32,), (B, m, b), dev)
+    _build.check(codes, "codes", (torch.uint8, torch.int32), (N, m), dev)
     return B, m, b, N, dev
 
 
 def _smem_check(lib_name: str, fn_name: str, k: int, m: int, b: int):
-    need = _fn(lib_name, fn_name, [_I, _I, _I], ctypes.c_size_t)(k, m, b)
+    need = _build.fn(lib_name, fn_name, [_I, _I, _I],
+                     ctypes.c_size_t)(k, m, b)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"{lib_name}: k={k}, m={m}, b={b} needs {need} bytes of shared "
             f"memory per block, above the card's {SMEM_LIMIT}")
-
-
-def _raise_on(rc: int, lib_name: str):
-    if rc == 0:
-        return
-    if rc < 0:
-        raise ValueError(f"{lib_name}: the kernel refused its arguments "
-                         f"(code {rc})")
-    msg = _fn(lib_name, "jpq_error_string", [_I], ctypes.c_char_p)(rc)
-    raise RuntimeError(f"{lib_name}: CUDA error {rc}: {msg.decode()}")
 
 
 def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
@@ -109,7 +69,7 @@ def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     _smem_check("jpq_topk", "jpq_topk_smem_bytes", k, m, b)
-    launch = _fn("jpq_topk", "jpq_topk_launch",
+    launch = _build.fn("jpq_topk", "jpq_topk_launch",
                  [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
     n_chunks = -(-N // chunk)
     with torch.cuda.device(dev):
@@ -117,10 +77,10 @@ def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
         out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
         rc = launch(partial.data_ptr(), codes.data_ptr(),
-                    _code_bytes(codes, b), B, m, b, N, k, chunk,
+                    _build.code_bytes(codes, b), B, m, b, N, k, chunk,
                     cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "jpq_topk")
+                    _build.stream(dev))
+    _build.raise_on(rc, "jpq_topk")
     launches["jpq_topk"] += 2
     return out_v, out_i
 
@@ -134,29 +94,29 @@ def jpq_topk_pruned(partial, codes, ids, present, floor, init_vals,
     int32, 1 where the query group skipped the tile)."""
     B, m, b, N, dev = _check_common(partial, codes, k, "jpq_topk_pruned")
     n_tiles = -(-N // block_n)
-    _check(ids, "ids", (torch.int32,), (N,), dev)
-    _check(present, "present", (torch.float32,), (n_tiles, m, b), dev)
-    _check(floor, "floor", (torch.float32,), (B,), dev)
-    _check(init_vals, "init_vals", (torch.float32,), (B, k), dev)
-    _check(init_ids, "init_ids", (torch.int32,), (B, k), dev)
+    _build.check(ids, "ids", (torch.int32,), (N,), dev)
+    _build.check(present, "present", (torch.float32,), (n_tiles, m, b), dev)
+    _build.check(floor, "floor", (torch.float32,), (B,), dev)
+    _build.check(init_vals, "init_vals", (torch.float32,), (B, k), dev)
+    _build.check(init_ids, "init_ids", (torch.int32,), (B, k), dev)
     _smem_check("jpq_topk_pruned", "jpq_topk_pruned_smem_bytes", k, m, b)
-    launch = _fn("jpq_topk_pruned", "jpq_topk_pruned_launch",
+    launch = _build.fn("jpq_topk_pruned", "jpq_topk_pruned_launch",
                  [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _P, _P, _P, _P])
-    n_groups = -(-B // _fn("jpq_topk_pruned", "jpq_topk_pruned_group_size",
-                           [])())
+    n_groups = -(-B // _build.fn("jpq_topk_pruned",
+                                 "jpq_topk_pruned_group_size", [])())
     with torch.cuda.device(dev):
         out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
         skip = torch.empty((n_groups, n_tiles), dtype=torch.int32,
                            device=dev)
         rc = launch(partial.data_ptr(), codes.data_ptr(),
-                    _code_bytes(codes, b), ids.data_ptr(),
+                    _build.code_bytes(codes, b), ids.data_ptr(),
                     present.data_ptr(), floor.data_ptr(),
                     init_vals.data_ptr(), init_ids.data_ptr(), B, m, b, N,
                     k, int(block_n), int(bool(tie_break_ids)),
                     out_v.data_ptr(), out_i.data_ptr(), skip.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "jpq_topk_pruned")
+                    _build.stream(dev))
+    _build.raise_on(rc, "jpq_topk_pruned")
     launches["jpq_topk_pruned"] += 1
     return out_v, out_i, skip

@@ -9,18 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.jpq_scores.ref import jpq_scores_lut_ref
 from repro_torch.kernels.jpq_topk.ops import topk_desc
-
-
-def jpq_scores_lut_ref(partial, codes):
-    """partial [B, m, b] fp32, codes [N, m] -> [B, N] fp32, summed in
-    split order j = 0..m-1 (bit-equal to ``core.jpq.logits``)."""
-    codes = codes.long()
-    m = codes.shape[1]
-    s = partial[:, 0, :][:, codes[:, 0]]
-    for j in range(1, m):
-        s = s + partial[:, j, :][:, codes[:, j]]
-    return s
 
 
 def jpq_topk_lut_ref(partial, codes, k: int):

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.nn import layers as L
+from repro_torch.nn.module import Tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,24 +38,6 @@ class TwoTowerConfig:
                                    d=self.embed_dim)
 
 
-class _Tensors(torch.nn.Module):
-    """One parameter subtree: floating tensors are parameters, integer
-    ones (the codes) buffers."""
-
-    def __init__(self, tensors: dict):
-        super().__init__()
-        for name, t in tensors.items():
-            if t.is_floating_point():
-                self.register_parameter(name, torch.nn.Parameter(t))
-            else:
-                self.register_buffer(name, t)
-
-    def tensors(self) -> dict:
-        out = {n: p.detach() for n, p in self.named_parameters(recurse=False)}
-        out.update(self.named_buffers(recurse=False))
-        return out
-
-
 class TwoTower(torch.nn.Module):
     """Sampled-softmax two-tower retrieval.  Parameters are drawn from
     ``generator`` (on ``device``): the item table first, then the user
@@ -68,11 +51,11 @@ class TwoTower(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         self.emb = make_embedding(cfg.emb_cfg())
-        self.item_emb = _Tensors(self.emb.init(generator, codes=codes,
+        self.item_emb = Tensors(self.emb.init(generator, codes=codes,
                                                device=device))
         dims = [cfg.embed_dim, *cfg.tower_mlp, cfg.embed_dim]
         mlp = L.mlp_init(generator, dims, device=device)
-        self.user_mlp = torch.nn.ModuleList(_Tensors(lp)
+        self.user_mlp = torch.nn.ModuleList(Tensors(lp)
                                             for lp in mlp["layers"])
 
     @property

@@ -1,0 +1,203 @@
+"""Sequential recommenders with a pluggable item embedding: SASRec.
+
+Item ids are 1-based; row 0 is padding and row ``n_items + 1`` is
+BERT4Rec's [MASK] token, so every embedding table has ``n_items + 2``
+rows, as in the reference.  The loss is the full-catalogue softmax
+(``full_ce``); with a RecJPQ table and ``use_kernel=True`` its logits
+come from the jpq_scores kernels and the input vectors from the
+jpq_lookup kernels, forward and backward.
+
+BERT4Rec, GRU4Rec (with ``nn/recurrent.py``), the ``sampled_bce`` and
+``code_ce`` losses, the ``semantic_weight`` auxiliary loss and
+``bind_engine`` are not yet ported and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import EmbeddingConfig, make_embedding
+from repro_torch.nn import layers as L
+from repro_torch.nn.attention import AttnConfig, attention, attention_init
+from repro_torch.nn.module import Tensors
+
+NEG_INF = -1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqRecConfig:
+    arch: str                     # sasrec (bert4rec | gru4rec: not yet ported)
+    n_items: int
+    max_len: int = 200
+    d_model: int = 512
+    n_layers: int = 2
+    n_heads: int = 4
+    d_ff: int = 1024
+    embedding: Optional[EmbeddingConfig] = None   # None -> full, d=d_model
+    loss: str = "full_ce"         # full_ce (sampled_bce | code_ce: not yet)
+    semantic_weight: float = 0.0
+    n_negatives: int = 1
+    dropout: float = 0.0
+    mask_prob: float = 0.2
+
+    @property
+    def n_rows(self) -> int:      # pad + items + [MASK]
+        return self.n_items + 2
+
+    @property
+    def mask_id(self) -> int:
+        return self.n_items + 1
+
+    def emb_cfg(self) -> EmbeddingConfig:
+        # item embeddings start at ~N(0, 0.02), the scale of pos_emb, as
+        # in the reference (the d**-0.5 table default, amplified by the
+        # sqrt(d_model) input scaling, stalls early training)
+        base = self.embedding if self.embedding is not None else \
+            EmbeddingConfig(0, 0)
+        scale = base.init_scale
+        if scale is None and base.kind in ("full", "jpq"):
+            scale = 0.02
+        return dataclasses.replace(base, n_items=self.n_rows,
+                                   d=self.d_model, init_scale=scale)
+
+
+def _dropout(gen, x, rate: float):
+    """Inverted dropout drawn from ``gen``; the identity when ``gen`` is
+    None or ``rate`` is 0.  Its bits are not jax.random's."""
+    if rate <= 0.0 or gen is None:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+class SeqRecModel(torch.nn.Module):
+    """SASRec with a pluggable item embedding.  Parameters are drawn from
+    ``generator`` (on ``device``) in the reference's order: the item
+    table, ``pos_emb``, then each block's ``ln1``, ``attn`` (wq, wk, wv,
+    wo), ``ln2``, ``mlp`` (wi, wo), then ``ln_f``.  ``params()`` returns
+    the reference-shaped tree of the live parameters (codes a buffer),
+    which the functional methods take, as the reference's take its
+    params."""
+
+    def __init__(self, cfg: SeqRecConfig, codes=None, *,
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        super().__init__()
+        if cfg.arch != "sasrec":
+            raise NotImplementedError(
+                f"arch {cfg.arch!r} is not yet ported to repro_torch "
+                f"(sasrec is)")
+        if cfg.loss != "full_ce" or cfg.semantic_weight > 0.0:
+            raise NotImplementedError(
+                f"loss {cfg.loss!r} / semantic_weight "
+                f"{cfg.semantic_weight} is not yet ported to repro_torch "
+                f"(full_ce is)")
+        self.cfg = cfg
+        self.emb = make_embedding(cfg.emb_cfg())
+        self._codes = codes
+        self.attn_cfg = AttnConfig(
+            d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+            head_dim=cfg.d_model // cfg.n_heads, causal=True, rope=False)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.init_params(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos_emb.device
+
+    # ------------------------------------------------------------ init
+    def init_params(self, gen: torch.Generator):
+        """(Re)draw every parameter from ``gen`` in the reference's order;
+        returns ``params()``."""
+        cfg, dev = self.cfg, gen.device
+        self.item_emb = Tensors(self.emb.init(gen, codes=self._codes,
+                                              device=dev))
+        self.pos_emb = torch.nn.Parameter(0.02 * torch.randn(
+            (cfg.max_len, cfg.d_model), generator=gen, device=dev))
+        blocks = []
+        for _ in range(cfg.n_layers):
+            ln1 = L.layernorm_init(cfg.d_model, device=dev)
+            attn = attention_init(gen, self.attn_cfg, device=dev)
+            ln2 = L.layernorm_init(cfg.d_model, device=dev)
+            mlp = L.dense_mlp_init(gen, cfg.d_model, cfg.d_ff, device=dev)
+            blocks.append(torch.nn.ModuleDict({
+                "ln1": Tensors(ln1), "attn": Tensors(attn),
+                "ln2": Tensors(ln2),
+                "mlp": torch.nn.ModuleDict({k: Tensors(v)
+                                            for k, v in mlp.items()})}))
+        self.blocks = torch.nn.ModuleList(blocks)
+        self.ln_f = Tensors(L.layernorm_init(cfg.d_model, device=dev))
+        return self.params()
+
+    def params(self) -> dict:
+        """``{"item_emb", "pos_emb", "blocks": [{"ln1", "attn", "ln2",
+        "mlp": {"wi", "wo"}}], "ln_f"}`` of live tensors."""
+        return {
+            "item_emb": self.item_emb.live(),
+            "pos_emb": self.pos_emb,
+            "blocks": [{"ln1": b["ln1"].live(), "attn": b["attn"].live(),
+                        "ln2": b["ln2"].live(),
+                        "mlp": {k: v.live() for k, v in b["mlp"].items()}}
+                       for b in self.blocks],
+            "ln_f": self.ln_f.live(),
+        }
+
+    # --------------------------------------------------------- encoder
+    def encode(self, p, seq, *, generator=None):
+        """seq int[B, S] (0 = pad) -> hidden [B, S, d].  ``generator``
+        draws the dropout masks (none when None)."""
+        cfg = self.cfg
+        valid = seq > 0
+        x = self.emb.lookup(p["item_emb"], seq)
+        x = torch.where(valid[..., None], x, 0.0)
+        S = seq.shape[1]
+        x = x * math.sqrt(cfg.d_model)
+        x = x + p["pos_emb"][:S][None]
+        x = _dropout(generator, x, cfg.dropout)
+        for blk in p["blocks"]:
+            h = attention(blk["attn"], self.attn_cfg,
+                          L.layernorm(blk["ln1"], x), pad_mask=valid)
+            x = x + _dropout(generator, h, cfg.dropout)
+            h = L.dense_mlp(blk["mlp"], L.layernorm(blk["ln2"], x))
+            x = x + _dropout(generator, h, cfg.dropout)
+        return L.layernorm(p["ln_f"], x)
+
+    # ------------------------------------------------------------ loss
+    def train_loss(self, p, batch, generator=None):
+        """Mean full-catalogue cross-entropy over the positions with a
+        label; every position is scored, as in the reference."""
+        seq, labels = batch["seq"], batch["labels"]          # [B, S]
+        h = self.encode(p, seq, generator=generator)
+        valid = labels > 0
+        logits = self._mask_special(self.emb.logits(p["item_emb"], h))
+        ce = _xent(logits, labels)
+        loss = torch.sum(ce * valid) / torch.clamp(valid.sum(), min=1)
+        return loss, {"loss": loss.detach()}
+
+    def _mask_special(self, logits):
+        """Never rank pad / [MASK] rows.  In place: the reference's
+        ``.at[].set`` copies, this writes into ``logits`` (no backward
+        here needs its values) and saves a [.., n_rows] copy."""
+        logits[..., 0] = NEG_INF
+        logits[..., -1] = NEG_INF
+        return logits
+
+    # ------------------------------------------------------------ serve
+    def score_last(self, p, seq):
+        """Rank the full catalogue from the last position: [B, n_rows]."""
+        h = self.encode(p, seq)
+        return self._mask_special(self.emb.logits(p["item_emb"], h[:, -1]))
+
+    def bind_engine(self, p, spec, *, catalogue=None):
+        raise NotImplementedError(
+            "SeqRecModel.bind_engine is not yet ported to repro_torch")
+
+
+def _xent(logits, labels):
+    lse = torch.logsumexp(logits, -1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - picked

@@ -1,4 +1,5 @@
-"""Linear layers and plain MLP towers, functional over tensor dicts.
+"""Linear layers, MLP towers, LayerNorm and the GELU FFN, functional
+over tensor dicts.
 
 Weights keep the reference layout ``w [d_in, d_out]`` (``y = x @ w + b``),
 so parameters bridge across without transposes.
@@ -10,11 +11,22 @@ import math
 import torch
 
 
+def fan(shape, in_axis: int = -2, out_axis: int = -1):
+    """(fan_in, fan_out) as the reference's ``nn._fan`` counts them: the
+    named axes times the receptive field (the product of the others)."""
+    if len(shape) < 2:
+        return shape[0], shape[0]
+    receptive = math.prod(shape) / (shape[in_axis] * shape[out_axis])
+    return shape[in_axis] * receptive, shape[out_axis] * receptive
+
+
 def lecun_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
-                 device="cuda"):
-    """Truncated normal on [-2, 2] scaled by sqrt(1 / fan_in), fan_in the
-    second-to-last dim — the reference's ``nn.lecun_normal``."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+                 device="cuda", in_axis: int = -2, out_axis: int = -1):
+    """Truncated normal on [-2, 2] scaled by sqrt(1 / fan_in) — the
+    reference's ``nn.lecun_normal``.  For the attention weights
+    ``[d, H, Dh]`` (in_axis 0, out_axis 2) fan_in is d·H, for
+    ``[H, Dh, d]`` (in_axis 1) it is Dh·H = d."""
+    fan_in, _ = fan(shape, in_axis, out_axis)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (math.sqrt(1.0 / max(1.0, fan_in)) * t).to(dtype)
@@ -51,3 +63,36 @@ def mlp(p, x, *, act=torch.relu, final_act: bool = False):
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def layernorm_init(d: int, *, dtype=torch.float32, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    """Normalised in fp32 with the reference's eps 1e-6 (torch's
+    ``layer_norm`` defaults to 1e-5)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = torch.square(x - mu).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh form (the exact erf form
+    differs by up to 4.7e-4)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def dense_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                   dtype=torch.float32, device="cuda"):
+    """2-layer GELU FFN (SASRec/BERT4Rec-style)."""
+    return {"wi": linear_init(gen, d_model, d_ff, dtype=dtype, device=device),
+            "wo": linear_init(gen, d_ff, d_model, dtype=dtype, device=device)}
+
+
+def dense_mlp(p, x, act=gelu):
+    return linear(p["wo"], act(linear(p["wi"], x)))

@@ -2,13 +2,21 @@
 card.  Every test is marked ``cuda`` and skips, inside the test, where
 ``torch.cuda.is_available()`` is false (as on a CPU-only host); run them
 on the H100 with ``PYTHONPATH=src python -m pytest -m cuda
-tests/test_torch_cuda.py``.  Tolerance: none — values (as bits) and
-ids must be equal, and skip maps equal when no floor is set.
+tests/test_torch_cuda.py``.  Tolerance for the PQTopK kernels and the
+training kernels' forwards: none — values (as bits) and ids must be
+equal, and skip maps equal when no floor is set; the training kernels'
+backwards are held as the comment above their tests says.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import jpq as jpq_mod
+from repro_torch.kernels.jpq_lookup import cuda as lc
+from repro_torch.kernels.jpq_lookup import ops as lops
+from repro_torch.kernels.jpq_lookup import ref as lref
+from repro_torch.kernels.jpq_scores import cuda as sc
+from repro_torch.kernels.jpq_scores import ref as sref
 from repro_torch.kernels.jpq_topk import cuda as kc
 from repro_torch.kernels.jpq_topk import ops
 
@@ -185,3 +193,139 @@ def test_two_tower_serves_through_both_kernels(dev):
         got = model.bind_engine(p, spec).retrieve(batch)
         assert kc.launches[name] == n
         assert _same(got[:2], want)
+
+
+# ================================================ jpq_scores, jpq_lookup
+#
+# Forwards: bit-equal to the plain versions (tolerance 0).  Backwards:
+# against the plain version in float64, within the worst-case bound of
+# an fp32 recursive sum, (chain - 1) * 2^-24 * sum|terms| per output,
+# where chain is the longest run of adds the kernel makes into one
+# output; and bit-identical across two calls (deterministic).
+
+U = 2.0 ** -24
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+SCORES = [
+    # T, m, b, N, lut, codes
+    (3, 4, 16, 200, "normal", torch.uint8),
+    (13, 8, 256, 70_001, "normal", torch.uint8),     # ragged rows and items
+    (16, 8, 256, 70_001, "zeros", torch.uint8),      # ±0.0 LUT
+    (9, 3, 300, 40_000, "normal", torch.int32),      # int32 codes, b > 256
+]
+
+
+@pytest.mark.parametrize("case", SCORES, ids=[str(c[:4]) for c in SCORES])
+def test_jpq_scores_forward_matches_plain(dev, case):
+    T, m, b, N, lut, cd = case
+    P, codes = _case(dev, 5, T, m, b, N, lut=lut, code_dtype=cd)
+    before = sc.launches["jpq_scores"]
+    got = sc.jpq_scores(P, codes)
+    torch.cuda.synchronize()
+    assert sc.launches["jpq_scores"] == before + 1
+    assert _bits_equal(got, sref.jpq_scores_lut_ref(P, codes))
+
+
+@pytest.mark.parametrize("chunk", [sc.BWD_CHUNK, 4096])
+@pytest.mark.parametrize("case", SCORES, ids=[str(c[:4]) for c in SCORES])
+def test_jpq_scores_backward_matches_plain(dev, case, chunk):
+    T, m, b, N, _, cd = case
+    _, codes = _case(dev, 6, T, m, b, N, code_dtype=cd)
+    g = torch.Generator(device=dev).manual_seed(7)
+    dS = torch.randn((T, N), generator=g, device=dev)
+    before = sc.launches["jpq_scores_bwd"]
+    got = sc.jpq_scores_bwd(dS, codes, b, chunk=chunk)
+    again = sc.jpq_scores_bwd(dS, codes, b, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sc.launches["jpq_scores_bwd"] == before + 4
+    assert _bits_equal(got, again)
+    want = sref.jpq_scores_lut_bwd_ref(dS.double(), codes, b)
+    mass = sref.jpq_scores_lut_bwd_ref(dS.double().abs(), codes, b)
+    chain = chunk // 32 + 32 + -(-N // chunk)
+    assert bool(((got.double() - want).abs() <= chain * U * mass).all())
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("cd", [torch.uint8, torch.int32])
+def test_jpq_lookup_matches_plain(dev, id_dtype, cd):
+    m, b, dk, N, T = 8, 256, 64, 50_000, 3_200
+    g = torch.Generator(device=dev).manual_seed(8)
+    cent = torch.randn((m, b, dk), generator=g, device=dev)
+    codes = torch.randint(0, b, (N, m), generator=g, device=dev,
+                          dtype=torch.int32).to(cd)
+    ids = torch.randint(0, N, (T,), generator=g, device=dev).to(id_dtype)
+    ids[:1000] = 0                                   # padding positions
+    got = lc.jpq_lookup(ids, codes, cent)
+    assert torch.equal(got, lref.jpq_lookup_ref(ids, codes, cent))
+    dout = torch.randn((T, m, dk), generator=g, device=dev)
+    d1 = lc.jpq_lookup_bwd(ids, codes, dout, b)
+    d2 = lc.jpq_lookup_bwd(ids, codes, dout, b)
+    torch.cuda.synchronize()
+    assert _bits_equal(d1, d2)
+    want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), b)
+    mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), b)
+    assert bool(((d1.double() - want).abs() <= T * U * mass).all())
+
+
+def test_autograd_functions_launch_their_kernels(dev):
+    """The Functions' forward and backward go through the kernels on a
+    CUDA tensor and give the plain (CPU) Functions' gradients."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    cent = torch.randn((4, 16, 8), generator=g, device=dev)
+    codes = torch.randint(0, 16, (500, 4), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    ids = torch.randint(0, 500, (5, 7), generator=g, device=dev)
+    out = {}
+    for where in ("cuda", "cpu"):
+        c = cent.detach().to(where).requires_grad_()
+        x = lops.jpq_lookup(ids.to(where), codes.to(where), c)  # [5, 7, 32]
+        s = jpq_mod.logits({"codes": codes.to(where), "centroids": c}, x,
+                           use_kernel=True)                   # [5, 7, 500]
+        (s.square().sum()).backward()
+        out[where] = (s.detach().cpu(), c.grad.cpu())
+    lc.reset_launches()
+    sc.reset_launches()
+    c = cent.detach().requires_grad_()
+    x = lops.jpq_lookup(ids, codes, c)
+    jpq_mod.logits({"codes": codes, "centroids": c}, x,
+                   use_kernel=True).sum().backward()
+    assert lc.launches == {"jpq_lookup": 1, "jpq_lookup_bwd": 1}
+    assert sc.launches == {"jpq_scores": 1, "jpq_scores_bwd": 2}
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_sasrec_step_through_kernels_matches_gathers(dev):
+    """One full_ce step of a small SASRec: use_kernel=True (the four
+    kernels) against use_kernel=False (PyTorch gathers) on the card, the
+    same weights — loss within 1e-5 relative, every gradient within
+    1e-4 of its largest magnitude (sums in another order)."""
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
+    kw = dict(arch="sasrec", n_items=3000, max_len=16, d_model=64,
+              n_layers=2, n_heads=2, d_ff=128)
+    rng = np.random.default_rng(0)
+    seq = rng.integers(1, 3001, (4, 16))
+    seq[:, :5] = 0
+    batch = {"seq": torch.tensor(seq, device=dev),
+             "labels": torch.tensor(np.roll(seq, -1, 1), device=dev)}
+    res = {}
+    for uk in (True, False):
+        model = SeqRecModel(
+            SeqRecConfig(embedding=EmbeddingConfig(0, 0, kind="jpq", m=8,
+                                                   b=256, use_kernel=uk),
+                         **kw),
+            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        p = model.params()
+        loss, _ = model.train_loss(p, batch)
+        loss.backward()
+        res[uk] = (float(loss.detach()), [x.grad for x in model.parameters()])
+    assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
+    for a, b in zip(res[True][1], res[False][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -1,0 +1,180 @@
+"""Parity of the port's jpq_scores module (repro_torch.kernels.jpq_scores)
+with the JAX reference, on the CPU.
+
+On a CPU tensor the port's wrappers run the kernels' plain versions, so
+these tests hold the plain forward and backward against the reference:
+its gather oracle and its Pallas kernel in interpret mode (forward),
+and ``jax.grad`` of ``core/jpq.logits`` through the gathers (backward;
+the reference's Pallas kernel has no gradient).  The CUDA kernels are
+held against the plain versions in test_torch_cuda.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import jpq as J_jpq
+from repro.kernels.jpq_scores.jpq_scores import jpq_scores_lut as J_lut
+from repro.kernels.jpq_scores.ops import jpq_scores as J_scores
+from repro.kernels.jpq_scores.ref import jpq_scores_lut_ref as J_lut_ref
+from repro.nn import module as J_nn
+from repro_torch.core import jpq as T_jpq
+from repro_torch.kernels.jpq_scores import cuda as T_cuda
+from repro_torch.kernels.jpq_scores import ops as T_ops
+from repro_torch.kernels.jpq_scores import ref as T_ref
+
+CASES = [
+    # T, m, b, N, codes dtype
+    (3, 1, 2, 7, np.uint8),
+    (5, 4, 16, 300, np.uint8),
+    (9, 8, 256, 2_000, np.uint8),
+    (4, 3, 300, 500, np.int32),
+]
+
+
+def _lut_case(seed, T, m, b, N, code_dtype, lut="normal"):
+    rng = np.random.default_rng(seed)
+    if lut == "normal":
+        P = rng.standard_normal((T, m, b)).astype(np.float32)
+    else:                                          # ties and signed zeros
+        P = rng.integers(-1, 2, (T, m, b)).astype(np.float32)
+        P[P == 0] = -0.0
+    return P, rng.integers(0, b, (N, m)).astype(code_dtype)
+
+
+def _emb_case(seed, m=8, b=64, dk=8, N=3_000, lead=(3, 4)):
+    rng = np.random.default_rng(seed)
+    d = m * dk
+    cent = (d ** -0.5 * rng.standard_normal((m, b, dk))).astype(np.float32)
+    codes = rng.integers(0, b, (N, m)).astype(np.uint8)
+    h = rng.standard_normal((*lead, d)).astype(np.float32)
+    return cent, codes, h
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("lut", ["normal", "zeros"])
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:4]) for c in CASES])
+def test_plain_forward_bit_equal_to_reference_oracle(case, lut):
+    """Tolerance 0 (as bits): both sum the same fp32 gathers in split
+    order j = 0..m-1."""
+    P, codes = _lut_case(0, *case, lut=lut)
+    want = J_lut_ref(jnp.asarray(P), jnp.asarray(codes).astype(jnp.int32))
+    got = T_ops.jpq_scores_lut(torch.tensor(P), torch.tensor(codes))
+    np.testing.assert_array_equal(_bits(want), _bits(got.numpy()))
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:4]) for c in CASES])
+def test_plain_forward_equals_pallas_interpret(case):
+    """assert_array_equal (-0.0 == +0.0): the TPU kernel's one-hot
+    products pick each LUT entry exactly, and its fp32 accumulation in
+    split order equals the gather-sum up to the sign of a zero sum."""
+    T, m, b, N, cd = case
+    P, codes = _lut_case(1, *case)
+    Np = -(-N // 128) * 128
+    Tp = -(-T // 8) * 8
+    Pp = np.pad(P, ((0, Tp - T), (0, 0), (0, 0)))
+    cp = np.pad(codes, ((0, Np - N), (0, 0)))
+    want = np.asarray(J_lut(jnp.asarray(Pp), jnp.asarray(cp), block_b=Tp,
+                            block_n=128, interpret=True))[:T, :N]
+    got = T_ops.jpq_scores_lut(torch.tensor(P), torch.tensor(codes))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_logits_use_kernel_against_reference():
+    """core.jpq.logits with use_kernel=True against the reference's
+    logits, gather path and Pallas path (interpret): within 1e-6 on O(1)
+    scores — the LUT einsum differs between the frameworks by up to
+    about 2.4e-7 per entry, and m = 8 entries add."""
+    cent, codes, h = _emb_case(2)
+    jp = {"centroids": J_nn.P(jnp.asarray(cent), None),
+          "codes": J_nn.P(jnp.asarray(codes), None)}
+    tp = {"centroids": torch.tensor(cent), "codes": torch.tensor(codes)}
+    got = T_jpq.logits(tp, torch.tensor(h), use_kernel=True).numpy()
+    assert got.shape == (3, 4, 3_000)
+    np.testing.assert_allclose(
+        np.asarray(J_jpq.logits(jp, jnp.asarray(h))), got, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(J_scores(jnp.asarray(h), jnp.asarray(cent),
+                            jnp.asarray(codes), interpret=True)),
+        got, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(
+        got, T_jpq.logits(tp, torch.tensor(h)).numpy())
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_backward_against_jax_grad_of_gathers(use_kernel):
+    """dh and dcentroids of sum(w * logits) against jax.grad of the
+    reference's gather path (its Pallas kernel has no gradient):
+    rtol 1e-5, atol 2e-5 — each centroid's gradient is an fp32 sum of
+    ~560 O(1) terms (12 positions × ~47 items per bin), whose rounding,
+    in another order, reaches ~√560 · 2^-24 · 10 ≈ 1.4e-5."""
+    cent, codes, h = _emb_case(3)
+    w = np.random.default_rng(4).standard_normal((3, 4, 3_000)).astype(
+        np.float32)
+
+    def j_loss(c, hh):
+        p = {"centroids": J_nn.P(c, None),
+             "codes": J_nn.P(jnp.asarray(codes), None)}
+        return jnp.sum(jnp.asarray(w) * J_jpq.logits(p, hh))
+
+    jdc, jdh = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(cent),
+                                                jnp.asarray(h))
+    tc = torch.tensor(cent, requires_grad=True)
+    th = torch.tensor(h, requires_grad=True)
+    s = T_jpq.logits({"centroids": tc, "codes": torch.tensor(codes)}, th,
+                     use_kernel=use_kernel)
+    torch.sum(torch.tensor(w) * s).backward()
+    np.testing.assert_allclose(np.asarray(jdc), tc.grad.numpy(), rtol=1e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(np.asarray(jdh), th.grad.numpy(), rtol=1e-5,
+                               atol=2e-5)
+
+
+def test_plain_backward_is_the_transpose():
+    """The plain backward against a dense one-hot product in float64:
+    dP[t, j, :] = dS[t] @ onehot(codes[:, j]) (tolerance 1e-12)."""
+    T, m, b, N = 4, 3, 10, 200
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, b, (N, m))
+    dS = rng.standard_normal((T, N))
+    want = np.stack([dS @ np.eye(b)[codes[:, j]] for j in range(m)], 1)
+    got = T_ref.jpq_scores_lut_bwd_ref(torch.tensor(dS), torch.tensor(codes),
+                                       b)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+def test_gradcheck_float64():
+    """torch.autograd.gradcheck of JPQScores in float64 on a tiny case."""
+    rng = np.random.default_rng(6)
+    P = torch.tensor(rng.standard_normal((3, 2, 5)), requires_grad=True)
+    codes = torch.tensor(rng.integers(0, 5, (11, 2)).astype(np.uint8))
+    assert torch.autograd.gradcheck(
+        lambda p: T_ops.JPQScores.apply(p, codes), (P,))
+
+
+def test_output_may_be_written_in_place():
+    """The Function saves codes only, so masking its output in place (as
+    SeqRecModel._mask_special does) keeps the gradient right: the
+    overwritten columns get none."""
+    P = torch.randn(2, 2, 4, requires_grad=True)
+    codes = torch.tensor([[0, 1], [2, 3], [1, 1]], dtype=torch.uint8)
+    s = T_ops.JPQScores.apply(P, codes)
+    s[:, 0] = -1e9
+    s.sum().backward()
+    want = torch.zeros(2, 2, 4)
+    for i in (1, 2):
+        for j in range(2):
+            want[:, j, int(codes[i, j])] += 1.0
+    torch.testing.assert_close(P.grad, want)
+
+
+def test_cuda_wrappers_take_cuda_tensors_only():
+    P, codes = _lut_case(7, 2, 2, 4, 9, np.uint8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T_cuda.jpq_scores(torch.tensor(P), torch.tensor(codes))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T_cuda.jpq_scores_bwd(torch.zeros(2, 9), torch.tensor(codes), 4)

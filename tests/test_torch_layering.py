@@ -43,7 +43,12 @@ def _forbidden_imports(source: str):
 def test_port_files_found():
     files = _port_files()
     assert len(files) >= 15
-    assert os.path.join(PORT, "kernels", "jpq_topk", "ops.py") in files
+    for mod in (("kernels", "jpq_topk", "ops.py"),
+                ("kernels", "jpq_scores", "ops.py"),
+                ("kernels", "jpq_lookup", "ops.py"),
+                ("models", "sequential.py"), ("train", "loop.py"),
+                ("launch", "train.py"), ("data", "sequences.py")):
+        assert os.path.join(PORT, *mod) in files
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -68,6 +73,10 @@ def test_scanner_catches_every_form():
 def test_import_builds_nothing_and_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.configs.recsys_archs, "
+            "repro_torch.launch.train, repro_torch.train.loop, "
+            "repro_torch.models.sequential, "
+            "repro_torch.kernels.jpq_scores.ops, "
+            "repro_torch.kernels.jpq_lookup.ops, "
             "repro_torch.kernels.jpq_topk.cuda as c\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro' for m in sys.modules), 'jax/repro imported'\n"
