@@ -6,8 +6,8 @@ NVIDIA H100.
 
 Phases, each of which raises on failure (exit code != 0, no result):
   1. device: card name, count, and nvidia-smi's name and power limit;
-  2. build: both PQTopK kernels compiled from ``src/repro_torch/csrc``
-     with nvcc, in parallel;
+  2. build: every kernel source in ``src/repro_torch/csrc`` compiled
+     with nvcc, one process per source, in parallel;
   3. parity at full width (B=512, N=1,000,448, m=8, b=256): each kernel
      against its plain PyTorch version on the same inputs on the card,
      values and ids bit-equal (tolerance 0) — k in {10, 100}, a
@@ -41,12 +41,40 @@ Phases, each of which raises on failure (exit code != 0, no result):
      trained weights, a training batch's ids): each held against its
      plain version as in phase 6 (jpq_scores' float64 backward in row
      blocks of 512); then kernel, plain version, bound, and one PyTorch
-     library call timed.
-Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
-JAX or of the JAX package.
+     library call timed;
+  9. embedding_bag parity on the card, bit-equal (tolerance 0) to its
+     plain version: the two-tower user tower's shape (V=1,000,448,
+     d=256, B=512, L=50, mask weights), FM's linear term (V=3,090,000,
+     d=1, B=512, L=39, unit weights), FM's ``candidate_scores`` (one
+     bag of L=38), B=65,536 at the two-tower shape, the ``mean`` combiner and ``weights=None`` through ``ops``, an
+     all-padding bag over a negative pad row (-0.0), and an id outside
+     [0, V) refused;
+ 10. embedding_bag timed at those four shapes (CUDA events): the kernel,
+     the kernel with its id check, the plain version,
+     ``F.embedding_bag`` and the bound (the distinct rows the ids name,
+     read once);
+ 11. main path, CTR serving: two-tower-retrieval (full table), fm,
+     fm-jpq, dlrm-rm2 (a 57.1 GB table), dlrm-rm2-jpq, dien and dien-jpq
+     built at full width with ``make_model`` (random weights, seeded)
+     and each serving 1 + 20 fresh requests of B=512 through
+     ``serve_loop``, one model on the card at a time; launch counters
+     zeroed before each run, and embedding_bag must show launches for
+     the two-tower model and both FMs, whose output on one request is
+     bit-equal with the plain version in the kernel's place; outputs
+     finite, ``serve`` in [0, 1]; FM's ``candidate_scores`` and the
+     DLRM and DIEN ``score_candidates`` over the 1,000,000-item field,
+     once each, timed (FM's again with the plain version in the
+     kernel's place, bit-equal); three more requests under ``torch.profiler`` give
+     the card's busy time a request (its idle share against the p50)
+     and the three largest device items.
+Then JSON lines of the serving runs, the CTR serving runs and the
+per-kernel numbers (seven kernels), the nvidia-smi line, and the result
+line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX or
+of the JAX package.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -97,6 +125,28 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, reqs):
+    """Run ``fn`` on each request under ``torch.profiler`` and return
+    (device-busy ms per request: the summed durations of the kernels
+    and copies the card ran, the top three of them by name as
+    [(name, ms per request)]).  Busy 0 means the profiler traced no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in reqs:
+            fn(r)
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    n = len(reqs) * 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return sum(per.values()) / n, [(k[:80], v / n) for k, v in top]
 
 
 def bound(bytes_, ops):
@@ -438,7 +488,312 @@ def train_phases(torch, np, dev, smi):
         "launches": launches, "ndcg10": ndcg, "hr10": hr,
         "step_split_ms": split, "card": smi}}))
     done(t0)
-    return out
+    return out, data
+
+
+# the CTR serving slice: the archs served, those whose path runs
+# embedding_bag, and the kernel's shapes on that path
+CTR_ARCHS = ("two-tower-retrieval", "fm", "fm-jpq", "dlrm-rm2",
+             "dlrm-rm2-jpq", "dien", "dien-jpq")
+BAG_ARCHS = ("two-tower-retrieval", "fm", "fm-jpq")
+BAG_SHAPES = {   # V, d, n_bags, L, weights
+    "two-tower B=512": (1_000_448, 256, B, 50, "masked"),
+    "FM linear B=512": (3_090_000, 1, B, 39, None),
+    "FM candidates n_bags=1": (3_090_000, 1, 1, 38, None),
+    "two-tower B=65536": (1_000_448, 256, 65_536, 50, "masked"),
+}
+
+
+@contextlib.contextmanager
+def plain_bag():
+    """``ops.embedding_bag`` on CUDA tensors through its plain version
+    for the duration (to hold the kernel's callers against it)."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    kernel = ec.embedding_bag
+    ec.embedding_bag = eref.embedding_bag_ref
+    try:
+        yield
+    finally:
+        ec.embedding_bag = kernel
+
+
+def ctr_phases(torch, np, dev, smi, data, tt_template):
+    """Phases 9-11: embedding_bag's parity on the card, the CTR serving
+    main path (seven archs at full width) and embedding_bag's timing.
+    Returns (embedding_bag's entry of the kernels line, the serve_ctr
+    summary)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data.clicks import ClickDataConfig, SyntheticClicks
+    from repro_torch.data.clicks import dien_batch
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.launch import serve as serve_mod
+
+    counters = (ec, kc, sc, lc)
+
+    def bits_equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tables = {}
+
+    def bag_case(V, d, n, L, weights):
+        """A table whose pad row 0 is all negative (one per (V, d)), ids
+        with left padding in a quarter of the bags and, where there is
+        more than one bag, one all-padding bag (bag 1), and mask, unit
+        (None) or random weights."""
+        if (V, d) not in tables:
+            tab = torch.randn((V, d), generator=gen, device=dev)
+            tab[0] = -tab[0].abs() - 0.25
+            tables[(V, d)] = tab
+        ids = torch.randint(0, V, (n, L), generator=gen, device=dev)
+        ids[: n // 4, : L // 2] = 0
+        if n > 1:
+            ids[1] = 0
+        w = {None: None, "masked": (ids > 0).float(),
+             "random": torch.randn((n, L), generator=gen, device=dev)}[weights]
+        return tables[(V, d)], ids, w
+
+    t0 = phase("embedding_bag parity on the card (tolerance 0)")
+    err = 0.0
+    cases = {name: bag_case(*shape) for name, shape in BAG_SHAPES.items()}
+    for name, (tab, ids, w) in cases.items():
+        kern = ec.embedding_bag(tab, ids, w)
+        plain = eref.embedding_bag_ref(tab, ids, w)
+        check(bits_equal(kern, plain), f"embedding_bag != plain ({name})")
+        err = max(err, float((kern - plain).abs().max()))
+        padded = w is not None and ids.shape[0] > 1
+        if padded:   # the all-padding bag: -0.0 from the pad row
+            check(bool((kern[1] == 0).all()) and
+                  bool(torch.signbit(kern[1]).all()),
+                  f"all-padding bag is not -0.0 ({name})")
+        print(f"   {name} (V={tab.shape[0]} d={tab.shape[1]} "
+              f"n_bags={ids.shape[0]} L={ids.shape[1]}): bit-equal"
+              + (", all-padding bag -0.0" if padded else ""))
+    tab, ids, _ = cases["two-tower B=512"]
+    rand_w = torch.randn(ids.shape, generator=gen, device=dev)
+    for weights, combiner in ((None, "sum"), (None, "mean"),
+                              (rand_w, "sum"), (rand_w, "mean")):
+        kern = eops.embedding_bag(tab, ids, weights, combiner=combiner)
+        with plain_bag():
+            plain = eops.embedding_bag(tab, ids, weights, combiner=combiner)
+        what = f"{combiner}, {'random' if weights is not None else 'no'} " \
+            f"weights"
+        check(bits_equal(kern, plain), f"embedding_bag != plain ({what})")
+        err = max(err, float((kern - plain).abs().max()))
+    print("   ops.embedding_bag, combiner sum and mean, weights None and "
+          "random: bit-equal")
+    bad = ids.clone()
+    bad[7, 3] = tab.shape[0]
+    try:
+        ec.embedding_bag(tab, bad)
+        check(False, "embedding_bag read an id outside [0, V)")
+    except IndexError as e:
+        print(f"   out-of-range id refused: {e}")
+    del kern, plain, bad, rand_w
+    done(t0)
+
+    t0 = phase("embedding_bag timing (CUDA events): kernel, kernel + id "
+               "check, plain version, F.embedding_bag, bound")
+    timing = {}
+    for name, (tab, ids, w) in cases.items():
+        n, L = ids.shape
+        d = tab.shape[1]
+        iters = 20 if n > B else 200
+        # bytes: the distinct rows the ids name (a row named twice need
+        # not be read twice), the ids, the weights and the output; the
+        # count with every gathered row read once is printed beside it
+        small = ids.numel() * ids.element_size() + n * d * 4 \
+            + (0 if w is None else w.numel() * 4)
+        rows = torch.unique(ids).numel()
+        b_ms, b_by = bound(rows * d * 4 + small,
+                           {"fp32 FMAs": (n * L * d, FADD_PER_S)})
+        all_rows_ms = (n * L * d * 4 + small) / HBM_BYTES_PER_S * 1e3
+        timing[name] = {
+            "ms": cuda_ms(lambda: ec.launch(tab, ids, w), iters),
+            "checked_ms": cuda_ms(lambda: ec.embedding_bag(tab, ids, w),
+                                  iters),
+            "plain_ms": cuda_ms(lambda: eref.embedding_bag_ref(tab, ids, w),
+                                max(iters // 10, 2)),
+            "library_ms": cuda_ms(lambda: F.embedding_bag(
+                ids, tab, mode="sum", per_sample_weights=w), iters),
+            "bound_ms": b_ms, "bound_by": b_by, "distinct_rows": rows,
+            "bound_all_rows_ms": all_rows_ms}
+        t = timing[name]
+        print(f"   {name}: {t['ms']:.4f} ms kernel, {t['checked_ms']:.4f} ms "
+              f"with the id check, {t['plain_ms']:.4f} ms plain, "
+              f"{t['library_ms']:.4f} ms F.embedding_bag, bound "
+              f"{b_ms:.4f} ms ({b_by}; {rows} distinct rows; "
+              f"{all_rows_ms:.4f} ms with all {n * L} rows) on {smi}")
+    del cases, tables, tab, ids, w
+    torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase(f"main path: CTR serving at full width, {REQUESTS} requests "
+               f"of B={B} (+ 1 warm-up) per arch")
+    serve_ctr = {"embedding_bag_ms": timing}
+
+    def streams(name, model, n):
+        """Fresh request batches for ``name``: SyntheticClicks for FM and
+        DLRM, dien_batch for DIEN, phase 4's Zipf template (make_requests)
+        for the two-tower model."""
+        if name.startswith("two-tower"):
+            return serve_mod.make_requests(tt_template, B, n, seed=7,
+                                           reserved=(0,))
+        if name.startswith("dien"):
+            return ({k: b[k] for k in ("hist", "target")}
+                    for b in (dien_batch(data, s, B, model.cfg.seq_len)
+                              for s in range(n)))
+        keys = ("sparse",) if name.startswith("fm") else ("dense", "sparse")
+        clicks = SyntheticClicks(ClickDataConfig(
+            n_dense=getattr(model.cfg, "n_dense", 13),
+            vocab_sizes=model.cfg.vocabs(), seed=0))
+        return ({k: b[k] for k in keys}
+                for b in (clicks.batch(s, B) for s in range(n)))
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    for name in CTR_ARCHS:
+        check(torch.cuda.memory_allocated(dev) < 2e9,
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB still "
+              f"allocated before {name}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        model = get_bundle(name).make_model(device=dev, seed=0)
+        params = model.params()
+        sync()
+        build_s = time.perf_counter() - t1
+        args = serve_mod.build_parser().parse_args(
+            ["--arch", name, "--batch-size", str(B), "--requests",
+             str(REQUESTS), "--device", "cuda"])
+        for c in counters:
+            c.reset_launches()
+        res = serve_mod.serve_loop(model, params, tt_template, args,
+                                   requests=streams(name, model,
+                                                    REQUESTS + 1))
+        launches = {k: v for c in counters for k, v in c.launches.items()
+                    if v}
+        if name in BAG_ARCHS:
+            check(ec.launches["embedding_bag"] > 0,
+                  f"the {name} serving run never launched embedding_bag")
+        # one more request: the output's form, and (where the path runs
+        # embedding_bag) the same request through the plain version
+        req = next(iter(streams(name, model, REQUESTS + 2)))
+        with torch.inference_mode():
+            if name.startswith("two-tower"):
+                spec = engine_mod.RetrievalSpec(kind="full", k=10)
+                fn = model.bind_engine(params, spec).retrieve
+                v, i = out = fn(req)
+                check(tuple(v.shape) == (B, 10) and
+                      bool(torch.isfinite(v).all()) and
+                      bool(((i >= 0) &
+                            (i < params["item_emb"]["table"].shape[0])).all()),
+                      f"{name}: malformed top-10")
+            else:
+                fn = lambda r: model.serve(params, r)  # noqa: E731
+                out = fn(req)
+                check(tuple(out.shape) == (B,) and
+                      bool(torch.isfinite(out).all()) and
+                      bool(((out >= 0) & (out <= 1)).all()),
+                      f"{name}: serve output not finite in [0, 1]")
+            if name in BAG_ARCHS:
+                with plain_bag():
+                    plain = fn(req)
+                if isinstance(out, tuple):
+                    same = bits_equal(out[0], plain[0]) and \
+                        torch.equal(out[1], plain[1])
+                else:
+                    same = bits_equal(out, plain)
+                check(same, f"{name}: kernel path != plain path on the "
+                      f"same request")
+            # where a request's time goes: the card's busy time against
+            # the unprofiled p50 (the rest is the host issuing work)
+            busy_ms, top = device_profile(
+                torch, fn, list(streams(name, model, 3)))
+            # candidate scoring for one context over the catalogue
+            rng = np.random.default_rng(11)
+            t1 = time.perf_counter()
+            if name.startswith("fm"):
+                rest = next(iter(streams(name, model, 1)))["sparse"][:1, 1:]
+                cand = model.candidate_scores(params, {"sparse_rest": rest})
+                n_cand = model.cfg.vocabs()[0]
+                sync()
+                cand_ms = (time.perf_counter() - t1) * 1e3
+                with plain_bag():
+                    plain_cand = model.candidate_scores(
+                        params, {"sparse_rest": rest})
+                check(bits_equal(cand, plain_cand),
+                      f"{name}: candidate_scores through the kernel != "
+                      f"through the plain version")
+                del plain_cand
+            elif name.startswith("dlrm"):
+                b = next(iter(streams(name, model, 1)))
+                n_cand = model.cfg.vocabs()[0]          # the item field
+                cand = model.score_candidates(params, {
+                    "dense": b["dense"][:1], "sparse_rest": b["sparse"][:1, 1:],
+                    "candidates": rng.permutation(n_cand)})
+            elif name.startswith("dien"):
+                n_cand = model.cfg.n_items
+                cand = model.score_candidates(params, {
+                    "hist": req["hist"][:1],
+                    "candidates": rng.permutation(n_cand) + 1})
+            else:
+                cand, n_cand = None, 0
+            sync()
+            if not name.startswith("fm"):
+                cand_ms = (time.perf_counter() - t1) * 1e3 if n_cand else None
+        if cand is not None:
+            check(cand.numel() == n_cand and bool(torch.isfinite(cand).all()),
+                  f"{name}: candidate scores malformed")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        serve_ctr[name] = {"path": res["path"], "p50_ms": res["p50_ms"],
+                           "p99_ms": res["p99_ms"], "peak_gb": peak_gb,
+                           "build_s": build_s, "launches": launches,
+                           "candidates": n_cand, "candidates_ms": cand_ms,
+                           "device_busy_ms": busy_ms,
+                           "idle_share": (1 - busy_ms / res["p50_ms"]
+                                          if busy_ms else None),
+                           "top_device_ms": top}
+        print(f"   {name}: device busy {busy_ms:.3f} ms a request (of p50 "
+              f"{res['p50_ms']:.3f} ms); top: "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+        print(f"   {name}: p50={res['p50_ms']:.3f}ms p99={res['p99_ms']:.3f}"
+              f"ms peak {peak_gb:.2f} GB (built in {build_s:.1f}s), "
+              f"launches {launches}"
+              + (f", {n_cand} candidates in {cand_ms:.1f} ms"
+                 if n_cand else "")
+              + (", kernel == plain on one request" if name in BAG_ARCHS
+                 else "")
+              + (" and on candidate_scores" if name.startswith("fm") else "")
+              + f" on {smi}")
+        del model, params, out, req, fn, cand
+        if name in BAG_ARCHS:
+            del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    done(t0)
+
+    main_t = timing["two-tower B=512"]
+    entry = {"name": "embedding_bag", "route": "cuda",
+             "source": "src/repro_torch/csrc/embedding_bag.cu",
+             "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:59",
+             "launches": sum(r["launches"].get("embedding_bag", 0)
+                             for r in serve_ctr.values() if "launches" in r),
+             "max_abs_err": err, "ms": main_t["ms"],
+             "checked_ms": main_t["checked_ms"],
+             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+             "bound_by": main_t["bound_by"],
+             "library_ms": main_t["library_ms"]}
+    return entry, serve_ctr
 
 
 def main() -> int:
@@ -681,12 +1036,18 @@ def main() -> int:
 
     del P, st, codes, params, model, h
     torch.cuda.empty_cache()
-    kernels += train_phases(torch, np, dev, smi)
+    train_kernels, data = train_phases(torch, np, dev, smi)
+    kernels += train_kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    bag_kernel, serve_ctr = ctr_phases(torch, np, dev, smi, data, template)
+    kernels.append(bag_kernel)
 
     print(json.dumps({"serve": {
         n: {key: r[key] for key in ("path", "p50_ms", "p99_ms", "skip",
                                     "demoted_rows", "launches")}
         for n, r in runs.items()}, "card": smi}))
+    print(json.dumps({"serve_ctr": serve_ctr, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ Two sources:
     tree paths joined by ``/`` (``values/item_emb/centroids``,
     ``values/user_mlp/layers/0/w``).
 Every leaf must match the port's shape and dtype exactly, so codes and
-centroids arrive bit-identical.
+centroids arrive bit-identical.  The trees of every ported recsys model
+carry over: the two-tower model, FM (``emb``, the ``[V]`` ``linear``, the
+scalar ``bias``), DLRM (``bot``/``top`` MLPs) and DIEN (``gru1``/``augru``
+``wx``/``wh``/``b``, the ``att``/``fc``/``aux`` MLPs, ``tgt_proj``).
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ def _copy_tree(dst, src, path: str):
 def load_values(model, values) -> None:
     """Copy a reference values tree into ``model`` (in place)."""
     _copy_tree(model.params(), values, "")
-    emb = model.params().get("item_emb", {})
+    params = model.params()
+    emb = params.get("item_emb", params.get("emb", {}))
     if "codes" in emb and int(emb["codes"].max()) >= model.emb.cfg.b:
         raise ValueError(f"codes must be < b={model.emb.cfg.b}")
 

@@ -1,9 +1,20 @@
-"""Recsys arch bundles (the two-tower retrieval model for now).
+"""Recsys arch bundles: two-tower retrieval, FM, DLRM-RM2 and DIEN, each
+as ``<arch>`` (full tables, the paper's Base) and ``<arch>-jpq`` (RecJPQ
+tables, m=8, b=256 by default).
 
-The full config is the reference's large-catalogue regime: 1,000,000
-items (1,000,448 padded rows), embed_dim 256, user tower
-(1024, 512, 256), hist_len 50, RecJPQ with m=8, b=256 for the ``-jpq``
-variant.  Weights are random, drawn from a seeded generator.
+The full configs are the reference's (``configs/recsys_archs.py``):
+  two-tower : 1,000,000 items (1,000,448 padded rows), embed_dim 256,
+              user tower (1024, 512, 256), hist_len 50
+  fm        : 39 fields (``FM_VOCABS``, 3,090,000 rows), embed_dim 10;
+              m=5 for -jpq (10 is not divisible by 8)
+  dlrm-rm2  : 13 dense + 26 sparse fields (``DLRM_VOCABS``, 223,220,000
+              rows: 57.1 GB as a full fp32 table), embed_dim 64, bottom
+              MLP (512, 256, 64), top MLP (512, 512, 256, 1)
+  dien      : 1,000,000 items, embed_dim 18, seq_len 100, gru_dim 108,
+              MLP (200, 80); m=6 for -jpq
+Weights are random, drawn from a seeded generator on the device.
+``make_smoke`` builds the reference's smoke config and its request
+template, draw for draw.
 """
 from __future__ import annotations
 
@@ -15,11 +26,38 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchBundle
 from repro_torch.core import EmbeddingConfig
-from repro_torch.models.recsys import TwoTower, TwoTowerConfig
+from repro_torch.models.recsys import (DIEN, DIENConfig, DLRM, DLRMConfig, FM,
+                                       FMConfig, TwoTower, TwoTowerConfig)
 
 N_CANDIDATES = 1_000_000
 JPQ = EmbeddingConfig(0, 0, kind="jpq", m=8, b=256)
 FULLE = EmbeddingConfig(0, 0, kind="full")
+
+
+def _gen(device, seed):
+    dev = resolve_device(device)
+    return dev, torch.Generator(device=dev).manual_seed(int(seed))
+
+
+def _bundle(name, kind, cls, cfg, smoke_cfg, smoke_batch, description):
+    """An ``ArchBundle`` whose models are ``cls(cfg)`` (full width) and
+    ``cls(smoke_cfg)`` with the template ``smoke_batch()``."""
+    def make_model(device="cuda", seed: int = 0):
+        dev, gen = _gen(device, seed)
+        return cls(cfg, generator=gen, device=dev)
+
+    def make_smoke(device="cuda", seed: int = 0):
+        batch = smoke_batch()
+        dev, gen = _gen(device, seed)
+        return cls(smoke_cfg, generator=gen, device=dev), batch
+
+    suffix = "-jpq" if kind == "jpq" else ""
+    return ArchBundle(f"{name}{suffix}", "recsys", make_model, make_smoke,
+                      f"{description} [{kind}]")
+
+
+def _smoke_emb(emb, kind):
+    return dataclasses.replace(emb, m=4, b=16) if kind == "jpq" else None
 
 
 def two_tower_bundle(kind: str = "full") -> ArchBundle:
@@ -27,28 +65,80 @@ def two_tower_bundle(kind: str = "full") -> ArchBundle:
     cfg = TwoTowerConfig(n_items=N_CANDIDATES, embed_dim=256,
                          tower_mlp=(1024, 512, 256), hist_len=50,
                          embedding=emb, negatives="local")
+    scfg = TwoTowerConfig(n_items=200, embed_dim=32, tower_mlp=(64, 32),
+                          hist_len=8,
+                          embedding=dataclasses.replace(emb, m=4, b=16))
 
-    def _gen(device, seed):
-        dev = resolve_device(device)
-        return dev, torch.Generator(device=dev).manual_seed(int(seed))
-
-    def make_model(device="cuda", seed: int = 0):
-        dev, gen = _gen(device, seed)
-        return TwoTower(cfg, generator=gen, device=dev)
-
-    def make_smoke(device="cuda", seed: int = 0):
-        scfg = TwoTowerConfig(n_items=200, embed_dim=32,
-                              tower_mlp=(64, 32), hist_len=8,
-                              embedding=dataclasses.replace(emb, m=4, b=16))
-        # the reference's smoke template, draw for draw
+    def smoke_batch():
         r = np.random.default_rng(0)
-        batch = {"user_hist": r.integers(0, 201, (4, 8)),
-                 "pos_item": r.integers(1, 201, (4,)),
-                 "logq": np.zeros(4, np.float32)}
-        dev, gen = _gen(device, seed)
-        return TwoTower(scfg, generator=gen, device=dev), batch
+        return {"user_hist": r.integers(0, 201, (4, 8)),
+                "pos_item": r.integers(1, 201, (4,)),
+                "logq": np.zeros(4, np.float32)}
 
-    suffix = "-jpq" if kind == "jpq" else ""
-    return ArchBundle(f"two-tower-retrieval{suffix}", "recsys", make_model,
-                      make_smoke,
-                      f"sampled-softmax retrieval, item table [{kind}]")
+    return _bundle("two-tower-retrieval", kind, TwoTower, cfg, scfg,
+                   smoke_batch, "sampled-softmax retrieval, item table")
+
+
+FM_VOCABS = [N_CANDIDATES] + [100_000] * 19 + [10_000] * 19
+
+
+def fm_bundle(kind: str = "full") -> ArchBundle:
+    emb = JPQ if kind == "jpq" else FULLE
+    # embed_dim 10 isn't divisible by m=8 -> m=5 for the JPQ variant
+    emb = dataclasses.replace(emb, m=5) if kind == "jpq" else emb
+    cfg = FMConfig(n_fields=39, vocab_sizes=FM_VOCABS, embed_dim=10,
+                   embedding=emb)
+    scfg = FMConfig(n_fields=6, vocab_sizes=[64] * 6, embed_dim=8,
+                    embedding=_smoke_emb(emb, kind))
+
+    def smoke_batch():
+        r = np.random.default_rng(0)
+        return {"sparse": r.integers(0, 64, (8, 6)),
+                "label": r.integers(0, 2, (8,))}
+
+    return _bundle("fm", kind, FM, cfg, scfg, smoke_batch,
+                   "factorisation machine")
+
+
+DLRM_VOCABS = [N_CANDIDATES if i == 0 else
+               [40_000_000, 4_000_000, 400_000, 40_000, 4_000][i % 5]
+               for i in range(26)]
+
+
+def dlrm_bundle(kind: str = "full") -> ArchBundle:
+    emb = JPQ if kind == "jpq" else FULLE
+    cfg = DLRMConfig(n_dense=13, n_sparse=26, embed_dim=64,
+                     bot_mlp=(512, 256, 64), top_mlp=(512, 512, 256, 1),
+                     vocab_sizes=DLRM_VOCABS, embedding=emb)
+    scfg = DLRMConfig(n_dense=5, n_sparse=4, embed_dim=16, bot_mlp=(32, 16),
+                      top_mlp=(32, 1), vocab_sizes=[128, 64, 64, 32],
+                      embedding=_smoke_emb(emb, kind))
+
+    def smoke_batch():
+        r = np.random.default_rng(0)
+        return {"dense": r.standard_normal((8, 5)).astype(np.float32),
+                "sparse": r.integers(0, 32, (8, 4)),
+                "label": r.integers(0, 2, (8,))}
+
+    return _bundle("dlrm-rm2", kind, DLRM, cfg, scfg, smoke_batch,
+                   "DLRM dot-interaction CTR")
+
+
+def dien_bundle(kind: str = "full") -> ArchBundle:
+    emb = JPQ if kind == "jpq" else FULLE
+    # embed_dim 18: m must divide -> m=6 for the JPQ variant
+    emb = dataclasses.replace(emb, m=6) if kind == "jpq" else emb
+    cfg = DIENConfig(n_items=N_CANDIDATES, embed_dim=18, seq_len=100,
+                     gru_dim=108, mlp=(200, 80), embedding=emb)
+    scfg = DIENConfig(n_items=100, embed_dim=8, seq_len=10, gru_dim=12,
+                      mlp=(16, 8), embedding=_smoke_emb(emb, kind))
+
+    def smoke_batch():
+        r = np.random.default_rng(0)
+        return {"hist": r.integers(0, 101, (4, 10)),
+                "hist_neg": r.integers(1, 101, (4, 10)),
+                "target": r.integers(1, 101, (4,)),
+                "label": r.integers(0, 2, (4,))}
+
+    return _bundle("dien", kind, DIEN, cfg, scfg, smoke_batch,
+                   "interest-evolution CTR")

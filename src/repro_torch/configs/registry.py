@@ -13,7 +13,9 @@ def _recsys(fn_name: str, kind: str):
     return load
 
 
-for _base, _fn in [("two-tower-retrieval", "two_tower_bundle")]:
+for _base, _fn in [("two-tower-retrieval", "two_tower_bundle"),
+                   ("fm", "fm_bundle"), ("dlrm-rm2", "dlrm_bundle"),
+                   ("dien", "dien_bundle")]:
     _LOADERS[_base] = _recsys(_fn, "full")
     _LOADERS[_base + "-jpq"] = _recsys(_fn, "jpq")
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.embedding_bag import ops as _bag
 from repro_torch.kernels.jpq_topk import ops as _tops
 
 _TOPK_BLOCK = 131072
@@ -20,10 +21,10 @@ def _no_mesh(mesh):
 
 def pooled_lookup(table, ids, weights, *, mesh=None):
     """table [V, d], ids [B, H] int, weights [B, H] float -> pooled
-    [B, d] = sum_h w * table[ids]."""
+    [B, d] = sum_h w * table[ids], through the embedding_bag kernel (its
+    plain version on a CPU tensor)."""
     _no_mesh(mesh)
-    e = table[ids.long()]
-    return torch.sum(e * weights[..., None].to(e.dtype), dim=1)
+    return _bag.embedding_bag(table, ids, weights)
 
 
 def topk_over_items(scores, k: int, *, mesh=None):

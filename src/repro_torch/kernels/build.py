@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("jpq_topk", "jpq_topk_pruned", "jpq_scores", "jpq_lookup")
+SOURCES = ("jpq_topk", "jpq_topk_pruned", "jpq_scores", "jpq_lookup",
+           "embedding_bag")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -1,16 +1,18 @@
-"""Serving entrypoint: batched retrieval loop on the port.
+"""Serving entrypoint: batched retrieval / scoring loop on the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch two-tower-retrieval-jpq --requests 20 --batch-size 64 \
         --fused --prune --perm --warm
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch fm
 
 Builds the arch's smoke model, then drives fresh-id request batches
-through the bound retrieval engine and reports latency percentiles.
-Runs on ``--device cuda`` (the default; the PQTopK kernels) or
-``--device cpu`` (their plain versions).  ``--fused/--no-fused``,
-``--prune``, ``--perm`` and ``--warm [decay]`` are the reference's
-flags; ``--mesh`` > 1, ``--ckpt-dir`` and ``--head semantic`` are not
-yet ported and raise.
+through it and reports latency percentiles: a retrieval arch (one with
+``bind_engine``/``retrieve``) through its bound retrieval engine, any
+other (FM, DLRM-RM2, DIEN) through ``model.serve`` (``path=serve``).
+Runs on ``--device cuda`` (the default; the kernels) or ``--device cpu``
+(their plain versions).  ``--fused/--no-fused``, ``--prune``, ``--perm``
+and ``--warm [decay]`` are the reference's retrieval flags; ``--mesh`` >
+1, ``--ckpt-dir`` and ``--head semantic`` are not yet ported and raise.
 """
 from __future__ import annotations
 
@@ -93,18 +95,79 @@ def _check_ported(args) -> None:
         raise NotImplementedError(f"--head {args.head} is not yet ported")
 
 
-def serve_loop(model, params, template, args) -> dict:
-    """Drive ``args.requests`` fresh-id batches through the model's
-    bound engine on the device its parameters live on.  Each request's
+def _is_retrieval(model) -> bool:
+    return hasattr(model, "retrieve") and hasattr(model, "bind_engine")
+
+
+def serve_loop(model, params, template, args, requests=None) -> dict:
+    """Drive ``args.requests`` fresh-id batches (after one warm-up)
+    through the model on the device its parameters live on: a retrieval
+    model through its bound engine, any other through
+    ``model.serve(params, req)``.  The requests are ``make_requests``
+    draws from ``template`` unless ``requests`` (an iterable of
+    ``args.requests + 1`` dicts of arrays) is given.  Each request's
     window runs from the host arrays to results on the card
     (``torch.cuda.synchronize``); the stats readback and the warm-floor
     EMA update stay outside it.  Prints one summary line and returns
     it as a dict (latencies in ms)."""
+    _check_ported(args)
+    dev = model.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if _is_retrieval(model):
+        fn, account, finish = _retrieval(model, params, template, args, sync)
+        reserved = (0,)   # retrieval ids are 1-based: row 0 is padding
+    else:
+        def fn(req):
+            out = model.serve(params, req)
+            sync()
+            return out
+
+        def account(out):
+            return None
+
+        def finish():
+            return "serve", None, None
+        reserved = ()
+    if requests is None:
+        requests = make_requests(template, args.batch_size,
+                                 args.requests + 1, args.seed,
+                                 reserved=reserved)
+    reqs = iter(requests)
+    lats = []
+    with torch.inference_mode():
+        account(fn(next(reqs)))      # first call: builds the kernels
+        for req in reqs:
+            t0 = time.perf_counter()
+            out = fn(req)
+            lats.append((time.perf_counter() - t0) * 1e3)
+            account(out)
+    lats = np.asarray(lats)
+    mode, skip, demoted = finish()
+    res = {"arch": args.arch, "device": str(dev), "batch": args.batch_size,
+           "n": len(lats), "path": mode, "seed": args.seed,
+           "p50_ms": float(np.percentile(lats, 50)),
+           "p99_ms": float(np.percentile(lats, 99)),
+           "skip": skip, "demoted_rows": demoted}
+    extra = "" if res["skip"] is None else f" skip={res['skip']:.3f}"
+    print(f"{args.arch}: batch={args.batch_size} n={res['n']} "
+          f"path={mode} device={dev} seed={args.seed} "
+          f"p50={res['p50_ms']:.2f}ms p99={res['p99_ms']:.2f}ms{extra}",
+          flush=True)
+    return res
+
+
+def _retrieval(model, params, template, args, sync):
+    """The retrieval path of ``serve_loop``: (dispatch(req) -> output on
+    the card, account(output) outside the timed window, finish() ->
+    (path label, skip fraction, demoted rows))."""
     from repro_torch.core import engine as engine_mod
     from repro_torch.core.assign import popularity_permutation
     from repro_torch.core.serve import ThresholdState
 
-    _check_ported(args)
     spec = engine_mod.spec_from_args(args, kind=model.emb.cfg.kind,
                                      k=args.top_k)
     dev = model.device
@@ -124,10 +187,6 @@ def serve_loop(model, params, template, args) -> dict:
         bound.engine.bind_catalogue(prune=state)
     warm_state = ThresholdState(spec.warm) \
         if pruned and spec.warm is not None else None
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     def dispatch(req):
         req = {k: torch.as_tensor(v, device=dev) for k, v in req.items()}
@@ -151,36 +210,19 @@ def serve_loop(model, params, template, args) -> dict:
         totals["tiles"] += float(stats["total_tiles"])
         totals["demoted"] += int(stats["demoted"].sum())
 
-    reqs = make_requests(template, args.batch_size, args.requests + 1,
-                         args.seed, reserved=(0,))
-    lats = []
-    with torch.inference_mode():
-        account(dispatch(next(reqs)))      # first call: builds the kernels
-        for req in reqs:
-            t0 = time.perf_counter()
-            out = dispatch(req)
-            lats.append((time.perf_counter() - t0) * 1e3)
-            account(out)
-    lats = np.asarray(lats)
-    # label what ran: a full table materialises even when --fused
-    mode = "materialise" if bound.engine.strategy == "materialise" \
-        else "fused"
-    if pruned:
-        mode = "fused+prune" + ("+perm" if spec.perm != "none" else "") \
-            + ("+warm" if warm_state is not None else "")
-    res = {"arch": args.arch, "device": str(dev), "batch": args.batch_size,
-           "n": args.requests, "path": mode, "seed": args.seed,
-           "p50_ms": float(np.percentile(lats, 50)),
-           "p99_ms": float(np.percentile(lats, 99)),
-           "skip": (totals["skipped"] / totals["tiles"]
-                    if totals["tiles"] else None),
-           "demoted_rows": totals["demoted"] if pruned else None}
-    extra = "" if res["skip"] is None else f" skip={res['skip']:.3f}"
-    print(f"{args.arch}: batch={args.batch_size} n={args.requests} "
-          f"path={mode} device={dev} seed={args.seed} "
-          f"p50={res['p50_ms']:.2f}ms p99={res['p99_ms']:.2f}ms{extra}",
-          flush=True)
-    return res
+    def finish():
+        # label what ran: a full table materialises even when --fused
+        mode = "materialise" if bound.engine.strategy == "materialise" \
+            else "fused"
+        if pruned:
+            mode = "fused+prune" + ("+perm" if spec.perm != "none"
+                                    else "") \
+                + ("+warm" if warm_state is not None else "")
+        skip = totals["skipped"] / totals["tiles"] if totals["tiles"] \
+            else None
+        return mode, skip, totals["demoted"] if pruned else None
+
+    return dispatch, account, finish
 
 
 def main(argv=None):

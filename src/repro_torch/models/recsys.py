@@ -1,23 +1,46 @@
-"""Two-tower retrieval (YouTube DNN / RecSys'19 style) with a RecJPQ or
-full item table.
+"""RecSys architectures: two-tower retrieval, FM, DLRM-RM2, DIEN.
 
-User tower: mean-pooled history embedding -> MLP (tower_mlp, ending at
-embed_dim).  Item side: the embedding table itself, scored against the
-whole catalogue at serving time — fused score + top-k over the codes
-for ``kind="jpq"`` (the hand-written PQTopK kernels on the card).
+Every sparse id table goes through ``repro_torch.core``'s embedding
+factory, so RecJPQ is a per-table config switch.  Two-tower serving
+scores the whole catalogue (fused score + top-k over the codes for
+``kind="jpq"``: the PQTopK kernels on the card).  The fixed-fanout
+pooled lookups — the full-table two-tower user tower
+(``core/sharded.pooled_lookup``) and FM's linear term — run through the
+hand-written embedding_bag kernel on the card.
 
-Batch layout: ``user_hist [B, H]`` item ids (0 = padding).
+Each model is an ``nn.Module`` whose parameters are drawn from a
+``torch.Generator`` on its device; ``params()`` returns the tree of
+(detached) tensors in the reference's shape, which the functional
+methods take as the reference's methods take its params.  ``train_loss``
+of FM, DLRM and DIEN is a later slice.
+
+Batch layouts (fixed shapes):
+  two-tower : user_hist [B, H] item ids (0 pad)
+  fm/dlrm   : dense [B, 13] (DLRM), sparse ids [B, n_fields] (one id
+              per field)
+  dien      : hist [B, S] (0 pad), target [B]
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import EmbeddingConfig, make_embedding
+from repro_torch.kernels.embedding_bag import ops as _bag
 from repro_torch.nn import layers as L
 from repro_torch.nn.module import Tensors
+from repro_torch.nn.recurrent import gru_init, gru_scan
+
+
+def _mlp_modules(mlp) -> torch.nn.ModuleList:
+    return torch.nn.ModuleList(Tensors(lp) for lp in mlp["layers"])
+
+
+def _mlp_tree(mods) -> dict:
+    return {"layers": [m.tensors() for m in mods]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +77,8 @@ class TwoTower(torch.nn.Module):
         self.item_emb = Tensors(self.emb.init(generator, codes=codes,
                                                device=device))
         dims = [cfg.embed_dim, *cfg.tower_mlp, cfg.embed_dim]
-        mlp = L.mlp_init(generator, dims, device=device)
-        self.user_mlp = torch.nn.ModuleList(Tensors(lp)
-                                            for lp in mlp["layers"])
+        self.user_mlp = _mlp_modules(L.mlp_init(generator, dims,
+                                                device=device))
 
     @property
     def device(self) -> torch.device:
@@ -64,7 +86,7 @@ class TwoTower(torch.nn.Module):
 
     def params(self) -> dict:
         return {"item_emb": self.item_emb.tensors(),
-                "user_mlp": {"layers": [m.tensors() for m in self.user_mlp]}}
+                "user_mlp": _mlp_tree(self.user_mlp)}
 
     def forward(self, user_hist):
         return self.user_vec(self.params(), user_hist)
@@ -131,3 +153,282 @@ class TwoTower(torch.nn.Module):
             vals.append(v)
             idx.append(i)
         return torch.cat(vals), torch.cat(idx)
+
+
+# ===================================================================== FM
+
+@dataclasses.dataclass(frozen=True)
+class FMConfig:
+    n_fields: int = 39
+    vocab_sizes: Optional[Sequence[int]] = None     # default: 1e4 each
+    embed_dim: int = 10
+    embedding: Optional[EmbeddingConfig] = None
+
+    def vocabs(self):
+        return list(self.vocab_sizes) if self.vocab_sizes else \
+            [10_000] * self.n_fields
+
+
+def _offsets(vocabs, device) -> torch.Tensor:
+    """Row offset of each field in the shared mega-table."""
+    off = np.zeros(len(vocabs), np.int64)
+    off[1:] = np.cumsum(vocabs)[:-1]
+    return torch.as_tensor(off, device=device)
+
+
+class FM(torch.nn.Module):
+    """Factorisation Machine (Rendle ICDM'10), 2-way interactions via the
+    O(nk) sum-square trick.  One shared "mega-table" with per-field row
+    offsets -> one embedding object, JPQ-able.  The linear term is a
+    fixed-fanout bag over the ``[V, 1]`` view of ``linear`` (the
+    embedding_bag kernel on the card).  Parameters are drawn in the
+    reference's order: the table, then ``linear``; ``bias`` is zero."""
+
+    def __init__(self, cfg: FMConfig, *, generator: torch.Generator,
+                 codes=None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        vocabs = cfg.vocabs()
+        total = int(sum(vocabs))
+        base = cfg.embedding or EmbeddingConfig(n_items=0, d=0)
+        self.emb = make_embedding(dataclasses.replace(
+            base, n_items=total, d=cfg.embed_dim))
+        self.emb_table = Tensors(self.emb.init(generator, codes=codes,
+                                               device=device))
+        linear = torch.randn((total,), generator=generator, device=device)
+        self.head = Tensors({"linear": linear.mul_(0.01),
+                             "bias": torch.zeros((), device=device)})
+        self.register_buffer("offsets", _offsets(vocabs, device),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def params(self) -> dict:
+        return {"emb": self.emb_table.tensors(), **self.head.tensors()}
+
+    def _linear_bag(self, p, flat):
+        """sum over the fields of linear[flat]: [B, F] -> [B]."""
+        return _bag.embedding_bag(p["linear"].view(-1, 1), flat)[:, 0]
+
+    def scores(self, p, sparse_ids):
+        """sparse_ids [B, F] per-field ids -> logit [B]."""
+        sparse_ids = torch.as_tensor(sparse_ids, device=self.device)
+        flat = sparse_ids + self.offsets[None, :]
+        v = self.emb.lookup(p["emb"], flat)                 # [B, F, k]
+        sum_v = torch.sum(v, 1)
+        sum_sq = torch.sum(v * v, 1)
+        pair = 0.5 * torch.sum(sum_v * sum_v - sum_sq, -1)  # [B]
+        return pair + self._linear_bag(p, flat) + p["bias"]
+
+    def serve(self, p, batch):
+        return torch.sigmoid(self.scores(p, batch["sparse"]))
+
+    def candidate_scores(self, p, batch):
+        """Score every value of field 0 (the item field) for one or more
+        contexts: s_i = const(rest) + w_i + <v_i, sum(rest)>, one
+        ``emb.logits`` call over the table."""
+        rest = torch.as_tensor(batch["sparse_rest"], device=self.device) \
+            + self.offsets[None, 1:]                        # [B, F-1]
+        vr = self.emb.lookup(p["emb"], rest)                # [B, F-1, k]
+        rest_sum = torch.sum(vr, 1)                         # [B, k]
+        v0 = int(self.cfg.vocabs()[0])
+        inter = self.emb.logits(p["emb"], rest_sum)[..., :v0]  # [B, V0]
+        lin = p["linear"][:v0][None, :]
+        # context-constant terms (pairwise among rest + linear + bias)
+        sum_sq = torch.sum(vr * vr, 1)
+        c_pair = 0.5 * torch.sum(rest_sum * rest_sum - sum_sq, -1)
+        const = (c_pair + self._linear_bag(p, rest) + p["bias"])[:, None]
+        return inter + lin + const                          # [B, V0]
+
+
+# =================================================================== DLRM
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 64
+    bot_mlp: Sequence[int] = (512, 256, 64)
+    top_mlp: Sequence[int] = (512, 512, 256, 1)
+    vocab_sizes: Optional[Sequence[int]] = None
+    embedding: Optional[EmbeddingConfig] = None
+
+    def vocabs(self):
+        if self.vocab_sizes:
+            return list(self.vocab_sizes)
+        # RM2-flavoured mix: a few huge tables + many small ones
+        return [[40_000_000, 4_000_000, 400_000, 40_000, 4_000][i % 5]
+                for i in range(self.n_sparse)]
+
+
+class DLRM(torch.nn.Module):
+    """DLRM (arXiv:1906.00091) with dot interaction over a shared
+    mega-table.  Parameters are drawn in the reference's order: the
+    table, the bottom MLP, the top MLP."""
+
+    def __init__(self, cfg: DLRMConfig, *, generator: torch.Generator,
+                 codes=None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        vocabs = cfg.vocabs()
+        total = int(sum(vocabs))
+        base = cfg.embedding or EmbeddingConfig(n_items=0, d=0)
+        self.emb = make_embedding(dataclasses.replace(
+            base, n_items=total, d=cfg.embed_dim))
+        self.emb_table = Tensors(self.emb.init(generator, codes=codes,
+                                               device=device))
+        F = cfg.n_sparse + 1
+        top_in = F * (F - 1) // 2 + cfg.bot_mlp[-1]
+        self.bot = _mlp_modules(L.mlp_init(
+            generator, [cfg.n_dense, *cfg.bot_mlp], device=device))
+        self.top = _mlp_modules(L.mlp_init(
+            generator, [top_in, *cfg.top_mlp], device=device))
+        self.register_buffer("offsets", _offsets(vocabs, device),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def params(self) -> dict:
+        return {"emb": self.emb_table.tensors(), "bot": _mlp_tree(self.bot),
+                "top": _mlp_tree(self.top)}
+
+    def scores(self, p, dense, sparse_ids):
+        dense = torch.as_tensor(dense, device=self.device)
+        sparse_ids = torch.as_tensor(sparse_ids, device=self.device)
+        x = L.mlp(p["bot"], dense, final_act=True)          # [B, d]
+        flat = sparse_ids + self.offsets[None, :]
+        e = self.emb.lookup(p["emb"], flat)                 # [B, F, d]
+        feats = torch.cat([x[:, None, :], e], 1)            # [B, F+1, d]
+        gram = torch.bmm(feats, feats.transpose(1, 2))
+        F = feats.shape[1]
+        iu = torch.triu_indices(F, F, offset=1, device=self.device)
+        pairs = gram[:, iu[0], iu[1]]                       # [B, F(F-1)/2]
+        z = torch.cat([x, pairs], -1)
+        return L.mlp(p["top"], z)[..., 0]
+
+    def serve(self, p, batch):
+        return torch.sigmoid(self.scores(p, batch["dense"], batch["sparse"]))
+
+    def score_candidates(self, p, batch, *, chunk: int = 4000):
+        """Rank a candidate list for one context.  The top MLP is not
+        factorisable over items, so candidates run through the full
+        interaction ``chunk`` at a time (the reference's ``lax.map``
+        chunks; chunk must divide the number of candidates)."""
+        cands = torch.as_tensor(batch["candidates"], device=self.device)
+        dense = torch.as_tensor(batch["dense"], device=self.device)
+        rest = torch.as_tensor(batch["sparse_rest"], device=self.device)
+        NC = cands.shape[0]
+        if NC % chunk:
+            raise ValueError(f"chunk {chunk} must divide the {NC} "
+                             f"candidates")
+        out = []
+        for c in cands.reshape(NC // chunk, chunk):
+            d = dense.expand(chunk, dense.shape[1])
+            s = torch.cat([c[:, None], rest.expand(chunk, rest.shape[1])], 1)
+            out.append(self.scores(p, d, s))
+        return torch.cat(out)
+
+
+# =================================================================== DIEN
+
+@dataclasses.dataclass(frozen=True)
+class DIENConfig:
+    n_items: int = 1_000_000
+    embed_dim: int = 18
+    seq_len: int = 100
+    gru_dim: int = 108
+    mlp: Sequence[int] = (200, 80)
+    embedding: Optional[EmbeddingConfig] = None
+
+    def emb_cfg(self) -> EmbeddingConfig:
+        base = self.embedding or EmbeddingConfig(n_items=0, d=0)
+        return dataclasses.replace(base, n_items=self.n_items + 1,
+                                   d=self.embed_dim)
+
+
+class DIEN(torch.nn.Module):
+    """Deep Interest Evolution Network (arXiv:1809.03672): interest
+    extraction GRU over the behaviour embeddings, target-attention
+    scores, interest-evolution AUGRU, final MLP.  Parameters are drawn
+    in the reference's order."""
+
+    def __init__(self, cfg: DIENConfig, *, generator: torch.Generator,
+                 codes=None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.emb = make_embedding(cfg.emb_cfg())
+        d, g = cfg.embed_dim, cfg.gru_dim
+        gen, dev = generator, device
+        self.item_emb = Tensors(self.emb.init(gen, codes=codes, device=dev))
+        self.gru1 = Tensors(gru_init(gen, d, g, device=dev))
+        self.att = _mlp_modules(L.mlp_init(gen, [3 * g, 36, 1], device=dev))
+        self.augru = Tensors(gru_init(gen, g, g, device=dev))
+        self.fc = _mlp_modules(L.mlp_init(gen, [g + 2 * d, *cfg.mlp, 1],
+                                          device=dev))
+        self.tgt_proj = Tensors(L.linear_init(gen, d, g, device=dev))
+        self.aux = _mlp_modules(L.mlp_init(gen, [g + d, 32, 1], device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.gru1.wx.device
+
+    def params(self) -> dict:
+        return {"item_emb": self.item_emb.tensors(),
+                "gru1": self.gru1.tensors(), "att": _mlp_tree(self.att),
+                "augru": self.augru.tensors(), "fc": _mlp_tree(self.fc),
+                "tgt_proj": self.tgt_proj.tensors(),
+                "aux": _mlp_tree(self.aux)}
+
+    def _interest(self, p, hist):
+        e = self.emb.lookup(p["item_emb"], hist)            # [B, S, d]
+        states, _ = gru_scan(p["gru1"], e)                  # [B, S, g]
+        return e, states
+
+    def _head(self, p, e, states, mask, target):
+        te = self.emb.lookup(p["item_emb"], target)         # [B, d]
+        tg = L.linear(p["tgt_proj"], te)                    # [B, g]
+        B, S, g = states.shape
+        tgb = tg[:, None, :].expand(B, S, g)
+        att_in = torch.cat([states, tgb, states * tgb], -1)
+        scores = L.mlp(p["att"], att_in)[..., 0]            # [B, S]
+        scores = torch.where(mask > 0, scores, -1e9)
+        alpha = torch.softmax(scores, -1) * mask
+        _, final = gru_scan(p["augru"], states, attn=alpha)
+        mean_e = torch.sum(e * mask[..., None], 1) / torch.clamp(
+            torch.sum(mask, 1, keepdim=True), min=1.0)
+        z = torch.cat([final, te, mean_e], -1)
+        return L.mlp(p["fc"], z)[..., 0]
+
+    def serve(self, p, batch):
+        hist = torch.as_tensor(batch["hist"], device=self.device)
+        target = torch.as_tensor(batch["target"], device=self.device)
+        mask = (hist > 0).float()
+        e, states = self._interest(p, hist)
+        return torch.sigmoid(self._head(p, e, states, mask, target))
+
+    def score_candidates(self, p, batch, *, chunk: int = 2000):
+        """Rank candidates for one user.  The interest GRU runs once;
+        only the target-conditioned attention and the AUGRU replay per
+        candidate chunk (chunk must divide the number of candidates)."""
+        hist = torch.as_tensor(batch["hist"], device=self.device)   # [1, S]
+        cands = torch.as_tensor(batch["candidates"], device=self.device)
+        mask = (hist > 0).float()
+        e, states = self._interest(p, hist)                 # [1, S, ...]
+        NC, S = cands.shape[0], hist.shape[1]
+        if NC % chunk:
+            raise ValueError(f"chunk {chunk} must divide the {NC} "
+                             f"candidates")
+        eb = e.expand(chunk, *e.shape[1:])
+        sb = states.expand(chunk, *states.shape[1:])
+        mb = mask.expand(chunk, S)
+        return torch.cat([self._head(p, eb, sb, mb, c)
+                          for c in cands.reshape(NC // chunk, chunk)])
+
+
+def _bce(logit, y):
+    return -(y * torch.nn.functional.logsigmoid(logit)
+             + (1.0 - y) * torch.nn.functional.logsigmoid(-logit))

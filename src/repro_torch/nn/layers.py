@@ -32,6 +32,16 @@ def lecun_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
     return (math.sqrt(1.0 / max(1.0, fan_in)) * t).to(dtype)
 
 
+def glorot_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
+                  device="cuda", in_axis: int = -2, out_axis: int = -1):
+    """Truncated normal on [-2, 2] scaled by sqrt(2 / (fan_in +
+    fan_out)) — the reference's ``nn.glorot_normal``."""
+    fan_in, fan_out = fan(shape, in_axis, out_axis)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (math.sqrt(2.0 / max(1.0, fan_in + fan_out)) * t).to(dtype)
+
+
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = True, dtype=torch.float32, device="cuda"):
     p = {"w": lecun_normal(gen, (d_in, d_out), dtype=dtype, device=device)}

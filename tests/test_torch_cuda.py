@@ -5,13 +5,17 @@ on the H100 with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Tolerance for the PQTopK kernels and the
 training kernels' forwards: none — values (as bits) and ids must be
 equal, and skip maps equal when no floor is set; the training kernels'
-backwards are held as the comment above their tests says.
+backwards are held as the comment above their tests says; embedding_bag:
+none (bit-equal, signed zeros included).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import jpq as jpq_mod
+from repro_torch.kernels.embedding_bag import cuda as ec
+from repro_torch.kernels.embedding_bag import ops as eops
+from repro_torch.kernels.embedding_bag import ref as eref
 from repro_torch.kernels.jpq_lookup import cuda as lc
 from repro_torch.kernels.jpq_lookup import ops as lops
 from repro_torch.kernels.jpq_lookup import ref as lref
@@ -329,3 +333,77 @@ def test_sasrec_step_through_kernels_matches_gathers(dev):
     assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
     for a, b in zip(res[True][1], res[False][1]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+BAGS = [
+    # V, d, n_bags, L, weights, ids dtype
+    (1000, 1, 37, 39, None, torch.int64),        # the FM linear term
+    (1000, 10, 33, 50, "random", torch.int32),   # d = 10: scalar loads
+    (1000, 18, 21, 7, "masked", torch.int64),    # d = 18: DIEN's width
+    (5000, 64, 64, 50, "random", torch.int64),   # float4 loads
+    (20_000, 256, 130, 50, "masked", torch.int32),  # the two-tower width
+    (100, 3, 9, 1, "random", torch.int64),       # L = 1, odd d
+]
+
+
+def _bag_case(dev, V, d, n, L, weights, id_dtype, seed=0):
+    """A table whose pad row 0 is all negative, ids with left padding and
+    one all-padding bag (bag 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((V, d), generator=g, device=dev)
+    table[0] = -table[0].abs() - 0.25
+    ids = torch.randint(0, V, (n, L), generator=g, device=dev)
+    ids[:, : L // 2] = 0
+    ids[1] = 0
+    w = {None: None, "masked": (ids > 0).float(),
+         "random": torch.randn((n, L), generator=g, device=dev)}[weights]
+    return table, ids.to(id_dtype), w
+
+
+@pytest.mark.parametrize("case", BAGS, ids=[str(c[:5]) for c in BAGS])
+def test_embedding_bag_kernel_matches_plain(dev, case):
+    table, ids, w = _bag_case(dev, *case)
+    ec.reset_launches()
+    got = ec.embedding_bag(table, ids, w)
+    assert ec.launches == {"embedding_bag": 1}
+    want = eref.embedding_bag_ref(table, ids, w)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the same bits as the plain version on the CPU
+    cpu = eref.embedding_bag_ref(table.cpu(), ids.cpu(),
+                                 None if w is None else w.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_embedding_bag_keeps_signed_zero(dev):
+    """An all-padding bag over a negative pad row with mask weights sums
+    to -0.0 (slot 0 is the product -x * 0), not +0.0."""
+    table, ids, w = _bag_case(dev, 500, 64, 8, 20, "masked", torch.int64)
+    got = ec.embedding_bag(table, ids, w)[1]
+    assert bool((got == 0).all()) and bool(torch.signbit(got).all())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_ops_combiners_on_the_card(dev, combiner, monkeypatch):
+    """``ops`` on the card (its weight handling, then the kernel) against
+    the same ``ops`` call with the plain version in the kernel's place.
+    Against the CPU only up to the normalising sum of ``mean``, which
+    CUDA reduces in another order."""
+    table, ids, w = _bag_case(dev, 700, 16, 12, 9, "random", torch.int64)
+    for weights in (None, w):
+        ec.reset_launches()
+        got = eops.embedding_bag(table, ids, weights, combiner=combiner)
+        assert ec.launches == {"embedding_bag": 1}
+        with monkeypatch.context() as m:
+            m.setattr(ec, "embedding_bag", eref.embedding_bag_ref)
+            want = eops.embedding_bag(table, ids, weights, combiner=combiner)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", [-1, 700])
+def test_embedding_bag_refuses_out_of_range_ids(dev, bad):
+    table, ids, w = _bag_case(dev, 700, 16, 12, 9, "masked", torch.int32)
+    ids[4, 2] = bad
+    with pytest.raises(IndexError, match="outside"):
+        ec.embedding_bag(table, ids, w)
+    with pytest.raises(IndexError, match="outside"):
+        eops.embedding_bag(table, ids, w)
