@@ -27,7 +27,9 @@ Phases, each of which raises on failure (exit code != 0, no result):
      version on normal and quantised LUTs; its backward against the
      plain version in float64 within the worst-case fp32 recursive-sum
      bound, and bit-identical across two calls; jpq_lookup forward
-     (bit-equal) and backward (the same way) at T=3,200;
+     (bit-equal) and backward (bit-identical across two calls, bit-equal
+     to its plain version run on CPU copies of its inputs, and within
+     the float64 bound) at T=3,200;
   7. main path, training: full-width RecJPQ SASRec (d=512, 2 layers, 4
      heads, N=1,000,000 items, svd codebook over the synthetic data)
      trains through ``repro_torch.train.loop.Trainer`` for 1 + 20 steps
@@ -41,7 +43,9 @@ Phases, each of which raises on failure (exit code != 0, no result):
      trained weights, a training batch's ids): each held against its
      plain version as in phase 6 (jpq_scores' float64 backward in row
      blocks of 512); then kernel, plain version, bound, and one PyTorch
-     library call timed;
+     library call timed, and for jpq_lookup and its backward also the
+     card's own time of the kernel and of the library call under
+     ``torch.profiler`` (``device_ms``, ``library_device_ms``);
   9. embedding_bag parity on the card, bit-equal (tolerance 0) to its
      plain version: the two-tower user tower's shape (V=1,000,448,
      d=256, B=512, L=50, mask weights), FM's linear term (V=3,090,000,
@@ -224,9 +228,11 @@ def train_phases(torch, np, dev, smi):
 
     def lookup_errs(ids, codes, cent, dout, what):
         """jpq_lookup bit-equal to its plain version; its backward
-        bit-identical across two calls and |kernel - float64| <=
-        T u sum|terms| (positions summed in order).  Returns the max
-        |err| of each comparison."""
+        bit-identical across two calls, bit-equal to the plain version
+        run on CPU copies of its inputs (both sum each entry's positions
+        in ascending order from +0.0) and |kernel - float64| <=
+        T u sum|terms|.  Returns the max |err| of the forward and of the
+        backward against float64."""
         kern = lc.jpq_lookup(ids, codes, cent)
         plain = lref.jpq_lookup_ref(ids, codes, cent)
         check(bits_equal(kern, plain), f"jpq_lookup != plain ({what})")
@@ -234,6 +240,10 @@ def train_phases(torch, np, dev, smi):
         g1 = lc.jpq_lookup_bwd(ids, codes, dout, BC)
         check(bits_equal(g1, lc.jpq_lookup_bwd(ids, codes, dout, BC)),
               f"jpq_lookup backward differs between calls ({what})")
+        on_cpu = lref.jpq_lookup_bwd_ref(ids.cpu(), codes.cpu(), dout.cpu(),
+                                         BC)
+        check(bits_equal(g1.cpu(), on_cpu),
+              f"jpq_lookup backward != plain on the CPU ({what})")
         want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), BC)
         mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), BC)
         diff = (g1.double() - want).abs()
@@ -271,8 +281,9 @@ def train_phases(torch, np, dev, smi):
     dout = torch.randn((T, M, dk), generator=gen, device=dev)
     err["jpq_lookup"], err["jpq_lookup_bwd"] = lookup_errs(
         ids, codes, cent, dout, f"T={T}")
-    print(f"   jpq_lookup: forward bit-equal; backward deterministic, "
-          f"max |err| vs float64 {err['jpq_lookup_bwd']:.3e}")
+    print(f"   jpq_lookup: forward bit-equal; backward bit-equal to plain "
+          f"on the CPU, deterministic, max |err| vs float64 "
+          f"{err['jpq_lookup_bwd']:.3e}")
     del codes, cent, ids, dout
     torch.cuda.empty_cache()
     done(t0)
@@ -394,8 +405,8 @@ def train_phases(torch, np, dev, smi):
     err["jpq_lookup"] = max(err["jpq_lookup"], e)
     err["jpq_lookup_bwd"] = max(err["jpq_lookup_bwd"], e_bwd)
     print(f"   at T={T}: jpq_lookup forward bit-equal to plain on the "
-          f"batch's ids and trained centroids; backward deterministic, max "
-          f"|err| vs float64 {e_bwd:.3e}")
+          f"batch's ids and trained centroids; backward bit-equal to plain "
+          f"on the CPU, deterministic, max |err| vs float64 {e_bwd:.3e}")
     # the one-hot of the codes as a sparse [N, m*b] matrix (and its
     # transpose): one library call computes scores (transposed) and dP
     col = (codes.long() + BC * torch.arange(M, device=dev)).reshape(-1)
@@ -407,6 +418,14 @@ def train_phases(torch, np, dev, smi):
     flat = (codes[ids].long() + BC * torch.arange(M, device=dev)).reshape(-1)
     cent2 = cent.reshape(M * BC, dk)
     P2t = P.reshape(T, M * BC).t().contiguous()
+    lookup_fns = {   # the kernel and its library call
+        "jpq_lookup": (lambda: lc.jpq_lookup(ids, codes, cent),
+                       lambda: torch.index_select(cent2, 0, flat)),
+        "jpq_lookup_bwd": (
+            lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC),
+            lambda: torch.zeros_like(cent2).index_add_(
+                0, flat, dout.reshape(T * M, dk))),
+    }
     times = {
         "jpq_scores": (
             cuda_ms(lambda: sc.jpq_scores(P, codes), 5),
@@ -417,15 +436,27 @@ def train_phases(torch, np, dev, smi):
             cuda_ms(lambda: sref.jpq_scores_lut_bwd_ref(dS, codes, BC), 2),
             cuda_ms(lambda: torch.sparse.mm(onehot_t, dS.t()), 2)),
         "jpq_lookup": (
-            cuda_ms(lambda: lc.jpq_lookup(ids, codes, cent), 50),
+            cuda_ms(lookup_fns["jpq_lookup"][0], 50),
             cuda_ms(lambda: lref.jpq_lookup_ref(ids, codes, cent), 20),
-            cuda_ms(lambda: torch.index_select(cent2, 0, flat), 50)),
+            cuda_ms(lookup_fns["jpq_lookup"][1], 50)),
         "jpq_lookup_bwd": (
-            cuda_ms(lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC), 50),
+            cuda_ms(lookup_fns["jpq_lookup_bwd"][0], 50),
             cuda_ms(lambda: lref.jpq_lookup_bwd_ref(ids, codes, dout, BC), 20),
-            cuda_ms(lambda: torch.zeros_like(cent2).index_add_(
-                0, flat, dout.reshape(T * M, dk)), 50)),
+            cuda_ms(lookup_fns["jpq_lookup_bwd"][1], 50)),
     }
+    # the card's own time a call (torch.profiler: the summed durations of
+    # the kernels a call ran) for the two small kernels and their library
+    # calls, whose event times above may be the host's issue time
+    dev_times = {}
+    for name, fns in lookup_fns.items():
+        (k_ms, k_top), (l_ms, l_top) = (
+            device_profile(torch, lambda _, f=f: f(), range(50)) for f in fns)
+        check(k_ms > 0 and l_ms > 0,
+              f"the profiler traced no device time for {name}")
+        dev_times[name] = {"device_ms": k_ms, "library_device_ms": l_ms}
+        print(f"   {name}: device {k_ms:.4f} ms a call ({k_top[0][0]}); "
+              f"library device {l_ms:.4f} ms ("
+              + "; ".join(f"{k} {v:.4f}" for k, v in l_top) + ")")
     lut_b, out_b = T * M * BC * 4, T * n_rows * 4
     rows_b = T * M                               # the code rows the ids name
     look_b = T * 8 + rows_b + M * BC * dk * 4 + T * M * dk * 4
@@ -452,10 +483,15 @@ def train_phases(torch, np, dev, smi):
             "launches": launches[name], "max_abs_err": err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms})
+        dev_note = ""
+        if name in dev_times:
+            out[-1].update(dev_times[name])
+            dev_note = " (device {device_ms:.4f} ms, library device " \
+                "{library_device_ms:.4f} ms)".format(**dev_times[name])
         print(f"   {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"{lib_ms:.4f} ms library, bound {b_ms:.4f} ms ({b_by}), "
-              f"{launches[name]} launches in the training run, T={T} on "
-              f"{smi}")
+              f"{lib_ms:.4f} ms library{dev_note}, bound {b_ms:.4f} ms "
+              f"({b_by}), {launches[name]} launches in the training run, "
+              f"T={T} on {smi}")
     print("   library calls: torch.sparse.mm with the codes' one-hot (CSR) "
           "for jpq_scores (output transposed) and its backward; "
           "index_select / index_add_ on a precomputed flat index for "

@@ -136,5 +136,16 @@ def raise_on(rc: int, lib_name: str):
 
 
 def stream(dev) -> int:
-    """PyTorch's current stream on ``dev``, as the launchers take it."""
-    return torch.cuda.current_stream(dev).cuda_stream
+    """PyTorch's current stream on ``dev``, as the launchers take it (the
+    raw pointer, without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def launch(f, dev, *args) -> int:
+    """``f(*args, stream)`` on ``dev``'s current stream, entering ``dev``
+    only when it is not already the current device; returns ``f``'s
+    code."""
+    if dev.index == torch.cuda.current_device():
+        return f(*args, stream(dev))
+    with torch.cuda.device(dev):
+        return f(*args, stream(dev))

@@ -3,8 +3,10 @@ centroids, forward and backward, in any float dtype.
 
 The forward is bit-equal to the reference's ``jpq_lookup_ref`` and
 ``core.jpq.lookup``.  The backward scatters each position's split
-slices into the centroid rows its codes name (``index_add_``,
-sequential on the CPU).
+slices into the centroid rows its codes name with ``index_add_``, which
+on the CPU adds them in ascending position order onto +0.0: the order
+the CUDA kernel keeps, so the two are bit-equal
+(tests/test_torch_jpq_lookup.py pins the order).
 """
 from __future__ import annotations
 

@@ -205,7 +205,9 @@ def test_two_tower_serves_through_both_kernels(dev):
 # against the plain version in float64, within the worst-case bound of
 # an fp32 recursive sum, (chain - 1) * 2^-24 * sum|terms| per output,
 # where chain is the longest run of adds the kernel makes into one
-# output; and bit-identical across two calls (deterministic).
+# output; and bit-identical across two calls (deterministic).  The
+# jpq_lookup backward is also bit-equal to its plain version run on the
+# CPU, whose index_add_ sums in the same order as the kernel.
 
 U = 2.0 ** -24
 
@@ -253,26 +255,75 @@ def test_jpq_scores_backward_matches_plain(dev, case, chunk):
     assert bool(((got.double() - want).abs() <= chain * U * mass).all())
 
 
+LOOKUP = [
+    # name, T, m, b, dk, N, codes, share of positions at id 0
+    ("base", 3_200, 8, 256, 64, 50_000, torch.uint8, 0.3),
+    ("int32 codes", 3_200, 8, 256, 64, 50_000, torch.int32, 0.3),
+    ("skewed", 3_200, 8, 256, 64, 50_000, torch.uint8, 0.8),  # one bucket
+    ("T=1", 1, 8, 256, 64, 50_000, torch.uint8, 0.0),
+    ("T=65536", 65_536, 8, 256, 64, 50_000, torch.uint8, 0.5),  # 32 chunks
+    ("b=512", 3_200, 4, 512, 64, 50_000, torch.int32, 0.3),     # int32 codes
+    ("dk=6", 3_200, 8, 256, 6, 50_000, torch.uint8, 0.3),       # scalar path
+    ("dk=5", 3_200, 8, 256, 5, 50_000, torch.uint8, 0.3),       # odd dk
+    ("m=40", 300, 40, 16, 8, 1_000, torch.uint8, 0.3),          # m > 32
+    ("dk=160", 700, 3, 40, 160, 1_000, torch.uint8, 0.3),       # two slices
+    ("misaligned", 3_200, 8, 256, 64, 50_000, torch.uint8, 0.3),
+]
+
+
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("cd", [torch.uint8, torch.int32])
-def test_jpq_lookup_matches_plain(dev, id_dtype, cd):
-    m, b, dk, N, T = 8, 256, 64, 50_000, 3_200
+@pytest.mark.parametrize("case", LOOKUP, ids=[c[0] for c in LOOKUP])
+def test_jpq_lookup_matches_plain(dev, id_dtype, case):
+    """Forward bit-equal to the plain version on the card; backward
+    bit-equal to the plain version run on the CPU copies of its inputs
+    (the kernel sums each entry's positions in ascending order from +0.0,
+    as ``index_add_`` does there), the same bits on two calls, and within
+    T u sum|terms| of float64.  "misaligned": centroids and dout start 4
+    bytes past a 16-byte boundary (the kernels' 4-byte paths)."""
+    name, T, m, b, dk, N, cd, pad = case
     g = torch.Generator(device=dev).manual_seed(8)
-    cent = torch.randn((m, b, dk), generator=g, device=dev)
+
+    def floats(*shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        if name != "misaligned":
+            return x
+        buf = torch.empty(x.numel() + 1, device=dev)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(shape)
+
+    cent = floats(m, b, dk)
     codes = torch.randint(0, b, (N, m), generator=g, device=dev,
                           dtype=torch.int32).to(cd)
     ids = torch.randint(0, N, (T,), generator=g, device=dev).to(id_dtype)
-    ids[:1000] = 0                                   # padding positions
+    ids[torch.randperm(T, generator=g, device=dev)[: int(pad * T)]] = 0
+    before = dict(lc.launches)
     got = lc.jpq_lookup(ids, codes, cent)
-    assert torch.equal(got, lref.jpq_lookup_ref(ids, codes, cent))
-    dout = torch.randn((T, m, dk), generator=g, device=dev)
+    assert _bits_equal(got, lref.jpq_lookup_ref(ids, codes, cent))
+    dout = floats(T, m, dk)
     d1 = lc.jpq_lookup_bwd(ids, codes, dout, b)
     d2 = lc.jpq_lookup_bwd(ids, codes, dout, b)
     torch.cuda.synchronize()
+    assert lc.launches == {"jpq_lookup": before["jpq_lookup"] + 1,
+                           "jpq_lookup_bwd": before["jpq_lookup_bwd"] + 2}
     assert _bits_equal(d1, d2)
+    on_cpu = lref.jpq_lookup_bwd_ref(ids.cpu(), codes.cpu(), dout.cpu(), b)
+    assert _bits_equal(d1.cpu(), on_cpu)
     want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), b)
     mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), b)
     assert bool(((d1.double() - want).abs() <= T * U * mass).all())
+
+
+def test_jpq_lookup_refuses_mismatched_codes(dev):
+    """codes whose code length is not the centroids' (or dout's) m are
+    refused before any launch."""
+    ids = torch.zeros(5, dtype=torch.int64, device=dev)
+    codes = torch.zeros((10, 4), dtype=torch.uint8, device=dev)
+    before = dict(lc.launches)
+    with pytest.raises(ValueError, match="codes shape"):
+        lc.jpq_lookup(ids, codes, torch.zeros((8, 16, 4), device=dev))
+    with pytest.raises(ValueError, match="codes shape"):
+        lc.jpq_lookup_bwd(ids, codes, torch.zeros((5, 8, 4), device=dev), 16)
+    assert lc.launches == before
 
 
 def test_autograd_functions_launch_their_kernels(dev):

@@ -138,3 +138,54 @@ def test_cuda_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors"):
         T_cuda.jpq_lookup_bwd(torch.tensor(ids), torch.tensor(codes),
                               torch.zeros(7, 4, 4), 8)
+
+
+def _ascending_sum(ids, codes, dout, b):
+    """dcent by an explicit fp32 loop: positions in ascending order, each
+    bin starting from +0.0."""
+    T, m, dk = dout.shape
+    acc = np.zeros((m, b, dk), np.float32)
+    splits = np.arange(m)
+    for t in range(T):
+        rows = codes[ids[t]].astype(np.int64)        # m distinct bins
+        acc[splits, rows] = acc[splits, rows] + dout[t]
+    return acc
+
+
+def _order_case(name):
+    rng = np.random.default_rng(5)
+    if name == "negative zero":
+        # split 0's code b-1 is named by one position only, whose row is
+        # -0.0: that bin must come out +0.0 (+0.0 + -0.0); split 1's code
+        # b-1 is named by none (+0.0 too)
+        T, m, b, dk, N = 50, 2, 8, 4, 20
+        codes = rng.integers(0, b - 1, (N, m)).astype(np.uint8)
+        ids = rng.integers(0, N - 1, T)
+        ids[7] = N - 1
+        codes[N - 1, 0] = b - 1
+        dout = rng.standard_normal((T, m, dk)).astype(np.float32)
+        dout[7, 0] = -0.0
+        return ids, codes, dout, b
+    T, m, b, dk, N = 3_200, 8, 256, 64, 5_000
+    codes = rng.integers(0, b, (N, m)).astype(np.uint8)
+    ids = rng.integers(0, N, T)
+    if name == "skewed":                 # left padding: one bin per split
+        ids[rng.permutation(T)[: T * 8 // 10]] = 0
+    dout = rng.standard_normal((T, m, dk)).astype(np.float32)
+    return ids, codes, dout, b
+
+
+@pytest.mark.parametrize("name", ["uniform", "skewed", "negative zero"])
+def test_backward_ref_sums_in_ascending_order(name):
+    """The order contract the CUDA backward is held to: the plain version
+    (index_add_ on the CPU) is bit-equal to fp32 sums over the positions
+    in ascending order from +0.0, so a bin whose only term is -0.0 (or
+    that no position names) is +0.0."""
+    ids, codes, dout, b = _order_case(name)
+    got = T_ops.jpq_lookup_rows_bwd(torch.tensor(ids), torch.tensor(codes),
+                                    torch.tensor(dout), b).numpy()
+    want = _ascending_sum(ids, codes, dout, b)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if name == "negative zero":
+        assert got[0, b - 1, 0] == 0 and not np.signbit(got[0, b - 1]).any()
+        assert not np.signbit(got[1, b - 1]).any()
