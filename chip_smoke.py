@@ -25,8 +25,12 @@ Phases, each of which raises on failure (exit code != 0, no result):
   6. parity of the training kernels on the card: jpq_scores forward at
      T=512 over the full catalogue (N=1,000,002), bit-equal to its plain
      version on normal and quantised LUTs; its backward against the
-     plain version in float64 within the worst-case fp32 recursive-sum
-     bound, and bit-identical across two calls; jpq_lookup forward
+     plain version in float64 within the fp32 recursive-sum bound
+     gamma(chain - 1) sum|terms| (chain: the longest run of adds into
+     each output, a chunk's items of its bin and then the chunk
+     partials), bit-identical across two calls, and over one item chunk
+     its first 32 rows bit-equal to the plain version run on the CPU;
+     jpq_lookup forward
      (bit-equal) and backward (bit-identical across two calls, bit-equal
      to its plain version run on CPU copies of its inputs, and within
      the float64 bound) at T=3,200;
@@ -45,7 +49,9 @@ Phases, each of which raises on failure (exit code != 0, no result):
      blocks of 512); then kernel, plain version, bound, and one PyTorch
      library call timed, and for jpq_lookup and its backward also the
      card's own time of the kernel and of the library call under
-     ``torch.profiler`` (``device_ms``, ``library_device_ms``);
+     ``torch.profiler`` (``device_ms``, ``library_device_ms``); the
+     jpq_scores backward also timed over one item chunk, and its three
+     kernels' device times under the profiler;
   9. embedding_bag parity on the card, bit-equal (tolerance 0) to its
      plain version: the two-tower user tower's shape (V=1,000,448,
      d=256, B=512, L=50, mask weights), FM's linear term (V=3,090,000,
@@ -56,7 +62,9 @@ Phases, each of which raises on failure (exit code != 0, no result):
  10. embedding_bag timed at those four shapes (CUDA events): the kernel,
      the kernel with its id check, the plain version,
      ``F.embedding_bag`` and the bound (the distinct rows the ids name,
-     read once);
+     read once); and the card's own time of the kernel and of
+     ``F.embedding_bag`` under ``torch.profiler`` (``device_ms``,
+     ``library_device_ms``);
  11. main path, CTR serving: two-tower-retrieval (full table), fm,
      fm-jpq, dlrm-rm2 (a 57.1 GB table), dlrm-rm2-jpq, dien and dien-jpq
      built at full width with ``make_model`` (random weights, seeded)
@@ -200,29 +208,47 @@ def train_phases(torch, np, dev, smi):
         return e
 
     def scores_bwd_err(dS, codes, what):
-        """jpq_scores' backward: bit-identical across two calls, and
-        |kernel - float64| <= (chain - 1) u sum|terms|, chain the longest
-        run of fp32 adds into one output (within a chunk's warp, a lane
-        group's sum, the chunk partials).  The float64 plain version runs
-        in row blocks of 512.  Returns (max |err|, largest bound, chain)."""
+        """jpq_scores' backward as the training path calls it (item chunks
+        picked for the card, ``sc.bwd_chunks``): bit-identical across two
+        calls and |kernel - float64| <= gamma(chain - 1) sum|terms|, chain
+        the longest run of fp32 adds into each output (``sc.bwd_chain``:
+        a chunk's items of the bin, then the chunk partials).  Over one
+        chunk: the same bound, and rows 0-31 bit-equal to the plain
+        version run on CPU copies (one chain in item order from +0.0).
+        The float64 plain version runs in row blocks of 512.  Returns
+        (max |err|, largest bound, longest chain, chunks)."""
+        T_, N_ = dS.shape
+        chunks = sc.bwd_chunks(T_, M, BC, N_, dev)
         d1 = sc.jpq_scores_bwd(dS, codes, BC)
         check(bits_equal(d1, sc.jpq_scores_bwd(dS, codes, BC)),
               f"jpq_scores backward differs between calls ({what})")
         want = torch.empty(d1.shape, dtype=torch.float64, device=dev)
         mass = torch.empty_like(want)
-        for r in range(0, dS.shape[0], 512):
+        for r in range(0, T_, 512):
             blk = dS[r:r + 512].double()
             want[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk, codes, BC)
             mass[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk.abs_(), codes,
                                                           BC)
             del blk
-        chain = sc.BWD_CHUNK // 32 + 32 + -(-codes.shape[0] // sc.BWD_CHUNK)
-        lim = chain * U * mass
-        diff = (d1.double() - want).abs()
-        check(bool((diff <= lim).all()),
-              f"jpq_scores backward outside the fp32 sum bound ({what})")
-        out = float(diff.max()), float(lim.max()), chain
-        del d1, want, mass, lim, diff
+        out = None
+        for c, got in ((chunks, d1),
+                       (1, sc.jpq_scores_bwd(dS, codes, BC, chunks=1))):
+            chain = sc.bwd_chain(codes, BC, c)
+            n = chain.double() - 1
+            lim = (n * U / (1 - n * U)) * mass
+            diff = (got.double() - want).abs()
+            check(bool((diff <= lim).all()),
+                  f"jpq_scores backward outside the fp32 sum bound over "
+                  f"{c} chunks ({what})")
+            if out is None:
+                out = (float(diff.max()), float(lim.max()), int(chain.max()),
+                       chunks)
+            del lim, diff
+        on_cpu = sref.jpq_scores_lut_bwd_ref(dS[:32].cpu(), codes.cpu(), BC)
+        check(bits_equal(got[:32].cpu(), on_cpu),
+              f"jpq_scores backward over one chunk != plain on the CPU, "
+              f"rows 0-31 ({what})")
+        del d1, got, want, mass
         torch.cuda.empty_cache()
         return out
 
@@ -268,11 +294,13 @@ def train_phases(torch, np, dev, smi):
                             for name, P in luts.items())
     del luts
     dS = torch.randn((512, n_rows), generator=gen, device=dev)
-    err["jpq_scores_bwd"], worst, chain = scores_bwd_err(dS, codes, "T=512")
+    err["jpq_scores_bwd"], worst, chain, chunks = scores_bwd_err(
+        dS, codes, "T=512")
     print(f"   jpq_scores: forward bit-equal (normal, quantised LUT); "
-          f"backward deterministic, max |err| vs float64 "
-          f"{err['jpq_scores_bwd']:.3e} (bound (chain={chain}) u sum|dS|,"
-          f" largest {worst:.3e})")
+          f"backward over {chunks} item chunks deterministic, max |err| vs "
+          f"float64 {err['jpq_scores_bwd']:.3e} (bound gamma(chain - 1) "
+          f"sum|dS|, longest chain {chain}, largest {worst:.3e}); over one "
+          f"chunk within its bound, rows 0-31 bit-equal to plain on the CPU")
     del dS
     cent = torch.randn((M, BC, dk), generator=gen, device=dev)
     ids = torch.randint(0, n_rows, (T,), generator=gen, device=dev)
@@ -395,11 +423,14 @@ def train_phases(torch, np, dev, smi):
     err["jpq_scores"] = max(err["jpq_scores"],
                             scores_fwd_err(P, codes, f"main path, T={T}"))
     dS = torch.randn((T, n_rows), generator=gen, device=dev)
-    e, worst, _ = scores_bwd_err(dS, codes, f"main path, T={T}")
+    e, worst, chain, chunks = scores_bwd_err(dS, codes,
+                                             f"main path, T={T}")
     err["jpq_scores_bwd"] = max(err["jpq_scores_bwd"], e)
     print(f"   at T={T}: jpq_scores forward bit-equal to plain on the "
-          f"trained LUT; backward deterministic, max |err| vs float64 "
-          f"{e:.3e} (largest bound {worst:.3e})")
+          f"trained LUT; backward over {chunks} item chunks deterministic, "
+          f"max |err| vs float64 {e:.3e} (largest bound {worst:.3e}, "
+          f"longest chain {chain}); over one chunk within its bound, rows "
+          f"0-31 bit-equal to plain on the CPU")
     dout = torch.randn((T, M, dk), generator=gen, device=dev)
     e, e_bwd = lookup_errs(ids, codes, cent, dout, f"main path, T={T}")
     err["jpq_lookup"] = max(err["jpq_lookup"], e)
@@ -444,6 +475,21 @@ def train_phases(torch, np, dev, smi):
             cuda_ms(lambda: lref.jpq_lookup_bwd_ref(ids, codes, dout, BC), 20),
             cuda_ms(lookup_fns["jpq_lookup_bwd"][1], 50)),
     }
+    # the backward over one item chunk (one chain an output, bit-equal
+    # to the CPU's index_add_; 200 blocks, a wave and a half on 132 SMs)
+    one_chunk_ms = cuda_ms(
+        lambda: sc.jpq_scores_bwd(dS, codes, BC, chunks=1), 3)
+    print(f"   jpq_scores_bwd over one chunk: {one_chunk_ms:.4f} ms (over "
+          f"{chunks}, as the training path runs it: "
+          f"{times['jpq_scores_bwd'][0]:.4f} ms)")
+    # the card's time in each of the backward's kernels (the sort, the
+    # sums, the chunk reduction) under torch.profiler
+    bwd_dev_ms, bwd_top = device_profile(
+        torch, lambda _: sc.jpq_scores_bwd(dS, codes, BC), range(3))
+    check(bwd_dev_ms > 0, "the profiler traced no device time for "
+          "jpq_scores_bwd")
+    print(f"   jpq_scores_bwd: device {bwd_dev_ms:.4f} ms a call: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in bwd_top))
     # the card's own time a call (torch.profiler: the summed durations of
     # the kernels a call ran) for the two small kernels and their library
     # calls, whose event times above may be the host's issue time
@@ -522,7 +568,10 @@ def train_phases(torch, np, dev, smi):
     print(json.dumps({"train": {
         "losses": losses, "median_step_ms": step_ms, "peak_gb": peak_gb,
         "launches": launches, "ndcg10": ndcg, "hr10": hr,
-        "step_split_ms": split, "card": smi}}))
+        "step_split_ms": split, "jpq_scores_bwd_chunks": chunks,
+        "jpq_scores_bwd_one_chunk_ms": one_chunk_ms,
+        "jpq_scores_bwd_device_ms": bwd_dev_ms,
+        "jpq_scores_bwd_device_top": bwd_top, "card": smi}}))
     done(t0)
     return out, data
 
@@ -664,9 +713,23 @@ def ctr_phases(torch, np, dev, smi, data, tt_template):
             "bound_ms": b_ms, "bound_by": b_by, "distinct_rows": rows,
             "bound_all_rows_ms": all_rows_ms}
         t = timing[name]
-        print(f"   {name}: {t['ms']:.4f} ms kernel, {t['checked_ms']:.4f} ms "
+        # the card's own time a call (torch.profiler), apart from the
+        # host's issue time that the event times above may show
+        n_prof = 10 if n > B else 50
+        for key, f in (("device_ms", lambda _: ec.launch(tab, ids, w)),
+                       ("library_device_ms", lambda _: F.embedding_bag(
+                           ids, tab, mode="sum", per_sample_weights=w))):
+            t[key], top = device_profile(torch, f, range(n_prof))
+            check(t[key] > 0, f"the profiler traced no device time for "
+                  f"embedding_bag ({name}, {key})")
+            t[key + "_top"] = top
+        print(f"   {name}: {t['ms']:.4f} ms kernel (device "
+              f"{t['device_ms']:.4f}), {t['checked_ms']:.4f} ms "
               f"with the id check, {t['plain_ms']:.4f} ms plain, "
-              f"{t['library_ms']:.4f} ms F.embedding_bag, bound "
+              f"{t['library_ms']:.4f} ms F.embedding_bag (device "
+              f"{t['library_device_ms']:.4f}: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in
+                          t["library_device_ms_top"]) + "), bound "
               f"{b_ms:.4f} ms ({b_by}; {rows} distinct rows; "
               f"{all_rows_ms:.4f} ms with all {n * L} rows) on {smi}")
     del cases, tables, tab, ids, w
@@ -828,7 +891,9 @@ def ctr_phases(torch, np, dev, smi, data, tt_template):
              "checked_ms": main_t["checked_ms"],
              "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
              "bound_by": main_t["bound_by"],
-             "library_ms": main_t["library_ms"]}
+             "library_ms": main_t["library_ms"],
+             "device_ms": main_t["device_ms"],
+             "library_device_ms": main_t["library_device_ms"]}
     return entry, serve_ctr
 
 

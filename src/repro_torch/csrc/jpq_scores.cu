@@ -23,26 +23,101 @@
 // real N; the caller's arrays are not padded.
 //
 // Backward design.  Deterministic: no float atomics, so two calls on the
-// same inputs give bit-identical dP.  Pass 1, grid (item chunk, group of
-// 8 rows): each warp owns one row t and a private histogram [m, b] in
-// shared memory.  It walks the chunk 32 items at a time (coalesced reads
-// of dS); for each split, lanes with the same code are grouped with
-// __match_any_sync, the lowest lane of each group sums the group's values
-// in lane order and adds the sum into the histogram.  Only that warp
-// writes the histogram and the group leaders hold distinct codes, so the
-// read-modify-write needs no atomic and its order is fixed.  The
-// histogram goes out as partial[t, chunk, m, b].  Pass 2 sums the
-// partials of each (t, j, c) in chunk order.
+// same inputs give bit-identical dP.  The grouping of items by code
+// depends on the codes alone, so it is built once a call and not once a
+// row (grouping every 32 items again for each of the T rows, with
+// __match_any_sync and a serial leader loop, is issue-bound: 220 ms on
+// an H100 at T = 3,200).
+//   1. Sort (bwd_sort_kernel, grid (tile, split)): for each tile of TILE
+//      = 512 items and each split j, a stable counting sort of the
+//      tile's codes gives the item offsets in code order (ascending item
+//      order within a code; __match_any_sync ranks, a scan of the
+//      (code, warp) counts) and each bin's start.  Lists are laid out
+//      [tile, j, TILE] and bin starts flat, j * TILE + start, so bin
+//      k = j * b + c owns positions [fstart[k], fstart[k + 1]) of its
+//      tile.  Items past N (last tile) take the virtual code b: they land
+//      at the end of each split's list, inside the range of code b - 1,
+//      with the offset TILE, a column of +0.0 in the staged tile (an
+//      exact add, so it changes no bits).  Reads the 8 MB of codes once;
+//      the lists are 2 bytes an item and split.
+//   2. Sum (bwd_sum_kernel, grid (1,024 bins, 32 rows, item chunk)):
+//      lanes are rows, so a warp reads 32 rows of one item with one
+//      broadcast offset and 32 distinct banks (the staged rows have an
+//      odd stride, TILE + 1 floats).  Each of the 32 warps owns 32 bins
+//      and keeps their 32 rows' sums in registers (acc[32], fully
+//      unrolled) across the chunk; it walks each bin's list in the tile
+//      with plain fp32 adds.  The loop is issue-bound, so it walks 32-bit
+//      shared addresses (7 instructions an item); 1,024 threads a block
+//      (64 registers each) keep 32 warps on an SM to hide the two
+//      dependent shared loads of an item.  The dS tile [32, 512] (4-byte
+//      cp.async into the padded rows), the lists of the splits the
+//      block's bins touch and the bin starts are staged double-buffered,
+//      so the next tile is in flight during the adds.  32 rows x 2,048
+//      bins would fill the whole register file, so a row group's bins
+//      are split over ceil(m b / 1,024) blocks (2 at m b = 2,048) with
+//      neighbouring block indices: they read the same dS tiles at about
+//      the same time and the second read mostly hits L2.  Work is
+//      balanced by bins, not by items: a code that holds most of a split
+//      slows the warp that owns it (the block waits for it at each
+//      tile), but no warp serialises on a conflict.
+//   3. With one item chunk each output is one chain of fp32 adds over
+//      its items in ascending item order from +0.0: the index_add_ of the
+//      plain version on the CPU, bit for bit, and no partials.  One chunk
+//      at T = 3,200 is 200 blocks of one an SM, a wave and a half on 132
+//      SMs, so the wrapper by default splits the items into the chunks
+//      that fill the last wave best (7 there); each chunk writes
+//      partial[t, chunk, m, b] and bwd_reduce_kernel sums them in chunk
+//      order.
+// Chain: an output (t, j, c) takes n_q items of chunk q in one chain
+// from +0.0 (n_q - 1 rounded adds), then chunks - 1 adds of the
+// partials, so the longest chain of rounded adds any of its terms goes
+// through is max_q n_q - 1 + chunks - 1, and |dP - exact| <=
+// gamma(chain - 1) sum |dS terms| with chain = max_q n_q + chunks - 1
+// (cuda.bwd_chain computes it from the codes).
+// What bounds the backward: reading dS once, 12.8 GB at T = 3,200 and
+// N = 1,000,002 (3.8 ms at 3.35 TB/s); then one shared-memory load and
+// one add per (row, item, split), 25.6e9 of each; in practice the
+// instructions that issue them (7 per warp and item: 5.6e9 at T = 3,200,
+// about 6 ms on 132 SMs of 4 schedulers).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace jpq_scores {
 
-constexpr int NT = 256;          // threads per block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NT = 256;          // forward, reduce: threads per block
 constexpr int G = 8;             // forward: queries per block
 constexpr int ITEMS = 16;        // forward: items per thread
 constexpr int FWD_CHUNK = NT * ITEMS;
-constexpr int ROWS = NT / 32;    // backward: rows per block (one per warp)
+
+// backward
+constexpr int TILE = 512;        // items a tile (sort and sum)
+constexpr int SW = TILE / 32;    // sort: warps a block (one thread an item)
+constexpr int RB = 32;           // sum: rows a block, one a lane
+constexpr int BW = 32;           // sum: warps a block
+constexpr int BT = BW * 32;      // sum: threads a block
+constexpr int KB = 32;           // sum: bins a warp, in registers
+constexpr int BINS = BW * KB;    // sum: bins a block
+constexpr int TS = TILE + 1;     // sum: staged row stride; column TILE is +0.0
+constexpr int FSB = BINS + 8;    // sum: bin starts staged a tile
+static_assert(BT % TILE == 0, "a copy pass covers whole rows");
+
+// Row stride of the bin starts, in uint16: m b rounded up to whole sum
+// blocks of BINS, plus 8, so every sum block stages FSB entries of its
+// own row, 16-byte aligned for cp.async.  Entries from m b on hold the
+// sentinel m * TILE: bins past m b have empty lists.
+__host__ __device__ inline int fs_stride(int mb) {
+  return (mb + BINS - 1) / BINS * BINS + 8;
+}
+
+// Splits that the bins of one sum block can touch, and so the list
+// entries it stages a tile.
+inline int pos_max(int m, int b) {
+  const int touched = (BINS - 1) / b + 2;
+  return (m < touched ? m : touched) * TILE;
+}
+
+// ------------------------------------------------------------- forward
 
 template <typename CodeT>
 __global__ void __launch_bounds__(NT)
@@ -77,51 +152,185 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename CodeT>
-__global__ void __launch_bounds__(NT)
-    bwd_partial_kernel(const float* __restrict__ dS,
-                       const CodeT* __restrict__ codes, int T, int m, int b,
-                       int N, int chunk, float* __restrict__ partial) {
-  extern __shared__ float smem[];  // hist [ROWS, m, b], then vals [ROWS, 32]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mb = m * b;
-  float* hist = smem + warp * mb;
-  float* vals = smem + ROWS * mb + warp * 32;
-  for (int x = lane; x < mb; x += 32) hist[x] = 0.f;
-  __syncwarp();
-  const int t = blockIdx.y * ROWS + warp;
-  const int n_chunks = gridDim.x;
-  if (t >= T) return;  // the whole warp leaves together; no block barrier
-  const int i0 = blockIdx.x * chunk;
-  const int i1 = min(N, i0 + chunk);
-  const float* drow = dS + static_cast<size_t>(t) * N;
-  for (int base = i0; base < i1; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < i1;
-    const float v = valid ? drow[i] : 0.f;
-    vals[lane] = v;
-    __syncwarp();
-    for (int j = 0; j < m; ++j) {
-      // lanes past the end get keys no code can take, so they group alone
-      const int c = valid ? static_cast<int>(codes[static_cast<size_t>(i) * m + j])
-                          : -1 - lane;
-      const unsigned peers = __match_any_sync(0xffffffffu, c);
-      if (valid && lane == __ffs(peers) - 1) {
-        float s = v;
-        unsigned rest = peers & (peers - 1);  // the other lanes, in order
-        while (rest) {
-          s = s + vals[__ffs(rest) - 1];
-          rest &= rest - 1;
-        }
-        hist[j * b + c] = hist[j * b + c] + s;
-      }
-      __syncwarp();
-    }
-  }
-  float* out = partial + (static_cast<size_t>(t) * n_chunks + blockIdx.x) * mb;
-  for (int x = lane; x < mb; x += 32) out[x] = hist[x];
+
+// ------------------------------------------------------------ backward
+
+// One asynchronous copy global -> shared of 4 or 16 bytes (cp.async).
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
 
+// A value the compiler must take as it is (so that row + 4 * offset stays
+// one LEA and is not re-associated into two multiply-adds).
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+// Loads from shared memory at a 32-bit shared address.
+__device__ __forceinline__ unsigned lds_u16(unsigned a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float lds_f32(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// 1. Per (tile, split j): the tile's item offsets in code order and the
+// bin starts.  One thread an item.
+template <typename CodeT>
+__global__ void __launch_bounds__(TILE)
+    bwd_sort_kernel(const CodeT* __restrict__ codes, int m, int b, int N,
+                    uint16_t* __restrict__ offs,
+                    uint16_t* __restrict__ fstart) {
+  extern __shared__ int cnt[];     // [(b + 1) codes, SW warps]
+  __shared__ int wtot[SW];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x, j = blockIdx.y;
+  const long long i = static_cast<long long>(tile) * TILE + tid;
+  const int ncnt = (b + 1) * SW;
+  for (int x = tid; x < ncnt; x += TILE) cnt[x] = 0;
+  // past N: the virtual code b, after every real code
+  const int c = i < N ? static_cast<int>(codes[i * m + j]) : b;
+  __syncthreads();
+  const unsigned same = __match_any_sync(FULL, c);
+  const int rank = __popc(same & ((1u << lane) - 1u));
+  if (rank == 0) cnt[c * SW + warp] = __popc(same);
+  __syncthreads();
+  {  // exclusive scan of the counts in (code, warp) order
+    const int per = (ncnt + TILE - 1) / TILE;
+    const int lo = min(ncnt, tid * per), hi = min(ncnt, lo + per);
+    int sum = 0;
+    for (int x = lo; x < hi; ++x) sum += cnt[x];
+    int inc = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) wtot[warp] = inc;
+    __syncthreads();
+    int ex = inc - sum;
+    for (int w = 0; w < warp; ++w) ex += wtot[w];
+    for (int x = lo; x < hi; ++x) {
+      const int n = cnt[x];
+      cnt[x] = ex;
+      ex += n;
+    }
+  }
+  __syncthreads();
+  offs[(static_cast<size_t>(tile) * m + j) * TILE + cnt[c * SW + warp] +
+       rank] = static_cast<uint16_t>(i < N ? tid : TILE);
+  uint16_t* f = fstart + static_cast<size_t>(tile) * fs_stride(m * b) + j * b;
+  for (int x = tid; x < b; x += TILE)
+    f[x] = static_cast<uint16_t>(j * TILE + cnt[x * SW]);
+  if (j == m - 1)
+    for (int x = b + tid; x < fs_stride(m * b) - j * b; x += TILE)
+      f[x] = static_cast<uint16_t>(m * TILE);
+}
+
+// 2. Per (1,024 bins, 32 rows, item chunk): each bin's sums over the
+// chunk's items, in registers, in ascending item order from +0.0.
+__global__ void __launch_bounds__(BT, 1)
+    bwd_sum_kernel(const float* __restrict__ dS,
+                   const uint16_t* __restrict__ offs,
+                   const uint16_t* __restrict__ fstart, int T, int N, int m,
+                   int b, int n_tiles, int tiles_per_chunk, int chunks,
+                   int pmax, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tiles = reinterpret_cast<float*>(smem_raw);             // [2][RB TS]
+  uint16_t* lists = reinterpret_cast<uint16_t*>(tiles + 2 * RB * TS);
+  uint16_t* starts = lists + 2 * pmax;                           // [2][FSB]
+  const auto tiles_s = static_cast<unsigned>(__cvta_generic_to_shared(tiles));
+  const auto lists_s = static_cast<unsigned>(__cvta_generic_to_shared(lists));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mb = m * b, fsr = fs_stride(mb);
+  const int k0 = blockIdx.x * BINS, kend = min(mb, k0 + BINS);
+  const int t0 = blockIdx.y * RB, chunk = blockIdx.z;
+  const int tb = chunk * tiles_per_chunk;
+  const int te = min(n_tiles, tb + tiles_per_chunk);
+  const int j0 = k0 / b, nsp = (kend - 1) / b - j0 + 1;  // splits touched
+  const int pbase = j0 * TILE;           // first list position staged
+  if (tid < 2 * RB) tiles[(tid >> 5) * RB * TS + (tid & 31) * TS + TILE] = 0.f;
+
+  const int ci = tid % TILE, cr = tid / TILE;  // a thread's column, row
+  const int nr = min(RB, T - t0);
+  auto issue = [&](int tl, int buf) {  // tile tl's copies, in flight
+    const long long i0 = static_cast<long long>(tl) * TILE;
+    if (i0 + ci < N) {                 // rows cr, cr + BT / TILE, ...
+      const float* src = dS + static_cast<size_t>(t0 + cr) * N + i0 + ci;
+      float* dst = tiles + buf * RB * TS + cr * TS + ci;
+      for (int r = cr; r < nr; r += BT / TILE) {
+        copy4(dst, src);
+        src += static_cast<size_t>(BT / TILE) * N;
+        dst += (BT / TILE) * TS;
+      }
+    }
+    const uint16_t* ls = offs + (static_cast<size_t>(tl) * m + j0) * TILE;
+    uint16_t* ld = lists + buf * pmax;
+    for (int e = tid; e < nsp * TILE / 8; e += BT)
+      copy16(ld + 8 * e, ls + 8 * e);
+    const uint16_t* fs = fstart + static_cast<size_t>(tl) * fsr + k0;
+    uint16_t* fd = starts + buf * FSB;
+    for (int e = tid; e < FSB / 8; e += BT) copy16(fd + 8 * e, fs + 8 * e);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[KB];
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) acc[kk] = 0.f;
+  if (tb < te) issue(tb, 0);
+  for (int tl = tb; tl < te; ++tl) {
+    const int buf = (tl - tb) & 1;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // own copies
+    __syncthreads();                   // everyone's; tile tl - 1 summed
+    if (tl + 1 < te) issue(tl + 1, buf ^ 1);
+    // each bin's items in list order, one add each.  The issue rate is
+    // the limit, so the loop walks 32-bit shared addresses: 7
+    // instructions an item (load the offset, scale it onto the row, load,
+    // add, step, compare, branch).
+    const unsigned row = opaque(tiles_s + 4u * (buf * RB * TS + lane * TS));
+    const unsigned pos = lists_s + 2u * (buf * pmax - pbase);
+    const uint16_t* fs = starts + buf * FSB + warp * KB;
+    unsigned pa = pos + 2u * fs[0];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {   // bins past m b: empty lists
+      const unsigned pe = pos + 2u * fs[kk + 1];
+      float a = acc[kk];
+#pragma unroll 1
+      for (; pa < pe; pa += 2) a = a + lds_f32(row + (lds_u16(pa) << 2));
+      acc[kk] = a;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  // out through shared memory: [RB][BINS + 1], then coalesced rows
+  float* sm = tiles;
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk)
+    sm[lane * (BINS + 1) + warp * KB + kk] = acc[kk];
+  __syncthreads();
+  const int nb = kend - k0;
+  const size_t rstride = static_cast<size_t>(chunks) * mb;
+  for (int e = tid; e < RB * nb; e += BT) {
+    const int r = e / nb, k = e - r * nb;
+    if (t0 + r < T)
+      out[(t0 + r) * rstride + static_cast<size_t>(chunk) * mb + k0 + k] =
+          sm[r * (BINS + 1) + k];
+  }
+}
+
+// 3. (chunks > 1 only) dP[t, k] = the chunk partials summed in order.
 __global__ void __launch_bounds__(NT)
     bwd_reduce_kernel(const float* __restrict__ partial, int T, int mb,
                       int n_chunks, float* __restrict__ dP) {
@@ -148,25 +357,65 @@ int fwd(const float* P, const void* codes, int T, int m, int b, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
+size_t sort_smem(int b) {
+  return static_cast<size_t>(b + 1) * SW * sizeof(int);
+}
+
+size_t sum_smem(int m, int b) {
+  return (2 * static_cast<size_t>(RB) * TS) * sizeof(float) +
+         (2 * static_cast<size_t>(pos_max(m, b)) + 2 * FSB) * sizeof(uint16_t);
+}
+
 template <typename CodeT>
-int bwd(const float* dS, const void* codes, int T, int m, int b, int N,
-        int chunk, float* partial, float* dP, cudaStream_t stream) {
-  const int n_chunks = (N + chunk - 1) / chunk;
-  const size_t smem = (static_cast<size_t>(ROWS) * m * b + ROWS * 32) *
-                      sizeof(float);
+int sort(const void* codes, int m, int b, int N, uint16_t* offs,
+         uint16_t* fstart, cudaStream_t stream) {
+  const size_t smem = sort_smem(b);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_partial_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_sort_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_partial_kernel<CodeT><<<dim3(n_chunks, (T + ROWS - 1) / ROWS), NT, smem,
-                              stream>>>(
-      dS, static_cast<const CodeT*>(codes), T, m, b, N, chunk, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(T) * m * b;
-  bwd_reduce_kernel<<<static_cast<unsigned>((total + NT - 1) / NT), NT, 0,
-                      stream>>>(partial, T, m * b, n_chunks, dP);
+  const dim3 grid((N + TILE - 1) / TILE, m);
+  bwd_sort_kernel<CodeT><<<grid, TILE, smem, stream>>>(
+      static_cast<const CodeT*>(codes), m, b, N, offs, fstart);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CodeT>
+int bwd(const float* dS, const void* codes, int T, int m, int b, int N,
+        int tiles_per_chunk, int chunks, uint16_t* sorted, float* partial,
+        float* dP, cudaStream_t stream) {
+  const int n_tiles = (N + TILE - 1) / TILE;
+  uint16_t* offs = sorted;
+  uint16_t* fstart = sorted + static_cast<size_t>(n_tiles) * m * TILE;
+  int rc = sort<CodeT>(codes, m, b, N, offs, fstart, stream);
+  if (rc) return rc;
+  const size_t smem = sum_smem(m, b);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int mb = m * b;
+  const dim3 grid((mb + BINS - 1) / BINS, (T + RB - 1) / RB, chunks);
+  bwd_sum_kernel<<<grid, BT, smem, stream>>>(
+      dS, offs, fstart, T, N, m, b, n_tiles, tiles_per_chunk, chunks,
+      pos_max(m, b), chunks == 1 ? dP : partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(T) * mb;
+  bwd_reduce_kernel<<<static_cast<unsigned>((total + NT - 1) / NT), NT, 0,
+                      stream>>>(partial, T, mb, chunks, dP);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bwd_args_ok(int T, int m, int b, int N, int tiles_per_chunk,
+                 int chunks) {
+  const int n_tiles = (N + TILE - 1) / TILE;
+  return T >= 1 && m >= 1 && b >= 1 && N >= 1 &&
+         static_cast<long long>(m) * TILE <= 65535 &&  // uint16 positions
+         tiles_per_chunk >= 1 && chunks >= 1 && chunks <= 65535 &&
+         static_cast<long long>(chunks) * tiles_per_chunk >= n_tiles &&
+         static_cast<long long>(chunks - 1) * tiles_per_chunk < n_tiles &&
+         (T + RB - 1) / RB <= 65535 && m <= 65535;
 }
 
 }  // namespace jpq_scores
@@ -188,20 +437,45 @@ int jpq_scores_fwd_launch(const void* P, const void* codes, int code_bytes,
   return jpq_scores::fwd<int32_t>(p, codes, T, m, b, N, s, st);
 }
 
+// The backward: the code sort into `sorted` (uint16: the lists
+// [n_tiles, m, TILE], then the bin starts [n_tiles, fs_stride(m b)]),
+// the sums, and with chunks > 1 the reduction of `partial` [T, chunks,
+// m, b] (may be null when chunks == 1).
 int jpq_scores_bwd_launch(const void* dS, const void* codes, int code_bytes,
-                          int T, int m, int b, int N, int chunk, void* partial,
-                          void* dP, void* stream) {
-  if (T < 1 || m < 1 || b < 1 || N < 1 || chunk < 32 || chunk % 32 ||
+                          int T, int m, int b, int N, int tiles_per_chunk,
+                          int chunks, void* sorted, void* partial, void* dP,
+                          void* stream) {
+  if (!jpq_scores::bwd_args_ok(T, m, b, N, tiles_per_chunk, chunks) ||
       (code_bytes != 1 && code_bytes != 4) ||
-      (T + jpq_scores::ROWS - 1) / jpq_scores::ROWS > 65535)
+      (chunks > 1 && partial == nullptr))
     return -1;
   auto st = static_cast<cudaStream_t>(stream);
   auto d = static_cast<const float*>(dS);
+  auto so = static_cast<uint16_t*>(sorted);
   auto pa = static_cast<float*>(partial);
   auto out = static_cast<float*>(dP);
   if (code_bytes == 1)
-    return jpq_scores::bwd<uint8_t>(d, codes, T, m, b, N, chunk, pa, out, st);
-  return jpq_scores::bwd<int32_t>(d, codes, T, m, b, N, chunk, pa, out, st);
+    return jpq_scores::bwd<uint8_t>(d, codes, T, m, b, N, tiles_per_chunk,
+                                    chunks, so, pa, out, st);
+  return jpq_scores::bwd<int32_t>(d, codes, T, m, b, N, tiles_per_chunk,
+                                  chunks, so, pa, out, st);
+}
+
+// The backward's code sort alone (its first kernel), into `sorted` as
+// above: for holding it against its plain version.
+int jpq_scores_sort_launch(const void* codes, int code_bytes, int m, int b,
+                           int N, void* sorted, void* stream) {
+  if (m < 1 || b < 1 || N < 1 ||
+      static_cast<long long>(m) * jpq_scores::TILE > 65535 ||
+      (code_bytes != 1 && code_bytes != 4))
+    return -1;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto offs = static_cast<uint16_t*>(sorted);
+  const int n_tiles = (N + jpq_scores::TILE - 1) / jpq_scores::TILE;
+  auto fstart = offs + static_cast<size_t>(n_tiles) * m * jpq_scores::TILE;
+  if (code_bytes == 1)
+    return jpq_scores::sort<uint8_t>(codes, m, b, N, offs, fstart, st);
+  return jpq_scores::sort<int32_t>(codes, m, b, N, offs, fstart, st);
 }
 
 size_t jpq_scores_fwd_smem_bytes(int m, int b) {
@@ -209,8 +483,8 @@ size_t jpq_scores_fwd_smem_bytes(int m, int b) {
 }
 
 size_t jpq_scores_bwd_smem_bytes(int m, int b) {
-  return (static_cast<size_t>(jpq_scores::ROWS) * m * b +
-          jpq_scores::ROWS * 32) * sizeof(float);
+  const size_t a = jpq_scores::sort_smem(b), s = jpq_scores::sum_smem(m, b);
+  return a > s ? a : s;
 }
 
 const char* jpq_error_string(int code) {

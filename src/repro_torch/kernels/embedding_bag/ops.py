@@ -35,7 +35,10 @@ def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):
         weights = weights.float()
         weights = weights / torch.clamp(weights.sum(1, keepdim=True),
                                         min=1e-9)
-    if weights is not None:
+    if weights is not None and (weights.dtype != torch.float32
+                                or not weights.is_contiguous()):
         weights = weights.float().contiguous()
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
     impl = _cuda.embedding_bag if table.is_cuda else _ref.embedding_bag_ref
-    return impl(table, ids.contiguous(), weights)
+    return impl(table, ids, weights)

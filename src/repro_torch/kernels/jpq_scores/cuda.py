@@ -17,7 +17,10 @@ import torch
 from repro_torch.kernels import build as _build
 
 SMEM_LIMIT = 232448    # shared memory a block may use on Hopper (227 KB)
-BWD_CHUNK = 65536      # items per block in the backward's first pass
+# the backward's TILE and BINS in csrc/jpq_scores.cu, for sizing its
+# scratch and chunks here
+BWD_TILE = 512         # items a tile of the backward's sort and sums
+BWD_BINS = 1024        # bins a block of the backward's sums
 _LIB = "jpq_scores"
 _P, _I = _build.P, _build.I
 
@@ -66,28 +69,147 @@ def jpq_scores(partial, codes):
     return out
 
 
-def jpq_scores_bwd(dS, codes, b: int, *, chunk: int = BWD_CHUNK):
+def bwd_chunking(N: int, chunks: int):
+    """(tiles a chunk, chunks) of the backward for ``chunks`` item chunks
+    asked for: at least one, at most one a tile, none empty."""
+    n_tiles = -(-N // BWD_TILE)
+    tpc = -(-n_tiles // max(1, min(chunks, n_tiles)))
+    return tpc, -(-n_tiles // tpc)
+
+
+def bwd_auto_chunks(T: int, m: int, b: int, N: int, sms: int) -> int:
+    """Item chunks for the backward's sums when the caller names none:
+    of 1..8, the count whose blocks (one an SM) fill their last wave
+    best, the smallest on a tie.  At T = 3,200, m*b = 2,048 and 132 SMs
+    one chunk is 200 blocks, a wave and a half; seven are 1,400 blocks,
+    96% of 11 waves."""
+    per = -(-(m * b) // BWD_BINS) * -(-T // 32)   # blocks a chunk
+
+    def fill(c):
+        blocks = per * bwd_chunking(N, c)[1]
+        return blocks / (-(-blocks // sms) * sms)
+
+    return max(range(1, 9), key=lambda c: (fill(c), -c))
+
+
+_SMS: dict = {}
+
+
+def bwd_chunks(T: int, m: int, b: int, N: int, dev, chunks=None) -> int:
+    """The item chunks ``jpq_scores_bwd`` sums over on ``dev`` for
+    ``chunks`` (None: ``bwd_auto_chunks`` for the card's SMs)."""
+    if chunks is None:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        chunks = bwd_auto_chunks(T, m, b, N, _SMS[dev])
+    return bwd_chunking(N, chunks)[1]
+
+
+def bwd_chain(codes, b: int, chunks: int = 1):
+    """[m, b] int64: the longest chain of fp32 adds into each output of
+    the backward, max over item chunks of the items the chunk gives the
+    bin, plus ``chunks - 1`` adds of the chunk partials.  Its output is
+    within gamma(chain - 1) * sum|terms| of the exact sum.  Plain
+    PyTorch, on any device."""
+    N, m = codes.shape
+    tpc, n_chunks = bwd_chunking(N, chunks)
+    chunk = torch.arange(N, device=codes.device) // (tpc * BWD_TILE)
+    key = (chunk[:, None] * m + torch.arange(m, device=codes.device)) * b \
+        + codes.long()
+    counts = torch.bincount(key.reshape(-1), minlength=n_chunks * m * b)
+    return counts.view(n_chunks, m, b).amax(0) + (n_chunks - 1)
+
+
+def sort_codes_plain(codes, b: int):
+    """The backward's code sort, plain: (lists [n_tiles, m, BWD_TILE]
+    int64, starts [n_tiles, m*b + 1] int64).  For each tile of BWD_TILE
+    items and split j, the tile's item offsets ordered by code, ascending
+    within a code; the tile's items past N come last with the offset
+    BWD_TILE.  ``starts[t, j*b + c]`` is ``j*BWD_TILE`` plus the position
+    of code c's first item in split j's list; the last entry is
+    ``m*BWD_TILE``."""
+    N, m = codes.shape
+    n_tiles = -(-N // BWD_TILE)
+    c = torch.full((n_tiles * BWD_TILE, m), b, dtype=torch.int64,
+                   device=codes.device)
+    c[:N] = codes.long()
+    c = c.view(n_tiles, BWD_TILE, m).transpose(1, 2)         # [tiles, m, C]
+    order = torch.sort(c, dim=2, stable=True).indices
+    lists = torch.where(torch.gather(c, 2, order) < b, order, BWD_TILE)
+    counts = torch.zeros((n_tiles, m, b + 1), dtype=torch.int64,
+                         device=codes.device)
+    counts.scatter_add_(2, c, torch.ones_like(c))
+    first = torch.cumsum(counts, 2)[:, :, :b] - counts[:, :, :b]
+    first += BWD_TILE * torch.arange(m, device=codes.device)[:, None]
+    starts = torch.cat([first.reshape(n_tiles, m * b),
+                        torch.full((n_tiles, 1), m * BWD_TILE,
+                                   dtype=torch.int64, device=codes.device)],
+                       1)
+    return lists, starts
+
+
+def _sort_buffer(n_tiles: int, m: int, b: int, dev):
+    """The sort's scratch: uint16 lists then bin starts (rows of m*b
+    rounded up to whole sum blocks of BWD_BINS, plus 8), as int16."""
+    fs = -(-(m * b) // BWD_BINS) * BWD_BINS + 8
+    buf = torch.empty(n_tiles * (m * BWD_TILE + fs), dtype=torch.int16,
+                      device=dev)
+    return buf, fs
+
+
+def sort_codes(codes, b: int):
+    """The backward's first kernel alone, on the card: (lists, starts)
+    as ``sort_codes_plain`` gives them (one kernel)."""
+    N, m, cb = _check_codes(codes, codes, b, "sort_codes")
+    n_tiles = -(-N // BWD_TILE)
+    dev = codes.device
+    launch = _build.fn(_LIB, "jpq_scores_sort_launch",
+                       [_P, _I, _I, _I, _I, _P, _P])
+    with torch.cuda.device(dev):
+        buf, fs = _sort_buffer(n_tiles, m, b, dev)
+        rc = launch(codes.data_ptr(), cb, m, b, N, buf.data_ptr(),
+                    _build.stream(dev))
+    _build.raise_on(rc, _LIB)
+    launches["jpq_scores_bwd"] += 1
+    u16 = buf.long() & 0xFFFF
+    n_lists = n_tiles * m * BWD_TILE
+    return (u16[:n_lists].view(n_tiles, m, BWD_TILE),
+            u16[n_lists:].view(n_tiles, fs)[:, :m * b + 1])
+
+
+def jpq_scores_bwd(dS, codes, b: int, *, chunks=None):
     """dS [T, N] f32, codes [N, m], on the card -> dP [T, m, b] f32 with
     ``dP[t, j, c] = sum_{i : codes[i, j] = c} dS[t, i]``, the same bits
-    on every call.  Two kernels: per-chunk histograms, then their sum in
-    chunk order."""
+    on every call.  Kernels: the code sort, the sums over item chunks
+    (``bwd_chunks``: ``chunks``, or by default as many as fill the
+    card's last wave best), and with more than one chunk the sum of
+    their partials in chunk order.  With ``chunks=1`` each output is one
+    chain over its items in ascending order from +0.0, bit-equal to
+    ``ref``'s ``index_add_`` on the CPU."""
     N, m, cb = _check_codes(codes, dS, b, "jpq_scores_bwd")
     T = dS.shape[0]
     dev = dS.device
     _build.check(dS, "dS", (torch.float32,), (T, N), dev)
-    if chunk < 32 or chunk % 32:
-        raise ValueError(f"chunk must be a positive multiple of 32, got "
-                         f"{chunk}")
+    if chunks is not None and chunks < 1:
+        raise ValueError(f"chunks must be >= 1, got {chunks}")
+    if m * BWD_TILE > 65535:
+        raise ValueError(f"jpq_scores_bwd takes m <= {65535 // BWD_TILE}, "
+                         f"got m={m}")
     _smem_check("jpq_scores_bwd_smem_bytes", m, b)
     launch = _build.fn(_LIB, "jpq_scores_bwd_launch",
-                       [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
-    n_chunks = -(-N // chunk)
+                       [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
+    n_chunks = bwd_chunks(T, m, b, N, dev, chunks)
+    tpc = bwd_chunking(N, n_chunks)[0]
     with torch.cuda.device(dev):
-        partial = torch.empty((T, n_chunks, m, b), dtype=torch.float32,
-                              device=dev)
+        buf, _ = _sort_buffer(-(-N // BWD_TILE), m, b, dev)
+        partial = (torch.empty((T, n_chunks, m, b), dtype=torch.float32,
+                               device=dev) if n_chunks > 1 else None)
         dP = torch.empty((T, m, b), dtype=torch.float32, device=dev)
-        rc = launch(dS.data_ptr(), codes.data_ptr(), cb, T, m, b, N, chunk,
-                    partial.data_ptr(), dP.data_ptr(), _build.stream(dev))
+        rc = launch(dS.data_ptr(), codes.data_ptr(), cb, T, m, b, N, tpc,
+                    n_chunks, buf.data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    dP.data_ptr(), _build.stream(dev))
     _build.raise_on(rc, _LIB)
-    launches["jpq_scores_bwd"] += 2
+    launches["jpq_scores_bwd"] += 2 if n_chunks == 1 else 3
     return dP

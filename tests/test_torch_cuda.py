@@ -236,23 +236,69 @@ def test_jpq_scores_forward_matches_plain(dev, case):
     assert _bits_equal(got, sref.jpq_scores_lut_ref(P, codes))
 
 
-@pytest.mark.parametrize("chunk", [sc.BWD_CHUNK, 4096])
-@pytest.mark.parametrize("case", SCORES, ids=[str(c[:4]) for c in SCORES])
-def test_jpq_scores_backward_matches_plain(dev, case, chunk):
-    T, m, b, N, _, cd = case
-    _, codes = _case(dev, 6, T, m, b, N, code_dtype=cd)
-    g = torch.Generator(device=dev).manual_seed(7)
+SCORES_BWD = [
+    # name, T, m, b, N, codes, share of split 0 at code 3
+    ("base", 13, 8, 256, 70_001, torch.uint8, 0.0),    # ragged rows, items
+    ("skewed", 40, 8, 256, 70_001, torch.uint8, 0.85),  # one code holds 85%
+    ("int32 b=300", 9, 3, 300, 40_000, torch.int32, 0.0),
+    ("T=1", 1, 8, 256, 5_000, torch.uint8, 0.0),
+    ("small", 3, 4, 16, 200, torch.uint8, 0.0),         # one partial tile
+    ("T=64", 64, 8, 256, 1_024, torch.uint8, 0.0),      # whole tiles, groups
+]
+
+
+def _gamma_bound(codes, b, chunks, mass):
+    """gamma(chain - 1) * sum|terms|, chain from the kernel's chunking."""
+    n = sc.bwd_chain(codes, b, chunks).double() - 1
+    return (n * U / (1 - n * U)) * mass
+
+
+@pytest.mark.parametrize("chunks", [1, 3, None])
+@pytest.mark.parametrize("case", SCORES_BWD, ids=[c[0] for c in SCORES_BWD])
+def test_jpq_scores_backward_matches_plain(dev, case, chunks):
+    """Bit-identical across calls; with one chunk bit-equal to the plain
+    version on the CPU (both sum each bin in ascending item order from
+    +0.0); always within gamma(chain - 1) sum|terms| of float64, chain
+    the longest add chain into each output (``cuda.bwd_chain``).  None:
+    the chunks the wrapper picks for the card."""
+    _, T, m, b, N, cd, skew = case
+    g = torch.Generator(device=dev).manual_seed(6)
+    codes = torch.randint(0, b, (N, m), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes[torch.rand(N, generator=g, device=dev) < skew, 0] = 3
+    codes = codes.to(cd)
     dS = torch.randn((T, N), generator=g, device=dev)
     before = sc.launches["jpq_scores_bwd"]
-    got = sc.jpq_scores_bwd(dS, codes, b, chunk=chunk)
-    again = sc.jpq_scores_bwd(dS, codes, b, chunk=chunk)
+    got = sc.jpq_scores_bwd(dS, codes, b, chunks=chunks)
+    again = sc.jpq_scores_bwd(dS, codes, b, chunks=chunks)
     torch.cuda.synchronize()
-    assert sc.launches["jpq_scores_bwd"] == before + 4
+    n_chunks = sc.bwd_chunks(T, m, b, N, dS.device, chunks)
+    assert sc.launches["jpq_scores_bwd"] == \
+        before + 2 * (2 if n_chunks == 1 else 3)
     assert _bits_equal(got, again)
+    if n_chunks == 1:
+        on_cpu = sref.jpq_scores_lut_bwd_ref(dS.cpu(), codes.cpu(), b)
+        assert _bits_equal(got.cpu(), on_cpu)
     want = sref.jpq_scores_lut_bwd_ref(dS.double(), codes, b)
     mass = sref.jpq_scores_lut_bwd_ref(dS.double().abs(), codes, b)
-    chain = chunk // 32 + 32 + -(-N // chunk)
-    assert bool(((got.double() - want).abs() <= chain * U * mass).all())
+    lim = _gamma_bound(codes, b, n_chunks, mass)
+    assert bool(((got.double() - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("case", SCORES_BWD, ids=[c[0] for c in SCORES_BWD])
+def test_jpq_scores_backward_sort_matches_plain(dev, case):
+    """The backward's first kernel, the code sort, gives the plain sort's
+    lists and bin starts exactly."""
+    _, T, m, b, N, cd, skew = case
+    g = torch.Generator(device=dev).manual_seed(13)
+    codes = torch.randint(0, b, (N, m), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes[torch.rand(N, generator=g, device=dev) < skew, 0] = 3
+    codes = codes.to(cd)
+    lists, starts = sc.sort_codes(codes, b)
+    want_lists, want_starts = sc.sort_codes_plain(codes, b)
+    assert torch.equal(lists, want_lists)
+    assert torch.equal(starts, want_starts)
 
 
 LOOKUP = [
@@ -349,7 +395,7 @@ def test_autograd_functions_launch_their_kernels(dev):
     jpq_mod.logits({"codes": codes, "centroids": c}, x,
                    use_kernel=True).sum().backward()
     assert lc.launches == {"jpq_lookup": 1, "jpq_lookup_bwd": 1}
-    assert sc.launches == {"jpq_scores": 1, "jpq_scores_bwd": 2}
+    assert sc.launches == {"jpq_scores": 1, "jpq_scores_bwd": 2}  # sort, sum
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
                                atol=1e-5)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
@@ -394,6 +440,12 @@ BAGS = [
     (5000, 64, 64, 50, "random", torch.int64),   # float4 loads
     (20_000, 256, 130, 50, "masked", torch.int32),  # the two-tower width
     (100, 3, 9, 1, "random", torch.int64),       # L = 1, odd d
+    (3_000, 1, 1, 38, None, torch.int64),        # FM's candidates: one bag
+    (3_000, 1, 700, 1, "random", torch.int32),   # d = 1, L = 1
+    (3_000, 3, 17, 100, "random", torch.int32),  # d = 3, L = 100
+    (1_000, 33, 20, 38, "random", torch.int64),  # d = 33: a scalar slab
+    (20_000, 256, 1, 50, "masked", torch.int64),  # d = 256, one bag
+    (5_000, 256, 40, 100, "random", torch.int32),  # d = 256, L = 100
 ]
 
 
@@ -405,7 +457,8 @@ def _bag_case(dev, V, d, n, L, weights, id_dtype, seed=0):
     table[0] = -table[0].abs() - 0.25
     ids = torch.randint(0, V, (n, L), generator=g, device=dev)
     ids[:, : L // 2] = 0
-    ids[1] = 0
+    if n > 1:
+        ids[1] = 0
     w = {None: None, "masked": (ids > 0).float(),
          "random": torch.randn((n, L), generator=g, device=dev)}[weights]
     return table, ids.to(id_dtype), w
@@ -423,6 +476,21 @@ def test_embedding_bag_kernel_matches_plain(dev, case):
     cpu = eref.embedding_bag_ref(table.cpu(), ids.cpu(),
                                  None if w is None else w.cpu())
     assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [256, 3])
+def test_embedding_bag_misaligned_table(dev, d):
+    """A table view 4 bytes past a 16-byte boundary (contiguous, as a
+    slice of a flat buffer gives it) takes the scalar loads: bit-equal
+    to the plain version."""
+    table, ids, w = _bag_case(dev, 3_000, d, 40, 50, "random", torch.int64)
+    buf = torch.empty(table.numel() + 1, device=dev)
+    buf[1:] = table.reshape(-1)
+    view = buf[1:].view(table.shape)
+    assert view.data_ptr() % 16 == 4
+    got = ec.embedding_bag(view, ids, w)
+    want = eref.embedding_bag_ref(table, ids, w)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_embedding_bag_keeps_signed_zero(dev):

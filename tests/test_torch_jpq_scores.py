@@ -178,3 +178,141 @@ def test_cuda_wrappers_take_cuda_tensors_only():
         T_cuda.jpq_scores(torch.tensor(P), torch.tensor(codes))
     with pytest.raises(ValueError, match="CUDA tensors"):
         T_cuda.jpq_scores_bwd(torch.zeros(2, 9), torch.tensor(codes), 4)
+
+
+# ------------------------------------------- the backward's sorted lists
+#
+# The CUDA backward sorts each tile's codes once a call, then walks each
+# bin's list of items.  Its plain pieces (the sort, the chunking, the
+# chain length behind its error bound) are held here against numpy, and
+# a numpy walk over the plain sort, as the kernel walks it, against the
+# plain backward.
+
+SORTS = [
+    # name, N, m, b, codes dtype, share of split 0 at code 3
+    ("ragged", 1_300, 4, 16, np.uint8, 0.0),     # N % 512 != 0
+    ("one tile", 200, 3, 300, np.int32, 0.0),    # b > 256
+    ("skewed", 1_536, 8, 256, np.uint8, 0.85),   # one code holds 85%
+    ("whole tiles", 1_024, 2, 4, np.uint8, 0.0),
+]
+
+
+def _sort_case(N, m, b, cd, skew, seed=11):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, b, (N, m))
+    codes[rng.random(N) < skew, 0] = 3
+    return codes.astype(cd)
+
+
+@pytest.mark.parametrize("case", SORTS, ids=[c[0] for c in SORTS])
+def test_sort_codes_plain_matches_stable_argsort(case):
+    _, N, m, b, cd, skew = case
+    codes = _sort_case(N, m, b, cd, skew)
+    lists, starts = T_cuda.sort_codes_plain(torch.tensor(codes), b)
+    C = T_cuda.BWD_TILE
+    n_tiles = -(-N // C)
+    assert lists.shape == (n_tiles, m, C)
+    assert starts.shape == (n_tiles, m * b + 1)
+    for t in range(n_tiles):
+        tile = codes[t * C:(t + 1) * C]
+        nv = tile.shape[0]
+        for j in range(m):
+            order = np.argsort(tile[:, j], kind="stable")
+            np.testing.assert_array_equal(lists[t, j, :nv].numpy(), order)
+            assert bool((lists[t, j, nv:] == C).all())
+            first = np.searchsorted(np.sort(tile[:, j]), np.arange(b))
+            np.testing.assert_array_equal(
+                starts[t, j * b:(j + 1) * b].numpy(), j * C + first)
+        assert int(starts[t, -1]) == m * C
+
+
+def _walk(dS, codes, b, chunks):
+    """The CUDA backward's arithmetic in numpy: each bin's list walked
+    tile by tile in float32 from +0.0 within a chunk, then the chunk
+    partials summed in order."""
+    lists, starts = T_cuda.sort_codes_plain(torch.tensor(codes), b)
+    lists, starts = lists.numpy(), starts.numpy()
+    T, N = dS.shape
+    m = codes.shape[1]
+    C = T_cuda.BWD_TILE
+    tpc, n_chunks = T_cuda.bwd_chunking(N, chunks)
+    staged = np.zeros((T, C + 1), np.float32)      # column C is +0.0
+    part = np.zeros((n_chunks, T, m * b), np.float32)
+    for t in range(lists.shape[0]):
+        staged[:, :C] = 0.0
+        seg = dS[:, t * C:(t + 1) * C]
+        staged[:, :seg.shape[1]] = seg
+        flat = lists[t].reshape(-1)
+        acc = part[t // tpc]
+        for k in range(m * b):
+            for p in range(starts[t, k], starts[t, k + 1]):
+                acc[:, k] = acc[:, k] + staged[:, flat[p]]
+    out = part[0]
+    for q in range(1, n_chunks):
+        out = out + part[q]
+    return out.reshape(T, m, b)
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("case", SORTS[:3], ids=[c[0] for c in SORTS[:3]])
+def test_sorted_walk_gives_the_backward(case, chunks):
+    """One chunk: bit-equal to the plain backward (index_add_ sums each
+    bin in ascending item order from +0.0).  Three: within
+    gamma(chain - 1) sum|terms| of float64, chain from bwd_chain."""
+    _, N, m, b, cd, skew = case
+    codes = _sort_case(N, m, b, cd, skew)
+    rng = np.random.default_rng(12)
+    dS = (rng.standard_normal((3, N))
+          * np.exp(2 * rng.standard_normal((3, N)))).astype(np.float32)
+    got = _walk(dS, codes, b, chunks)
+    ct = torch.tensor(codes)
+    if chunks == 1:
+        want = T_ref.jpq_scores_lut_bwd_ref(torch.tensor(dS), ct, b)
+        np.testing.assert_array_equal(_bits(got), _bits(want.numpy()))
+    exact = T_ref.jpq_scores_lut_bwd_ref(torch.tensor(dS).double(), ct, b)
+    mass = T_ref.jpq_scores_lut_bwd_ref(torch.tensor(dS).double().abs(),
+                                        ct, b)
+    n = T_cuda.bwd_chain(ct, b, chunks).double() - 1
+    u = 2.0 ** -24
+    lim = (n * u / (1 - n * u)) * mass
+    assert bool(((torch.tensor(got).double() - exact).abs() <= lim).all())
+
+
+def test_bwd_chain_counts_the_longest_chain():
+    codes = _sort_case(1_300, 4, 16, np.uint8, 0.6)
+    for chunks in (1, 2, 3, 50):
+        tpc, n_chunks = T_cuda.bwd_chunking(1_300, chunks)
+        span = tpc * T_cuda.BWD_TILE
+        want = np.zeros((4, 16), np.int64)
+        for q in range(n_chunks):
+            part = codes[q * span:(q + 1) * span]
+            for j in range(4):
+                want[j] = np.maximum(want[j],
+                                     np.bincount(part[:, j], minlength=16))
+        got = T_cuda.bwd_chain(torch.tensor(codes), 16, chunks)
+        np.testing.assert_array_equal(got.numpy(), want + n_chunks - 1)
+
+
+@pytest.mark.parametrize("N, chunks, want", [
+    (1_000_002, 1, (1954, 1)), (1_000_002, 3, (652, 3)),
+    (1_000_002, 10_000, (1, 1954)), (1_300, 2, (2, 2)), (1_300, 0, (3, 1)),
+    (512, 4, (1, 1)), (1, 1, (1, 1))])
+def test_bwd_chunking(N, chunks, want):
+    assert T_cuda.bwd_chunking(N, chunks) == want
+
+
+@pytest.mark.parametrize("T, mb, N, sms, want", [
+    (3_200, 2_048, 1_000_002, 132, 7),   # 1,400 blocks: 96% of 11 waves
+    (512, 2_048, 1_000_002, 132, 4),     # 128 blocks: one wave
+    (1, 2_048, 5_000, 132, 5),           # 10 tiles: at most 10 chunks
+    (64, 64, 1_024, 132, 2)])            # 2 tiles
+def test_bwd_auto_chunks_fills_the_last_wave(T, mb, N, sms, want):
+    got = T_cuda.bwd_auto_chunks(T, 8, mb // 8, N, sms)
+    assert got == want
+    per = -(-mb // T_cuda.BWD_BINS) * -(-T // 32)
+
+    def fill(c):
+        blocks = per * T_cuda.bwd_chunking(N, c)[1]
+        return blocks / (-(-blocks // sms) * sms)
+
+    assert all(fill(got) >= fill(c) for c in range(1, 9))
