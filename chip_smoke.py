@@ -21,7 +21,11 @@ Phases, each of which raises on failure (exit code != 0, no result):
      each run and must show its kernel ran; one request is held against
      the materialise-then-top-k path (bit-equal);
   5. timing with CUDA events at the main path's shapes: kernel, plain
-     version and the least time the card could take (bound);
+     version and the least time the card could take (bound); then the
+     pruned kernel again on a skip-heavy full-width catalogue (codes that
+     follow each item's rank, swept in popularity order; bit-equal to
+     its plain version, skip map included), with the items it swept and
+     the bound over the swept tiles, the tile bounds' own work included;
   6. parity of the training kernels on the card: jpq_scores forward at
      T=512 over the full catalogue (N=1,000,002), bit-equal to its plain
      version on normal and quantised LUTs; its backward against the
@@ -50,8 +54,10 @@ Phases, each of which raises on failure (exit code != 0, no result):
      library call timed, and for jpq_lookup and its backward also the
      card's own time of the kernel and of the library call under
      ``torch.profiler`` (``device_ms``, ``library_device_ms``); the
-     jpq_scores backward also timed over one item chunk, and its three
-     kernels' device times under the profiler;
+     jpq_scores forward's launch shape (queries a block, item ranges,
+     blocks) at the training T and at score_last's T=256, and its time
+     at both; the jpq_scores backward also timed over one item chunk,
+     and its three kernels' device times under the profiler;
   9. embedding_bag parity on the card, bit-equal (tolerance 0) to its
      plain version: the two-tower user tower's shape (V=1,000,448,
      d=256, B=512, L=50, mask weights), FM's linear term (V=3,090,000,
@@ -159,6 +165,14 @@ def device_profile(torch, fn, reqs):
     n = len(reqs) * 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
     return sum(per.values()) / n, [(k[:80], v / n) for k, v in top]
+
+
+def odd_address(torch, x):
+    """A contiguous copy of the uint8 tensor ``x`` at an odd address."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def bound(bytes_, ops):
@@ -457,9 +471,35 @@ def train_phases(torch, np, dev, smi):
             lambda: torch.zeros_like(cent2).index_add_(
                 0, flat, dout.reshape(T * M, dk))),
     }
+    # the forward's time at the training T and at score_last's T, each
+    # beside the launch shape the wrapper recorded (cuda.fwd_launch_shape:
+    # queries a block, item ranges, blocks)
+    fwd_shape = {"train": {"ms": cuda_ms(lambda: sc.jpq_scores(P, codes), 5),
+                           **sc.fwd_launch_shape}}
+    P_eval = P[:EVAL_USERS].contiguous()
+    fwd_shape["eval"] = {"ms": cuda_ms(lambda: sc.jpq_scores(P_eval, codes),
+                                       10), **sc.fwd_launch_shape}
+    del P_eval
+    for what, f in fwd_shape.items():
+        print(f"   jpq_scores forward at T={f['T']} ({what}): {f['ms']:.4f} "
+              f"ms; G={f['G']} queries a block, {f['item_ranges']} item "
+              f"ranges of {f['items_per_block']} items, {f['blocks']} blocks "
+              f"on {f['sms']} SMs")
+    # its general code path (codes read a byte at a time), which uint8
+    # codes at m = 8 take when their rows are not 8-byte aligned
+    codes_odd = odd_address(torch, codes)
+    check(bits_equal(sc.jpq_scores(P[:512], codes_odd),
+                     sc.jpq_scores(P[:512], codes)),
+          "jpq_scores' general path != its 8-byte path (T=512)")
+    fwd_general_ms = cuda_ms(lambda: sc.jpq_scores(P, codes_odd), 5)
+    print(f"   jpq_scores forward, general code path (codes at an odd "
+          f"address): {fwd_general_ms:.4f} ms at T={T}, bit-equal to the "
+          f"8-byte path at T=512 ({fwd_shape['train']['ms']:.4f} ms at "
+          f"T={T})")
+    del codes_odd
     times = {
         "jpq_scores": (
-            cuda_ms(lambda: sc.jpq_scores(P, codes), 5),
+            fwd_shape["train"]["ms"],
             cuda_ms(lambda: sref.jpq_scores_lut_ref(P, codes), 2),
             cuda_ms(lambda: torch.sparse.mm(onehot, P2t), 2)),
         "jpq_scores_bwd": (
@@ -530,6 +570,9 @@ def train_phases(torch, np, dev, smi):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms})
         dev_note = ""
+        if name == "jpq_scores":
+            out[-1]["launch_shape"] = fwd_shape
+            out[-1]["general_path_ms"] = fwd_general_ms
         if name in dev_times:
             out[-1].update(dev_times[name])
             dev_note = " (device {device_ms:.4f} ms, library device " \
@@ -1024,15 +1067,46 @@ def main() -> int:
         args = serve_mod.build_parser().parse_args(
             ["--batch-size", str(B), "--requests", str(REQUESTS),
              "--device", "cuda", *flags])
+        per_req = []
+
+        def counted(reqs, kern=kern, per_req=per_req):
+            """The requests serve_loop would draw, with the launches of
+            ``kern`` each one made (read when the loop asks for the next,
+            after the request and its accounting)."""
+            last = None
+            for r in reqs:
+                if last is not None:
+                    per_req.append(kc.launches[kern] - last)
+                last = kc.launches[kern]
+                yield r
+            per_req.append(kc.launches[kern] - last)
+
         kc.reset_launches()
-        res = serve_mod.serve_loop(model, params, template, args)
+        res = serve_mod.serve_loop(model, params, template, args, requests=(
+            counted(serve_mod.make_requests(template, B, REQUESTS + 1,
+                                            args.seed, reserved=(0,)))))
         counts = dict(kc.launches)
         check(counts[kern] > 0, f"main path '{name}' never launched {kern}")
+        check(sum(per_req) == counts[kern] and len(per_req) == REQUESTS + 1,
+              f"per-request launches of {kern} do not add up")
         res["launches"] = counts
+        # the timed requests' launches of the path's kernel, and the p50
+        # of the requests at each count
+        res["launches_per_request"] = per_req[1:]
+        lat = np.asarray(res["lat_ms"])
+        res["p50_ms_by_launches"] = {
+            int(n): float(np.percentile(lat[np.asarray(per_req[1:]) == n],
+                                        50))
+            for n in sorted(set(per_req[1:]))}
         runs[name] = res
         print(f"   {name}: p50={res['p50_ms']:.3f}ms p99={res['p99_ms']:.3f}"
               f"ms skip={res['skip']} launches={counts} "
               f"({REQUESTS + 1} requests incl. warm-up) on {smi}")
+        print(f"   {name}: {kern} launches a timed request "
+              f"{res['launches_per_request']}; p50 by launches "
+              + ", ".join(f"{n}: {v:.3f} ms ({per_req[1:].count(n)} "
+                          f"requests)"
+                          for n, v in res["p50_ms_by_launches"].items()))
 
     # the output, held against the materialise path on one fresh request
     req = next(serve_mod.make_requests(template, B, 1, seed=123,
@@ -1090,31 +1164,105 @@ def main() -> int:
     lut_bytes, out_bytes = B * M * BC * 4, B * k * 8
     bytes_u = n_rows * M + lut_bytes + out_bytes
     adds_u = lookups_u = B * n_rows * M
-    skip = kc.jpq_topk_pruned(P, st.codes, st.ids, st.present, *cold, k=k,
-                              block_n=st.block_n,
-                              tie_break_ids=st.tie_break_ids)[2]
-    tile_items = torch.full((nt,), st.block_n, device=dev)
-    tile_items[-1] = n_rows - (nt - 1) * st.block_n
-    group = -(-B // skip.shape[0])        # queries per block
-    rows_per_group = torch.full((skip.shape[0],), group, device=dev)
-    rows_per_group[-1] = B - group * (skip.shape[0] - 1)
-    swept = (1 - skip).to(torch.int64)
-    scored = int((swept * tile_items[None, :] * rows_per_group[:, None]
-                  ).sum()) * M                  # (query, item, split)s
-    lookups_p = scored + B * nt * M * BC       # + the bound's LUT reads
-    adds_p = scored + B * nt * M * (BC + 1)    # + the bound's max/add
-    swept_items = int(((1 - skip.min(0).values) * tile_items).sum())
-    bytes_p = (swept_items * (M + 4) + nt * M * BC * 4 + lut_bytes
-               + B * 4 + 2 * out_bytes)
+    group = kc.pruned_group_size()        # queries per block (the library's)
+
+    def pruned_work(st, skip):
+        """(bytes, fp32 adds, LUT lookups, swept items) of a pruned sweep
+        whose skip map [groups, tiles] is ``skip``."""
+        nt = st.present.shape[0]
+        tile_items = torch.full((nt,), st.block_n, device=dev)
+        tile_items[-1] = n_rows - (nt - 1) * st.block_n
+        rows_per_group = torch.full((skip.shape[0],), group, device=dev)
+        rows_per_group[-1] = B - group * (skip.shape[0] - 1)
+        swept = (1 - skip).to(torch.int64)
+        scored = int((swept * tile_items[None, :] * rows_per_group[:, None]
+                      ).sum()) * M                  # (query, item, split)s
+        lookups = scored + B * nt * M * BC        # + the bound's LUT reads
+        adds = scored + B * nt * M * (BC + 1)     # + the bound's max/add
+        items = int(((1 - skip.min(0).values) * tile_items).sum())
+        bytes_ = (items * (M + 4) + nt * M * BC * 4 + lut_bytes + B * 4
+                  + 2 * out_bytes)
+        return bytes_, adds, lookups, items
+
+    pruned_out = kc.jpq_topk_pruned(P, st.codes, st.ids, st.present, *cold,
+                                    k=k, block_n=st.block_n,
+                                    tie_break_ids=st.tie_break_ids)
+    skip = pruned_out[2]
+    bytes_p, adds_p, lookups_p, swept_items = pruned_work(st, skip)
+    # the general code path (codes read a byte at a time), which uint8
+    # codes at m = 8 take when their rows are not 8-byte aligned, against
+    # the main path's one 8-byte load a row
+    codes_odd = odd_address(torch, st.codes)
+    gen_out = kc.jpq_topk_pruned(P, codes_odd, st.ids, st.present, *cold,
+                                 k=k, block_n=st.block_n,
+                                 tie_break_ids=st.tie_break_ids)
+    check(key_equal(gen_out[:2], pruned_out[:2]) and
+          torch.equal(gen_out[2], skip),
+          "jpq_topk_pruned's general path != its 8-byte path")
+    general_ms = {"jpq_topk_pruned": cuda_ms(lambda: kc.jpq_topk_pruned(
+        P, codes_odd, st.ids, st.present, *cold, k=k, block_n=st.block_n,
+        tie_break_ids=st.tie_break_ids), 20)}
+    print(f"   jpq_topk_pruned, general code path (codes at an odd "
+          f"address): {general_ms['jpq_topk_pruned']:.4f} ms, bit-equal "
+          f"to the 8-byte path ({times['jpq_topk_pruned'][0]:.4f} ms)")
+    del codes_odd, gen_out, pruned_out
+
+    def bound_of(bytes_, adds, lookups):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_adds = adds / FADD_PER_S * 1e3
+        t_lookups = lookups / LOOKUP_PER_S * 1e3
+        t_ops = max(t_adds, t_lookups)
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations",
+                (t_bytes, t_adds, t_lookups))
+
+    # the pruned kernel a second time, on a skip-heavy catalogue at full
+    # width: codes that follow each item's rank (the card tests'
+    # _structured catalogue), swept in popularity order, and a LUT that
+    # falls with the code, so the running k-th value soon passes the
+    # bounds of later tiles
+    rank = torch.randperm(n_rows, generator=gen, device=dev)
+    sh_codes = (rank[:, None] * BC // n_rows
+                + torch.randint(0, 2, (n_rows, M), generator=gen,
+                                device=dev)).clamp_(0, BC - 1).to(torch.uint8)
+    sh_P = ops.canonicalise_lut(
+        -(torch.arange(BC, device=dev) / BC)[None, None, :] * 4.0
+        + 0.1 * torch.randn((B, M, BC), generator=gen, device=dev))
+    sh_st = ops.prepare_pruning(sh_codes, BC, st.block_n,
+                                perm=torch.argsort(rank))
+    sh_args = (sh_P, sh_st.codes, sh_st.ids, sh_st.present, *cold)
+    sh_kw = dict(k=k, block_n=sh_st.block_n,
+                 tie_break_ids=sh_st.tie_break_ids)
+    sh_kern = kc.jpq_topk_pruned(*sh_args, **sh_kw)
+    sh_plain = ops.jpq_topk_scan_pruned(*sh_args, **sh_kw)
+    check(key_equal(sh_kern[:2], sh_plain[:2]) and
+          torch.equal(sh_kern[2].min(0).values, sh_plain[2]),
+          "jpq_topk_pruned != plain on the skip-heavy catalogue")
+    sh_bytes, sh_adds, sh_lookups, sh_items = pruned_work(sh_st, sh_kern[2])
+    sh_bound, sh_by, sh_parts = bound_of(sh_bytes, sh_adds, sh_lookups)
+    skip_heavy = {
+        "ms": cuda_ms(lambda: kc.jpq_topk_pruned(*sh_args, **sh_kw), 20),
+        "plain_ms": cuda_ms(
+            lambda: ops.jpq_topk_scan_pruned(*sh_args, **sh_kw), 2),
+        "bound_ms": sh_bound, "bound_by": sh_by, "swept_items": sh_items,
+        "skipped_group_tiles": int(sh_kern[2].sum()),
+        "group_tiles": sh_kern[2].numel()}
+    print(f"   jpq_topk_pruned, skip-heavy catalogue: "
+          f"{skip_heavy['ms']:.4f} ms kernel, {skip_heavy['plain_ms']:.4f} "
+          f"ms plain, bound over the swept tiles {sh_bound:.4f} ms ({sh_by}; "
+          f"bytes {sh_parts[0]:.4f}, fp32 adds and the tile bounds' maxes "
+          f"{sh_parts[1]:.4f}, LUT lookups {sh_parts[2]:.4f} ms); swept "
+          f"{sh_items} of {n_rows} items (skip map: "
+          f"{skip_heavy['skipped_group_tiles']} of "
+          f"{skip_heavy['group_tiles']} group-tiles); bit-equal to plain")
+    del sh_codes, sh_P, sh_st, sh_args, sh_kern, sh_plain, rank
     kernels = []
     for name, bytes_, adds, lookups, src, line in (
             ("jpq_topk", bytes_u, adds_u, lookups_u, "jpq_topk.cu", 329),
             ("jpq_topk_pruned", bytes_p, adds_p, lookups_p,
              "jpq_topk_pruned.cu", 281)):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_adds = adds / FADD_PER_S * 1e3
-        t_lookups = lookups / LOOKUP_PER_S * 1e3
-        t_ops = max(t_adds, t_lookups)
+        b_ms, b_by, (t_bytes, t_adds, t_lookups) = bound_of(bytes_, adds,
+                                                            lookups)
         ms, plain_ms = times[name]
         run = runs["fused" if name == "jpq_topk" else "pruned"]
         kernels.append({
@@ -1123,12 +1271,12 @@ def main() -> int:
             "replaces": f"src/repro/kernels/jpq_topk/jpq_topk.py:{line}",
             "launches": run["launches"][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        if name == "jpq_topk_pruned":
+            kernels[-1]["skip_heavy"] = skip_heavy
+            kernels[-1]["general_path_ms"] = general_ms[name]
         print(f"   {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"bound {max(t_bytes, t_ops):.4f} ms "
-              f"({kernels[-1]['bound_by']}; bytes {t_bytes:.4f} ms, fp32 "
+              f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, fp32 "
               f"adds {t_adds:.4f} ms, LUT lookups {t_lookups:.4f} ms), "
               f"B={B} k={k} on {smi}")
     print(f"   pruned sweep swept {swept_items} of {n_rows} items "
@@ -1146,7 +1294,9 @@ def main() -> int:
 
     print(json.dumps({"serve": {
         n: {key: r[key] for key in ("path", "p50_ms", "p99_ms", "skip",
-                                    "demoted_rows", "launches")}
+                                    "demoted_rows", "launches",
+                                    "launches_per_request",
+                                    "p50_ms_by_launches")}
         for n, r in runs.items()}, "card": smi}))
     print(json.dumps({"serve_ctr": serve_ctr, "card": smi}))
     print(json.dumps({"kernels": kernels}))

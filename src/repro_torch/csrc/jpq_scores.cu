@@ -15,12 +15,37 @@
 // backward reads dS, the same 12.8 GB.
 //
 // Forward design.  No one-hot matmul (a TPU MXU device; on tensor cores
-// in TF32 it would round P): a block holds the LUT rows of G queries in
-// shared memory and each thread gather-sums one item for all G, in split
+// in TF32 it would round P): a block holds the LUT of G queries in
+// shared memory and gather-sums, for each item, all G scores in split
 // order j = 0..m-1, which is bit-equal to the reference gather-sum.
-// Neighbouring threads score neighbouring items, so each warp writes 128
-// contiguous bytes of each row.  The last chunk is masked against the
-// real N; the caller's arrays are not padded.
+// Gathers by item (a lane an item, a random code each) hit random banks:
+// 32 random codes over 256 collide about 3.15-way.  So the lanes are
+// queries and the item is shared:
+//   - the LUT is laid out [m][b][G], so one (j, c) row of the G queries
+//     is G / 4 float4s; a warp is 4 item groups of 8 lanes, and lane ch
+//     of a group loads the float4 of queries 4ch..4ch+3 at the group's
+//     code: a quarter warp reads one row of consecutive 16-byte words, no
+//     bank conflict, and one load serves 4 queries;
+//   - each lane sums FIT = 8 consecutive items (for uint8 codes at m = 8,
+//     each item's codes are one 8-byte broadcast load);
+//   - the scores go out through shared memory: each lane stages its 8
+//     items of 4 rows, and the warp writes them back row-wise, since a
+//     32-byte sector written in pieces costs as much as a whole one.  N
+//     is arbitrary, so a row's 32 items start anywhere in a sector: each
+//     warp owns a contiguous item range and writes row t shifted by d_t,
+//     its offset from a 32-byte boundary, carrying the last 8 items of
+//     each step to the next, so that 8 lanes store a row's 128 bytes as
+//     aligned 16-byte pieces, on whole sectors;
+//   - the stores are streaming (st.global.cs): S is 12.8 GB, far above
+//     the 50 MB L2, and is read next by the loss;
+//   - the LUT and the 8 warps' staging fill the shared memory, so G = 24
+//     at m b = 2,048 (as many as fit, a multiple of 4, at most 28:
+//     jpq_scores_fwd_group); a block (256 threads, one an SM) owns one
+//     query group and one item range and loads its LUT once for it; the
+//     host's planner (cuda.fwd_plan) picks the ranges, whole warp steps
+//     of FSTEP items, so that the blocks fill their last wave on the
+//     card's SMs (134 groups x 16 ranges at T = 3,200).
+// Ragged T and N are masked; the caller's arrays are not padded.
 //
 // Backward design.  Deterministic: no float atomics, so two calls on the
 // same inputs give bit-identical dP.  The grouping of items by code
@@ -82,13 +107,37 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace jpq_scores {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int NT = 256;          // forward, reduce: threads per block
-constexpr int G = 8;             // forward: queries per block
-constexpr int ITEMS = 16;        // forward: items per thread
-constexpr int FWD_CHUNK = NT * ITEMS;
+constexpr int NT = 256;          // reduce: threads per block
+constexpr size_t SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
+
+// forward
+constexpr int FNT = 256;         // threads per block
+constexpr int FWARPS = FNT / 32;
+constexpr int FGMAX = 28;        // most queries per block: 7 float4s a row
+constexpr int FIT = 8;           // consecutive items per lane
+constexpr int FSTEP = 4 * FIT;   // items per warp step: 4 groups of 8 lanes
+constexpr int FC = 8;            // carried items of a row: a 32-byte sector
+constexpr int FSRS = FC + FSTEP + 4;  // staged row stride: 11 16-byte units
+
+// Shared memory of a forward block: the LUT [m b][G], then each warp's
+// staged rows [G][FSRS].
+__host__ __device__ inline size_t fwd_smem(int G, int m, int b) {
+  return static_cast<size_t>(G) * (static_cast<size_t>(m) * b + FWARPS * FSRS) *
+         sizeof(float);
+}
+
+// Queries a forward block: the most, a multiple of 4 and at most FGMAX,
+// whose LUT and staging fit a block's shared memory; 0 if 4 do not fit.
+inline int fwd_group(int m, int b) {
+  for (int G = FGMAX; G >= 4; G -= 4)
+    if (fwd_smem(G, m, b) <= SMEM_MAX) return G;
+  return 0;
+}
 
 // backward
 constexpr int TILE = 512;        // items a tile (sort and sum)
@@ -119,36 +168,167 @@ inline int pos_max(int m, int b) {
 
 // ------------------------------------------------------------- forward
 
-template <typename CodeT>
-__global__ void __launch_bounds__(NT)
+using smem::lds4;
+
+__device__ __forceinline__ void add4(float4& a, const float4 v) {
+  a.x = a.x + v.x;
+  a.y = a.y + v.y;
+  a.z = a.z + v.z;
+  a.w = a.w + v.w;
+}
+
+__device__ __forceinline__ float part(const float4& a, int r) {
+  return r == 0 ? a.x : r == 1 ? a.y : r == 2 ? a.z : a.w;
+}
+
+__device__ __forceinline__ void sts4(unsigned a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// grid (item range, query group).  MC = 8: uint8 codes, 8 a row, 8-byte
+// aligned (one load an item); MC = 0: any m and code type.
+template <typename CodeT, int MC>
+__global__ void __launch_bounds__(FNT, 1)
     fwd_kernel(const float* __restrict__ P, const CodeT* __restrict__ codes,
-               int T, int m, int b, int N, float* __restrict__ S) {
-  extern __shared__ float lut[];  // [G, m, b]
+               int T, int m, int b, int N, int G, int range,
+               float* __restrict__ S) {
+  extern __shared__ float4 lut4[];  // [m b][G / 4], then the staging
+  float* lut = reinterpret_cast<float*>(lut4);
   const int t0 = blockIdx.y * G;
   const int nq = min(G, T - t0);
   const int mb = m * b;
-  for (int x = threadIdx.x; x < G * mb; x += NT) {
-    const int q = x / mb;
-    lut[x] = q < nq ? P[static_cast<size_t>(t0 + q) * mb + (x - q * mb)] : 0.f;
+  for (int q = 0; q < G; ++q) {
+    const float* src = P + static_cast<size_t>(t0 + q) * mb;
+#pragma unroll 8
+    for (int jc = threadIdx.x; jc < mb; jc += FNT)
+      lut[jc * G + q] = q < nq ? src[jc] : 0.f;
   }
   __syncthreads();
-  const int i0 = blockIdx.x * FWD_CHUNK;
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = i0 + it * NT + threadIdx.x;
-    if (i >= N) break;
-    const CodeT* row = codes + static_cast<size_t>(i) * m;
-    float acc[G];
-    int c = static_cast<int>(row[0]);
-#pragma unroll
-    for (int q = 0; q < G; ++q) acc[q] = lut[q * mb + c];
-    for (int j = 1; j < m; ++j) {
-      c = static_cast<int>(row[j]);
-#pragma unroll
-      for (int q = 0; q < G; ++q) acc[q] = acc[q] + lut[q * mb + j * b + c];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane >> 3;
+  const int ch = lane & 7;
+  const int nch = (nq + 3) / 4;     // chunks of 4 queries with a row
+  const bool active = ch < nch;     // lanes past them idle
+  const unsigned row = static_cast<unsigned>(G) * 4u;  // bytes a (j, c) row
+  // idle lanes read chunk 0 (inside the LUT) and store nothing
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(lut)) +
+                        (active ? ch : 0) * 16u;
+  const unsigned split = static_cast<unsigned>(b) * row;  // bytes a split
+  // this warp's staged rows [G][FSRS]: columns FC.. hold the current
+  // step's 32 items, columns 0..FC the last FC items of the step before
+  const float* stage = lut + static_cast<size_t>(G) * mb +
+                       static_cast<size_t>(warp) * G * FSRS;
+  const unsigned stage_a =
+      static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  float* const S0 = S + static_cast<size_t>(t0) * N;
+  // the warp's own contiguous items [w0, w1) of the block's range
+  const int r0 = blockIdx.x * range;
+  const int per_warp = (range + FWARPS * FSTEP - 1) / (FWARPS * FSTEP) * FSTEP;
+  const int w0 = r0 + warp * per_warp;
+  const int w1 = min(min(N, r0 + range), w0 + per_warp);
+  // Row t's stored items are shifted d_t items left of the computed ones,
+  // d_t the row's offset in floats from a 32-byte boundary, so that each
+  // lane stores 16 aligned bytes and 8 lanes a row's 128 bytes on whole
+  // sectors: the warp writes items [w0 - d_t, w1 - d_t) of row t (to N
+  // at the end of the catalogue), the first d_t of each window from the
+  // carry.  To have that carry at w0, the warp first scores the step
+  // before w0 without storing it.
+  const unsigned d0 = static_cast<unsigned>(reinterpret_cast<uintptr_t>(S0) >> 2);
+  const int rq = lane >> 3, l4 = 4 * (lane & 7);  // a row of 4, 4 items
+  auto store_rows = [&](int step) {
+    for (int t = rq; t < nq; t += 4) {
+      const int dt = static_cast<int>((d0 + static_cast<unsigned>(t) *
+                                       static_cast<unsigned>(N)) & 7u);
+      const int item = step - dt + l4;
+      const float* src = stage + t * FSRS + FC - dt + l4;
+      const float4 v = make_float4(src[0], src[1], src[2], src[3]);
+      float* out = S0 + static_cast<size_t>(t) * N + item;
+      if (item >= 0 && item + 4 <= N) {
+        __stcs(reinterpret_cast<float4*>(out), v);
+      } else {
+        if (item >= 0 && item < N) __stcs(out, v.x);
+        if (item + 1 >= 0 && item + 1 < N) __stcs(out + 1, v.y);
+        if (item + 2 >= 0 && item + 2 < N) __stcs(out + 2, v.z);
+        if (item + 3 >= 0 && item + 3 < N) __stcs(out + 3, v.w);
+      }
     }
+  };
+  for (int step = w0 >= FSTEP && w0 < w1 ? w0 - FSTEP : w0; step < w1;
+       step += FSTEP) {
+    const int i0 = step + grp * FIT;
+    float4 acc[FIT];
+    if constexpr (MC == 8) {
+      uint2 w[FIT];
 #pragma unroll
-    for (int q = 0; q < G; ++q)
-      if (q < nq) S[static_cast<size_t>(t0 + q) * N + i] = acc[q];
+      for (int s = 0; s < FIT; ++s)
+        w[s] = i0 + s < N
+                   ? __ldg(reinterpret_cast<const uint2*>(codes) + i0 + s)
+                   : make_uint2(0u, 0u);
+#pragma unroll
+      for (int s = 0; s < FIT; ++s)
+        acc[s] = lds4(base + (w[s].x & 0xFFu) * row);
+#pragma unroll
+      for (int j = 1; j < 8; ++j) {
+        const unsigned bj = base + j * split;
+#pragma unroll
+        for (int s = 0; s < FIT; ++s) {
+          const unsigned c =
+              __byte_perm(j < 4 ? w[s].x : w[s].y, 0u, 0x4440u | (j & 3));
+          add4(acc[s], lds4(bj + c * row));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < FIT; ++s) {
+        const unsigned c =
+            i0 + s < N ? static_cast<unsigned>(codes[static_cast<size_t>(i0 + s) * m])
+                       : 0u;
+        acc[s] = lds4(base + c * row);
+      }
+      for (int j = 1; j < m; ++j) {
+        const unsigned bj = base + j * split;
+#pragma unroll
+        for (int s = 0; s < FIT; ++s) {
+          const unsigned c =
+              i0 + s < N
+                  ? static_cast<unsigned>(codes[static_cast<size_t>(i0 + s) * m + j])
+                  : 0u;
+          add4(acc[s], lds4(bj + c * row));
+        }
+      }
+    }
+    // lane ch stages its rows in the order rho = (r + ch / 2) % 4, so the
+    // 8 lanes of a quarter warp hit 8 distinct 16-byte bank groups (rows
+    // 11 units apart: rows 4ch + rho fall on 3 (4ch + rho) mod 8)
+    __syncwarp();
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rho = (r + (ch >> 1)) & 3;
+        const unsigned a = stage_a + ((4 * ch + rho) * FSRS + FC + grp * FIT) *
+                                         static_cast<unsigned>(sizeof(float));
+        sts4(a, make_float4(part(acc[0], rho), part(acc[1], rho),
+                            part(acc[2], rho), part(acc[3], rho)));
+        sts4(a + 16, make_float4(part(acc[4], rho), part(acc[5], rho),
+                                 part(acc[6], rho), part(acc[7], rho)));
+      }
+    }
+    __syncwarp();
+    if (step >= w0) store_rows(step);
+    __syncwarp();
+    // the step's last FC items become the carry of the next
+    for (int x = lane; x < 2 * nq; x += 32) {
+      const unsigned a = stage_a + ((x >> 1) * FSRS + (x & 1) * 4) *
+                                       static_cast<unsigned>(sizeof(float));
+      sts4(a, lds4(a + FSTEP * sizeof(float)));
+    }
+  }
+  // at the end of the catalogue, the last step's items past its window
+  if (w1 == N && w0 < w1) {
+    __syncwarp();
+    store_rows(w0 + (w1 - w0 - 1) / FSTEP * FSTEP + FSTEP);
   }
 }
 
@@ -343,18 +523,31 @@ __global__ void __launch_bounds__(NT)
   dP[e] = s;
 }
 
-template <typename CodeT>
-int fwd(const float* P, const void* codes, int T, int m, int b, int N,
-        float* S, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(G) * m * b * sizeof(float);
+template <typename CodeT, int MC>
+int fwd_t(const float* P, const void* codes, int T, int m, int b, int N,
+          int G, const dim3 grid, int range, float* S, cudaStream_t stream) {
+  const size_t smem = fwd_smem(G, m, b);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<CodeT, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + FWD_CHUNK - 1) / FWD_CHUNK, (T + G - 1) / G);
-  fwd_kernel<CodeT><<<grid, NT, smem, stream>>>(
-      P, static_cast<const CodeT*>(codes), T, m, b, N, S);
+  fwd_kernel<CodeT, MC><<<grid, FNT, smem, stream>>>(
+      P, static_cast<const CodeT*>(codes), T, m, b, N, G, range, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward on a grid of (item ranges, query groups), written to grid.
+int fwd(const float* P, const void* codes, int code_bytes, int T, int m,
+        int b, int N, int G, int range, float* S, int* grid_out,
+        cudaStream_t stream) {
+  const dim3 grid((N + range - 1) / range, (T + G - 1) / G);
+  grid_out[0] = static_cast<int>(grid.x);
+  grid_out[1] = static_cast<int>(grid.y);
+  if (code_bytes == 4)
+    return fwd_t<int32_t, 0>(P, codes, T, m, b, N, G, grid, range, S, stream);
+  if (m == 8 && reinterpret_cast<uintptr_t>(codes) % 8 == 0)
+    return fwd_t<uint8_t, 8>(P, codes, T, m, b, N, G, grid, range, S, stream);
+  return fwd_t<uint8_t, 0>(P, codes, T, m, b, N, G, grid, range, S, stream);
 }
 
 size_t sort_smem(int b) {
@@ -424,18 +617,31 @@ extern "C" {
 
 // Each returns 0, a CUDA error code (> 0), or -1 for arguments the
 // kernels do not take (the Python wrapper checks them first).
+// The forward with G queries a block (jpq_scores_fwd_group's) and item
+// ranges of `range` items (whole warp steps, jpq_scores_fwd_step), as
+// cuda.fwd_plan picks them.  Writes the grid it launched, (item ranges,
+// query groups), to grid[0..1].
 int jpq_scores_fwd_launch(const void* P, const void* codes, int code_bytes,
-                          int T, int m, int b, int N, void* S, void* stream) {
+                          int T, int m, int b, int N, int G, int range,
+                          void* S, int* grid, void* stream) {
   if (T < 1 || m < 1 || b < 1 || N < 1 || (code_bytes != 1 && code_bytes != 4) ||
-      (T + jpq_scores::G - 1) / jpq_scores::G > 65535)
+      G < 4 || G > jpq_scores::FGMAX || G % 4 != 0 ||
+      range < jpq_scores::FSTEP || range % jpq_scores::FSTEP != 0 ||
+      jpq_scores::fwd_smem(G, m, b) > jpq_scores::SMEM_MAX ||
+      (T + G - 1) / G > 65535)
     return -1;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<const float*>(P);
-  auto s = static_cast<float*>(S);
-  if (code_bytes == 1)
-    return jpq_scores::fwd<uint8_t>(p, codes, T, m, b, N, s, st);
-  return jpq_scores::fwd<int32_t>(p, codes, T, m, b, N, s, st);
+  return jpq_scores::fwd(static_cast<const float*>(P), codes, code_bytes, T,
+                         m, b, N, G, range, static_cast<float*>(S), grid,
+                         static_cast<cudaStream_t>(stream));
 }
+
+// Queries a forward block at (m, b); 0 when the LUT of 4 does not fit.
+int jpq_scores_fwd_group(int m, int b) {
+  return m < 1 || b < 1 ? 0 : jpq_scores::fwd_group(m, b);
+}
+
+// Items a warp step of the forward: an item range is a multiple of it.
+int jpq_scores_fwd_step() { return jpq_scores::FSTEP; }
 
 // The backward: the code sort into `sorted` (uint16: the lists
 // [n_tiles, m, TILE], then the bin starts [n_tiles, fs_stride(m b)]),
@@ -476,10 +682,6 @@ int jpq_scores_sort_launch(const void* codes, int code_bytes, int m, int b,
   if (code_bytes == 1)
     return jpq_scores::sort<uint8_t>(codes, m, b, N, offs, fstart, st);
   return jpq_scores::sort<int32_t>(codes, m, b, N, offs, fstart, st);
-}
-
-size_t jpq_scores_fwd_smem_bytes(int m, int b) {
-  return static_cast<size_t>(jpq_scores::G) * m * b * sizeof(float);
 }
 
 size_t jpq_scores_bwd_smem_bytes(int m, int b) {

@@ -11,6 +11,7 @@ tensor's device alone.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,22 +51,80 @@ def _check_codes(codes, x, b: int, name: str):
     return N, m, _build.code_bytes(codes, b)
 
 
+FWD_RANGES_MAX = 16    # most item ranges the planner splits N into
+# the launch shape of the forward's last call, as the library launched
+# it: T, N, G queries a block, items_per_block, item_ranges, blocks, and
+# the SM count the plan was made for
+fwd_launch_shape: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_group(m: int, b: int) -> int:
+    """Queries a block of the forward, as the library picks them: the
+    most, a multiple of 4 and at most 28, whose LUT and staging fit the
+    block's shared memory (24 at m*b = 2,048)."""
+    G = _build.fn(_LIB, "jpq_scores_fwd_group", [_I, _I])(m, b)
+    if G == 0:
+        raise ValueError(f"{_LIB}: m={m}, b={b}: the LUT of 4 queries and "
+                         f"the forward's staging do not fit the "
+                         f"{SMEM_LIMIT} bytes of shared memory of a block")
+    return G
+
+
+def fwd_step() -> int:
+    """Items a warp step of the forward (the library's): an item range
+    is a whole number of them."""
+    return _build.fn(_LIB, "jpq_scores_fwd_step", [])()
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(T: int, G: int, N: int, sms: int, step: int):
+    """(item ranges, items a range) of the forward for G queries a block
+    and warp steps of ``step`` items: of 1..``FWD_RANGES_MAX`` ranges
+    (each a whole number of steps, none empty), the count whose blocks,
+    one an SM, fill their last wave best, the fewest on a tie (each range
+    loads its group's LUT once).  At T = 3,200, G = 24 and 132 SMs: 134
+    groups x 16 ranges = 2,144 blocks, 95.5% of 17 waves."""
+    groups = -(-T // G)
+    steps = -(-N // step)
+
+    def split(r):
+        per = -(-steps // r)
+        return -(-steps // per), per * step
+
+    def fill(r):
+        blocks = groups * split(r)[0]
+        return blocks / (-(-blocks // sms) * sms)
+
+    r = max(range(1, min(FWD_RANGES_MAX, steps) + 1),
+            key=lambda r: (fill(r), -r))
+    return split(r)
+
+
 def jpq_scores(partial, codes):
     """partial [T, m, b] f32, codes [N, m] uint8/int32, on the card ->
-    scores [T, N] f32 (one kernel)."""
+    scores [T, N] f32 (one kernel: ``fwd_group`` queries a block, item
+    ranges as ``fwd_plan`` picks them for the card's SMs; the launch
+    shape goes to ``fwd_launch_shape``)."""
     T, m, b = partial.shape
     N, _, cb = _check_codes(codes, partial, b, "jpq_scores")
     dev = partial.device
     _build.check(partial, "partial", (torch.float32,), (T, m, b), dev)
-    _smem_check("jpq_scores_fwd_smem_bytes", m, b)
+    G, sms = fwd_group(m, b), _sms(dev)
+    _, per = fwd_plan(T, G, N, sms, fwd_step())
     launch = _build.fn(_LIB, "jpq_scores_fwd_launch",
-                       [_P, _P, _I, _I, _I, _I, _I, _P, _P])
+                       [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+    grid = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         out = torch.empty((T, N), dtype=torch.float32, device=dev)
-        rc = launch(partial.data_ptr(), codes.data_ptr(), cb, T, m, b, N,
-                    out.data_ptr(), _build.stream(dev))
+        rc = launch(partial.data_ptr(), codes.data_ptr(), cb, T, m, b, N, G,
+                    per, out.data_ptr(), grid, _build.stream(dev))
     _build.raise_on(rc, _LIB)
     launches["jpq_scores"] += 1
+    fwd_launch_shape.clear()
+    fwd_launch_shape.update(T=T, N=N, G=G, items_per_block=per,
+                            item_ranges=grid[0], blocks=grid[0] * grid[1],
+                            sms=sms)
     return out
 
 
@@ -95,14 +154,17 @@ def bwd_auto_chunks(T: int, m: int, b: int, N: int, sms: int) -> int:
 _SMS: dict = {}
 
 
+def _sms(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def bwd_chunks(T: int, m: int, b: int, N: int, dev, chunks=None) -> int:
     """The item chunks ``jpq_scores_bwd`` sums over on ``dev`` for
     ``chunks`` (None: ``bwd_auto_chunks`` for the card's SMs)."""
     if chunks is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        chunks = bwd_auto_chunks(T, m, b, N, _SMS[dev])
+        chunks = bwd_auto_chunks(T, m, b, N, _sms(dev))
     return bwd_chunking(N, chunks)[1]
 
 

@@ -85,6 +85,12 @@ def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
     return out_v, out_i
 
 
+def pruned_group_size() -> int:
+    """Queries a block of the pruned kernel sweeps together, as the
+    library reports it: the skip map has ``ceil(B / group)`` rows."""
+    return _build.fn("jpq_topk_pruned", "jpq_topk_pruned_group_size", [])()
+
+
 def jpq_topk_pruned(partial, codes, ids, present, floor, init_vals,
                     init_ids, *, k: int, block_n: int, tie_break_ids: bool):
     """The pruned sweep on the card.  ``codes [N, m]`` in sweep order,
@@ -103,8 +109,7 @@ def jpq_topk_pruned(partial, codes, ids, present, floor, init_vals,
     launch = _build.fn("jpq_topk_pruned", "jpq_topk_pruned_launch",
                  [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _P, _P, _P, _P])
-    n_groups = -(-B // _build.fn("jpq_topk_pruned",
-                                 "jpq_topk_pruned_group_size", [])())
+    n_groups = -(-B // pruned_group_size())
     with torch.cuda.device(dev):
         out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((B, k), dtype=torch.int32, device=dev)

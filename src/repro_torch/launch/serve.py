@@ -109,7 +109,8 @@ def serve_loop(model, params, template, args, requests=None) -> dict:
     window runs from the host arrays to results on the card
     (``torch.cuda.synchronize``); the stats readback and the warm-floor
     EMA update stay outside it.  Prints one summary line and returns
-    it as a dict (latencies in ms)."""
+    it as a dict (latencies in ms; ``lat_ms`` each timed request's, in
+    order)."""
     _check_ported(args)
     dev = model.device
 
@@ -151,7 +152,8 @@ def serve_loop(model, params, template, args, requests=None) -> dict:
            "n": len(lats), "path": mode, "seed": args.seed,
            "p50_ms": float(np.percentile(lats, 50)),
            "p99_ms": float(np.percentile(lats, 99)),
-           "skip": skip, "demoted_rows": demoted}
+           "skip": skip, "demoted_rows": demoted,
+           "lat_ms": [float(x) for x in lats]}
     extra = "" if res["skip"] is None else f" skip={res['skip']:.3f}"
     print(f"{args.arch}: batch={args.batch_size} n={res['n']} "
           f"path={mode} device={dev} seed={args.seed} "

@@ -168,6 +168,79 @@ def test_seeded_carry_phased_sweep(dev):
                  ops.jpq_topk_scan(P, codes, k, block_n=1024))
 
 
+def _cold(dev, B, k):
+    return (torch.full((B,), -float("inf"), device=dev),
+            torch.full((B, k), -float("inf"), device=dev),
+            torch.zeros((B, k), dtype=torch.int32, device=dev))
+
+
+PRUNED_EDGES = [
+    # name, B, m, b, N, k, lut, block_n
+    ("B not a multiple of the group", 7, 8, 256, 30_011, 10, "normal", 2048),
+    ("B = 1", 1, 8, 256, 30_011, 10, "normal", 2048),
+    ("k = 1024", 6, 8, 256, 40_000, 1024, "normal", 4096),
+    ("k = 1024, zeros", 5, 8, 256, 20_000, 1024, "zeros", 1024),
+    ("more than a ring of tiles", 9, 4, 16, 50_000, 25, "normal", 640),
+]
+
+
+@pytest.mark.parametrize("order", ["identity", "permuted"])
+@pytest.mark.parametrize("case", PRUNED_EDGES,
+                         ids=[c[0] for c in PRUNED_EDGES])
+def test_pruned_kernel_edges(dev, case, order):
+    """Groups of the new sweep cut short, the largest k (whose merges sort
+    their candidates), more tiles than one ring of tile bounds."""
+    _, B, m, b, N, k, lut, bn = case
+    P, codes = _case(dev, 6, B, m, b, N, lut=lut)
+    perm = torch.randperm(N, device=dev) if order == "permuted" else None
+    st = ops.prepare_pruning(codes, b, bn, perm=perm)
+    args = (P, st.codes, st.ids, st.present, *_cold(dev, B, k))
+    kw = dict(k=k, block_n=bn, tie_break_ids=st.tie_break_ids)
+    kv, ki, kskip = kc.jpq_topk_pruned(*args, **kw)
+    pv, pi, pskip = ops.jpq_topk_scan_pruned(*args, **kw)
+    assert _same((kv, ki), (pv, pi))
+    assert torch.equal(kskip.min(0).values, pskip)
+    assert kskip.shape == (-(-B // kc.pruned_group_size()), pskip.shape[0])
+
+
+@pytest.mark.parametrize("k", [1, 16, 1024])
+def test_pruned_kernel_skip_heavy_catalogue(dev, k):
+    """The structured catalogue skips most tiles: the cold skip map, the
+    values and the ids equal the plain version's, and two calls give the
+    same bits."""
+    P, codes, pop = _structured(dev, N=60_000, B=10)
+    P = ops.canonicalise_lut(P).contiguous()
+    st = ops.prepare_pruning(codes, 32, 1024,
+                             perm=torch.as_tensor(pop, device=dev))
+    args = (P, st.codes, st.ids, st.present, *_cold(dev, 10, k))
+    kw = dict(k=k, block_n=1024, tie_break_ids=True)
+    first = kc.jpq_topk_pruned(*args, **kw)
+    second = kc.jpq_topk_pruned(*args, **kw)
+    pv, pi, pskip = ops.jpq_topk_scan_pruned(*args, **kw)
+    assert _same(first[:2], (pv, pi))
+    assert torch.equal(first[2].min(0).values, pskip)
+    assert int(pskip.sum()) > 0
+    assert _same(first[:2], second[:2]) and torch.equal(first[2], second[2])
+
+
+def test_pruned_kernel_seeded_lists_in_any_order(dev):
+    """init_vals / init_ids need not be sorted: the kernel sorts them."""
+    B, k = 6, 30
+    P, codes = _case(dev, 7, B, 8, 256, 9_000)
+    st = ops.prepare_pruning(codes, 256, 1024)
+    g = torch.Generator(device=dev).manual_seed(8)
+    iv = torch.randn((B, k), generator=g, device=dev) + 3.0
+    ii = torch.randint(9_000, 20_000, (B, k), generator=g, device=dev,
+                       dtype=torch.int32)
+    fl = torch.full((B,), -float("inf"), device=dev)
+    args = (P, st.codes, st.ids, st.present, fl, iv, ii)
+    kw = dict(k=k, block_n=1024, tie_break_ids=False)
+    kv, ki, kskip = kc.jpq_topk_pruned(*args, **kw)
+    pv, pi, pskip = ops.jpq_topk_scan_pruned(*args, **kw)
+    assert _same((kv, ki), (pv, pi))
+    assert torch.equal(kskip.min(0).values, pskip)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     P, codes = _case(dev, 3, 2, 2, 4, 50)
     with pytest.raises(ValueError, match="contiguous"):
@@ -222,6 +295,20 @@ SCORES = [
     (13, 8, 256, 70_001, "normal", torch.uint8),     # ragged rows and items
     (16, 8, 256, 70_001, "zeros", torch.uint8),      # ±0.0 LUT
     (9, 3, 300, 40_000, "normal", torch.int32),      # int32 codes, b > 256
+    # T around the forward's query group (cuda.fwd_group: 24 at m*b =
+    # 2,048), N not a multiple of the items a lane (8), a warp step (32)
+    # or a block handles; odd N puts the rows at every alignment
+    (23, 8, 256, 4_099, "normal", torch.uint8),
+    (24, 8, 256, 32 * 16 + 5, "normal", torch.uint8),
+    (25, 8, 256, 70_001, "normal", torch.uint8),
+    (1, 8, 256, 4_099, "normal", torch.uint8),
+    (133, 8, 256, 70_002, "normal", torch.uint8),
+    # the largest LUT the wrapper takes (4 queries a block), 8 queries a
+    # block, and m away from 8 (the general code path)
+    (9, 8, 1772, 3_001, "normal", torch.int32),
+    (17, 8, 864, 3_001, "normal", torch.int32),
+    (30, 1, 256, 5_000, "normal", torch.uint8),
+    (30, 16, 256, 5_000, "normal", torch.uint8),
 ]
 
 
@@ -234,6 +321,51 @@ def test_jpq_scores_forward_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert sc.launches["jpq_scores"] == before + 1
     assert _bits_equal(got, sref.jpq_scores_lut_ref(P, codes))
+    # the launch shape the wrapper records is the one the planner gives
+    shape = sc.fwd_launch_shape
+    G = sc.fwd_group(m, b)
+    ranges, per = sc.fwd_plan(T, G, N, shape["sms"], sc.fwd_step())
+    assert shape == {"T": T, "N": N, "G": G, "items_per_block": per,
+                     "item_ranges": ranges, "blocks": ranges * -(-T // G),
+                     "sms": shape["sms"]}
+
+
+@pytest.mark.parametrize("m, b, want", [
+    (8, 256, 24),      # the paper's table: 24 x 8 KB LUTs and the staging
+    (8, 300, 20), (8, 864, 8), (8, 1772, 4),   # 4: the largest LUT taken
+    (4, 16, 28), (16, 256, 12), (8, 1773, None)])
+def test_jpq_scores_fwd_group(dev, m, b, want):
+    """The library's query group (the CPU planner tests assume these
+    values and a warp step of 32 items)."""
+    assert sc.fwd_step() == 32
+    if want is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            sc.fwd_group(m, b)
+    else:
+        assert sc.fwd_group(m, b) == want
+
+
+def test_jpq_scores_forward_refuses_too_large_lut(dev):
+    P, codes = _case(dev, 10, 2, 8, 1773, 10, code_dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        sc.jpq_scores(P, codes)
+
+
+def test_jpq_scores_forward_unaligned_codes(dev):
+    """uint8 codes at m = 8 whose rows are not 8-byte aligned go through
+    the general path; the output is a fresh tensor a caller may write."""
+    T, N = 29, 10_001
+    P, codes = _case(dev, 11, T, 8, 256, N)
+    buf = torch.empty(N * 8 + 1, dtype=torch.uint8, device=dev)
+    shifted = buf[1:].view(N, 8)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 8 == 1
+    got = sc.jpq_scores(P, shifted)
+    want = sref.jpq_scores_lut_ref(P, codes)
+    assert _bits_equal(got, want)
+    assert _bits_equal(sc.jpq_scores(P, codes), got)
+    got[:, 0] = 0.0
+    assert float(got[:, 0].abs().max()) == 0.0
 
 
 SCORES_BWD = [

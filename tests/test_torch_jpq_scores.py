@@ -316,3 +316,40 @@ def test_bwd_auto_chunks_fills_the_last_wave(T, mb, N, sms, want):
         return blocks / (-(-blocks // sms) * sms)
 
     assert all(fill(got) >= fill(c) for c in range(1, 9))
+
+
+# The forward's query group G comes from the library (jpq_scores_fwd_group,
+# held by tests/test_torch_cuda.py on the card: 24 at m*b = 2,048, 20 at
+# b = 300, 28 at the most) and its warp step of 32 items likewise.
+FWD_STEP = 32
+
+
+@pytest.mark.parametrize("T, G, N, sms, want", [
+    (3_200, 24, 1_000_002, 132, 16),  # 2,144 blocks: 95.5% of 17 waves
+    (256, 24, 1_000_002, 132, 12),    # eval: 132 blocks, one wave
+    (512, 24, 1_000_002, 132, 6),     # 132 blocks, one wave
+    (1, 24, 5_000, 132, 16),          # one group: the most ranges
+    (29, 24, 40, 132, 2),             # 2 warp steps: at most 2 ranges
+    (3_200, 20, 1_000_002, 132, 14),  # b = 300: 2,240 blocks of 2,244
+    (3_200, 28, 1_000_002, 132, 8),   # the most queries: 920 of 924
+    (3_200, 24, 1_000_002, 114, 11),  # 114 SMs: 1,474 blocks of 1,482
+    (256, 24, 1_000_002, 78, 7),      # 78 SMs: 77 blocks, one wave
+    (9, 4, 3_001, 132, 16),           # the largest LUT: 4 queries a block
+    (17, 8, 3_001, 132, 16),
+    (30, 12, 5_000, 132, 16),         # m = 16
+    (25, 24, 70_001, 132, 16),        # two groups, one of them ragged
+])
+def test_fwd_plan_fills_the_last_wave(T, G, N, sms, want):
+    ranges, per = T_cuda.fwd_plan(T, G, N, sms, FWD_STEP)
+    assert ranges == want
+    assert per % FWD_STEP == 0
+    assert (ranges - 1) * per < N <= ranges * per     # none empty, all of N
+    groups = -(-T // G)
+
+    def fill(blocks):
+        return blocks / (-(-blocks // sms) * sms)
+
+    steps = -(-N // FWD_STEP)
+    for r in range(1, min(T_cuda.FWD_RANGES_MAX, steps) + 1):
+        p = -(-steps // r)
+        assert fill(groups * ranges) >= fill(groups * -(-steps // p))

@@ -347,3 +347,4 @@ def test_serve_loop_takes_a_request_stream(name):
     assert seen == [0, 1, 2]
     assert res["path"] == "serve" and res["n"] == 2
     assert res["skip"] is None and res["p50_ms"] > 0
+    assert len(res["lat_ms"]) == 2 and min(res["lat_ms"]) > 0
