@@ -21,7 +21,10 @@ Phases, each of which raises on failure (exit code != 0, no result):
      each run and must show its kernel ran; one request is held against
      the materialise-then-top-k path (bit-equal);
   5. timing with CUDA events at the main path's shapes: kernel, plain
-     version and the least time the card could take (bound); then the
+     version and the least time the card could take (bound); both
+     kernels' general code path (uint8 codes at an odd address), held
+     bit-equal to the 8-byte path and timed; ``jpq_topk``'s launch shape
+     (the wrapper's record) and its time at k = 100; then the
      pruned kernel again on a skip-heavy full-width catalogue (codes that
      follow each item's rank, swept in popularity order; bit-equal to
      its plain version, skip map included), with the items it swept and
@@ -1206,6 +1209,27 @@ def main() -> int:
           f"address): {general_ms['jpq_topk_pruned']:.4f} ms, bit-equal "
           f"to the 8-byte path ({times['jpq_topk_pruned'][0]:.4f} ms)")
     del codes_odd, gen_out, pruned_out
+    # the unpruned kernel: its launch shape at k = 10 and 100 (the
+    # wrapper's record), its general code path at k = 10 against the
+    # 8-byte path and the plain version, and its time at k = 100
+    top_out = kc.jpq_topk(P, codes, k)
+    launch_shape = dict(kc.launch_shape)
+    codes_odd = odd_address(torch, codes)
+    gen_top = kc.jpq_topk(P, codes_odd, k)
+    top_plain = ops.jpq_topk_scan(P, codes, k,
+                                  block_n=ops.scan_block_n(n_rows))
+    check(key_equal(gen_top, top_out) and key_equal(gen_top, top_plain),
+          "jpq_topk's general path != its 8-byte path or the plain version")
+    general_ms["jpq_topk"] = cuda_ms(lambda: kc.jpq_topk(P, codes_odd, k), 20)
+    k100_ms = cuda_ms(lambda: kc.jpq_topk(P, codes, 100), 20)
+    launch_shape_k100 = dict(kc.launch_shape)
+    print(f"   jpq_topk launch shape k={k}: {launch_shape}; "
+          f"k=100: {launch_shape_k100}")
+    print(f"   jpq_topk, general code path (codes at an odd address): "
+          f"{general_ms['jpq_topk']:.4f} ms, bit-equal to the 8-byte path "
+          f"({times['jpq_topk'][0]:.4f} ms) and the plain version; k=100: "
+          f"{k100_ms:.4f} ms, on {smi}")
+    del codes_odd, gen_top, top_out, top_plain
 
     def bound_of(bytes_, adds, lookups):
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -1272,9 +1296,13 @@ def main() -> int:
             "launches": run["launches"][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        kernels[-1]["general_path_ms"] = general_ms[name]
         if name == "jpq_topk_pruned":
             kernels[-1]["skip_heavy"] = skip_heavy
-            kernels[-1]["general_path_ms"] = general_ms[name]
+        else:
+            kernels[-1]["launch_shape"] = launch_shape
+            kernels[-1]["k100_ms"] = k100_ms
+            kernels[-1]["launch_shape_k100"] = launch_shape_k100
         print(f"   {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, fp32 "
               f"adds {t_adds:.4f} ms, LUT lookups {t_lookups:.4f} ms), "

@@ -1,11 +1,12 @@
 // The running-top-k sweep of a group of SG = 4 queries by a block of
-// SNT = 1,024 threads (jpq_topk_pruned.cu).  Written apart from the
-// 256-thread sweep of jpq_common.cuh, which jpq_topk.cu still uses, and
-// shaped so that it can serve that kernel too: the block scores item
-// ranges, keeps SG running lists sorted in shared memory and merges the
-// rare items that beat a list's k-th key.
+// SNT = 1,024 threads (jpq_topk_pruned.cu): the block scores item ranges,
+// keeps SG running lists sorted in shared memory and merges the rare
+// items that beat a list's k-th key.  (jpq_topk.cu has a sweep of its
+// own, with lanes that are queries.)
 //
-// What it does about the costs of the 256-thread sweep:
+// What it does about the costs of a sweep whose lanes are items (a
+// 256-thread sweep of 4-byte gathers, which the port's first kernels
+// used):
 //   - 32 warps an SM, not 8, to hide the shared-memory gathers;
 //   - the LUT of the SG queries is laid out [m][b][SG], so an item's
 //     (j, c) entry of all SG queries is one 16-byte load (a quarter of

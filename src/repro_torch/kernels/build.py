@@ -149,3 +149,13 @@ def launch(f, dev, *args) -> int:
         return f(*args, stream(dev))
     with torch.cuda.device(dev):
         return f(*args, stream(dev))
+
+
+_SMS: dict = {}
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of the card ``dev`` (cached)."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]

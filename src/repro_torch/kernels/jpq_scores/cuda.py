@@ -110,7 +110,7 @@ def jpq_scores(partial, codes):
     N, _, cb = _check_codes(codes, partial, b, "jpq_scores")
     dev = partial.device
     _build.check(partial, "partial", (torch.float32,), (T, m, b), dev)
-    G, sms = fwd_group(m, b), _sms(dev)
+    G, sms = fwd_group(m, b), _build.sm_count(dev)
     _, per = fwd_plan(T, G, N, sms, fwd_step())
     launch = _build.fn(_LIB, "jpq_scores_fwd_launch",
                        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
@@ -151,20 +151,11 @@ def bwd_auto_chunks(T: int, m: int, b: int, N: int, sms: int) -> int:
     return max(range(1, 9), key=lambda c: (fill(c), -c))
 
 
-_SMS: dict = {}
-
-
-def _sms(dev) -> int:
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev]
-
-
 def bwd_chunks(T: int, m: int, b: int, N: int, dev, chunks=None) -> int:
     """The item chunks ``jpq_scores_bwd`` sums over on ``dev`` for
     ``chunks`` (None: ``bwd_auto_chunks`` for the card's SMs)."""
     if chunks is None:
-        chunks = bwd_auto_chunks(T, m, b, N, _sms(dev))
+        chunks = bwd_auto_chunks(T, m, b, N, _build.sm_count(dev))
     return bwd_chunking(N, chunks)[1]
 
 

@@ -10,14 +10,19 @@ plain versions live in ``ops``;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build as _build
 
 KMAX = 1024            # largest k the kernels take (csrc/jpq_common.cuh)
-CHUNK = 32768          # items per block in the unpruned kernel's first pass
 SMEM_LIMIT = 232448    # shared memory a block may use on Hopper (227 KB)
+RANGES_MAX = 128       # most item ranges the unpruned kernel's planner picks
+# what a range costs besides its items, in items scored: its LUT load, and
+# the cold start and merges of its lists, which grow with k (at k = 100
+# many short ranges take several times as long as one wave of long ones)
+RANGE_COST = 16384
 
 # kernel launches made by each wrapper, for showing which kernels a run
 # went through (reset with ``reset_launches``)
@@ -47,41 +52,101 @@ def _check_common(partial, codes, k: int, name: str):
     return B, m, b, N, dev
 
 
-def _smem_check(lib_name: str, fn_name: str, k: int, m: int, b: int):
-    need = _build.fn(lib_name, fn_name, [_I, _I, _I],
-                     ctypes.c_size_t)(k, m, b)
+def _pruned_smem_check(k: int, m: int, b: int):
+    need = _build.fn("jpq_topk_pruned", "jpq_topk_pruned_smem_bytes",
+                     [_I, _I, _I], ctypes.c_size_t)(k, m, b)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"{lib_name}: k={k}, m={m}, b={b} needs {need} bytes of shared "
-            f"memory per block, above the card's {SMEM_LIMIT}")
+            f"jpq_topk_pruned: k={k}, m={m}, b={b} needs {need} bytes of "
+            f"shared memory per block, above the card's {SMEM_LIMIT}")
+
+
+@functools.lru_cache(maxsize=None)
+def group(k: int, m: int, b: int) -> int:
+    """Queries a block of the unpruned kernel, as the library picks them:
+    the most, a multiple of 4 and at most 28, whose LUT, running lists
+    and candidate buffers fit a block's shared memory (24 at k = 10 and
+    m*b = 2,048; 20 at k = 100; 8 at k = 1,024)."""
+    G = _build.fn("jpq_topk", "jpq_topk_group", [_I, _I, _I])(k, m, b)
+    if G == 0:
+        raise ValueError(
+            f"jpq_topk: k={k}, m={m}, b={b}: the LUT, lists and candidate "
+            f"buffers of 4 queries do not fit the {SMEM_LIMIT} bytes of "
+            f"shared memory of a block")
+    return G
+
+
+def step() -> int:
+    """Items a block step of the unpruned kernel (the library's): a
+    planned item range is a whole number of them."""
+    return _build.fn("jpq_topk", "jpq_topk_step", [])()
+
+
+@functools.lru_cache(maxsize=None)
+def range_plan(B: int, G: int, N: int, sms: int, step: int):
+    """(item ranges, items a range) of the unpruned kernel for G queries
+    a block and block steps of ``step`` items: of 1..``RANGES_MAX``
+    ranges (each a whole number of steps, none empty), the count whose
+    grid, one block an SM, ends soonest: waves x (items a range +
+    ``RANGE_COST``), the fewest ranges on a tie.  At B = 512, G = 24 and
+    132 SMs: 22 groups x 6 ranges = 132 blocks, one wave."""
+    groups = -(-B // G)
+    steps = -(-N // step)
+
+    def split(r):
+        per = -(-steps // r)
+        return -(-steps // per), per * step
+
+    def makespan(r):
+        ranges, per = split(r)
+        return -(-groups * ranges // sms) * (per + RANGE_COST)
+
+    r = min(range(1, min(RANGES_MAX, steps) + 1),
+            key=lambda r: (makespan(r), r))
+    return split(r)
+
+
+# the launch shape of the unpruned kernel's last call, as the library
+# launched it: B, N, G queries a block, item ranges, items a range,
+# blocks, warps a block, and the SM count the plan was made for
+launch_shape: dict = {}
 
 
 def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
     """partial [B, m, b] f32 (canonicalised), codes [N, m] uint8/int32,
     on the card -> (values [B, k] f32, ids [B, k] int32), k <= N.
-    ``chunk`` (default ``CHUNK``) is the items per block of the first
-    pass.  Each call launches two kernels, the chunk pass and the merge,
-    and counts both."""
+    ``chunk`` is the items a block's range; by default ``range_plan``
+    picks the ranges for the card's SMs.  Each call launches two
+    kernels, the range pass and the merge, and counts both; the launch
+    shape goes to ``launch_shape``."""
     B, m, b, N, dev = _check_common(partial, codes, k, "jpq_topk")
     if k > N:
         raise ValueError(f"k={k} > N={N}: clamp k first")
-    chunk = CHUNK if chunk is None else int(chunk)
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    _smem_check("jpq_topk", "jpq_topk_smem_bytes", k, m, b)
+    G, sms = group(k, m, b), _build.sm_count(dev)
+    if chunk is None:
+        per = range_plan(B, G, N, sms, step())[1]
+    else:
+        per = int(chunk)
+        if per < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
     launch = _build.fn("jpq_topk", "jpq_topk_launch",
-                 [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])
-    n_chunks = -(-N // chunk)
+                       [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P])
+    grid = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
-        cand = torch.empty((B, n_chunks, k), dtype=torch.int64, device=dev)
+        cand = torch.empty((B, -(-N // per), k), dtype=torch.int64,
+                           device=dev)
         out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
         rc = launch(partial.data_ptr(), codes.data_ptr(),
-                    _build.code_bytes(codes, b), B, m, b, N, k, chunk,
+                    _build.code_bytes(codes, b), B, m, b, N, k, G, per,
                     cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                    _build.stream(dev))
+                    grid, _build.stream(dev))
     _build.raise_on(rc, "jpq_topk")
     launches["jpq_topk"] += 2
+    launch_shape.clear()
+    launch_shape.update(B=B, N=N, G=G, ranges=grid[0], items_per_range=per,
+                        blocks=grid[0] * grid[1], warps=grid[2], sms=sms)
     return out_v, out_i
 
 
@@ -105,7 +170,7 @@ def jpq_topk_pruned(partial, codes, ids, present, floor, init_vals,
     _build.check(floor, "floor", (torch.float32,), (B,), dev)
     _build.check(init_vals, "init_vals", (torch.float32,), (B, k), dev)
     _build.check(init_ids, "init_ids", (torch.int32,), (B, k), dev)
-    _smem_check("jpq_topk_pruned", "jpq_topk_pruned_smem_bytes", k, m, b)
+    _pruned_smem_check(k, m, b)
     launch = _build.fn("jpq_topk_pruned", "jpq_topk_pruned_launch",
                  [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _P, _P, _P, _P])

@@ -144,13 +144,13 @@ def jpq_topk_lut(partial, codes, k: int, *, block_n: int | None = None,
     plain versions.
 
     ``block_n`` is the tile size in items.  ``None``: the plain unpruned
-    scan uses ``scan_block_n(N)`` and the unpruned kernel its own chunk
-    (``cuda.CHUNK``); pruned sweeps (kernel and plain) use
-    ``prune_block_n(N)`` (~8192 items) so the bound has tiles to skip.
-    An explicit ``block_n`` sets the unpruned kernel's chunk too; tiling
-    never changes the result.  ``prune``/``perm``/``warm``/
-    ``return_stats`` are the reference's: stats are ``skipped_tiles`` /
-    ``total_tiles`` /
+    scan uses ``scan_block_n(N)`` and the unpruned kernel the item ranges
+    its planner picks (``cuda.range_plan``); pruned sweeps (kernel and
+    plain) use ``prune_block_n(N)`` (~8192 items) so the bound has tiles
+    to skip.  An explicit ``block_n`` sets the unpruned kernel's item
+    range (``chunk``) too; tiling never changes the result.
+    ``prune``/``perm``/``warm``/``return_stats`` are the reference's:
+    stats are ``skipped_tiles`` / ``total_tiles`` /
     ``skips`` [n_tiles] / ``theta`` [B] (final k-th values) /
     ``demoted`` [B] bool (the warm floor overshot and the query was
     re-swept)."""

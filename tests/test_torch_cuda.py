@@ -69,18 +69,134 @@ def test_jpq_topk_kernel_matches_plain(dev, case):
     before = kc.launches["jpq_topk"]
     got = kc.jpq_topk(P, codes, k)
     torch.cuda.synchronize()
-    assert kc.launches["jpq_topk"] == before + 2    # chunk pass + merge
+    assert kc.launches["jpq_topk"] == before + 2    # range pass + merge
     want = ops.jpq_topk_scan(P, codes, k, block_n=ops.scan_block_n(N))
     assert _same(got, want)
 
 
-@pytest.mark.parametrize("block_n", [1000, 4096, 70_001])
+@pytest.mark.parametrize("block_n", [1, 257, 1000, 4096, 70_001, 100_000])
 def test_jpq_topk_block_n_sets_the_kernel_chunk(dev, block_n):
-    """An explicit block_n is the unpruned kernel's chunk; the result
+    """An explicit block_n is the unpruned kernel's chunk (items a
+    block's range: 1000 leaves a last range of one item, 257 is no whole
+    number of block steps, 70,001 and 100,000 are one range); the result
     does not depend on it."""
     P, codes = _case(dev, 4, 7, 8, 256, 70_001)
     want = ops.jpq_topk_scan(P, codes, 50, block_n=ops.scan_block_n(70_001))
     assert _same(ops.jpq_topk_lut(P, codes, 50, block_n=block_n), want)
+    assert kc.launch_shape["items_per_range"] == block_n
+    assert kc.launch_shape["ranges"] == -(-70_001 // block_n)
+
+
+@pytest.mark.parametrize("k, m, b, want", [
+    (10, 8, 256, 24),     # the serving shape: 24 x 8 KB LUTs
+    (100, 8, 256, 20), (1024, 8, 256, 8),   # longer lists, fewer queries
+    (10, 5, 256, 28), (10, 8, 300, 20), (1024, 8, 2000, None)])
+def test_jpq_topk_group(dev, k, m, b, want):
+    """The library's query group and block step (the CPU planner tests
+    assume these values)."""
+    assert kc.step() == 512
+    if want is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            kc.group(k, m, b)
+    else:
+        assert kc.group(k, m, b) == want
+
+
+def test_jpq_topk_records_its_launch_shape(dev):
+    B, N = 512, 70_001
+    P, codes = _case(dev, 12, B, 8, 256, N)
+    kc.jpq_topk(P, codes, 10)
+    shape = kc.launch_shape
+    ranges, per = kc.range_plan(B, 24, N, shape["sms"], kc.step())
+    assert shape == {"B": B, "N": N, "G": 24, "ranges": ranges,
+                     "items_per_range": per, "blocks": ranges * -(-B // 24),
+                     "warps": 32, "sms": shape["sms"]}
+
+
+TOPK_EDGES = [
+    # name, B, m, b, N, k, codes
+    ("B = 1", 1, 8, 256, 70_001, 10, torch.uint8),
+    ("B = 23", 23, 8, 256, 70_001, 10, torch.uint8),
+    ("B = 25", 25, 8, 256, 70_001, 10, torch.uint8),
+    ("k = 100, G = 20", 45, 8, 256, 70_001, 100, torch.uint8),
+    ("k = 1024, G = 8", 9, 8, 256, 40_000, 1024, torch.uint8),
+    ("m = 5", 7, 5, 256, 30_011, 10, torch.uint8),
+    ("int32 codes, b = 300", 11, 8, 300, 30_011, 10, torch.int32),
+]
+
+
+@pytest.mark.parametrize("lut", ["normal", "zeros"])
+@pytest.mark.parametrize("case", TOPK_EDGES, ids=[c[0] for c in TOPK_EDGES])
+def test_jpq_topk_edges(dev, case, lut):
+    """B not a multiple of the group, k whose lists shrink the group, and
+    the general code path (m != 8, int32 codes)."""
+    _, B, m, b, N, k, cd = case
+    P, codes = _case(dev, 13, B, m, b, N, lut=lut, code_dtype=cd)
+    want = ops.jpq_topk_scan(P, codes, k, block_n=ops.scan_block_n(N))
+    assert _same(kc.jpq_topk(P, codes, k), want)
+    assert kc.launch_shape["G"] == kc.group(k, m, b)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_jpq_topk_unaligned_codes(dev, k):
+    """uint8 codes at m = 8 whose rows are not 8-byte aligned take the
+    general path; it gives the 8-byte path's bits."""
+    P, codes = _case(dev, 14, 50, 8, 256, 30_011)
+    buf = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = buf[1:].view(codes.shape)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 8 == 1
+    got = kc.jpq_topk(P, shifted, k)
+    assert _same(got, kc.jpq_topk(P, codes, k))
+    assert _same(got, ops.jpq_topk_scan(P, codes, k, block_n=8192))
+
+
+@pytest.mark.parametrize("chunk", [None, 65_536])
+@pytest.mark.parametrize("k", [10, 100, 1024])
+@pytest.mark.parametrize("order", ["rising", "falling"])
+def test_jpq_topk_scores_monotone_in_the_id(dev, order, k, chunk):
+    """Scores that rise strictly with the item id make every item a
+    candidate of every query (the candidate buffers overflow, and warp
+    steps are scored again after a merge); falling scores let almost
+    nothing in after the first items.  score(i) = i + q exactly: codes
+    (i // 256, i % 256), P[q, 0, c] = 256 c, P[q, 1, c] = c + q."""
+    B, N = 5, 65_536
+    i = torch.arange(N, device=dev)
+    codes = torch.stack([i // 256, i % 256], 1).to(torch.uint8).contiguous()
+    c = torch.arange(256, device=dev, dtype=torch.float32)
+    q = torch.arange(B, device=dev, dtype=torch.float32)[:, None]
+    P = torch.stack([(256 * c).expand(B, -1), c + q], 1).contiguous()
+    if order == "falling":
+        P = -P
+    got = kc.jpq_topk(P, codes, k, chunk=chunk)
+    want = ops.jpq_topk_scan(P, codes, k, block_n=8192)
+    assert _same(got, want)
+    top = torch.arange(k, device=dev, dtype=torch.int32)
+    ids = N - 1 - top if order == "rising" else top
+    assert torch.equal(got[1], ids.expand(B, -1))
+
+
+@pytest.mark.parametrize("k", [10, 1024])
+@pytest.mark.parametrize("signed", [False, True])
+def test_jpq_topk_all_scores_equal(dev, k, signed):
+    """Every score is a zero: the ids decide.  Canonicalised, every score
+    is +0.0 and the top k are ids 0..k-1; with -0.0 left in the LUT some
+    scores are -0.0, which rank below +0.0 (as the plain version ranks
+    them)."""
+    B, m, b, N = 6, 8, 256, 50_000
+    g = torch.Generator(device=dev).manual_seed(15)
+    P = torch.zeros((B, m, b), device=dev)
+    codes = torch.randint(0, b, (N, m), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    if signed:
+        P[:, :, : b // 2] = -0.0
+    else:
+        P = ops.canonicalise_lut(P).contiguous()
+    got = kc.jpq_topk(P, codes, k)
+    assert _same(got, ops.jpq_topk_scan(P, codes, k, block_n=8192))
+    if not signed:
+        assert torch.equal(got[1], torch.arange(
+            k, device=dev, dtype=torch.int32).expand(B, -1))
 
 
 @pytest.mark.parametrize("order", ["identity", "permuted"])
@@ -251,6 +367,8 @@ def test_wrappers_reject_bad_inputs(dev):
         kc.jpq_topk(P, codes, 1025)
     with pytest.raises(ValueError, match="tensor on"):
         kc.jpq_topk(P, codes.cpu(), 5)
+    with pytest.raises(ValueError, match="chunk"):
+        kc.jpq_topk(P, codes, 5, chunk=0)
 
 
 def test_two_tower_serves_through_both_kernels(dev):

@@ -282,3 +282,38 @@ class TestNoHiddenFallback:
         with pytest.raises(ValueError, match="pruned-path"):
             T.jpq_topk_lut(torch.tensor(P), torch.tensor(codes), 5,
                            warm=0.0)
+
+
+# The unpruned kernel's query group G comes from the library
+# (jpq_topk_group, held by tests/test_torch_cuda.py on the card: 24 at
+# k = 10 and m*b = 2,048, 20 at k = 100, 8 at k = 1,024) and its block
+# step of 512 items likewise.
+TOPK_STEP = 512
+
+
+class TestRangePlan:
+    @pytest.mark.parametrize("B, G, N, sms, want", [
+        (512, 24, 1_000_448, 132, 6),     # the serving shape: 132 blocks
+        (512, 20, 1_000_448, 132, 5),     # k = 100: 130 blocks, one wave
+        (512, 8, 1_000_448, 132, 2),      # k = 1,024: 128 blocks
+        (512, 24, 1_000_448, 114, 5),     # 114 SMs: 110 blocks, one wave
+        (1, 24, 1_000_448, 132, 123),     # one group: many short ranges
+        (23, 24, 70_001, 132, 69),        # one ragged group
+        (25, 24, 70_001, 132, 46),        # two groups, 137 block steps
+        (3, 28, 200, 132, 1),             # one block step: one range
+    ])
+    def test_range_plan_ends_soonest(self, B, G, N, sms, want):
+        ranges, per = T_cuda.range_plan(B, G, N, sms, TOPK_STEP)
+        assert ranges == want
+        assert per % TOPK_STEP == 0
+        assert (ranges - 1) * per < N <= ranges * per  # none empty, all N
+        groups = -(-B // G)
+
+        def makespan(ranges, per):
+            waves = -(-groups * ranges // sms)
+            return waves * (per + T_cuda.RANGE_COST)
+
+        steps = -(-N // TOPK_STEP)
+        for r in range(1, min(T_cuda.RANGES_MAX, steps) + 1):
+            p = -(-steps // r) * TOPK_STEP
+            assert makespan(ranges, per) <= makespan(-(-N // p), p)
