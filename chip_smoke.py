@@ -88,6 +88,33 @@ Phases, each of which raises on failure (exit code != 0, no result):
      kernel's place, bit-equal); three more requests under ``torch.profiler`` give
      the card's busy time a request (its idle share against the p50)
      and the three largest device items.
+Phases 12-15 run between phases 8 and 9, once SASRec's memory is freed:
+ 12. main path, the other two backbones: full-width RecJPQ BERT4Rec and
+     GRU4Rec (SeqRecConfig defaults, phase 7's data and svd codebook,
+     BERT4Rec's batches masked by ``mask_batch`` seeded from the step)
+     train for 1 + 10 steps of B=16 x S=200, each checked as phase 7
+     checks SASRec: launch counters zeroed just before, every training
+     kernel launched, losses finite and falling, a B=2 step through the
+     kernels against PyTorch gathers, and eval over 256 users (BERT4Rec
+     at a [MASK] appended to the history) bit-equal to the kernel's
+     scores on the same LUT; then a ``{"train_archs": ...}`` line;
+ 13. the quickstart example (``repro_torch.examples.quickstart``) at 50
+     steps: both models' results finite, the training kernels launched;
+ 14. the serve_retrieval example as shipped (N=200,000, B=1/32/256):
+     fused, materialise and pruned ids equal, fused values equal to
+     materialise's, jpq_topk, jpq_topk_pruned and jpq_scores launched,
+     the kernel's scores equal to the gathers';
+ 15. the paper-validation grid (2 profiles x 3 archs x 5 variants, 30
+     runs at 30 steps; RecJPQ tables of b=64, dk=8): every NDCG@10
+     finite, every RecJPQ run launching the training kernels (counters
+     zeroed before each run); then a ``{"paper_validation": [...]}``
+     line; then the four training kernels at every shape phases 13 and
+     15 gave them (the quickstart's b=256 over 1,502 rows and the grid's
+     b=64 over 242 and 2,002, training and eval, the eval T as the
+     wrapper recorded it) and jpq_topk at serve_retrieval's, each held
+     against its plain version (forwards bit-equal, backwards within
+     the fp32 sum bound) and timed beside it and its bound (an
+     ``{"example_shapes": ...}`` line).
 Then JSON lines of the serving runs, the CTR serving runs and the
 per-kernel numbers (seven kernels), the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX or
@@ -148,23 +175,39 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, reqs):
+def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05):
     """Run ``fn`` on each request under ``torch.profiler`` and return
     (device-busy ms per request: the summed durations of the kernels
     and copies the card ran, the top three of them by name as
     [(name, ms per request)]).  Busy 0 means the profiler traced no
-    device activity."""
+    device activity in any of ``attempts`` sessions.
+
+    The profiler keeps only the device records whose (converted) time
+    stamps fall inside its capture window, so a window that holds no
+    more than a millisecond of short kernels can come back empty.  Each
+    session therefore waits ``pad_s`` of idle host time on both sides
+    of the requests (no device work, so the busy time is unchanged),
+    and a session that still traced nothing is run again."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for r in reqs:
-            fn(r)
-        torch.cuda.synchronize()
+    reqs = list(reqs)
     per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            for r in reqs:
+                fn(r)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per[e.name] = (per.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        if per:
+            break
+        print(f"   (the profiler traced no device time in session "
+              f"{attempt + 1} of {attempts})")
     n = len(reqs) * 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
     return sum(per.values()) / n, [(k[:80], v / n) for k, v in top]
@@ -187,6 +230,148 @@ def bound(bytes_, ops):
                                  else "operations")
 
 
+def bits_equal(a, b):
+    """Two float32 tensors equal bit for bit."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def scores_fwd_err(P, codes, what):
+    """jpq_scores against its plain version: bit-equal; returns the
+    max |kernel - plain| of that comparison (0)."""
+    import torch
+
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    kern = sc.jpq_scores(P, codes)
+    plain = sref.jpq_scores_lut_ref(P, codes)
+    check(bits_equal(kern, plain), f"jpq_scores != plain ({what})")
+    e = float(kern.sub_(plain).abs_().max())
+    del kern, plain
+    torch.cuda.empty_cache()
+    return e
+
+
+def scores_bwd_err(dS, codes, b, what):
+    """jpq_scores' backward (``b`` centroids a split) as the training
+    path calls it (item chunks picked for the card, ``sc.bwd_chunks``):
+    bit-identical across two calls and |kernel - float64| <=
+    gamma(chain - 1) sum|terms|, chain the longest run of fp32 adds into
+    each output (``sc.bwd_chain``: a chunk's items of the bin, then the
+    chunk partials).  Over one chunk: the same bound, and rows 0-31
+    bit-equal to the plain version run on CPU copies (one chain in item
+    order from +0.0).  The float64 plain version runs in row blocks of
+    512.  Returns (max |err|, largest bound, longest chain, chunks)."""
+    import torch
+
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    T_, N_ = dS.shape
+    chunks = sc.bwd_chunks(T_, codes.shape[1], b, N_, dS.device)
+    d1 = sc.jpq_scores_bwd(dS, codes, b)
+    check(bits_equal(d1, sc.jpq_scores_bwd(dS, codes, b)),
+          f"jpq_scores backward differs between calls ({what})")
+    want = torch.empty(d1.shape, dtype=torch.float64, device=dS.device)
+    mass = torch.empty_like(want)
+    for r in range(0, T_, 512):
+        blk = dS[r:r + 512].double()
+        want[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk, codes, b)
+        mass[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk.abs_(), codes, b)
+        del blk
+    out = None
+    for c, got in ((chunks, d1),
+                   (1, sc.jpq_scores_bwd(dS, codes, b, chunks=1))):
+        chain = sc.bwd_chain(codes, b, c)
+        n = chain.double() - 1
+        lim = (n * U / (1 - n * U)) * mass
+        diff = (got.double() - want).abs()
+        check(bool((diff <= lim).all()),
+              f"jpq_scores backward outside the fp32 sum bound over "
+              f"{c} chunks ({what})")
+        if out is None:
+            out = (float(diff.max()), float(lim.max()), int(chain.max()),
+                   chunks)
+        del lim, diff
+    on_cpu = sref.jpq_scores_lut_bwd_ref(dS[:32].cpu(), codes.cpu(), b)
+    check(bits_equal(got[:32].cpu(), on_cpu),
+          f"jpq_scores backward over one chunk != plain on the CPU, "
+          f"rows 0-31 ({what})")
+    del d1, got, want, mass
+    torch.cuda.empty_cache()
+    return out
+
+
+def lookup_errs(ids, codes, cent, dout, what):
+    """jpq_lookup bit-equal to its plain version; its backward
+    bit-identical across two calls, bit-equal to the plain version
+    run on CPU copies of its inputs (both sum each entry's positions
+    in ascending order from +0.0) and |kernel - float64| <=
+    T u sum|terms|.  ``dout`` None: the forward alone.  Returns the max
+    |err| of the forward and of the backward against float64 (None)."""
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_lookup import ref as lref
+    kern = lc.jpq_lookup(ids, codes, cent)
+    plain = lref.jpq_lookup_ref(ids, codes, cent)
+    check(bits_equal(kern, plain), f"jpq_lookup != plain ({what})")
+    e_fwd = float((kern - plain).abs().max())
+    if dout is None:
+        return e_fwd, None
+    b = cent.shape[1]
+    g1 = lc.jpq_lookup_bwd(ids, codes, dout, b)
+    check(bits_equal(g1, lc.jpq_lookup_bwd(ids, codes, dout, b)),
+          f"jpq_lookup backward differs between calls ({what})")
+    on_cpu = lref.jpq_lookup_bwd_ref(ids.cpu(), codes.cpu(), dout.cpu(), b)
+    check(bits_equal(g1.cpu(), on_cpu),
+          f"jpq_lookup backward != plain on the CPU ({what})")
+    want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), b)
+    mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), b)
+    diff = (g1.double() - want).abs()
+    check(bool((diff <= ids.numel() * U * mass).all()),
+          f"jpq_lookup backward outside the fp32 sum bound ({what})")
+    return e_fwd, float(diff.max())
+
+
+def train_kernel_work(T, N, b, dk):
+    """The least work of each training kernel at T positions over N code
+    rows of ``M`` codes, ``b`` centroids of ``dk`` floats a split:
+    {name: (bytes, {op type: (count, rate)})}, inputs read once and
+    outputs written once."""
+    lut_b, out_b = T * M * b * 4, T * N * 4
+    # the ids, the code rows they name, the centroids, the output
+    look_b = T * 8 + T * M + M * b * dk * 4 + T * M * dk * 4
+    return {
+        "jpq_scores": (N * M + lut_b + out_b,
+                       {"LUT lookups": (T * N * M, LOOKUP_PER_S),
+                        "fp32 adds": (T * N * (M - 1), FADD_PER_S)}),
+        "jpq_scores_bwd": (out_b + N * M + lut_b,
+                           {"histogram updates": (T * N * M, LOOKUP_PER_S),
+                            "fp32 adds": (T * N * M, FADD_PER_S)}),
+        "jpq_lookup": (look_b, {}),
+        "jpq_lookup_bwd": (look_b, {"fp32 adds": (T * M * dk, FADD_PER_S)}),
+    }
+
+
+def topk_work(Bq, N, k):
+    """(bytes, fp32 adds, LUT lookups) of the unpruned fused top-k of
+    ``Bq`` queries over N code rows: the codes and LUTs read once, the
+    values and ids written once, one lookup and add a (query, item,
+    split)."""
+    return N * M + Bq * M * BC * 4 + Bq * k * 8, Bq * N * M, Bq * N * M
+
+
+def bound_of(bytes_, adds, lookups):
+    """(bound ms, bound_by, (bytes ms, adds ms, lookups ms)) of a top-k
+    sweep: its bytes over HBM against its fp32 adds and its LUT lookups,
+    each over its own rate."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_adds = adds / FADD_PER_S * 1e3
+    t_lookups = lookups / LOOKUP_PER_S * 1e3
+    t_ops = max(t_adds, t_lookups)
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            (t_bytes, t_adds, t_lookups))
+
+
 # the full-width training configuration (the repo's SeqRecConfig defaults
 # with the paper's RecJPQ table) and its batch
 N_ITEMS, SEQ_LEN, TRAIN_B = 1_000_000, 200, 16
@@ -195,8 +380,8 @@ EVAL_USERS, TRAIN_STEPS = 256, 20
 
 def train_phases(torch, np, dev, smi):
     """Phases 6-8: the training kernels' parity, the training main path
-    and the kernels' timing.  Returns their entries of the kernels line."""
-    from repro_torch.core import EmbeddingConfig
+    and the kernels' timing.  Returns (their entries of the kernels line,
+    the synthetic data, the svd codebook), which phase 12 reuses."""
     from repro_torch.core import jpq as jpq_mod
     from repro_torch.core.assign import build_codebook
     from repro_torch.data.sequences import SeqDataConfig, SyntheticSequences
@@ -204,95 +389,7 @@ def train_phases(torch, np, dev, smi):
     from repro_torch.kernels.jpq_lookup import ref as lref
     from repro_torch.kernels.jpq_scores import cuda as sc
     from repro_torch.kernels.jpq_scores import ref as sref
-    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
     from repro_torch.models.sequential import _xent
-    from repro_torch.train.loop import TrainConfig, Trainer
-    from repro_torch.train.metrics import hr_at_k, ndcg_at_k
-    from repro_torch.train.optimizer import OptConfig
-
-    def bits_equal(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-    def scores_fwd_err(P, codes, what):
-        """jpq_scores against its plain version: bit-equal; returns the
-        max |kernel - plain| of that comparison (0)."""
-        kern = sc.jpq_scores(P, codes)
-        plain = sref.jpq_scores_lut_ref(P, codes)
-        check(bits_equal(kern, plain), f"jpq_scores != plain ({what})")
-        e = float(kern.sub_(plain).abs_().max())
-        del kern, plain
-        torch.cuda.empty_cache()
-        return e
-
-    def scores_bwd_err(dS, codes, what):
-        """jpq_scores' backward as the training path calls it (item chunks
-        picked for the card, ``sc.bwd_chunks``): bit-identical across two
-        calls and |kernel - float64| <= gamma(chain - 1) sum|terms|, chain
-        the longest run of fp32 adds into each output (``sc.bwd_chain``:
-        a chunk's items of the bin, then the chunk partials).  Over one
-        chunk: the same bound, and rows 0-31 bit-equal to the plain
-        version run on CPU copies (one chain in item order from +0.0).
-        The float64 plain version runs in row blocks of 512.  Returns
-        (max |err|, largest bound, longest chain, chunks)."""
-        T_, N_ = dS.shape
-        chunks = sc.bwd_chunks(T_, M, BC, N_, dev)
-        d1 = sc.jpq_scores_bwd(dS, codes, BC)
-        check(bits_equal(d1, sc.jpq_scores_bwd(dS, codes, BC)),
-              f"jpq_scores backward differs between calls ({what})")
-        want = torch.empty(d1.shape, dtype=torch.float64, device=dev)
-        mass = torch.empty_like(want)
-        for r in range(0, T_, 512):
-            blk = dS[r:r + 512].double()
-            want[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk, codes, BC)
-            mass[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk.abs_(), codes,
-                                                          BC)
-            del blk
-        out = None
-        for c, got in ((chunks, d1),
-                       (1, sc.jpq_scores_bwd(dS, codes, BC, chunks=1))):
-            chain = sc.bwd_chain(codes, BC, c)
-            n = chain.double() - 1
-            lim = (n * U / (1 - n * U)) * mass
-            diff = (got.double() - want).abs()
-            check(bool((diff <= lim).all()),
-                  f"jpq_scores backward outside the fp32 sum bound over "
-                  f"{c} chunks ({what})")
-            if out is None:
-                out = (float(diff.max()), float(lim.max()), int(chain.max()),
-                       chunks)
-            del lim, diff
-        on_cpu = sref.jpq_scores_lut_bwd_ref(dS[:32].cpu(), codes.cpu(), BC)
-        check(bits_equal(got[:32].cpu(), on_cpu),
-              f"jpq_scores backward over one chunk != plain on the CPU, "
-              f"rows 0-31 ({what})")
-        del d1, got, want, mass
-        torch.cuda.empty_cache()
-        return out
-
-    def lookup_errs(ids, codes, cent, dout, what):
-        """jpq_lookup bit-equal to its plain version; its backward
-        bit-identical across two calls, bit-equal to the plain version
-        run on CPU copies of its inputs (both sum each entry's positions
-        in ascending order from +0.0) and |kernel - float64| <=
-        T u sum|terms|.  Returns the max |err| of the forward and of the
-        backward against float64."""
-        kern = lc.jpq_lookup(ids, codes, cent)
-        plain = lref.jpq_lookup_ref(ids, codes, cent)
-        check(bits_equal(kern, plain), f"jpq_lookup != plain ({what})")
-        e_fwd = float((kern - plain).abs().max())
-        g1 = lc.jpq_lookup_bwd(ids, codes, dout, BC)
-        check(bits_equal(g1, lc.jpq_lookup_bwd(ids, codes, dout, BC)),
-              f"jpq_lookup backward differs between calls ({what})")
-        on_cpu = lref.jpq_lookup_bwd_ref(ids.cpu(), codes.cpu(), dout.cpu(),
-                                         BC)
-        check(bits_equal(g1.cpu(), on_cpu),
-              f"jpq_lookup backward != plain on the CPU ({what})")
-        want = lref.jpq_lookup_bwd_ref(ids, codes, dout.double(), BC)
-        mass = lref.jpq_lookup_bwd_ref(ids, codes, dout.double().abs(), BC)
-        diff = (g1.double() - want).abs()
-        check(bool((diff <= ids.numel() * U * mass).all()),
-              f"jpq_lookup backward outside the fp32 sum bound ({what})")
-        return e_fwd, float(diff.max())
 
     err = {}
     n_rows = N_ITEMS + 2
@@ -312,7 +409,7 @@ def train_phases(torch, np, dev, smi):
     del luts
     dS = torch.randn((512, n_rows), generator=gen, device=dev)
     err["jpq_scores_bwd"], worst, chain, chunks = scores_bwd_err(
-        dS, codes, "T=512")
+        dS, codes, BC, "T=512")
     print(f"   jpq_scores: forward bit-equal (normal, quantised LUT); "
           f"backward over {chunks} item chunks deterministic, max |err| vs "
           f"float64 {err['jpq_scores_bwd']:.3e} (bound gamma(chain - 1) "
@@ -347,80 +444,11 @@ def train_phases(torch, np, dev, smi):
     print(f"   set-up on the host: data {t_data:.1f}s "
           f"({data.n_users_eff} users, {len(u)} train interactions), "
           f"svd codebook {t_codes:.1f}s")
-    cfg = SeqRecConfig(arch="sasrec", n_items=N_ITEMS, max_len=SEQ_LEN,
-                       embedding=EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
-                                                 assignment="svd",
-                                                 use_kernel=True))
-    model = SeqRecModel(cfg, codes=codes_np, device=dev)
-    trainer = Trainer(model, OptConfig(lr=3e-3),
-                      TrainConfig(steps=1 + TRAIN_STEPS, batch_size=TRAIN_B,
-                                  log_every=1, eval_every=0),
-                      data_fn=lambda s: data.train_batch(s, TRAIN_B))
-    torch.cuda.reset_peak_memory_stats(dev)
-    sc.reset_launches()
-    lc.reset_launches()
-    params, hist = trainer.run(
-        generator=torch.Generator(device=dev).manual_seed(0))
-    launches = {**sc.launches, **lc.launches}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    for name, n in launches.items():
-        check(n > 0, f"the training run never launched {name}")
-    losses = [h["loss"] for h in hist if "loss" in h]
-    secs = [h["sec"] for h in hist if "loss" in h][1:]
-    check(len(losses) == 1 + TRAIN_STEPS and all(np.isfinite(losses)),
-          f"losses not finite: {losses}")
-    check(np.mean(losses[-5:]) < losses[0],
-          f"loss did not fall: first {losses[0]}, last 5 {losses[-5:]}")
-    step_ms = float(np.median(secs)) * 1e3
-    print(f"   losses {' '.join(f'{v:.4f}' for v in losses)}")
-    print(f"   median step {step_ms:.1f} ms (steps 1-{TRAIN_STEPS}), peak "
-          f"memory {peak_gb:.2f} GB, launches {launches} on {smi}")
-
-    # one step at B=2 through the kernels and through PyTorch gathers, on
-    # the trained weights: loss within 1e-5 relative, every gradient
-    # within 1e-4 of its largest entry (the sums run in other orders)
-    plain = SeqRecModel(dataclasses.replace(cfg, embedding=dataclasses.replace(
-        cfg.embedding, use_kernel=False)), codes=codes_np, device=dev)
-    small = {k: torch.as_tensor(v[:2], device=dev)
-             for k, v in data.train_batch(10_000, 2).items()}
-    floats = [x for x in model.parameters()]
-    res = {}
-    for name, m in (("kernels", model), ("gathers", plain)):
-        loss, _ = m.train_loss(params, small)
-        res[name] = (float(loss.detach()),
-                     torch.autograd.grad(loss, floats))
-    (lk, gk), (lg, gg) = res["kernels"], res["gathers"]
-    check(abs(lk - lg) <= 1e-5 * abs(lg),
-          f"B=2 loss through kernels {lk} != gathers {lg}")
-    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-                for a, b in zip(gk, gg))
-    check(worst <= 1e-4, f"B=2 gradients differ by {worst:.3e} of their "
-          f"largest entry")
-    print(f"   B=2 step: loss {lk:.6f} (kernels) vs {lg:.6f} (gathers), "
-          f"gradients within {worst:.2e} of their largest entry")
-    del res, gk, gg, plain
-
-    ev = data.eval_batch(range(EVAL_USERS), split="test")
-    seq = torch.as_tensor(ev["seq"], device=dev)
-    target = torch.as_tensor(ev["target"], device=dev)
-    sc.reset_launches()
-    with torch.no_grad():
-        scores = model.score_last(params, seq)
-        check(sc.launches["jpq_scores"] > 0, "eval never launched jpq_scores")
-        h = model.encode(params, seq)[:, -1]
-        P = jpq_mod.partial_scores(params["item_emb"], h).contiguous()
-        kern = sc.jpq_scores(P, params["item_emb"]["codes"])
-        ref = sref.jpq_scores_lut_ref(P, params["item_emb"]["codes"])
-    check(tuple(scores.shape) == (EVAL_USERS, n_rows)
-          and bool(torch.isfinite(scores).all()), "eval scores malformed")
-    check(bits_equal(kern, ref), "eval scores != plain on the same LUT")
-    kern[:, 0] = kern[:, -1] = -1e9
-    check(bits_equal(scores, kern), "score_last != kernel scores, masked")
-    ndcg = float(ndcg_at_k(scores, target).mean())
-    hr = float(hr_at_k(scores, target).mean())
-    print(f"   eval {EVAL_USERS} users: NDCG@10 {ndcg:.4f} HR@10 {hr:.4f}; "
-          f"scores bit-equal to the plain version on the same LUT")
-    del scores, kern, ref, h, P
+    model, params, run = seq_main_path(torch, np, dev, smi, data, codes_np,
+                                       "sasrec", TRAIN_STEPS)
+    losses, step_ms, peak_gb, launches, ndcg, hr = (
+        run[k] for k in ("losses", "median_step_ms", "peak_gb", "launches",
+                         "ndcg10", "hr10"))
     torch.cuda.empty_cache()
     done(t0)
 
@@ -440,7 +468,7 @@ def train_phases(torch, np, dev, smi):
     err["jpq_scores"] = max(err["jpq_scores"],
                             scores_fwd_err(P, codes, f"main path, T={T}"))
     dS = torch.randn((T, n_rows), generator=gen, device=dev)
-    e, worst, chain, chunks = scores_bwd_err(dS, codes,
+    e, worst, chain, chunks = scores_bwd_err(dS, codes, BC,
                                              f"main path, T={T}")
     err["jpq_scores_bwd"] = max(err["jpq_scores_bwd"], e)
     print(f"   at T={T}: jpq_scores forward bit-equal to plain on the "
@@ -540,26 +568,14 @@ def train_phases(torch, np, dev, smi):
     for name, fns in lookup_fns.items():
         (k_ms, k_top), (l_ms, l_top) = (
             device_profile(torch, lambda _, f=f: f(), range(50)) for f in fns)
-        check(k_ms > 0 and l_ms > 0,
-              f"the profiler traced no device time for {name}")
+        check(k_ms > 0, f"the profiler traced no device time for {name}")
+        check(l_ms > 0, f"the profiler traced no device time for {name}'s "
+              f"library call")
         dev_times[name] = {"device_ms": k_ms, "library_device_ms": l_ms}
         print(f"   {name}: device {k_ms:.4f} ms a call ({k_top[0][0]}); "
               f"library device {l_ms:.4f} ms ("
               + "; ".join(f"{k} {v:.4f}" for k, v in l_top) + ")")
-    lut_b, out_b = T * M * BC * 4, T * n_rows * 4
-    rows_b = T * M                               # the code rows the ids name
-    look_b = T * 8 + rows_b + M * BC * dk * 4 + T * M * dk * 4
-    work = {   # bytes, {op type: (count, rate)}
-        "jpq_scores": (n_rows * M + lut_b + out_b,
-                       {"LUT lookups": (T * n_rows * M, LOOKUP_PER_S),
-                        "fp32 adds": (T * n_rows * (M - 1), FADD_PER_S)}),
-        "jpq_scores_bwd": (out_b + n_rows * M + lut_b,
-                           {"histogram updates": (T * n_rows * M,
-                                                  LOOKUP_PER_S),
-                            "fp32 adds": (T * n_rows * M, FADD_PER_S)}),
-        "jpq_lookup": (look_b, {}),
-        "jpq_lookup_bwd": (look_b, {"fp32 adds": (T * M * dk, FADD_PER_S)}),
-    }
+    work = train_kernel_work(T, n_rows, BC, dk)
     line = {"jpq_scores": 60, "jpq_lookup": 62}
     out = []
     for name, (ms, plain_ms, lib_ms) in times.items():
@@ -619,7 +635,362 @@ def train_phases(torch, np, dev, smi):
         "jpq_scores_bwd_device_ms": bwd_dev_ms,
         "jpq_scores_bwd_device_top": bwd_top, "card": smi}}))
     done(t0)
-    return out, data
+    return out, data, codes_np
+
+
+# the paper's two other backbones at full width (SeqRecConfig defaults,
+# the same RecJPQ table, data and codebook as phase 7), and the
+# paper-validation grid's steps on the card
+ARCHS, ARCH_STEPS, GRID_STEPS = ("bert4rec", "gru4rec"), 10, 30
+
+
+def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
+    """Train full-width RecJPQ ``arch`` (SeqRecConfig defaults, the svd
+    codebook ``codes_np``, ``use_kernel=True``) for 1 + ``steps`` steps of
+    B=16 x S=200 through ``Trainer``, the launch counters zeroed just
+    before: every training kernel launched, the losses finite and
+    falling.  Then one step at B=2 through the kernels against PyTorch
+    gathers on the trained weights (loss within 1e-5 relative, every
+    gradient within 1e-4 of its largest entry: the sums run in other
+    orders), and ``score_last`` for 256 eval users through jpq_scores,
+    bit-equal to the kernel's scores on the same LUT (pad and [MASK]
+    columns masked), with NDCG@10 and HR@10.  BERT4Rec's batches are
+    masked by ``mask_batch`` with a generator seeded from the step, as
+    the train CLI masks them.  Returns (model, params, summary)."""
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    from repro_torch.models.sequential import (SeqRecConfig, SeqRecModel,
+                                               mask_batch)
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.metrics import hr_at_k, ndcg_at_k
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = SeqRecConfig(arch=arch, n_items=N_ITEMS, max_len=SEQ_LEN,
+                       embedding=EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
+                                                 assignment="svd",
+                                                 use_kernel=True))
+
+    def batch_fn(B):
+        def fn(s):
+            b = data.train_batch(s, B)
+            if arch != "bert4rec":
+                return b
+            seq = torch.as_tensor(b["seq"], device=dev)
+            ms, tg = mask_batch(torch.Generator(device=dev).manual_seed(s),
+                                seq, cfg.mask_prob, cfg.mask_id)
+            return {"seq": ms, "targets": tg}
+        return fn
+
+    model = SeqRecModel(cfg, codes=codes_np, device=dev)
+    trainer = Trainer(model, OptConfig(lr=3e-3),
+                      TrainConfig(steps=1 + steps, batch_size=TRAIN_B,
+                                  log_every=1, eval_every=0),
+                      data_fn=batch_fn(TRAIN_B))
+    torch.cuda.reset_peak_memory_stats(dev)
+    sc.reset_launches()
+    lc.reset_launches()
+    params, hist = trainer.run(
+        generator=torch.Generator(device=dev).manual_seed(0))
+    launches = {**sc.launches, **lc.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, n in launches.items():
+        check(n > 0, f"the {arch} training run never launched {name}")
+    losses = [h["loss"] for h in hist if "loss" in h]
+    secs = [h["sec"] for h in hist if "loss" in h][1:]
+    check(len(losses) == 1 + steps and all(np.isfinite(losses)),
+          f"{arch} losses not finite: {losses}")
+    check(np.mean(losses[-5:]) < losses[0],
+          f"{arch} loss did not fall: first {losses[0]}, last 5 "
+          f"{losses[-5:]}")
+    step_ms = float(np.median(secs)) * 1e3
+    print(f"   losses {' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"   median step {step_ms:.1f} ms (steps 1-{steps}), peak "
+          f"memory {peak_gb:.2f} GB, launches {launches} on {smi}")
+
+    plain = SeqRecModel(dataclasses.replace(cfg, embedding=dataclasses.replace(
+        cfg.embedding, use_kernel=False)), codes=codes_np, device=dev)
+    small = {k: torch.as_tensor(v[:2], device=dev)
+             for k, v in batch_fn(2)(10_000).items()}
+    floats = list(model.parameters())
+    res = {}
+    for name, m in (("kernels", model), ("gathers", plain)):
+        loss, _ = m.train_loss(params, small)
+        res[name] = (float(loss.detach()),
+                     torch.autograd.grad(loss, floats))
+    (lk, gk), (lg, gg) = res["kernels"], res["gathers"]
+    check(abs(lk - lg) <= 1e-5 * abs(lg),
+          f"{arch} B=2 loss through kernels {lk} != gathers {lg}")
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(gk, gg))
+    check(worst <= 1e-4, f"{arch} B=2 gradients differ by {worst:.3e} of "
+          f"their largest entry")
+    print(f"   B=2 step: loss {lk:.6f} (kernels) vs {lg:.6f} (gathers), "
+          f"gradients within {worst:.2e} of their largest entry")
+    del res, gk, gg, plain, floats
+
+    ev = data.eval_batch(range(EVAL_USERS), split="test")
+    seq = torch.as_tensor(ev["seq"], device=dev)
+    target = torch.as_tensor(ev["target"], device=dev)
+    sc.reset_launches()
+    with torch.no_grad():
+        scores = model.score_last(params, seq)
+        check(sc.launches["jpq_scores"] > 0,
+              f"{arch} eval never launched jpq_scores")
+        h = model.encode(params, model._serve_seq(seq))[:, -1]
+        P = jpq_mod.partial_scores(params["item_emb"], h).contiguous()
+        kern = sc.jpq_scores(P, params["item_emb"]["codes"])
+        ref = sref.jpq_scores_lut_ref(P, params["item_emb"]["codes"])
+    check(tuple(scores.shape) == (EVAL_USERS, N_ITEMS + 2)
+          and bool(torch.isfinite(scores).all()),
+          f"{arch} eval scores malformed")
+    check(bits_equal(kern, ref), f"{arch} eval scores != plain on the same "
+          f"LUT")
+    kern[:, 0] = kern[:, -1] = -1e9
+    check(bits_equal(scores, kern),
+          f"{arch} score_last != kernel scores, masked")
+    ndcg = float(ndcg_at_k(scores, target).mean())
+    hr = float(hr_at_k(scores, target).mean())
+    print(f"   eval {EVAL_USERS} users: NDCG@10 {ndcg:.4f} HR@10 {hr:.4f}; "
+          f"scores bit-equal to the plain version on the same LUT")
+    return model, params, {
+        "losses": losses, "median_step_ms": step_ms,
+        "step_ms": [t * 1e3 for t in secs], "peak_gb": peak_gb,
+        "launches": launches, "ndcg10": ndcg, "hr10": hr,
+        "b2_loss_kernels": lk, "b2_loss_gathers": lg,
+        "b2_grad_rel_err": worst}
+
+
+def arch_phases(torch, np, dev, smi, data, codes_np):
+    """Phase 12: full-width RecJPQ BERT4Rec and GRU4Rec training through
+    the four training kernels, each checked as phase 7 checks SASRec
+    (``seq_main_path``).  Returns the ``train_archs`` summary."""
+    summary = {}
+    for arch in ARCHS:
+        t0 = phase(f"main path: full-width RecJPQ {arch} training, "
+                   f"B={TRAIN_B} S={SEQ_LEN} N={N_ITEMS}, 1 + {ARCH_STEPS} "
+                   f"steps")
+        check(torch.cuda.memory_allocated(dev) < 2e9,
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB still "
+              f"allocated before {arch}")
+        model, params, summary[arch] = seq_main_path(
+            torch, np, dev, smi, data, codes_np, arch, ARCH_STEPS)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0)
+    print(json.dumps({"train_archs": summary, "card": smi}))
+    return summary
+
+
+def example_phases(torch, np, dev, smi):
+    """Phases 13-15: the port's three examples on the card, as a user runs
+    them (``python -m repro_torch.examples.<name>``): the quickstart at
+    50 steps, serve_retrieval as shipped, and the paper-validation grid
+    (2 profiles x 3 archs x 5 variants) at ``GRID_STEPS`` steps, the
+    launch counters zeroed before each and read after.  Then the training
+    kernels at every shape these runs gave them (``example_shape_times``:
+    the eval shapes as the jpq_scores wrapper recorded them at each run's
+    last launch, its ``score_last``).  Returns the summary of the
+    three."""
+    from repro_torch.examples import paper_validation as pv
+    from repro_torch.examples import quickstart, serve_retrieval
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+
+    counters = (kc, sc, lc)
+    train_kernels = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+                     "jpq_lookup_bwd")
+
+    def reset():
+        for c in counters:
+            c.reset_launches()
+
+    def read():
+        return {k: v for c in counters for k, v in c.launches.items() if v}
+
+    def eval_shape(what, n_rows):
+        """(T, N) of the last jpq_scores launch: the run's score_last."""
+        T, N = sc.fwd_launch_shape["T"], sc.fwd_launch_shape["N"]
+        check(N == n_rows, f"{what}: the last jpq_scores launch was over "
+              f"{N} rows, not the {n_rows} of its catalogue")
+        return T
+
+    # (what, scores T, lookup T, N, b, dk, backward too): the shapes the
+    # examples ran the training kernels at
+    shapes = []
+    out = {}
+    t0 = phase("example: quickstart --steps 50 (SASRec base vs RecJPQ-svd)")
+    reset()
+    qs = quickstart.main(["--steps", "50"])
+    launches = read()
+    for name in train_kernels:
+        check(launches.get(name, 0) > 0, f"quickstart never launched {name}")
+    for variant, r in qs.items():
+        check(all(np.isfinite([r["ndcg10"], r["hr10"], r["final_loss"]])),
+              f"quickstart {variant}: non-finite result {r}")
+    check(qs["recjpq-svd"]["param_bytes"] < qs["base"]["param_bytes"],
+          "quickstart: RecJPQ model not smaller than the base")
+    qs_n = quickstart.N_ITEMS + 2
+    qs_args = quickstart.build_parser().parse_args([])
+    qs_dk = qs_args.d_model // qs_args.m
+    qs_eval = eval_shape("quickstart", qs_n)
+    qs_train = quickstart.BATCH * quickstart.SEQ_LEN
+    shapes += [("quickstart train", qs_train, qs_train, qs_n,
+                quickstart.CENTROIDS, qs_dk, True),
+               ("quickstart eval", qs_eval, qs_eval * quickstart.SEQ_LEN,
+                qs_n, quickstart.CENTROIDS, qs_dk, False)]
+    out["quickstart"] = {**qs, "launches": launches}
+    print(f"   launches {launches}")
+    done(t0)
+
+    t0 = phase("example: serve_retrieval (two-tower, N=200,000, B=1/32/256)")
+    reset()
+    sr = serve_retrieval.main([])
+    launches = read()
+    for name in ("jpq_topk", "jpq_topk_pruned", "jpq_scores"):
+        check(launches.get(name, 0) > 0,
+              f"serve_retrieval never launched {name}")
+    check(sr["fused_ids_equal"] and sr["pruned_ids_equal"],
+          "serve_retrieval: fused, materialise and pruned ids differ")
+    check(sr["fused_max_abs_dv"] == 0.0,
+          f"serve_retrieval: fused values differ from materialise's by "
+          f"{sr['fused_max_abs_dv']}")
+    check(sr["jpq_scores_max_abs_diff"] == 0.0,
+          "serve_retrieval: jpq_scores kernel != gather path")
+    out["serve_retrieval"] = {**sr, "launches": launches}
+    print(f"   launches {launches}")
+    done(t0)
+
+    t0 = phase(f"example: paper_validation grid, 2 profiles x 3 archs x 5 "
+               f"variants at --steps {GRID_STEPS}")
+    profiles = ("ml1m", "gowalla")
+    data_cfg = {p: pv.make_data(p).cfg for p in profiles}
+    rows, grid_eval = [], {}
+    runs = pv.grid(list(profiles), ["sasrec", "bert4rec", "gru4rec"],
+                   steps=GRID_STEPS, device=dev)
+    while True:
+        reset()
+        row = next(runs, None)
+        if row is None:
+            break
+        row["launches"] = read()
+        check(np.isfinite(row["ndcg10"]), f"grid row not finite: {row}")
+        if row["variant"].startswith("jpq"):
+            for name in train_kernels:
+                check(row["launches"].get(name, 0) > 0,
+                      f"grid {row['dataset']}/{row['arch']}/"
+                      f"{row['variant']} never launched {name}")
+            n_rows = data_cfg[row["dataset"]].n_items + 2
+            grid_eval.setdefault(row["dataset"], set()).add(
+                (eval_shape(f"grid {row['dataset']}", n_rows), n_rows))
+        rows.append(row)
+        print(f"   {row}")
+    check(len(rows) == 30, f"the grid ran {len(rows)} of 30 runs")
+    grid_dk = pv.D_MODEL // pv.CODE_LEN
+    for p in profiles:
+        check(len(grid_eval[p]) == 1, f"grid {p}: eval shapes "
+              f"{grid_eval[p]} differ between runs")
+        (T_eval, n_rows), = grid_eval[p]
+        S = data_cfg[p].seq_len
+        shapes += [(f"{p} train", pv.BATCH * S, pv.BATCH * S, n_rows,
+                    pv.CENTROIDS, grid_dk, True),
+                   (f"{p} eval", T_eval, T_eval * S, n_rows, pv.CENTROIDS,
+                    grid_dk, False)]
+    out["paper_validation"] = rows
+    print(json.dumps({"paper_validation": rows, "steps": GRID_STEPS,
+                      "card": smi}))
+    done(t0)
+
+    t0 = phase("the kernels at the examples' shapes: parity, then timing "
+               "(CUDA events)")
+    out["example_shapes"] = example_shape_times(torch, dev, smi, shapes)
+    print(json.dumps({"example_shapes": out["example_shapes"],
+                      "card": smi}))
+    done(t0)
+    return out
+
+
+def example_shape_times(torch, dev, smi, shapes):
+    """The kernels at the shapes the examples gave them, each held
+    against its plain version and timed beside it and its bound.  The
+    training kernels at each of ``shapes`` ((what, scores T, lookup T,
+    N, b, dk, backward too): the quickstart's b = 256 and the grid's
+    b = 64, training and eval): forwards bit-equal, backwards
+    deterministic and within the fp32 sum bound (``scores_bwd_err``,
+    ``lookup_errs``).  Then jpq_topk at serve_retrieval's B = 1, 32 and
+    256 over its 200,192 rows, values bit-equal and ids equal."""
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_lookup import ref as lref
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.kernels.jpq_topk import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for what, T, T_look, N, b, dk, bwd in shapes:
+        codes = torch.randint(0, b, (N, M), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        P = torch.randn((T, M, b), generator=gen, device=dev)
+        cent = torch.randn((M, b, dk), generator=gen, device=dev)
+        ids = torch.randint(0, N, (T_look,), generator=gen, device=dev)
+        dS = torch.randn((T, N), generator=gen, device=dev) if bwd else None
+        dout = (torch.randn((T_look, M, dk), generator=gen, device=dev)
+                if bwd else None)
+        err = {"jpq_scores": scores_fwd_err(P, codes, what)}
+        err["jpq_lookup"], err["jpq_lookup_bwd"] = lookup_errs(
+            ids, codes, cent, dout, what)
+        cases = {
+            "jpq_scores": (T, lambda: sc.jpq_scores(P, codes),
+                           lambda: sref.jpq_scores_lut_ref(P, codes)),
+            "jpq_lookup": (T_look, lambda: lc.jpq_lookup(ids, codes, cent),
+                           lambda: lref.jpq_lookup_ref(ids, codes, cent)),
+        }
+        if bwd:
+            err["jpq_scores_bwd"] = scores_bwd_err(dS, codes, b, what)[0]
+            cases["jpq_scores_bwd"] = (
+                T, lambda: sc.jpq_scores_bwd(dS, codes, b),
+                lambda: sref.jpq_scores_lut_bwd_ref(dS, codes, b))
+            cases["jpq_lookup_bwd"] = (
+                T_look, lambda: lc.jpq_lookup_bwd(ids, codes, dout, b),
+                lambda: lref.jpq_lookup_bwd_ref(ids, codes, dout, b))
+        for name, (T_k, kern, plain) in cases.items():
+            b_ms, b_by = bound(*train_kernel_work(T_k, N, b, dk)[name])
+            rows.append({"shape": what, "name": name, "T": T_k, "N": N,
+                         "b": b, "dk": dk, "max_abs_err": err[name],
+                         "ms": cuda_ms(kern, 50),
+                         "plain_ms": cuda_ms(plain, 10), "bound_ms": b_ms,
+                         "bound_by": b_by})
+        del codes, P, cent, ids, dS, dout
+    N, k = 200_192, 10
+    codes = torch.randint(0, BC, (N, M), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    for Bq in (1, 32, 256):
+        P = ops.canonicalise_lut(torch.randn((Bq, M, BC), generator=gen,
+                                             device=dev)).contiguous()
+        want = ops.jpq_topk_scan(P, codes, k, block_n=ops.scan_block_n(N))
+        got = kc.jpq_topk(P, codes, k)
+        check(bits_equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"jpq_topk != plain (serve_retrieval, B={Bq})")
+        b_ms, b_by, _ = bound_of(*topk_work(Bq, N, k))
+        rows.append({"shape": f"serve B={Bq}", "name": "jpq_topk", "B": Bq,
+                     "N": N, "max_abs_err": float(
+                         (got[0] - want[0]).abs().max()),
+                     "ms": cuda_ms(lambda: kc.jpq_topk(P, codes, k), 50),
+                     "plain_ms": cuda_ms(lambda: ops.jpq_topk_scan(
+                         P, codes, k, block_n=ops.scan_block_n(N)), 5),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "launch_shape": dict(kc.launch_shape)})
+    for r in rows:
+        print(f"   {r['name']} ({r['shape']}, T/B={r.get('T', r.get('B'))}, "
+              f"N={r['N']}): {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} "
+              f"ms plain, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"max |err| {r['max_abs_err']:.3e} on {smi}")
+    return rows
 
 
 # the CTR serving slice: the archs served, those whose path runs
@@ -669,9 +1040,6 @@ def ctr_phases(torch, np, dev, smi, data, tt_template):
     from repro_torch.launch import serve as serve_mod
 
     counters = (ec, kc, sc, lc)
-
-    def bits_equal(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
     gen = torch.Generator(device=dev).manual_seed(3)
     tables = {}
@@ -1165,8 +1533,7 @@ def main() -> int:
     # run on different units, so the slower of the two.  Pruned: only
     # the (group, tile) pairs this run swept.
     lut_bytes, out_bytes = B * M * BC * 4, B * k * 8
-    bytes_u = n_rows * M + lut_bytes + out_bytes
-    adds_u = lookups_u = B * n_rows * M
+    bytes_u, adds_u, lookups_u = topk_work(B, n_rows, k)
     group = kc.pruned_group_size()        # queries per block (the library's)
 
     def pruned_work(st, skip):
@@ -1230,15 +1597,6 @@ def main() -> int:
           f"({times['jpq_topk'][0]:.4f} ms) and the plain version; k=100: "
           f"{k100_ms:.4f} ms, on {smi}")
     del codes_odd, gen_top, top_out, top_plain
-
-    def bound_of(bytes_, adds, lookups):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_adds = adds / FADD_PER_S * 1e3
-        t_lookups = lookups / LOOKUP_PER_S * 1e3
-        t_ops = max(t_adds, t_lookups)
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations",
-                (t_bytes, t_adds, t_lookups))
 
     # the pruned kernel a second time, on a skip-heavy catalogue at full
     # width: codes that follow each item's rank (the card tests'
@@ -1313,8 +1671,13 @@ def main() -> int:
 
     del P, st, codes, params, model, h
     torch.cuda.empty_cache()
-    train_kernels, data = train_phases(torch, np, dev, smi)
+    train_kernels, data, codes_np = train_phases(torch, np, dev, smi)
     kernels += train_kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch_phases(torch, np, dev, smi, data, codes_np)
+    del codes_np
+    example_phases(torch, np, dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
     bag_kernel, serve_ctr = ctr_phases(torch, np, dev, smi, data, template)

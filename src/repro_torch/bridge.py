@@ -7,9 +7,13 @@ Two sources:
     tree paths joined by ``/`` (``values/item_emb/centroids``,
     ``values/user_mlp/layers/0/w``).
 Every leaf must match the port's shape and dtype exactly, so codes and
-centroids arrive bit-identical.  The trees of every ported recsys model
-carry over: the two-tower model, FM (``emb``, the ``[V]`` ``linear``, the
-scalar ``bias``), DLRM (``bot``/``top`` MLPs) and DIEN (``gru1``/``augru``
+centroids arrive bit-identical.  The sequential models' trees carry over
+(SASRec and BERT4Rec ``pos_emb``/``blocks``/``ln_f``, GRU4Rec
+``gru/<i>/{wx, wh, b}`` and ``proj``), with any item table (``full``'s
+``table``, ``jpq``'s codes and centroids, ``qr``'s ``q_table`` and
+``r_table``), and so do the trees of every ported recsys model: the
+two-tower model, FM (``emb``, the ``[V]`` ``linear``, the scalar
+``bias``), DLRM (``bot``/``top`` MLPs) and DIEN (``gru1``/``augru``
 ``wx``/``wh``/``b``, the ``att``/``fc``/``aux`` MLPs, ``tgt_proj``).
 """
 from __future__ import annotations

@@ -1,30 +1,21 @@
-"""Uniform embedding interface over {full, jpq} (``qr`` is not yet
-ported)."""
+"""Uniform embedding interface over {full, jpq, qr}."""
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core import full as _full
 from repro_torch.core import jpq as _jpq
-
-
-def _qr_not_ported():
-    raise NotImplementedError("kind='qr' is not yet ported to repro_torch")
-
-
-def _qr_base(n_items: int) -> int:
-    return math.isqrt(max(n_items - 1, 0)) + 1 if n_items > 1 else 1
+from repro_torch.core import qr as _qr
 
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingConfig:
     n_items: int
     d: int
-    kind: str = "full"            # full | jpq | qr (qr: not yet ported)
+    kind: str = "full"            # full | jpq | qr
     m: int = 8                    # jpq: code length
     b: int = 256                  # jpq: centroids per split
     assignment: str = "svd"       # jpq: random | svd | bpr
@@ -40,7 +31,7 @@ class EmbeddingConfig:
         if self.kind == "jpq":
             return self.b * self.d
         if self.kind == "qr":
-            q = _qr_base(self.n_items)
+            q = _qr.qr_base(self.n_items)
             return ((self.n_items + q - 1) // q + q) * self.d
         raise ValueError(self.kind)
 
@@ -60,7 +51,8 @@ class Embedding:
                              dtype=dtype, init_scale=c.init_scale,
                              device=device)
         if c.kind == "qr":
-            _qr_not_ported()
+            return _qr.init(gen, c.n_items, c.d, dtype=dtype,
+                            init_scale=c.init_scale, device=device)
         raise ValueError(c.kind)
 
     def lookup(self, p, ids):
@@ -69,7 +61,7 @@ class Embedding:
             return _full.lookup(p, ids)
         if c.kind == "jpq":
             return _jpq.lookup(p, ids, use_kernel=c.use_kernel)
-        _qr_not_ported()
+        return _qr.lookup(p, ids, c.n_items)
 
     def logits(self, p, h):
         c = self.cfg
@@ -77,7 +69,7 @@ class Embedding:
             return _full.logits(p, h)
         if c.kind == "jpq":
             return _jpq.logits(p, h, use_kernel=c.use_kernel)
-        _qr_not_ported()
+        return _qr.logits(p, h, c.n_items)
 
     def bag_lookup(self, p, ids, segment_ids, num_segments: int,
                    *, combiner: str = "sum", weights=None):

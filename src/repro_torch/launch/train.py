@@ -9,8 +9,9 @@ default: the hand-written kernels; ``cpu``: their plain versions).  A
 RecJPQ table trains with ``use_kernel=True``, so on the card the
 ``full_ce`` logits and the input vectors go through the jpq_scores and
 jpq_lookup kernels, forward and backward (the reference CLI keeps its
-gathers).  Sequential archs only; flags that name paths not yet ported
-(``bert4rec``/``gru4rec``, ``--embedding qr``, ``--ckpt-dir``,
+gathers).  ``--arch bert4rec`` trains on batches masked by
+``mask_batch`` with a generator seeded from the step.  Sequential archs
+only; flags that name paths not yet ported (``--ckpt-dir``,
 ``--ckpt-every``, ``--devices``/``--mesh``/``--model-axis`` > 1, the
 elastic-exchange cluster, ``--microbatches`` > 1) raise.
 """
@@ -70,7 +71,8 @@ def build(args):
     from repro_torch.core import EmbeddingConfig
     from repro_torch.core.assign import build_codebook
     from repro_torch.data.sequences import SeqDataConfig, SyntheticSequences
-    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
+    from repro_torch.models.sequential import (SeqRecConfig, SeqRecModel,
+                                               mask_batch)
     from repro_torch.train.loop import TrainConfig
     from repro_torch.train.metrics import ndcg_at_k
     from repro_torch.train.optimizer import OptConfig
@@ -87,17 +89,16 @@ def build(args):
     if args.ckpt_every != build_parser().get_default("ckpt_every"):
         raise NotImplementedError("--ckpt-every is not yet ported (nor are "
                                   "checkpoints)")
-    if args.embedding == "qr":
-        raise NotImplementedError("--embedding qr is not yet ported")
     dev = resolve_device(args.device)
     fp32_matmuls()
     data = SyntheticSequences(SeqDataConfig(
         n_users=max(args.n_items, 500), n_items=args.n_items, seq_len=32,
         seed=args.seed))
     codes, emb = None, None
-    if args.embedding == "jpq":
-        emb = EmbeddingConfig(0, 0, kind="jpq", m=args.m, b=256,
+    if args.embedding != "full":
+        emb = EmbeddingConfig(0, 0, kind=args.embedding, m=args.m, b=256,
                               use_kernel=True)
+    if args.embedding == "jpq":
         u, i = data.train_interactions()
         codes = build_codebook(
             args.assignment, args.n_items + 2, args.m, 256,
@@ -112,7 +113,13 @@ def build(args):
                             args.seed))
 
     def data_fn(s):
-        return data.train_batch(s, args.batch_size)
+        b = data.train_batch(s, args.batch_size)
+        if args.arch != "bert4rec":
+            return b
+        seq = torch.as_tensor(b["seq"], device=dev)
+        ms, tg = mask_batch(torch.Generator(device=dev).manual_seed(s), seq,
+                            cfg.mask_prob, cfg.mask_id)
+        return {"seq": ms, "targets": tg}
 
     ev = data.eval_batch(range(0, data.n_users_eff, 8), split="val")
     ev = {k: torch.as_tensor(v, device=dev) for k, v in ev.items()}

@@ -1,15 +1,17 @@
-"""Sequential recommenders with a pluggable item embedding: SASRec.
+"""Sequential recommenders with a pluggable item embedding: SASRec,
+BERT4Rec and GRU4Rec, the paper's three backbones.
 
 Item ids are 1-based; row 0 is padding and row ``n_items + 1`` is
 BERT4Rec's [MASK] token, so every embedding table has ``n_items + 2``
 rows, as in the reference.  The loss is the full-catalogue softmax
 (``full_ce``); with a RecJPQ table and ``use_kernel=True`` its logits
 come from the jpq_scores kernels and the input vectors from the
-jpq_lookup kernels, forward and backward.
+jpq_lookup kernels, forward and backward.  BERT4Rec trains on batches
+masked by ``mask_batch`` (a ``targets`` array in place of ``labels``)
+and is queried at a [MASK] appended after the history.
 
-BERT4Rec, GRU4Rec (with ``nn/recurrent.py``), the ``sampled_bce`` and
-``code_ce`` losses, the ``semantic_weight`` auxiliary loss and
-``bind_engine`` are not yet ported and raise.
+The ``sampled_bce`` and ``code_ce`` losses, the ``semantic_weight``
+auxiliary loss and ``bind_engine`` are not yet ported and raise.
 """
 from __future__ import annotations
 
@@ -23,13 +25,14 @@ from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.nn import layers as L
 from repro_torch.nn.attention import AttnConfig, attention, attention_init
 from repro_torch.nn.module import Tensors
+from repro_torch.nn.recurrent import gru_init, gru_scan
 
 NEG_INF = -1e9
 
 
 @dataclasses.dataclass(frozen=True)
 class SeqRecConfig:
-    arch: str                     # sasrec (bert4rec | gru4rec: not yet ported)
+    arch: str                     # sasrec | bert4rec | gru4rec
     n_items: int
     max_len: int = 200
     d_model: int = 512
@@ -41,7 +44,7 @@ class SeqRecConfig:
     semantic_weight: float = 0.0
     n_negatives: int = 1
     dropout: float = 0.0
-    mask_prob: float = 0.2
+    mask_prob: float = 0.2        # bert4rec masking rate
 
     @property
     def n_rows(self) -> int:      # pad + items + [MASK]
@@ -74,22 +77,21 @@ def _dropout(gen, x, rate: float):
 
 
 class SeqRecModel(torch.nn.Module):
-    """SASRec with a pluggable item embedding.  Parameters are drawn from
-    ``generator`` (on ``device``) in the reference's order: the item
-    table, ``pos_emb``, then each block's ``ln1``, ``attn`` (wq, wk, wv,
-    wo), ``ln2``, ``mlp`` (wi, wo), then ``ln_f``.  ``params()`` returns
-    the reference-shaped tree of the live parameters (codes a buffer),
-    which the functional methods take, as the reference's take its
-    params."""
+    """SASRec / BERT4Rec / GRU4Rec with a pluggable item embedding.
+    Parameters are drawn from ``generator`` (on ``device``) in the
+    reference's order: the item table, then for the transformers
+    ``pos_emb``, each block's ``ln1``, ``attn`` (wq, wk, wv, wo), ``ln2``,
+    ``mlp`` (wi, wo), then ``ln_f``; for GRU4Rec each layer's GRU (wx,
+    wh, b), then ``proj``.  ``params()`` returns the reference-shaped
+    tree of the live parameters (codes a buffer), which the functional
+    methods take, as the reference's take its params."""
 
     def __init__(self, cfg: SeqRecConfig, codes=None, *,
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if cfg.arch != "sasrec":
-            raise NotImplementedError(
-                f"arch {cfg.arch!r} is not yet ported to repro_torch "
-                f"(sasrec is)")
+        if cfg.arch not in ("sasrec", "bert4rec", "gru4rec"):
+            raise ValueError(f"unknown arch {cfg.arch!r}")
         if cfg.loss != "full_ce" or cfg.semantic_weight > 0.0:
             raise NotImplementedError(
                 f"loss {cfg.loss!r} / semantic_weight "
@@ -100,14 +102,15 @@ class SeqRecModel(torch.nn.Module):
         self._codes = codes
         self.attn_cfg = AttnConfig(
             d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_heads,
-            head_dim=cfg.d_model // cfg.n_heads, causal=True, rope=False)
+            head_dim=cfg.d_model // cfg.n_heads,
+            causal=(cfg.arch == "sasrec"), rope=False)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.init_params(generator)
 
     @property
     def device(self) -> torch.device:
-        return self.pos_emb.device
+        return next(self.parameters()).device
 
     # ------------------------------------------------------------ init
     def init_params(self, gen: torch.Generator):
@@ -116,6 +119,13 @@ class SeqRecModel(torch.nn.Module):
         cfg, dev = self.cfg, gen.device
         self.item_emb = Tensors(self.emb.init(gen, codes=self._codes,
                                               device=dev))
+        if cfg.arch == "gru4rec":
+            self.gru = torch.nn.ModuleList(
+                Tensors(gru_init(gen, cfg.d_model, cfg.d_model, device=dev))
+                for _ in range(cfg.n_layers))
+            self.proj = Tensors(L.linear_init(gen, cfg.d_model, cfg.d_model,
+                                              device=dev))
+            return self.params()
         self.pos_emb = torch.nn.Parameter(0.02 * torch.randn(
             (cfg.max_len, cfg.d_model), generator=gen, device=dev))
         blocks = []
@@ -135,7 +145,12 @@ class SeqRecModel(torch.nn.Module):
 
     def params(self) -> dict:
         """``{"item_emb", "pos_emb", "blocks": [{"ln1", "attn", "ln2",
-        "mlp": {"wi", "wo"}}], "ln_f"}`` of live tensors."""
+        "mlp": {"wi", "wo"}}], "ln_f"}`` of live tensors; for GRU4Rec
+        ``{"item_emb", "gru": [{"wx", "wh", "b"}], "proj": {"w", "b"}}``."""
+        if self.cfg.arch == "gru4rec":
+            return {"item_emb": self.item_emb.live(),
+                    "gru": [g.live() for g in self.gru],
+                    "proj": self.proj.live()}
         return {
             "item_emb": self.item_emb.live(),
             "pos_emb": self.pos_emb,
@@ -154,6 +169,10 @@ class SeqRecModel(torch.nn.Module):
         valid = seq > 0
         x = self.emb.lookup(p["item_emb"], seq)
         x = torch.where(valid[..., None], x, 0.0)
+        if cfg.arch == "gru4rec":
+            for gp in p["gru"]:
+                x, _ = gru_scan(gp, x)
+            return L.linear(p["proj"], x)
         S = seq.shape[1]
         x = x * math.sqrt(cfg.d_model)
         x = x + p["pos_emb"][:S][None]
@@ -169,8 +188,11 @@ class SeqRecModel(torch.nn.Module):
     # ------------------------------------------------------------ loss
     def train_loss(self, p, batch, generator=None):
         """Mean full-catalogue cross-entropy over the positions with a
-        label; every position is scored, as in the reference."""
-        seq, labels = batch["seq"], batch["labels"]          # [B, S]
+        label (BERT4Rec: with a masked target); every position is scored,
+        as in the reference."""
+        seq = batch["seq"]                                    # [B, S]
+        labels = batch["targets" if self.cfg.arch == "bert4rec"  # 0: unmasked
+                       else "labels"]
         h = self.encode(p, seq, generator=generator)
         valid = labels > 0
         logits = self._mask_special(self.emb.logits(p["item_emb"], h))
@@ -187,9 +209,19 @@ class SeqRecModel(torch.nn.Module):
         return logits
 
     # ------------------------------------------------------------ serve
+    def _serve_seq(self, seq):
+        """The query position: BERT4Rec predicts at a [MASK] appended
+        after the history (the oldest item drops off); the causal archs
+        query the history's last position itself."""
+        if self.cfg.arch != "bert4rec":
+            return seq
+        mask_col = torch.full((seq.shape[0], 1), self.cfg.mask_id,
+                              dtype=seq.dtype, device=seq.device)
+        return torch.cat([seq[:, 1:], mask_col], 1)
+
     def score_last(self, p, seq):
         """Rank the full catalogue from the last position: [B, n_rows]."""
-        h = self.encode(p, seq)
+        h = self.encode(p, self._serve_seq(seq))
         return self._mask_special(self.emb.logits(p["item_emb"], h[:, -1]))
 
     def bind_engine(self, p, spec, *, catalogue=None):
@@ -201,3 +233,23 @@ def _xent(logits, labels):
     lse = torch.logsumexp(logits, -1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - picked
+
+
+# --------------------------------------------------- bert4rec masking
+
+def mask_batch(gen: torch.Generator, seq, mask_prob: float, mask_id: int):
+    """Cloze-mask a batch for BERT4Rec: (masked seq, targets), targets 0
+    where nothing is masked.  Each item is masked with probability
+    ``mask_prob`` (uniforms drawn from ``gen``, a generator on ``seq``'s
+    device; their bits are not jax.random's); pads never are, and the
+    last real item of every row always is, so every non-empty row has a
+    target and trains on the next-item position."""
+    r = torch.rand(seq.shape, generator=gen, device=seq.device)
+    is_item = seq > 0
+    S = seq.shape[1]
+    last = S - 1 - torch.argmax(torch.flip(is_item, [1]).int(), 1)
+    force = torch.arange(S, device=seq.device)[None, :] == last[:, None]
+    do_mask = ((r < mask_prob) | force) & is_item
+    masked = torch.where(do_mask, mask_id, seq)
+    targets = torch.where(do_mask, seq, 0)
+    return masked, targets

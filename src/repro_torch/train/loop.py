@@ -16,10 +16,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.nn.module import tree_leaves
 from repro_torch.train.metrics import validate_history
 from repro_torch.train.optimizer import (OptConfig, apply_updates,
-                                         init_opt_state, tree_leaves,
-                                         tree_map)
+                                         init_opt_state, tree_map)
 
 
 @dataclasses.dataclass

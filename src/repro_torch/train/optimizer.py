@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.nn.module import tree_leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -51,15 +53,6 @@ def schedule_lr(cfg: OptConfig, step) -> torch.Tensor:
     cos = 0.5 * (1.0 + torch.cos(_f32(math.pi) * prog))
     cos = cfg.min_lr_frac + (1.0 - cfg.min_lr_frac) * cos
     return lr * (warm * cos if cfg.schedule.endswith("cosine") else warm)
-
-
-def tree_leaves(tree):
-    """The leaves of a tree of dicts and lists, in order."""
-    if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 def tree_map(fn, *trees):

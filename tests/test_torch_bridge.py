@@ -142,11 +142,6 @@ class TestTowerAndEmbeddings:
         assert T_api.compression_report(tc) == J_api.compression_report(jc)
         assert tc.float_param_count() == jc.float_param_count()
 
-    def test_qr_not_yet_ported(self):
-        emb = T_api.make_embedding(T_EC(n_items=10, d=4, kind="qr"))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            emb.init(torch.Generator(), device="cpu")
-
     @pytest.mark.parametrize("combiner", ["sum", "mean"])
     def test_bag_lookup(self, combiner):
         _, jp, tm, values = _models("jpq", seed=7)

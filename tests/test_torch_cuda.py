@@ -122,6 +122,14 @@ TOPK_EDGES = [
     ("k = 1024, G = 8", 9, 8, 256, 40_000, 1024, torch.uint8),
     ("m = 5", 7, 5, 256, 30_011, 10, torch.uint8),
     ("int32 codes, b = 300", 11, 8, 300, 30_011, 10, torch.int32),
+    # the serve_retrieval example's request loop: B = 1 leaves most of a
+    # G = 24 group empty; N as the issue of that example counts its rows
+    # and as the two-tower model pads them (200,192)
+    ("serve B = 1", 1, 8, 256, 200_002, 10, torch.uint8),
+    ("serve B = 5", 5, 8, 256, 200_002, 10, torch.uint8),
+    ("serve B = 32", 32, 8, 256, 200_002, 10, torch.uint8),
+    ("serve B = 1, padded rows", 1, 8, 256, 200_192, 10, torch.uint8),
+    ("serve B = 256, padded rows", 256, 8, 256, 200_192, 10, torch.uint8),
 ]
 
 
@@ -427,6 +435,21 @@ SCORES = [
     (17, 8, 864, 3_001, "normal", torch.int32),
     (30, 1, 256, 5_000, "normal", torch.uint8),
     (30, 16, 256, 5_000, "normal", torch.uint8),
+    # the paper-validation grid (b = 64, m*b = 512): training T = 64 x 32
+    # over ml1m's 242 rows (fewer items than one range of a warp step per
+    # SM) and 64 x 24 over gowalla's 2,002, and eval's T = 256
+    (2048, 8, 64, 242, "normal", torch.uint8),
+    (1536, 8, 64, 2_002, "normal", torch.uint8),
+    (256, 8, 64, 242, "normal", torch.uint8),
+    (256, 8, 64, 2_002, "zeros", torch.uint8),
+    (1, 8, 64, 2_002, "normal", torch.uint8),
+    # the grid's eval T (every 3rd of ml1m's 800 users, every 4th of
+    # gowalla's 1,200), and the quickstart's b = 256 over 1,502 rows:
+    # training T = 64 x 32, eval T = 250
+    (267, 8, 64, 242, "normal", torch.uint8),
+    (300, 8, 64, 2_002, "normal", torch.uint8),
+    (2048, 8, 256, 1_502, "normal", torch.uint8),
+    (250, 8, 256, 1_502, "normal", torch.uint8),
 ]
 
 
@@ -494,6 +517,12 @@ SCORES_BWD = [
     ("T=1", 1, 8, 256, 5_000, torch.uint8, 0.0),
     ("small", 3, 4, 16, 200, torch.uint8, 0.0),         # one partial tile
     ("T=64", 64, 8, 256, 1_024, torch.uint8, 0.0),      # whole tiles, groups
+    # the paper-validation grid, b = 64: one partial tile (ml1m, 242
+    # rows), four tiles the last partial (gowalla, 2,002 rows)
+    ("grid ml1m", 2048, 8, 64, 242, torch.uint8, 0.0),
+    ("grid gowalla", 1536, 8, 64, 2_002, torch.uint8, 0.0),
+    ("grid gowalla skewed", 1536, 8, 64, 2_002, torch.uint8, 0.85),
+    ("quickstart", 2048, 8, 256, 1_502, torch.uint8, 0.0),
 ]
 
 
@@ -564,6 +593,12 @@ LOOKUP = [
     ("m=40", 300, 40, 16, 8, 1_000, torch.uint8, 0.3),          # m > 32
     ("dk=160", 700, 3, 40, 160, 1_000, torch.uint8, 0.3),       # two slices
     ("misaligned", 3_200, 8, 256, 64, 50_000, torch.uint8, 0.3),
+    # the paper-validation grid: b = 64, dk = 8 (d = 64, m = 8)
+    ("grid ml1m", 2_048, 8, 64, 8, 242, torch.uint8, 0.3),
+    ("grid gowalla", 1_536, 8, 64, 8, 2_002, torch.uint8, 0.5),
+    # the quickstart: b = 256, dk = 8, training and eval (250 x 32)
+    ("quickstart", 2_048, 8, 256, 8, 1_502, torch.uint8, 0.3),
+    ("quickstart eval", 8_000, 8, 256, 8, 1_502, torch.uint8, 0.3),
 ]
 
 
@@ -677,6 +712,50 @@ def test_sasrec_step_through_kernels_matches_gathers(dev):
         loss, _ = model.train_loss(p, batch)
         loss.backward()
         res[uk] = (float(loss.detach()), [x.grad for x in model.parameters()])
+    assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
+    for a, b in zip(res[True][1], res[False][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["bert4rec", "gru4rec"])
+def test_arch_step_through_kernels_matches_gathers(dev, arch):
+    """One full_ce step of a small BERT4Rec (a masked batch: the [MASK]
+    row through jpq_lookup) and GRU4Rec: use_kernel=True (the four
+    kernels) against use_kernel=False (PyTorch gathers) on the card, the
+    same weights — loss within 1e-5 relative, every gradient within 1e-4
+    of its largest magnitude (sums in another order); every kernel
+    launched."""
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.models.sequential import (SeqRecConfig, SeqRecModel,
+                                               mask_batch)
+    kw = dict(arch=arch, n_items=3000, max_len=16, d_model=64,
+              n_layers=2, n_heads=2, d_ff=128)
+    rng = np.random.default_rng(1)
+    seq = torch.tensor(rng.integers(1, 3001, (4, 16)), device=dev)
+    seq[:, :5] = 0
+    if arch == "bert4rec":
+        ms, tg = mask_batch(torch.Generator(device=dev).manual_seed(0), seq,
+                            0.2, 3001)
+        batch = {"seq": ms, "targets": tg}
+    else:
+        batch = {"seq": seq, "labels": torch.roll(seq, -1, 1)}
+    res = {}
+    for uk in (True, False):
+        model = SeqRecModel(
+            SeqRecConfig(embedding=EmbeddingConfig(0, 0, kind="jpq", m=8,
+                                                   b=256, use_kernel=uk),
+                         **kw),
+            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        p = model.params()
+        sc.reset_launches()
+        lc.reset_launches()
+        loss, _ = model.train_loss(p, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[uk] = (float(loss.detach()), [x.grad for x in model.parameters()],
+                   {**sc.launches, **lc.launches})
+    assert all(n > 0 for n in res[True][2].values()), res[True][2]
+    assert not any(res[False][2].values())
     assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
     for a, b in zip(res[True][1], res[False][1]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

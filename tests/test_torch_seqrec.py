@@ -192,9 +192,7 @@ def test_dropout_draws_from_the_generator():
     assert bool(torch.isfinite(a).all())
 
 
-@pytest.mark.parametrize("change", [{"arch": "bert4rec"},
-                                    {"arch": "gru4rec"},
-                                    {"loss": "sampled_bce"},
+@pytest.mark.parametrize("change", [{"loss": "sampled_bce"},
                                     {"loss": "code_ce"},
                                     {"semantic_weight": 0.5}])
 def test_unported_configs_raise(change):

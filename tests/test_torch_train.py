@@ -281,8 +281,7 @@ def test_cli_flags_and_defaults_match_the_reference():
     assert t == j
 
 
-@pytest.mark.parametrize("flags", [["--arch", "bert4rec"], ["--arch", "fm"],
-                                   ["--embedding", "qr"], ["--mesh", "2"],
+@pytest.mark.parametrize("flags", [["--arch", "fm"], ["--mesh", "2"],
                                    ["--ckpt-dir", "x"], ["--ckpt-every", "50"],
                                    ["--model-axis", "2"],
                                    ["--grad-compression", "bf16"],
