@@ -115,6 +115,37 @@ Phases 12-15 run between phases 8 and 9, once SASRec's memory is freed:
      against its plain version (forwards bit-equal, backwards within
      the fp32 sum bound) and timed beside it and its bound (an
      ``{"example_shapes": ...}`` line).
+Phases 16-22 run between phases 12 and 13, on phase 7's data and svd
+codebook, one model on the card at a time:
+ 16-18. main path, SASRec's other objectives: full-width RecJPQ SASRec
+     trains 1 + 10 steps with sampled_bce (one negative a position),
+     code_ce, and full_ce + semantic_weight=0.5, each checked as phase 7
+     checks SASRec, except that the jpq_scores pair must never launch in
+     training where no [T, N] logits exist (sampled_bce, code_ce);
+ 19. full_ce at microbatches=2 (1 + 5 steps), checked the same way; the
+     four training kernels at a slice's T = 1,600 held against their
+     plain versions as phase 8 holds them, and timed; one step at
+     microbatches=2 on [x; x] bit-equal to the single step on x; one
+     step at microbatches=2 on a batch of 16 with distinct halves against
+     the mean of the single steps on each half; then a
+     ``{"seq_objectives": ...}`` line;
+ 20. checkpoints: a 6-step full_ce run; the save of its values and
+     optimizer state timed and its bytes counted; a run sent a real
+     SIGTERM while drawing step 3's batch stops with its checkpoint at
+     step 3, and its resume ends bit-equal to the uninterrupted run; the
+     checkpoint restored into a fresh model on the card (as
+     ``launch/serve.py --ckpt-dir`` does) bit-equal; a ``{"checkpoint":
+     ...}`` line;
+ 21. main path, the semantic-ID head: two-tower-retrieval-jpq at full
+     width serves ``--head semantic`` (k = 10, auto beams) through
+     ``serve_loop``, 1 + 20 requests of B=512, no sweep kernel launched;
+     the code trie's build timed; on one more request every value
+     bit-equal to the jpq_scores kernel's score of its id, and recall@10
+     against ``--fused``; the exhaustive decode at 2,000 rows with
+     duplicate codes bit-equal to jpq_topk;
+ 22. the SASRec of phase 20 through ``retrieve_topk``, fused and pruned,
+     for 256 eval users, bit-equal to the top-10 of its ``score_last``;
+     a ``{"semantic_serve": ...}`` line.
 Then JSON lines of the serving runs, the CTR serving runs and the
 per-kernel numbers (seven kernels), the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX or
@@ -644,37 +675,68 @@ def train_phases(torch, np, dev, smi):
 ARCHS, ARCH_STEPS, GRID_STEPS = ("bert4rec", "gru4rec"), 10, 30
 
 
-def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
-    """Train full-width RecJPQ ``arch`` (SeqRecConfig defaults, the svd
-    codebook ``codes_np``, ``use_kernel=True``) for 1 + ``steps`` steps of
-    B=16 x S=200 through ``Trainer``, the launch counters zeroed just
-    before: every training kernel launched, the losses finite and
-    falling.  Then one step at B=2 through the kernels against PyTorch
-    gathers on the trained weights (loss within 1e-5 relative, every
-    gradient within 1e-4 of its largest entry: the sums run in other
-    orders), and ``score_last`` for 256 eval users through jpq_scores,
-    bit-equal to the kernel's scores on the same LUT (pad and [MASK]
-    columns masked), with NDCG@10 and HR@10.  BERT4Rec's batches are
-    masked by ``mask_batch`` with a generator seeded from the step, as
-    the train CLI masks them.  Returns (model, params, summary)."""
+def full_width_model(codes_np, dev, arch="sasrec", **kw):
+    """Full-width RecJPQ ``arch`` (SeqRecConfig defaults, the svd codebook
+    ``codes_np``, ``use_kernel=True``; ``kw`` more config fields) drawn
+    from the seeded generator SeqRecModel defaults to."""
     from repro_torch.core import EmbeddingConfig
+    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
+    cfg = SeqRecConfig(arch=arch, n_items=N_ITEMS, max_len=SEQ_LEN,
+                       embedding=EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
+                                                 assignment="svd",
+                                                 use_kernel=True), **kw)
+    return SeqRecModel(cfg, codes=codes_np, device=dev)
+
+
+def free_card(torch, dev, what):
+    """Collect and empty the cache; fail unless under 2 GB is left
+    allocated before ``what`` runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated(dev) < 2e9,
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB still "
+          f"allocated before {what}")
+
+
+def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps, *,
+                  loss="full_ce", semantic_weight=0.0, microbatches=1):
+    """Train full-width RecJPQ ``arch`` (SeqRecConfig defaults, the svd
+    codebook ``codes_np``, ``use_kernel=True``; ``loss``,
+    ``semantic_weight`` and ``microbatches`` as given) for 1 + ``steps``
+    steps of B=16 x S=200 through ``Trainer``, the launch counters zeroed
+    just before: the jpq_lookup pair launched, and the jpq_scores pair
+    launched exactly when the objective builds [T, N] logits (full_ce),
+    else never; the losses finite and falling.  Then one step at B=2
+    through the kernels against PyTorch gathers on the trained weights
+    (loss within 1e-5 relative, every gradient within 1e-4 of its
+    largest entry: the sums run in other orders), and ``score_last``
+    for 256 eval users through jpq_scores, bit-equal to the kernel's
+    scores on the same LUT (pad and [MASK] columns masked), with NDCG@10
+    and HR@10.  BERT4Rec's batches are masked by ``mask_batch`` with a
+    generator seeded from the step, as the train CLI masks them;
+    sampled_bce's carry ``n_negatives`` negatives a position, as
+    ``train_batch`` draws them.  Returns (model, params, summary)."""
     from repro_torch.core import jpq as jpq_mod
     from repro_torch.kernels.jpq_lookup import cuda as lc
     from repro_torch.kernels.jpq_scores import cuda as sc
     from repro_torch.kernels.jpq_scores import ref as sref
-    from repro_torch.models.sequential import (SeqRecConfig, SeqRecModel,
-                                               mask_batch)
+    from repro_torch.models.sequential import SeqRecModel, mask_batch
     from repro_torch.train.loop import TrainConfig, Trainer
     from repro_torch.train.metrics import hr_at_k, ndcg_at_k
     from repro_torch.train.optimizer import OptConfig
 
-    cfg = SeqRecConfig(arch=arch, n_items=N_ITEMS, max_len=SEQ_LEN,
-                       embedding=EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
-                                                 assignment="svd",
-                                                 use_kernel=True))
+    model = full_width_model(codes_np, dev, arch, loss=loss,
+                             semantic_weight=semantic_weight)
+    cfg = model.cfg
+    what = arch if (loss, semantic_weight, microbatches) == \
+        ("full_ce", 0.0, 1) else (f"{arch} {loss} semantic_weight="
+                                  f"{semantic_weight} microbatches="
+                                  f"{microbatches}")
 
     def batch_fn(B):
         def fn(s):
+            if loss == "sampled_bce":
+                return data.train_batch(s, B, n_negatives=cfg.n_negatives)
             b = data.train_batch(s, B)
             if arch != "bert4rec":
                 return b
@@ -684,10 +746,10 @@ def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
             return {"seq": ms, "targets": tg}
         return fn
 
-    model = SeqRecModel(cfg, codes=codes_np, device=dev)
     trainer = Trainer(model, OptConfig(lr=3e-3),
                       TrainConfig(steps=1 + steps, batch_size=TRAIN_B,
-                                  log_every=1, eval_every=0),
+                                  log_every=1, eval_every=0,
+                                  microbatches=microbatches),
                       data_fn=batch_fn(TRAIN_B))
     torch.cuda.reset_peak_memory_stats(dev)
     sc.reset_launches()
@@ -696,17 +758,30 @@ def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
         generator=torch.Generator(device=dev).manual_seed(0))
     launches = {**sc.launches, **lc.launches}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the input side (and sampled_bce's labels and negatives) always
+    # goes through jpq_lookup; only full_ce builds [T, N] logits
+    logits = loss == "full_ce" or arch == "bert4rec" and loss != "code_ce"
     for name, n in launches.items():
-        check(n > 0, f"the {arch} training run never launched {name}")
+        if logits or name.startswith("jpq_lookup"):
+            check(n > 0, f"the {what} training run never launched {name}")
+        else:
+            check(n == 0, f"the {what} training run launched {name} {n} "
+                  f"times: it builds no [T, N] logits")
     losses = [h["loss"] for h in hist if "loss" in h]
     secs = [h["sec"] for h in hist if "loss" in h][1:]
     check(len(losses) == 1 + steps and all(np.isfinite(losses)),
-          f"{arch} losses not finite: {losses}")
+          f"{what} losses not finite: {losses}")
     check(np.mean(losses[-5:]) < losses[0],
-          f"{arch} loss did not fall: first {losses[0]}, last 5 "
+          f"{what} loss did not fall: first {losses[0]}, last 5 "
           f"{losses[-5:]}")
+    code_ce = [h["code_ce"] for h in hist if "code_ce" in h]
+    check(len(code_ce) == (1 + steps if semantic_weight else 0)
+          and all(np.isfinite(code_ce)),
+          f"{what} code_ce rows malformed: {code_ce}")
     step_ms = float(np.median(secs)) * 1e3
     print(f"   losses {' '.join(f'{v:.4f}' for v in losses)}")
+    if code_ce:
+        print(f"   code_ce {' '.join(f'{v:.4f}' for v in code_ce)}")
     print(f"   median step {step_ms:.1f} ms (steps 1-{steps}), peak "
           f"memory {peak_gb:.2f} GB, launches {launches} on {smi}")
 
@@ -722,10 +797,10 @@ def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
                      torch.autograd.grad(loss, floats))
     (lk, gk), (lg, gg) = res["kernels"], res["gathers"]
     check(abs(lk - lg) <= 1e-5 * abs(lg),
-          f"{arch} B=2 loss through kernels {lk} != gathers {lg}")
+          f"{what} B=2 loss through kernels {lk} != gathers {lg}")
     worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
                 for a, b in zip(gk, gg))
-    check(worst <= 1e-4, f"{arch} B=2 gradients differ by {worst:.3e} of "
+    check(worst <= 1e-4, f"{what} B=2 gradients differ by {worst:.3e} of "
           f"their largest entry")
     print(f"   B=2 step: loss {lk:.6f} (kernels) vs {lg:.6f} (gathers), "
           f"gradients within {worst:.2e} of their largest entry")
@@ -756,7 +831,8 @@ def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps):
     print(f"   eval {EVAL_USERS} users: NDCG@10 {ndcg:.4f} HR@10 {hr:.4f}; "
           f"scores bit-equal to the plain version on the same LUT")
     return model, params, {
-        "losses": losses, "median_step_ms": step_ms,
+        "losses": losses, **({"code_ce": code_ce} if code_ce else {}),
+        "median_step_ms": step_ms,
         "step_ms": [t * 1e3 for t in secs], "peak_gb": peak_gb,
         "launches": launches, "ndcg10": ndcg, "hr10": hr,
         "b2_loss_kernels": lk, "b2_loss_gathers": lg,
@@ -772,17 +848,411 @@ def arch_phases(torch, np, dev, smi, data, codes_np):
         t0 = phase(f"main path: full-width RecJPQ {arch} training, "
                    f"B={TRAIN_B} S={SEQ_LEN} N={N_ITEMS}, 1 + {ARCH_STEPS} "
                    f"steps")
-        check(torch.cuda.memory_allocated(dev) < 2e9,
-              f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB still "
-              f"allocated before {arch}")
+        free_card(torch, dev, arch)
         model, params, summary[arch] = seq_main_path(
             torch, np, dev, smi, data, codes_np, arch, ARCH_STEPS)
         del model, params
-        gc.collect()
-        torch.cuda.empty_cache()
         done(t0)
     print(json.dumps({"train_archs": summary, "card": smi}))
     return summary
+
+
+# the ninth slice: SASRec's other objectives, microbatching, checkpoints
+# with SIGTERM preemption, and the semantic-ID head, at full width
+OBJECTIVES = (("sampled_bce", 0.0), ("code_ce", 0.0), ("full_ce", 0.5))
+OBJ_STEPS, MICRO_STEPS, CKPT_STEPS, CKPT_STOP = 10, 5, 6, 3
+SEM_K, SEM_DUP_ROWS, SEM_DUP_B = 10, 2_000, 64
+
+
+def _leaves_equal(torch, a, b):
+    """Two params() trees equal bit for bit, leaf by leaf."""
+    from repro_torch.nn.module import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.detach().view(torch.uint8),
+                                           y.detach().view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def objective_phases(torch, np, dev, smi, data, codes_np):
+    """Phases 16-19: full-width RecJPQ SASRec trained with sampled_bce,
+    code_ce and full_ce + semantic_weight=0.5 (1 + 10 steps each) and with
+    full_ce at microbatches=2 (1 + 5 steps), each checked by
+    ``seq_main_path``; then the training kernels at a microbatch slice's
+    T = 1,600, held as phase 8 holds them and timed, and the microbatched
+    step against the single step on one batch and against the mean of
+    the single steps on its two halves.  Returns the ``seq_objectives``
+    summary."""
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+
+    summary = {}
+    for loss, w in OBJECTIVES:
+        name = loss if not w else f"{loss}+semantic_weight={w}"
+        t0 = phase(f"main path: full-width RecJPQ SASRec, {name}, "
+                   f"B={TRAIN_B} S={SEQ_LEN} N={N_ITEMS}, 1 + {OBJ_STEPS} "
+                   f"steps")
+        free_card(torch, dev, name)
+        model, params, summary[name] = seq_main_path(
+            torch, np, dev, smi, data, codes_np, "sasrec", OBJ_STEPS,
+            loss=loss, semantic_weight=w)
+        del model, params
+        done(t0)
+
+    t0 = phase(f"main path: full-width RecJPQ SASRec, full_ce at "
+               f"microbatches=2, B={TRAIN_B} S={SEQ_LEN} N={N_ITEMS}, 1 + "
+               f"{MICRO_STEPS} steps")
+    free_card(torch, dev, "microbatches=2")
+    model, params, run = seq_main_path(
+        torch, np, dev, smi, data, codes_np, "sasrec", MICRO_STEPS,
+        microbatches=2)
+    summary["full_ce+microbatches=2"] = run
+    # the training kernels at a slice's shape, T = 8 x 200 = 1,600, on the
+    # trained weights and a training batch's ids, held as phase 8 holds
+    # them at T = 3,200, then timed
+    half = TRAIN_B // 2
+    T2, n_rows, dk = half * SEQ_LEN, N_ITEMS + 2, 512 // M
+    gen = torch.Generator(device=dev).manual_seed(3)
+    codes = params["item_emb"]["codes"]
+    cent = params["item_emb"]["centroids"].detach()
+    seq = torch.as_tensor(data.train_batch(0, TRAIN_B)["seq"][:half],
+                          device=dev)
+    ids = seq.reshape(-1)
+    with torch.no_grad():
+        P = jpq_mod.partial_scores(params["item_emb"],
+                                   model.encode(params, seq)).reshape(
+            T2, M, BC).contiguous()
+    slice_k = {"T": T2}
+    slice_k["jpq_scores_err"] = scores_fwd_err(P, codes, f"T={T2}")
+    slice_k["jpq_scores_launch_shape"] = dict(sc.fwd_launch_shape)
+    dS = torch.randn((T2, n_rows), generator=gen, device=dev)
+    (slice_k["jpq_scores_bwd_err"], worst, chain,
+     slice_k["jpq_scores_bwd_chunks"]) = scores_bwd_err(dS, codes, BC,
+                                                        f"T={T2}")
+    dout = torch.randn((T2, M, dk), generator=gen, device=dev)
+    slice_k["jpq_lookup_err"], slice_k["jpq_lookup_bwd_err"] = lookup_errs(
+        ids, codes, cent, dout, f"T={T2}")
+    work = train_kernel_work(T2, n_rows, BC, dk)
+    for name, fn, iters in (
+            ("jpq_scores", lambda: sc.jpq_scores(P, codes), 5),
+            ("jpq_scores_bwd", lambda: sc.jpq_scores_bwd(dS, codes, BC), 3),
+            ("jpq_lookup", lambda: lc.jpq_lookup(ids, codes, cent), 50),
+            ("jpq_lookup_bwd",
+             lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC), 50)):
+        slice_k[f"{name}_ms"] = cuda_ms(fn, iters)
+        slice_k[f"{name}_bound_ms"] = bound(*work[name])[0]
+    print(f"   T={T2}: jpq_scores forward bit-equal to plain (launch shape "
+          f"{slice_k['jpq_scores_launch_shape']}); backward over "
+          f"{slice_k['jpq_scores_bwd_chunks']} chunks deterministic, max "
+          f"|err| vs float64 {slice_k['jpq_scores_bwd_err']:.3e} (largest "
+          f"bound {worst:.3e}, longest chain {chain}); jpq_lookup forward "
+          f"bit-equal, backward bit-equal to plain on the CPU")
+    print(f"   T={T2}: ms kernel / bound: " + ", ".join(
+        f"{n} {slice_k[n + '_ms']:.4f} / {slice_k[n + '_bound_ms']:.4f}"
+        for n in ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+                  "jpq_lookup_bwd")) + f" on {smi}")
+    del model, params, P, dS, dout, cent, codes, seq, ids
+    free_card(torch, dev, "the microbatched step against the single step")
+    # one step at microbatches=2 on [x; x] gives each slice the single
+    # step's gradient on x, and (g + g) / 2 == g: the two steps must end
+    # bit-equal, loss included
+    x = data.train_batch(1, half)
+    xx = {k: np.concatenate([v, v]) for k, v in x.items()}
+    outs = {}
+    for n, b in ((1, x), (2, xx)):
+        m = full_width_model(codes_np, dev)
+        tr = Trainer(m, OptConfig(lr=3e-3),
+                     TrainConfig(steps=1, batch_size=len(b["seq"]),
+                                 log_every=1, eval_every=0, microbatches=n),
+                     data_fn=lambda s, b=b: b)
+        p, hist = tr.run(params=m.params())
+        outs[n] = (m, p, hist[0]["loss"])
+    check(outs[1][2] == outs[2][2] and
+          _leaves_equal(torch, outs[1][1], outs[2][1]),
+          f"the microbatched step on [x; x] != the single step on x (loss "
+          f"{outs[2][2]} vs {outs[1][2]})")
+    slice_k["microbatched_equals_single_step"] = True
+    print(f"   microbatches=2 on [x; x] (B={2 * half}) bit-equal to the "
+          f"single step on x (B={half}): loss {outs[1][2]:.6f}, every "
+          f"parameter")
+    del outs, m, p, tr
+    free_card(torch, dev, "the microbatched step on distinct halves")
+    # microbatches=2 on a batch of 16 with distinct halves a and b against
+    # its definition, the mean of the single steps' gradients on a and on
+    # b (each slice's loss is the mean over its own labelled positions).
+    # b keeps only its last 3 positions (the rest made padding), so the
+    # halves hold unequal counts and the single step on the whole batch
+    # differs from that mean: a slice that took the whole batch would
+    # show, as would one slice taken twice.  The limits are the B=2
+    # step's: the slices sum in other orders
+    ab = data.train_batch(2, TRAIN_B)
+    for v in ab.values():
+        v[half:, :-3] = 0
+    m = full_width_model(codes_np, dev)
+    p = m.params()
+    floats = [x for x in tree_leaves(p) if torch.is_floating_point(x)]
+
+    def step_grads(n, b):
+        tr = Trainer(m, OptConfig(lr=3e-3),
+                     TrainConfig(steps=1, batch_size=len(b["seq"]),
+                                 eval_every=0, microbatches=n), data_fn=None)
+        g, mets = tr._grads(p, floats, {k: torch.as_tensor(v, device=dev)
+                                        for k, v in b.items()}, 0)
+        return float(mets["loss"]), g
+
+    lm, gm = step_grads(2, ab)
+    la, ga = step_grads(1, {k: v[:half] for k, v in ab.items()})
+    lb, gb = step_grads(1, {k: v[half:] for k, v in ab.items()})
+    lw, _ = step_grads(1, ab)
+    lr_ = (la + lb) / 2
+    err = max(float((x - (y + z) / 2).abs().max()
+                    / ((y + z) / 2).abs().max().clamp(min=1e-30))
+              for x, y, z in zip(gm, ga, gb))
+    check(abs(lm - lr_) <= 1e-5 * abs(lr_) and err <= 1e-4,
+          f"the microbatched step on distinct halves != the mean of the "
+          f"single steps on each: loss {lm} vs {lr_}, gradients within "
+          f"{err:.3e} of their largest entry")
+    check(abs(lw - lr_) > 1e-5 * abs(lr_),
+          f"the single step on the whole batch ({lw}) equals the halves' "
+          f"mean ({lr_}): the check could not see a slice that took the "
+          f"whole batch")
+    slice_k.update(halves_loss_microbatched=lm, halves_loss_mean=lr_,
+                   halves_loss_whole_batch=lw, halves_grad_rel_err=err)
+    print(f"   microbatches=2 on distinct halves (B={TRAIN_B}): loss {lm:.6f}"
+          f" vs the halves' mean {lr_:.6f} (whole batch {lw:.6f}), "
+          f"gradients within {err:.2e} of their largest entry")
+    summary["kernels_at_the_slice_shape"] = slice_k
+    del m, p, floats, ga, gb, gm
+    done(t0)
+    print(json.dumps({"seq_objectives": summary, "card": smi}))
+    return summary
+
+
+def checkpoint_phase(torch, np, dev, smi, data, codes_np):
+    """Phase 20: full-width RecJPQ SASRec (full_ce) trains 6 steps through
+    ``Trainer``; a checkpoint of its values and optimizer state is saved
+    and timed (the host copy that blocks training, and the whole write)
+    and its bytes counted; a run that gets a real SIGTERM while drawing
+    step 3's batch stops with a checkpoint stamped at step 3, and its
+    resume ends bit-equal to the uninterrupted run; the checkpoint then
+    restores onto the card into a fresh model, as ``launch/serve.py
+    --ckpt-dir`` restores it.  Returns (the trained model, its params,
+    the ``checkpoint`` summary)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.ckpt import (AsyncCheckpointer, latest_step,
+                                  restore_values)
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    t0 = phase(f"checkpoints at full width: SASRec full_ce, SIGTERM at step "
+               f"{CKPT_STOP} of {CKPT_STEPS}, resume, restore onto the card")
+    free_card(torch, dev, "the checkpoint phase")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt-",
+                            dir=os.path.join(HERE, "build"))
+    out = {}
+    try:
+        def run(d, sigterm_at=None):
+            model = full_width_model(codes_np, dev)
+
+            def data_fn(s):
+                if s == sigterm_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return data.train_batch(s, TRAIN_B)
+
+            tr = Trainer(model, OptConfig(lr=3e-3),
+                         TrainConfig(steps=CKPT_STEPS, batch_size=TRAIN_B,
+                                     log_every=1, eval_every=0, ckpt_dir=d,
+                                     ckpt_every=0),
+                         data_fn=data_fn)
+            params, hist = tr.run(params=model.params())
+            return model, tr, params, hist
+
+        model, _, want, _ = run(None)
+        # what a save costs: the host copy (training waits for it) and
+        # the whole write, of the values and a same-sized optimizer state
+        ck = AsyncCheckpointer(os.path.join(root, "timed"), keep=1)
+        state = {"values": want, "opt": {**init_opt_state(want),
+                                         "step": np.int32(CKPT_STEPS)}}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ck.save(state, CKPT_STEPS)
+        t2 = time.perf_counter()
+        ck.wait()
+        t3 = time.perf_counter()
+        npz = os.path.join(root, "timed", f"step_{CKPT_STEPS:010d}",
+                           "arrays.npz")
+        out.update(host_copy_ms=(t2 - t1) * 1e3, save_ms=(t3 - t1) * 1e3,
+                   bytes=os.path.getsize(npz))
+        del state
+        d = os.path.join(root, "run")
+        _, tr, _, _ = run(d, sigterm_at=CKPT_STOP - 1)
+        check(tr._preempted and tr.done_step == CKPT_STOP
+              and latest_step(d) == CKPT_STOP,
+              f"SIGTERM at step {CKPT_STOP}: preempted={tr._preempted}, "
+              f"done_step={tr.done_step}, latest checkpoint "
+              f"{latest_step(d)}")
+        _, tr, got, hist = run(d)
+        check(not tr._preempted and tr.done_step == CKPT_STEPS
+              and hist[0]["step"] == CKPT_STOP,
+              f"the resumed run: done_step={tr.done_step}, first row "
+              f"{hist[0]}")
+        check(_leaves_equal(torch, want, got),
+              "the preempted and resumed run != the uninterrupted run")
+        del got
+        fresh = full_width_model(codes_np, dev)
+        p = fresh.params()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step = restore_values(d, p)
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t1) * 1e3
+        check(step == CKPT_STEPS and _leaves_equal(torch, want, p) and all(
+            x.device == dev for x in p["item_emb"].values()),
+            "the restored checkpoint != the trained parameters on the card")
+        del fresh, p
+        out.update(preempted_at=CKPT_STOP, steps=CKPT_STEPS,
+                   resume_bit_equal=True, restore_bit_equal=True)
+        print(f"   save: host copy {out['host_copy_ms']:.1f} ms, write "
+              f"{out['save_ms']:.1f} ms, {out['bytes']} bytes; SIGTERM at "
+              f"step {CKPT_STOP}, resumed to {CKPT_STEPS}: bit-equal to the "
+              f"uninterrupted run; restored onto the card in "
+              f"{out['restore_ms']:.1f} ms, bit-equal, on {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    done(t0)
+    print(json.dumps({"checkpoint": out, "card": smi}))
+    return model, want, out
+
+
+def semantic_phases(torch, np, dev, smi, data, template, seq_model,
+                    seq_params):
+    """Phases 21-22: ``two-tower-retrieval-jpq`` at full width serves
+    --head semantic (k = 10, auto beams) through ``serve_loop``, 1 + 20
+    fresh requests of B=512, after its code trie is built (timed); on
+    one more request every value is bit-equal to the jpq_scores kernel's
+    score of its id, and recall@10 against ``--fused``'s ids is
+    reported; at 2,000 rows with duplicate codes the exhaustive decode is
+    bit-equal to jpq_topk (values and ids).  Then the trained SASRec's
+    ``retrieve_topk``, fused and pruned, for 256 eval users: bit-equal
+    to the total-order top-10 of its ``score_last`` through the kernels.
+    Returns the ``semantic_serve`` summary."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.core import semantic
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.kernels.jpq_topk import ops
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = phase(f"main path: full-width two-tower-retrieval-jpq --head "
+               f"semantic (k={SEM_K}, auto beams), {REQUESTS} requests of "
+               f"B={B}")
+    free_card(torch, dev, "semantic serving")
+    model = get_bundle("two-tower-retrieval-jpq").make_model(device=dev,
+                                                             seed=0)
+    params = model.params()
+    codes = params["item_emb"]["codes"]
+    n_rows = codes.shape[0]
+    t1 = time.perf_counter()
+    idx = semantic.index_for(codes, BC)
+    build_s = time.perf_counter() - t1
+    args = serve_mod.build_parser().parse_args(
+        ["--batch-size", str(B), "--requests", str(REQUESTS), "--device",
+         "cuda", "--head", "semantic"])
+    kc.reset_launches()
+    sc.reset_launches()
+    res = serve_mod.serve_loop(model, params, template, args)
+    check(res["path"] == "semantic", f"semantic serving ran {res['path']}")
+    check(not any(kc.launches.values()) and not any(sc.launches.values()),
+          f"the semantic head launched a sweep kernel: {kc.launches} "
+          f"{sc.launches}")
+    spec = engine_mod.spec_from_args(args, kind="jpq", k=SEM_K)
+    beams = max(32, 4 * SEM_K)
+    req = next(serve_mod.make_requests(template, B, 1, seed=321,
+                                       reserved=(0,)))
+    req = {k: torch.as_tensor(v, device=dev) for k, v in req.items()}
+    with torch.inference_mode():
+        v, i = model.bind_engine(params, spec).retrieve(req)
+        fv, fi = model.bind_engine(params, engine_mod.RetrievalSpec(
+            kind="jpq", k=SEM_K)).retrieve(req)
+        h = model.user_vec(params, req["user_hist"])
+        S = sc.jpq_scores(jpq_mod.partial_scores(params["item_emb"],
+                                                 h).contiguous(), codes)
+    check(tuple(i.shape) == (B, SEM_K) and bool((i >= 0).all())
+          and bool((i < n_rows).all()), "semantic ids out of range")
+    check(bits_equal(v, S.gather(1, i.long())),
+          "a semantic value != the jpq_scores kernel's score of its id")
+    recall = float((i[:, :, None] == fi[:, None, :]).any(-1).float().mean())
+    del S, h
+    print(f"   index: {idx.n_paths} paths over {n_rows} rows (largest "
+          f"leaf {idx.max_leaf}) built in {build_s:.2f} s on the host")
+    print(f"   p50={res['p50_ms']:.3f}ms p99={res['p99_ms']:.3f}ms "
+          f"(beams {beams}); every value bit-equal to the kernel's score; "
+          f"recall@{SEM_K} vs --fused {recall:.4f} on {smi}")
+    # exhaustive decode at 2,000 rows with duplicate code rows (ties),
+    # against jpq_topk on a canonical LUT (no -0.0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dup = torch.randint(0, BC, (SEM_DUP_ROWS, M), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dup[SEM_DUP_ROWS // 2:SEM_DUP_ROWS // 2 + 50] = dup[:50]
+    dup = dup.to(torch.uint8)
+    lut = ops.canonicalise_lut(torch.randint(
+        -3, 4, (SEM_DUP_B, M, BC), generator=gen, device=dev).float() / 2)
+    didx = semantic.build_code_index(dup, BC)
+    ev_, ei_ = semantic.semantic_decode(lut, didx, SEM_K, beams=None)
+    tv_, ti_ = kc.jpq_topk(lut.contiguous(), dup, SEM_K)
+    check(bits_equal(ev_, tv_) and torch.equal(ei_, ti_),
+          "exhaustive semantic decode != jpq_topk at 2,000 rows")
+    print(f"   exhaustive decode ({didx.n_paths} paths over {SEM_DUP_ROWS} "
+          f"rows, 50 duplicated, B={SEM_DUP_B}) bit-equal to jpq_topk")
+    out = {"p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "lat_ms": res["lat_ms"], "beams": beams, "k": SEM_K,
+           "index_build_s": build_s, "n_paths": idx.n_paths,
+           "max_leaf": idx.max_leaf, "recall_vs_fused": recall,
+           "values_equal_kernel_scores": True,
+           "exhaustive_equals_jpq_topk": True}
+    del model, params, codes, idx, didx, v, i, fv, fi
+    # the scorer's cache holds the trie and the codes (≈ 40 MB on the
+    # card): release them before the CTR phases read peak memory
+    semantic.clear_index_cache()
+    done(t0)
+
+    t0 = phase(f"SeqRecModel.retrieve_topk on the trained full-width SASRec: "
+               f"fused and pruned, {EVAL_USERS} users, k={SEM_K}")
+    ev = data.eval_batch(range(EVAL_USERS), split="test")
+    seq = torch.as_tensor(ev["seq"], device=dev)
+    with torch.no_grad():
+        scores = seq_model.score_last(seq_params, seq)
+        want = engine_mod.rerank_candidates(
+            scores, torch.arange(scores.shape[1], dtype=torch.int32,
+                                 device=dev).expand_as(scores), SEM_K)
+        del scores
+        kc.reset_launches()
+        got = {"fused": seq_model.retrieve_topk(seq_params, seq, k=SEM_K),
+               "pruned": seq_model.retrieve_topk(seq_params, seq, k=SEM_K,
+                                                 prune=True)}
+    check(kc.launches["jpq_topk"] > 0 and kc.launches["jpq_topk_pruned"] > 0,
+          f"retrieve_topk launched {kc.launches}")
+    for name, (gv, gi) in got.items():
+        check(bits_equal(gv, want[0]) and torch.equal(gi, want[1]),
+              f"retrieve_topk ({name}) != the top-k of score_last")
+    out["seqrec_retrieve_topk"] = {"users": EVAL_USERS, "k": SEM_K,
+                                   "fused_equal": True, "pruned_equal": True,
+                                   "launches": dict(kc.launches)}
+    print(f"   fused and pruned top-{SEM_K} bit-equal to score_last's "
+          f"(launches {dict(kc.launches)})")
+    done(t0)
+    print(json.dumps({"semantic_serve": out, "card": smi}))
+    return out
 
 
 def example_phases(torch, np, dev, smi):
@@ -1676,7 +2146,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     arch_phases(torch, np, dev, smi, data, codes_np)
-    del codes_np
+    objective_phases(torch, np, dev, smi, data, codes_np)
+    seq_model, seq_params, _ = checkpoint_phase(torch, np, dev, smi, data,
+                                                codes_np)
+    semantic_phases(torch, np, dev, smi, data, template, seq_model,
+                    seq_params)
+    del codes_np, seq_model, seq_params
+    gc.collect()
+    torch.cuda.empty_cache()
     example_phases(torch, np, dev, smi)
     gc.collect()
     torch.cuda.empty_cache()

@@ -2,10 +2,12 @@
 
 Two sources:
   * the reference's ``nn.values(params)`` tree handed over as numpy
-    arrays (nested dicts, lists for layer stacks);
+    arrays (nested dicts, lists for layer stacks), and its optimizer
+    state (``{"m", "v", "step"}``, ``load_opt_state``);
   * a reference checkpoint's flat ``arrays.npz``, whose keys are the
     tree paths joined by ``/`` (``values/item_emb/centroids``,
-    ``values/user_mlp/layers/0/w``).
+    ``values/user_mlp/layers/0/w``, ``opt/m/pos_emb``, ``opt/step``);
+    ``unflatten(flat, prefix)`` takes one subtree out of it.
 Every leaf must match the port's shape and dtype exactly, so codes and
 centroids arrive bit-identical.  The sequential models' trees carry over
 (SASRec and BERT4Rec ``pos_emb``/``blocks``/``ln_f``, GRU4Rec
@@ -78,6 +80,16 @@ def load_values(model, values) -> None:
     emb = params.get("item_emb", params.get("emb", {}))
     if "codes" in emb and int(emb["codes"].max()) >= model.emb.cfg.b:
         raise ValueError(f"codes must be < b={model.emb.cfg.b}")
+
+
+def load_opt_state(opt_state, src) -> dict:
+    """Copy a reference optimizer state (``{"m", "v", "step"}`` of numpy
+    leaves, e.g. ``unflatten(flat, "opt")``) into the port's
+    ``init_opt_state`` tree, in place, leaf for leaf (the codes' empty
+    moment slots included); returns it with ``step`` an int."""
+    for slot in ("m", "v"):
+        _copy_tree(opt_state[slot], src[slot], f"opt/{slot}")
+    return {**opt_state, "step": int(np.asarray(src["step"]))}
 
 
 def load_npz(model, path, prefix: str = "values") -> None:

@@ -3,11 +3,13 @@
 * ``RetrievalSpec`` — a frozen, hashable description of how to serve
   (embedding kind, fused/materialise, tile size, prune/perm/warm
   policies, k, stats); it keys ``JitCache``.  Which backend runs is
-  not a policy: the tensors' device decides it.
+  not a policy: the tensors' device decides it (the hand-written kernel
+  on ``cuda``, its plain version on the CPU), so ``backend=None`` is the
+  only value ``spec_for`` and ``core/serve.retrieve_topk`` take.
 * a scorer registry — ``register_scorer(name, match, fn)`` entries
   claimed by the spec; the built-ins are materialise-then-top-k, JPQ
   fused, JPQ fused-pruned and JPQ pruned with a permutation or a warm
-  floor.
+  floor, and ``core/semantic.py`` registers the semantic-ID head.
 * ``RetrievalEngine`` — binds (spec, embedding, params) and optionally a
   catalogue version (the ``PruneState``), and serves
   ``engine.retrieve(h, floor=...)``; ``BoundRetrieval`` adds the model's
@@ -86,12 +88,21 @@ class RetrievalSpec:
 
 
 def spec_for(emb_or_kind, *, k: int, fused: bool = True,
-             block_n: Optional[int] = None,
+             block_n: Optional[int] = None, backend=None,
              prune=None, perm=None, warm_decay: Optional[float] = None,
              stats: bool = False) -> RetrievalSpec:
     """Normalise ``retrieve_topk``-style kwargs into a spec: ``prune`` /
     ``perm`` drop silently where the path cannot honour them (non-JPQ
-    kind or ``fused=False``); an undeliverable warm policy raises."""
+    kind or ``fused=False``); an undeliverable warm policy raises.
+    ``backend`` is the reference's Pallas route ("pallas", "interpret",
+    "scan"); the port has none, so None is its only value and any other
+    raises."""
+    if backend is not None:
+        raise ValueError(
+            f"backend={backend!r}: repro_torch has no backend switch — "
+            f"the tensors' device picks the route (the hand-written "
+            f"kernel on cuda, its plain PyTorch version on the CPU); "
+            f"pass backend=None")
     kind = emb_or_kind if isinstance(emb_or_kind, str) \
         else emb_or_kind.cfg.kind
     supports_prune = bool(fused) and kind == "jpq"
@@ -134,22 +145,32 @@ def add_spec_args(ap, *, fused_default: bool = True,
                          "(core.serve.ThresholdState; default decay 0.9)")
     ap.add_argument("--head", choices=("score", "semantic"),
                     default="score",
-                    help="retrieval head: 'score' sweeps the catalogue; "
-                         "'semantic' (constrained beam decoding) is not "
-                         "yet ported")
+                    help="retrieval head: 'score' sweeps the catalogue "
+                         "(fused/materialise per the flags above); "
+                         "'semantic' decodes items as their m-token "
+                         "code sequences (constrained beam search; needs "
+                         "a JPQ embedding)")
     ap.add_argument("--beams", type=int, default=None, metavar="W",
-                    help="semantic-head beam width (not yet ported)")
+                    help="semantic-head beam width (default: max(32, "
+                         "4*k), capped at the trie's path count; beams "
+                         ">= n_paths is exhaustive and bit-matches the "
+                         "materialise scorer)")
 
 
 def spec_from_args(args, *, kind: str = "jpq", k: Optional[int] = None,
                    stats: Optional[bool] = None) -> RetrievalSpec:
     """Resolve the ``add_spec_args`` flag cluster into a RetrievalSpec.
     A non-JPQ kind or ``--no-fused`` drops prune (and with it perm and
-    warm); ``stats`` defaults to "on iff pruned"."""
+    warm); ``stats`` defaults to "on iff pruned".  ``--head semantic``
+    makes the kind "semantic", which needs a JPQ embedding underneath
+    (its trie is built from the codes), so another base kind raises."""
     if getattr(args, "head", "score") == "semantic":
-        raise NotImplementedError(
-            "--head semantic (constrained beam decoding over the codes) "
-            "is not yet ported to repro_torch")
+        if kind != "jpq":
+            raise ValueError(
+                f"--head semantic decodes JPQ code sequences, so it "
+                f"needs a JPQ item embedding — the model's embedding "
+                f"kind is {kind!r}")
+        kind = "semantic"
     fused = bool(getattr(args, "fused", True))
     prune = bool(getattr(args, "prune", False)) and fused and kind == "jpq"
     perm = "popularity" if (bool(getattr(args, "perm", False)) and prune) \

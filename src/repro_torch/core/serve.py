@@ -59,17 +59,19 @@ class ThresholdState:
 
 
 def retrieve_topk(emb, p, h, *, k: int, fused: bool = True,
-                  block_n: int | None = None, prune=None, perm=None,
-                  warm=None,
+                  block_n: int | None = None, backend=None, prune=None,
+                  perm=None, warm=None,
                   return_stats: bool = False):
     """emb: core.api.Embedding, p: its params, h [..., d] -> (values,
     ids) [..., min(k, n_items)] (+ the pruning-stats dict when
     ``return_stats``).  The kwargs become a ``RetrievalSpec`` served by
     a one-shot ``RetrievalEngine``; a per-request ``warm`` floor records
-    the warm policy as decay 0.0 (externally managed floor)."""
+    the warm policy as decay 0.0 (externally managed floor).
+    ``backend`` must be None: the tensors' device picks the route
+    (``engine.spec_for``)."""
     from repro_torch.core import engine as _engine
     spec = _engine.spec_for(emb, k=k, fused=fused, block_n=block_n,
-                            prune=prune, perm=perm,
+                            backend=backend, prune=prune, perm=perm,
                             warm_decay=0.0 if warm is not None else None,
                             stats=return_stats)
     eng = _engine.RetrievalEngine(spec, emb, p)

@@ -79,8 +79,10 @@ def variant_model(arch, data, variant, *, device="cuda"):
 def train_seqrec(model, data, *, steps: int):
     """Train ``model`` (from the seed 0) for ``steps`` steps of ``BATCH``
     and score the test split of up to 256 users: (params, NDCG@10,
-    parameter bytes).  BERT4Rec trains on the training sequences' items
-    masked by ``mask_batch``, with a generator seeded from the step."""
+    parameter bytes).  A ``sampled_bce`` model draws ``n_negatives``
+    negatives a position with each batch; BERT4Rec (with another loss)
+    trains on the training sequences' items masked by ``mask_batch``,
+    with a generator seeded from the step."""
     from repro_torch.models.sequential import mask_batch
     from repro_torch.nn.module import param_bytes
     from repro_torch.train.loop import TrainConfig, Trainer
@@ -88,7 +90,11 @@ def train_seqrec(model, data, *, steps: int):
     from repro_torch.train.optimizer import OptConfig
 
     dev = model.device
-    if model.cfg.arch == "bert4rec":
+    if model.cfg.loss == "sampled_bce":
+        def data_fn(s):
+            return data.train_batch(s, BATCH,
+                                    n_negatives=model.cfg.n_negatives)
+    elif model.cfg.arch == "bert4rec":
         def data_fn(s):
             b = data.train_batch(s, BATCH)
             seq = torch.as_tensor(np.where(b["labels"] > 0, b["labels"], 0),

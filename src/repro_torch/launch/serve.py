@@ -10,9 +10,12 @@ through it and reports latency percentiles: a retrieval arch (one with
 ``bind_engine``/``retrieve``) through its bound retrieval engine, any
 other (FM, DLRM-RM2, DIEN) through ``model.serve`` (``path=serve``).
 Runs on ``--device cuda`` (the default; the kernels) or ``--device cpu``
-(their plain versions).  ``--fused/--no-fused``, ``--prune``, ``--perm``
-and ``--warm [decay]`` are the reference's retrieval flags; ``--mesh`` >
-1, ``--ckpt-dir`` and ``--head semantic`` are not yet ported and raise.
+(their plain versions).  ``--fused/--no-fused``, ``--prune``, ``--perm``,
+``--warm [decay]``, ``--head semantic`` (constrained beam decoding over
+the codes, ``path=semantic[@W]``) and ``--beams W`` are the reference's
+retrieval flags; ``--ckpt-dir`` restores the parameters from the latest
+checkpoint there before serving.  ``--mesh`` > 1 is not yet ported and
+raises.
 """
 from __future__ import annotations
 
@@ -79,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="model-shard the catalogue S ways (not yet "
                          "ported: S > 1 raises)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="restore a checkpoint (not yet ported)")
+                    help="restore the parameters from the latest "
+                         "checkpoint in this directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     return ap
@@ -89,10 +93,6 @@ def _check_ported(args) -> None:
     if args.mesh > 1:
         raise NotImplementedError("--mesh > 1: multi-GPU serving is not "
                                   "yet ported")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir is not yet ported")
-    if getattr(args, "head", "score") != "score":
-        raise NotImplementedError(f"--head {args.head} is not yet ported")
 
 
 def _is_retrieval(model) -> bool:
@@ -216,6 +216,10 @@ def _retrieval(model, params, template, args, sync):
         # label what ran: a full table materialises even when --fused
         mode = "materialise" if bound.engine.strategy == "materialise" \
             else "fused"
+        if spec.kind == "semantic":
+            # the generative head: constrained beam decode over the codes
+            mode = "semantic" + ("" if spec.beams is None
+                                 else f"@{spec.beams}")
         if pruned:
             mode = "fused+prune" + ("+perm" if spec.perm != "none"
                                     else "") \
@@ -236,9 +240,14 @@ def main(argv=None):
     dev = resolve_device(args.device)
     fp32_matmuls()
     model, batch = get_bundle(args.arch).make_smoke(device=dev)
+    params = model.params()
+    if args.ckpt_dir:
+        from repro_torch.ckpt import restore_values
+        step = restore_values(args.ckpt_dir, params)
+        print(f"restored step {step} from {args.ckpt_dir}")
     template = {k: v for k, v in batch.items()
                 if k not in ("label", "labels")}
-    return serve_loop(model, model.params(), template, args)
+    return serve_loop(model, params, template, args)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,13 @@ RecJPQ table trains with ``use_kernel=True``, so on the card the
 ``full_ce`` logits and the input vectors go through the jpq_scores and
 jpq_lookup kernels, forward and backward (the reference CLI keeps its
 gathers).  ``--arch bert4rec`` trains on batches masked by
-``mask_batch`` with a generator seeded from the step.  Sequential archs
-only; flags that name paths not yet ported (``--ckpt-dir``,
-``--ckpt-every``, ``--devices``/``--mesh``/``--model-axis`` > 1, the
-elastic-exchange cluster, ``--microbatches`` > 1) raise.
+``mask_batch`` with a generator seeded from the step.  ``--ckpt-dir``
+saves a checkpoint every ``--ckpt-every`` steps and at the end (the
+reference's format), resumes from the latest one there, and on SIGTERM
+saves at the step reached and exits; ``--microbatches`` accumulates
+gradients over equal batch slices.  Sequential archs only; flags that
+name paths not yet ported (``--devices``/``--mesh``/``--model-axis`` > 1,
+the elastic-exchange cluster) raise.
 """
 from __future__ import annotations
 
@@ -38,10 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--d-model", type=int, default=64)
     ap.add_argument("--n-items", type=int, default=2000)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoints (not yet ported)")
-    ap.add_argument("--ckpt-every", type=int, default=100,
-                    help="checkpoint period (not yet ported: any value "
-                         "other than the default raises)")
+                    help="checkpoint directory: resume from its latest "
+                         "step, save every --ckpt-every steps, on "
+                         "SIGTERM and at the end")
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--eval-every", type=int, default=100)
     ap.add_argument("--early-stop-patience", type=int, default=0)
     ap.add_argument("--devices", type=int, default=1,
@@ -58,7 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--overlap", default="dispatch",
                     choices=["none", "dispatch", "backward"])
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation over this many equal "
+                         "batch slices")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -86,9 +91,6 @@ def build(args):
         raise NotImplementedError("--devices/--mesh > 1 is not yet ported")
     if args.model_axis > 1:
         raise NotImplementedError("--model-axis > 1 is not yet ported")
-    if args.ckpt_every != build_parser().get_default("ckpt_every"):
-        raise NotImplementedError("--ckpt-every is not yet ported (nor are "
-                                  "checkpoints)")
     dev = resolve_device(args.device)
     fp32_matmuls()
     data = SyntheticSequences(SeqDataConfig(
@@ -131,7 +133,7 @@ def build(args):
     train_cfg = TrainConfig(
         steps=args.steps, batch_size=args.batch_size,
         log_every=max(args.steps // 10, 1), eval_every=args.eval_every,
-        ckpt_dir=args.ckpt_dir,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         early_stop_patience=args.early_stop_patience,
         microbatches=args.microbatches,
         grad_compression=args.grad_compression,
@@ -149,7 +151,11 @@ def main(argv=None):
     _, hist = tr.run(params=model.params())
     for h in hist[-5:]:
         print(h)
-    print(f"done at step {tr.done_step} on {model.device}")
+    if tr._preempted:
+        print(f"preempted: checkpoint stamped at step {tr.done_step}; "
+              f"resume with the same --ckpt-dir")
+    else:
+        print(f"done at step {tr.done_step} on {model.device}")
     return hist
 
 

@@ -3,15 +3,27 @@ BERT4Rec and GRU4Rec, the paper's three backbones.
 
 Item ids are 1-based; row 0 is padding and row ``n_items + 1`` is
 BERT4Rec's [MASK] token, so every embedding table has ``n_items + 2``
-rows, as in the reference.  The loss is the full-catalogue softmax
-(``full_ce``); with a RecJPQ table and ``use_kernel=True`` its logits
-come from the jpq_scores kernels and the input vectors from the
-jpq_lookup kernels, forward and backward.  BERT4Rec trains on batches
-masked by ``mask_batch`` (a ``targets`` array in place of ``labels``)
-and is queried at a [MASK] appended after the history.
+rows, as in the reference.  BERT4Rec trains on batches masked by
+``mask_batch`` (a ``targets`` array in place of ``labels``) and is
+queried at a [MASK] appended after the history.
 
-The ``sampled_bce`` and ``code_ce`` losses, the ``semantic_weight``
-auxiliary loss and ``bind_engine`` are not yet ported and raise.
+Losses (the reference's):
+  full_ce     - softmax over the whole catalogue; with a RecJPQ table and
+                ``use_kernel=True`` its logits come from the jpq_scores
+                kernels, forward and backward.
+  sampled_bce - SASRec's binary CE over ``n_negatives`` sampled
+                negatives a position (``batch["negatives"]``); it never
+                builds the [T, N] logits.  Positives and negatives are
+                looked up through ``emb.lookup`` (the jpq_lookup kernels
+                on the card).  BERT4Rec trains its masked targets with
+                full_ce whatever the loss, as in the reference.
+  code_ce     - the semantic-ID head's per-position code cross-entropy
+                (``core/semantic.code_xent``), RecJPQ tables only;
+                ``semantic_weight > 0`` adds it to another loss as an
+                auxiliary term and reports it as ``code_ce``.
+The input vectors go through the jpq_lookup kernels with a RecJPQ table
+and ``use_kernel=True``.  ``bind_engine`` / ``retrieve_topk`` serve the
+top-k through the retrieval engine without the [B, n_rows] scores.
 """
 from __future__ import annotations
 
@@ -20,8 +32,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import EmbeddingConfig, make_embedding
+from repro_torch.core import engine as _engine
+from repro_torch.core import semantic as _semantic
 from repro_torch.nn import layers as L
 from repro_torch.nn.attention import AttnConfig, attention, attention_init
 from repro_torch.nn.module import Tensors
@@ -40,8 +55,8 @@ class SeqRecConfig:
     n_heads: int = 4
     d_ff: int = 1024
     embedding: Optional[EmbeddingConfig] = None   # None -> full, d=d_model
-    loss: str = "full_ce"         # full_ce (sampled_bce | code_ce: not yet)
-    semantic_weight: float = 0.0
+    loss: str = "full_ce"         # full_ce | sampled_bce | code_ce
+    semantic_weight: float = 0.0  # auxiliary code-CE weight (jpq only)
     n_negatives: int = 1
     dropout: float = 0.0
     mask_prob: float = 0.2        # bert4rec masking rate
@@ -92,11 +107,15 @@ class SeqRecModel(torch.nn.Module):
         super().__init__()
         if cfg.arch not in ("sasrec", "bert4rec", "gru4rec"):
             raise ValueError(f"unknown arch {cfg.arch!r}")
-        if cfg.loss != "full_ce" or cfg.semantic_weight > 0.0:
-            raise NotImplementedError(
-                f"loss {cfg.loss!r} / semantic_weight "
-                f"{cfg.semantic_weight} is not yet ported to repro_torch "
-                f"(full_ce is)")
+        if cfg.loss not in ("full_ce", "sampled_bce", "code_ce"):
+            raise ValueError(f"unknown loss {cfg.loss!r}")
+        if (cfg.loss == "code_ce" or cfg.semantic_weight > 0.0) \
+                and cfg.emb_cfg().kind != "jpq":
+            raise ValueError(
+                f"the semantic-ID objective (loss='code_ce' / "
+                f"semantic_weight > 0) is per-position cross-entropy "
+                f"over JPQ code sequences — it needs a kind='jpq' "
+                f"embedding, got {cfg.emb_cfg().kind!r}")
         self.cfg = cfg
         self.emb = make_embedding(cfg.emb_cfg())
         self._codes = codes
@@ -187,18 +206,65 @@ class SeqRecModel(torch.nn.Module):
 
     # ------------------------------------------------------------ loss
     def train_loss(self, p, batch, generator=None):
-        """Mean full-catalogue cross-entropy over the positions with a
-        label (BERT4Rec: with a masked target); every position is scored,
-        as in the reference."""
-        seq = batch["seq"]                                    # [B, S]
-        labels = batch["targets" if self.cfg.arch == "bert4rec"  # 0: unmasked
-                       else "labels"]
+        """(loss, metrics): the mean over the positions with a label
+        (BERT4Rec: with a masked target) of the configured loss, plus
+        ``semantic_weight`` times the code cross-entropy when it is set
+        (then reported as ``code_ce``)."""
+        cfg = self.cfg
+        if cfg.arch == "bert4rec":
+            return self._masked_lm_loss(p, batch, generator)
+        seq, labels = batch["seq"], batch["labels"]            # [B, S]
         h = self.encode(p, seq, generator=generator)
         valid = labels > 0
+        if cfg.loss == "full_ce":
+            loss = self._full_ce(p, h, labels, valid)
+        elif cfg.loss == "code_ce":                          # semantic head
+            loss = self._code_loss(p, h, labels, valid)
+        else:                                                # sampled_bce
+            neg = batch["negatives"]                         # [B, S, K]
+            pos_e = self.emb.lookup(p["item_emb"], labels)
+            neg_e = self.emb.lookup(p["item_emb"], neg)
+            pos_s = torch.sum(h * pos_e, -1)
+            neg_s = torch.einsum("bsd,bskd->bsk", h, neg_e)
+            lp = F.logsigmoid(pos_s)
+            ln = torch.sum(F.logsigmoid(-neg_s), -1)
+            loss = -torch.sum((lp + ln) * valid) / _count(valid)
+        if cfg.semantic_weight > 0.0 and cfg.loss != "code_ce":
+            return self._with_aux(p, h, labels, valid, loss)
+        return loss, {"loss": loss.detach()}
+
+    def _masked_lm_loss(self, p, batch, generator):
+        """BERT4Rec: the batch carries masked inputs and their targets
+        (0 where nothing is masked)."""
+        seq, targets = batch["seq"], batch["targets"]
+        h = self.encode(p, seq, generator=generator)
+        valid = targets > 0
+        if self.cfg.loss == "code_ce":                       # semantic head
+            loss = self._code_loss(p, h, targets, valid)
+            return loss, {"loss": loss.detach()}
+        loss = self._full_ce(p, h, targets, valid)
+        if self.cfg.semantic_weight > 0.0:
+            return self._with_aux(p, h, targets, valid, loss)
+        return loss, {"loss": loss.detach()}
+
+    def _full_ce(self, p, h, labels, valid):
+        """Mean full-catalogue cross-entropy; every position is scored,
+        as in the reference."""
         logits = self._mask_special(self.emb.logits(p["item_emb"], h))
         ce = _xent(logits, labels)
-        loss = torch.sum(ce * valid) / torch.clamp(valid.sum(), min=1)
-        return loss, {"loss": loss.detach()}
+        return torch.sum(ce * valid) / _count(valid)
+
+    def _code_loss(self, p, h, targets, valid):
+        """Mean code cross-entropy of the targets' code sequences
+        (``core/semantic.code_xent``): each position's logits are the
+        ``partial_scores`` slices ``semantic_decode`` searches."""
+        ce = _semantic.code_xent(p["item_emb"], h, targets)   # [B, S]
+        return torch.sum(ce * valid) / _count(valid)
+
+    def _with_aux(self, p, h, targets, valid, loss):
+        aux = self._code_loss(p, h, targets, valid)
+        loss = loss + self.cfg.semantic_weight * aux
+        return loss, {"loss": loss.detach(), "code_ce": aux.detach()}
 
     def _mask_special(self, logits):
         """Never rank pad / [MASK] rows.  In place: the reference's
@@ -225,8 +291,67 @@ class SeqRecModel(torch.nn.Module):
         return self._mask_special(self.emb.logits(p["item_emb"], h[:, -1]))
 
     def bind_engine(self, p, spec, *, catalogue=None):
-        raise NotImplementedError(
-            "SeqRecModel.bind_engine is not yet ported to repro_torch")
+        """Bind a ``core.engine.RetrievalSpec`` to this model and params:
+        a ``BoundRetrieval`` mapping a request (a [B, S] sequence, or a
+        dict with ``user_hist``) through the encoder, the engine's scorer
+        and the serve protocol.  The engine runs at an internal k of
+        ``min(spec.k + 2, n_rows)``: the two extra candidates cover the
+        pad and [MASK] rows that ``score_last`` masks, and the post step
+        demotes those rows to NEG_INF and re-ranks, so the result equals
+        the total-order top-k of ``score_last(p, seq)``."""
+        n_rows = self.cfg.n_rows
+        k_out = min(int(spec.k), n_rows)
+        inner = dataclasses.replace(spec, k=min(k_out + 2, n_rows))
+        eng = _engine.RetrievalEngine(inner, self.emb, p["item_emb"],
+                                      catalogue=catalogue)
+
+        def encode(request):
+            seq = request["user_hist"] if isinstance(request, dict) \
+                else request
+            return self.encode(p, self._serve_seq(seq))[:, -1]
+
+        def post(out):
+            stats = None
+            if inner.stats:
+                v, i, stats = out
+            else:
+                v, i = out
+            forbidden = (i == 0) | (i == n_rows - 1)
+            v = torch.where(forbidden, NEG_INF, v)
+            vv, ids = _engine.rerank_candidates(v, i, k_out)
+            return (vv, ids, stats) if inner.stats else (vv, ids)
+
+        return _engine.BoundRetrieval(eng, encode, post)
+
+    def retrieve_topk(self, p, seq, *, k: int, fused: bool = True,
+                      prune=None, perm=None, warm=None, block_n=None,
+                      backend=None, return_stats: bool = False):
+        """Top-k catalogue retrieval from the last position without the
+        [B, n_rows] score matrix ``score_last`` builds: a RecJPQ table
+        goes through the engine's fused PQTopK scorer (pruned with
+        ``prune``), full and QR tables through materialise + top-k.
+        Equal to the total-order top-k of ``score_last(p, seq)``.
+        ``warm`` / ``return_stats`` are ``core/serve.retrieve_topk``'s
+        (the stats' ``theta`` is the internal (k+2)-th value); ``backend``
+        must be None (``engine.spec_for``)."""
+        spec = _engine.spec_for(self.emb, k=k, fused=fused,
+                                block_n=block_n, backend=backend,
+                                prune=prune, perm=perm,
+                                warm_decay=0.0 if warm is not None
+                                else None,
+                                stats=return_stats)
+        bound = self.bind_engine(p, spec)
+        if bound.engine.spec.prune:
+            bound.engine.bind_catalogue(prune=prune, perm=perm)
+        if warm is not None:
+            warm = torch.as_tensor(warm, dtype=torch.float32,
+                                   device=self.device)
+        return bound.retrieve(seq, floor=warm)
+
+
+def _count(valid):
+    """The number of valid positions, at least 1."""
+    return torch.clamp(valid.sum(), min=1)
 
 
 def _xent(logits, labels):

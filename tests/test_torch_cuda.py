@@ -450,6 +450,8 @@ SCORES = [
     (300, 8, 64, 2_002, "normal", torch.uint8),
     (2048, 8, 256, 1_502, "normal", torch.uint8),
     (250, 8, 256, 1_502, "normal", torch.uint8),
+    # a microbatched step's slice at full width: T = 8 x 200
+    (1600, 8, 256, 100_002, "normal", torch.uint8),
 ]
 
 
@@ -523,6 +525,7 @@ SCORES_BWD = [
     ("grid gowalla", 1536, 8, 64, 2_002, torch.uint8, 0.0),
     ("grid gowalla skewed", 1536, 8, 64, 2_002, torch.uint8, 0.85),
     ("quickstart", 2048, 8, 256, 1_502, torch.uint8, 0.0),
+    ("microbatch slice", 1600, 8, 256, 100_002, torch.uint8, 0.0),
 ]
 
 
@@ -599,6 +602,8 @@ LOOKUP = [
     # the quickstart: b = 256, dk = 8, training and eval (250 x 32)
     ("quickstart", 2_048, 8, 256, 8, 1_502, torch.uint8, 0.3),
     ("quickstart eval", 8_000, 8, 256, 8, 1_502, torch.uint8, 0.3),
+    # a microbatched step's slice (T = 8 x 200), at SeqRec's width
+    ("microbatch slice", 1_600, 8, 256, 64, 50_000, torch.uint8, 0.5),
 ]
 
 
@@ -855,3 +860,265 @@ def test_embedding_bag_refuses_out_of_range_ids(dev, bad):
         ec.embedding_bag(table, ids, w)
     with pytest.raises(IndexError, match="outside"):
         eops.embedding_bag(table, ids, w)
+
+
+# ======== the other objectives, microbatches, checkpoints, semantic head
+
+def _small_seqrec(dev, arch="sasrec", use_kernel=True, seed=1, **cfg):
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel
+    kw = dict(arch=arch, n_items=3000, max_len=16, d_model=64, n_layers=2,
+              n_heads=2, d_ff=128, **cfg)
+    return SeqRecModel(
+        SeqRecConfig(embedding=EmbeddingConfig(0, 0, kind="jpq", m=8, b=256,
+                                               use_kernel=use_kernel), **kw),
+        generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def _small_batch(dev, arch, seed=2, B=4):
+    from repro_torch.models.sequential import mask_batch
+    rng = np.random.default_rng(seed)
+    seq = torch.tensor(rng.integers(1, 3001, (B, 16)), device=dev)
+    seq[:, :5] = 0
+    if arch == "bert4rec":
+        ms, tg = mask_batch(torch.Generator(device=dev).manual_seed(0), seq,
+                            0.2, 3001)
+        return {"seq": ms, "targets": tg}
+    labels = torch.roll(seq, -1, 1)
+    labels[seq == 0] = 0
+    neg = torch.tensor(rng.integers(1, 3000, (B, 16, 1)), device=dev)
+    return {"seq": seq, "labels": labels,
+            "negatives": neg + (neg >= labels[..., None])}
+
+
+OBJECTIVES = [("sampled_bce", 0.0), ("code_ce", 0.0), ("full_ce", 0.5)]
+
+
+@pytest.mark.parametrize("loss,weight", OBJECTIVES,
+                         ids=[f"{l}-w{w}" for l, w in OBJECTIVES])
+@pytest.mark.parametrize("arch", ["sasrec", "bert4rec", "gru4rec"])
+def test_objective_step_through_kernels_matches_gathers(dev, arch, loss,
+                                                        weight):
+    """One step of sampled_bce, code_ce and full_ce + semantic_weight:
+    use_kernel=True against use_kernel=False (PyTorch gathers) on the
+    card, the same weights — loss within 1e-5 relative, every gradient
+    within 1e-4 of its largest magnitude; the jpq_lookup pair launched,
+    the jpq_scores pair exactly where [T, N] logits exist (full_ce, and
+    BERT4Rec's masked targets under sampled_bce)."""
+    batch = _small_batch(dev, arch)
+    res = {}
+    for uk in (True, False):
+        model = _small_seqrec(dev, arch, uk, loss=loss,
+                              semantic_weight=weight)
+        sc.reset_launches()
+        lc.reset_launches()
+        out, mets = model.train_loss(model.params(), batch)
+        out.backward()
+        torch.cuda.synchronize()
+        res[uk] = (float(out.detach()), [x.grad for x in model.parameters()],
+                   {**sc.launches, **lc.launches}, mets)
+    logits = loss == "full_ce" or arch == "bert4rec" and loss != "code_ce"
+    for name, n in res[True][2].items():
+        assert (n > 0) == (logits or name.startswith("jpq_lookup")), \
+            (name, res[True][2])
+    assert not any(res[False][2].values())
+    assert ("code_ce" in res[True][3]) == (weight > 0)
+    assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
+    for a, b in zip(res[True][1], res[False][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_microbatched_step_equals_the_single_step(dev):
+    """microbatches=2 on [x; x] through the kernels gives each slice the
+    single step's gradient on x, so both steps end bit-equal."""
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    x = {k: v.cpu().numpy() for k, v in _small_batch(dev, "sasrec").items()}
+    xx = {k: np.concatenate([v, v]) for k, v in x.items()}
+    out = {}
+    for n, b in ((1, x), (2, xx)):
+        model = _small_seqrec(dev)
+        tr = Trainer(model, OptConfig(lr=3e-3),
+                     TrainConfig(steps=2, log_every=1, eval_every=0,
+                                 microbatches=n), data_fn=lambda s, b=b: b)
+        p, hist = tr.run(params=model.params())
+        out[n] = ([t.detach().clone() for t in tree_leaves(p)],
+                  [h["loss"] for h in hist])
+    assert out[1][1] == out[2][1]
+    for a, b in zip(out[1][0], out[2][0]):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_microbatched_step_on_distinct_halves(dev):
+    """microbatches=2 on [a; b] through the kernels against the mean of
+    the single steps on a and on b (loss 1e-5 relative, gradients 1e-4
+    of their largest entry); b keeps only its last 3 positions, so the
+    single step on [a; b] differs from that mean."""
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    ab = _small_batch(dev, "sasrec", B=8)
+    for v in ab.values():
+        v[4:, :-3] = 0
+    model = _small_seqrec(dev)
+    p = model.params()
+    floats = list(model.parameters())
+
+    def step(n, b):
+        tr = Trainer(model, OptConfig(), TrainConfig(steps=1, microbatches=n),
+                     data_fn=None)
+        g, mets = tr._grads(p, floats, b, 0)
+        return float(mets["loss"]), g
+
+    lm, gm = step(2, ab)
+    la, ga = step(1, {k: v[:4] for k, v in ab.items()})
+    lb, gb = step(1, {k: v[4:] for k, v in ab.items()})
+    lw, _ = step(1, ab)
+    want = (la + lb) / 2
+    assert abs(lm - want) <= 1e-5 * abs(want)
+    assert abs(lw - want) > 1e-5 * abs(want)
+    for x, y, z in zip(gm, ga, gb):
+        ref = (y + z) / 2
+        assert float((x - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_preempted_run_resumes_bit_equal_on_the_card(dev, tmp_path):
+    """A real SIGTERM while step 1's batch is drawn: the checkpoint is
+    stamped at step 2, and the resumed run ends bit-equal to the
+    uninterrupted one (dropout on, drawn from (seed, step))."""
+    import os
+    import signal
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    batch = {k: v.cpu().numpy()
+             for k, v in _small_batch(dev, "sasrec").items()}
+
+    def run(d, sigterm_at=None):
+        model = _small_seqrec(dev, dropout=0.2)
+
+        def data_fn(s):
+            if s == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return {k: np.roll(v, s, 0) for k, v in batch.items()}
+
+        tr = Trainer(model, OptConfig(lr=3e-3),
+                     TrainConfig(steps=4, log_every=1, eval_every=0,
+                                 ckpt_dir=d, ckpt_every=0), data_fn=data_fn)
+        p, _ = tr.run(params=model.params())
+        return tr, [t.detach().clone() for t in tree_leaves(p)]
+
+    _, want = run(None)
+    d = str(tmp_path)
+    tr, _ = run(d, sigterm_at=1)
+    assert tr._preempted and tr.done_step == 2 and latest_step(d) == 2
+    tr, got = run(d)
+    assert tr.done_step == 4 and latest_step(d) == 4
+    for a, b in zip(want, got):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    """A checkpoint written from the card (and one written from numpy on
+    the host) restores into a model on the card, leaf for leaf."""
+    from repro_torch.ckpt import restore_values, save_checkpoint
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.optimizer import tree_map
+    src = _small_seqrec(dev, seed=3).params()
+    save_checkpoint(str(tmp_path / "card"), {"values": src}, 7)
+    save_checkpoint(str(tmp_path / "host"), tree_map(
+        lambda x: x.detach().cpu().numpy(), src), 7)
+    for where in ("card", "host"):
+        p = _small_seqrec(dev, seed=4).params()
+        assert restore_values(str(tmp_path / where), p) == 7
+        for a, b in zip(tree_leaves(p), tree_leaves(src)):
+            assert a.device.type == "cuda"
+            assert torch.equal(a.detach().view(torch.uint8),
+                               b.detach().view(torch.uint8))
+
+
+def test_semantic_decode_on_the_card_equals_the_cpu(dev):
+    """The beam search (searchsorted, the total-order top-W) gives the
+    same values and ids on the card as on the CPU, narrow and
+    exhaustive."""
+    from repro_torch.core import semantic
+    g = torch.Generator(device=dev).manual_seed(5)
+    codes = torch.randint(0, 16, (3_000, 4), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    codes[1_500:1_600] = codes[:100]
+    part = torch.randint(-3, 4, (9, 4, 16), generator=g,
+                         device=dev).float() / 2
+    on_card = semantic.build_code_index(codes, 16)
+    on_cpu = semantic.build_code_index(codes.cpu(), 16)
+    for beams in (3, 40, None):
+        v, i = semantic.semantic_decode(part, on_card, 10, beams=beams)
+        cv, ci = semantic.semantic_decode(part.cpu(), on_cpu, 10, beams=beams)
+        assert v.is_cuda and torch.equal(i.cpu(), ci)
+        assert _bits_equal(v.cpu(), cv)
+
+
+def test_semantic_exhaustive_decode_equals_jpq_topk(dev):
+    """At 2,000 rows with duplicate code rows (ties), the exhaustive
+    decode equals jpq_topk's values and ids on a canonical LUT."""
+    from repro_torch.core import semantic
+    g = torch.Generator(device=dev).manual_seed(6)
+    codes = torch.randint(0, 256, (2_000, 8), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes[1_000:1_050] = codes[:50]
+    codes = codes.to(torch.uint8)
+    P = ops.canonicalise_lut(torch.randint(
+        -3, 4, (16, 8, 256), generator=g, device=dev).float() / 2)
+    idx = semantic.build_code_index(codes, 256)
+    v, i = semantic.semantic_decode(P, idx, 10, beams=None)
+    assert _same((v, i), kc.jpq_topk(P.contiguous(), codes, 10))
+
+
+def test_semantic_head_serves_kernel_exact_values(dev):
+    """--head semantic through serve_loop on the card: no sweep kernel
+    launched, and every value of a request equals the jpq_scores
+    kernel's score of its id."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.launch import serve as serve_mod
+    model, batch = get_bundle("two-tower-retrieval-jpq").make_smoke(
+        device=dev)
+    params = model.params()
+    template = {k: v for k, v in batch.items() if k != "label"}
+    args = serve_mod.build_parser().parse_args(
+        ["--head", "semantic", "--requests", "3", "--batch-size", "16"])
+    kc.reset_launches()
+    sc.reset_launches()
+    res = serve_mod.serve_loop(model, params, template, args)
+    assert res["path"] == "semantic"
+    assert not any(kc.launches.values()) and not any(sc.launches.values())
+    req = next(serve_mod.make_requests(template, 16, 1, 9, reserved=(0,)))
+    hist = torch.as_tensor(req["user_hist"], device=dev)
+    spec = engine_mod.spec_from_args(args, kind="jpq", k=10)
+    with torch.no_grad():
+        v, i = model.bind_engine(params, spec).retrieve({"user_hist": hist})
+        P = jpq_mod.partial_scores(params["item_emb"],
+                                   model.user_vec(params, hist))
+        S = sc.jpq_scores(P.contiguous(), params["item_emb"]["codes"])
+    assert bool((i >= 0).all()) and bool((i < S.shape[1]).all())
+    assert _bits_equal(v, S.gather(1, i.long()))
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_seqrec_retrieve_topk_equals_score_last(dev, prune):
+    """SeqRecModel.retrieve_topk through jpq_topk (or the pruned kernel)
+    equals the total-order top-k of score_last through jpq_scores."""
+    from repro_torch.core import engine as engine_mod
+    model = _small_seqrec(dev)
+    p = model.params()
+    seq = _small_batch(dev, "sasrec", seed=8, B=32)["seq"]
+    with torch.no_grad():
+        s = model.score_last(p, seq)
+        want = engine_mod.rerank_candidates(
+            s, torch.arange(s.shape[1], dtype=torch.int32,
+                            device=dev).expand_as(s), 10)
+        kc.reset_launches()
+        got = model.retrieve_topk(p, seq, k=10, prune=prune)
+    assert kc.launches["jpq_topk_pruned" if prune else "jpq_topk"] > 0
+    assert _same(got, want)

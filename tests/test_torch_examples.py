@@ -132,6 +132,32 @@ def test_grid_param_sizes_match_reference(grid_codes, profile, arch):
                 np.asarray(jp["item_emb"]["codes"].value))
 
 
+@pytest.mark.parametrize("n_negatives", [1, 3])
+def test_train_seqrec_draws_negatives_for_sampled_bce(n_negatives,
+                                                      monkeypatch):
+    """A sampled_bce model's batches carry ``n_negatives`` negatives a
+    position, drawn by ``train_batch`` as the reference's harness draws
+    them (benchmarks/common.py), and the run scores the test split."""
+    data = pv.make_data("ml1m", smoke=True)
+    model = pv.variant_model("sasrec", data, "jpq-svd", device="cpu")
+    model.cfg = dataclasses.replace(model.cfg, loss="sampled_bce",
+                                    n_negatives=n_negatives)
+    seen = []
+    inner = model.train_loss
+
+    def train_loss(p, batch, generator=None):
+        seen.append(tuple(batch["negatives"].shape))
+        want = data.train_batch(len(seen) - 1, pv.BATCH,
+                                n_negatives=n_negatives)["negatives"]
+        np.testing.assert_array_equal(batch["negatives"].numpy(), want)
+        return inner(p, batch, generator)
+
+    monkeypatch.setattr(model, "train_loss", train_loss)
+    _, ndcg, _ = pv.train_seqrec(model, data, steps=2)
+    assert seen == [(pv.BATCH, data.cfg.seq_len, n_negatives)] * 2
+    assert math.isfinite(ndcg)
+
+
 @pytest.mark.parametrize("flags", [["--arch", "bert4rec"],
                                    ["--arch", "gru4rec"],
                                    ["--embedding", "qr"],

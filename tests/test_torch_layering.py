@@ -47,6 +47,7 @@ def test_port_files_found():
                 ("kernels", "jpq_scores", "ops.py"),
                 ("kernels", "jpq_lookup", "ops.py"),
                 ("models", "sequential.py"), ("train", "loop.py"),
+                ("core", "semantic.py"), ("ckpt", "checkpoint.py"),
                 ("launch", "train.py"), ("data", "sequences.py")):
         assert os.path.join(PORT, *mod) in files
 
@@ -74,7 +75,8 @@ def test_import_builds_nothing_and_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.configs.recsys_archs, "
             "repro_torch.launch.train, repro_torch.train.loop, "
-            "repro_torch.models.sequential, "
+            "repro_torch.models.sequential, repro_torch.core.semantic, "
+            "repro_torch.ckpt, "
             "repro_torch.kernels.jpq_scores.ops, "
             "repro_torch.kernels.jpq_lookup.ops, "
             "repro_torch.kernels.jpq_topk.cuda as c\n"

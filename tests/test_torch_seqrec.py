@@ -190,19 +190,3 @@ def test_dropout_draws_from_the_generator():
         b = tm.encode(p, seq, generator=torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and not torch.equal(a, plain)
     assert bool(torch.isfinite(a).all())
-
-
-@pytest.mark.parametrize("change", [{"loss": "sampled_bce"},
-                                    {"loss": "code_ce"},
-                                    {"semantic_weight": 0.5}])
-def test_unported_configs_raise(change):
-    cfg = T_seq.SeqRecConfig(**{**KW, **change},
-                             embedding=T_EC(0, 0, kind="jpq", m=4, b=16))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T_seq.SeqRecModel(cfg, device="cpu")
-
-
-def test_bind_engine_not_yet_ported():
-    _, _, tm = _pair(False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.bind_engine(tm.params(), None)

@@ -171,11 +171,6 @@ class TestEngine:
             assert js.pop("backend") is None
             assert dataclasses.asdict(ts) == js
 
-    def test_semantic_head_not_yet_ported(self):
-        ta = T_serve.build_parser().parse_args(["--head", "semantic"])
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            T_engine.spec_from_args(ta)
-
     def test_registry_resolution_matches(self):
         for kw in [dict(), dict(fused=False), dict(prune=True),
                    dict(prune=True, perm="popularity"),
@@ -383,9 +378,7 @@ class TestServeCli:
         assert (res["skip"] is not None) == ("--prune" in flags)
         assert "two-tower-retrieval-jpq: batch=8" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("flags", [["--mesh", "2"],
-                                       ["--ckpt-dir", "x"],
-                                       ["--head", "semantic"]])
+    @pytest.mark.parametrize("flags", [["--mesh", "2"]])
     def test_unported_flags_raise(self, flags):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             T_serve.main(["--device", "cpu", *flags])

@@ -244,7 +244,7 @@ def test_trainer_eval_and_early_stop():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(microbatches=2), dict(ckpt_dir="x"), dict(grad_compression="bf16"),
+    dict(grad_compression="bf16"),
     dict(grad_accum_shards=4), dict(fsdp=True), dict(overlap="backward")])
 def test_trainer_unported_options_raise(knob):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -282,10 +282,8 @@ def test_cli_flags_and_defaults_match_the_reference():
 
 
 @pytest.mark.parametrize("flags", [["--arch", "fm"], ["--mesh", "2"],
-                                   ["--ckpt-dir", "x"], ["--ckpt-every", "50"],
                                    ["--model-axis", "2"],
-                                   ["--grad-compression", "bf16"],
-                                   ["--microbatches", "2"]])
+                                   ["--grad-compression", "bf16"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported|only"):
         T_cli.main(["--device", "cpu", "--steps", "1", "--n-items", "50",
