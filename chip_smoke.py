@@ -146,10 +146,32 @@ codebook, one model on the card at a time:
  22. the SASRec of phase 20 through ``retrieve_topk``, fused and pruned,
      for 256 eval users, bit-equal to the top-10 of its ``score_last``;
      a ``{"semantic_serve": ...}`` line.
-Then JSON lines of the serving runs, the CTR serving runs and the
-per-kernel numbers (seven kernels), the nvidia-smi line, and the result
-line ``{"ok": true, "device": {...}}`` last.  Imports nothing of JAX or
-of the JAX package.
+Phases 23-24 run after phase 11, one model on the card at a time:
+ 23. the embedding_bag backward on the card (the two-tower table,
+     V=1,000,448, d=256, L=50, mask weights with ~10% pads; FM's linear
+     term, V=3,090,000, d=1, L=39, unit weights; each at n_bags=65,536
+     and 512; FM's with half of all ids on one row): bit-identical
+     across two calls, bit-equal to its plain version run on CPU copies
+     and within the fp32 recursive-sum bound of a float64 sum; timed by
+     CUDA events (the kernel and its memset, the stable sort apart, the
+     plain version, ``torch.zeros`` + ``index_add_``, the bound) and
+     under ``torch.profiler``;
+ 24. main path, CTR training: seven bundles at the reference's full
+     width (two-tower-retrieval and -jpq, fm and -jpq, dlrm-rm2-jpq,
+     dien and -jpq) train through ``Trainer`` at B=65,536, adamw lr
+     3e-3, 1 + 5 steps, at the smallest power-of-two ``microbatches``
+     whose warm-up step peaks under 70 GB; launch counters zeroed before
+     the run, embedding_bag forward and backward launched for the
+     two-tower model and both FMs, losses finite, a B=64 step through
+     the kernels against the plain versions in their place (loss within
+     1e-5 relative, gradients within 1e-4 of each leaf's largest entry);
+     the backward timed again at the main path's own ids; the
+     arithmetic that keeps the full dlrm-rm2 off one card; a
+     ``{"ctr_train": ...}`` line.
+Then JSON lines of the serving runs, the CTR serving runs, CTR training
+and the per-kernel numbers (eight kernels), the nvidia-smi line, and the
+result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+JAX or of the JAX package.
 """
 import contextlib
 import dataclasses
@@ -206,10 +228,10 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05):
+def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3):
     """Run ``fn`` on each request under ``torch.profiler`` and return
     (device-busy ms per request: the summed durations of the kernels
-    and copies the card ran, the top three of them by name as
+    and copies the card ran, the top ``top_n`` of them by name as
     [(name, ms per request)]).  Busy 0 means the profiler traced no
     device activity in any of ``attempts`` sessions.
 
@@ -240,7 +262,7 @@ def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05):
         print(f"   (the profiler traced no device time in session "
               f"{attempt + 1} of {attempts})")
     n = len(reqs) * 1e3
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:top_n]
     return sum(per.values()) / n, [(k[:80], v / n) for k, v in top]
 
 
@@ -1478,16 +1500,18 @@ BAG_SHAPES = {   # V, d, n_bags, L, weights
 
 @contextlib.contextmanager
 def plain_bag():
-    """``ops.embedding_bag`` on CUDA tensors through its plain version
-    for the duration (to hold the kernel's callers against it)."""
+    """``ops.embedding_bag`` on CUDA tensors, forward and backward,
+    through its plain versions for the duration (to hold the kernels'
+    callers against them)."""
     from repro_torch.kernels.embedding_bag import cuda as ec
     from repro_torch.kernels.embedding_bag import ref as eref
-    kernel = ec.embedding_bag
+    kernels = ec.embedding_bag, ec.embedding_bag_backward
     ec.embedding_bag = eref.embedding_bag_ref
+    ec.embedding_bag_backward = eref.embedding_bag_backward_ref
     try:
         yield
     finally:
-        ec.embedding_bag = kernel
+        ec.embedding_bag, ec.embedding_bag_backward = kernels
 
 
 def ctr_phases(torch, np, dev, smi, data, tt_template):
@@ -1779,6 +1803,343 @@ def ctr_phases(torch, np, dev, smi, data, tt_template):
              "device_ms": main_t["device_ms"],
              "library_device_ms": main_t["library_device_ms"]}
     return entry, serve_ctr
+
+
+# the CTR training slice: the bundles trained at full width, their batch
+# and steps, the peak they must stay under, the bundles whose path runs
+# the embedding_bag backward, and the backward's shapes in phase 23 (ids
+# "uniform" as the training data draws them, "padded" with ~10% pad
+# slots of weight 0, or "skewed": half of all positions one row)
+CTR_TRAIN_ARCHS = ("two-tower-retrieval", "two-tower-retrieval-jpq", "fm",
+                   "fm-jpq", "dlrm-rm2-jpq", "dien", "dien-jpq")
+CTR_B, CTR_STEPS, PEAK_LIMIT = 65_536, 5, 70e9
+BAG_BWD_SHAPES = {   # V, d, n_bags, L, ids, weights
+    "two-tower B=65536, 10% pads": (1_000_448, 256, 65_536, 50, "padded",
+                                    "masked"),
+    "FM linear B=65536": (3_090_000, 1, 65_536, 39, "uniform", None),
+    "two-tower B=512, 10% pads": (1_000_448, 256, B, 50, "padded", "masked"),
+    "FM linear B=512": (3_090_000, 1, B, 39, "uniform", None),
+    "FM linear B=65536, skewed": (3_090_000, 1, 65_536, 39, "skewed", None),
+}
+
+
+def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi):
+    """embedding_bag's backward kernel on (ids, w, dout): bit-identical
+    across two calls, bit-equal to its plain version run on CPU copies
+    (one chain a row in ascending position from +0.0), and |kernel -
+    float64| <= gamma_n sum|w dout| a row (n: its positions; the float64
+    plain version on the card).  Then timed by CUDA events: the kernel
+    (its memset included) on an order made beforehand, the sort apart,
+    the plain version on the card, ``torch.zeros`` + ``index_add_`` over
+    the products (the one library call: atomics, no fixed order) and
+    the bound; and the card's own time of the kernel under
+    ``torch.profiler``.  Returns the row."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    dev = dout.device
+    n, L = ids.shape
+    d, P = dout.shape[1], n * L
+    got = ec.embedding_bag_backward(ids, w, dout, V)
+    check(bits_equal(got, ec.embedding_bag_backward(ids, w, dout, V)),
+          f"embedding_bag backward differs between calls ({what})")
+    on_cpu = eref.embedding_bag_backward_ref(
+        ids.cpu(), None if w is None else w.cpu(), dout.cpu(), V)
+    check(bits_equal(got.cpu(), on_cpu),
+          f"embedding_bag backward != plain on the CPU ({what})")
+    del on_cpu
+    wd = None if w is None else w.double()
+    want = eref.embedding_bag_backward_ref(ids, wd, dout.double(), V)
+    mass = eref.embedding_bag_backward_ref(
+        ids, None if wd is None else wd.abs(), dout.double().abs(), V)
+    cnt = torch.bincount(ids.reshape(-1).long(), minlength=V).double()
+    lim = (cnt * U / (1 - cnt * U))[:, None] * mass
+    diff = (got.double() - want).abs_()
+    check(bool((diff <= lim).all()),
+          f"embedding_bag backward outside the fp32 sum bound ({what})")
+    row = {"f64_err": float(diff.max()), "longest_chain": int(cnt.max()),
+           "rows_named": int((cnt > 0).sum())}
+    del got, want, mass, lim, diff, cnt, wd
+    torch.cuda.empty_cache()
+    order = ec.sort_ids(ids)
+    flat = ids.reshape(-1)
+    prods = dout.repeat_interleave(L, 0)
+    if w is not None:
+        prods = w.reshape(-1, 1) * prods
+    row["ms"] = cuda_ms(
+        lambda: ec.launch_backward(ids, w, dout, V, order=order), iters)
+    row["sort_ms"] = cuda_ms(lambda: ec.sort_ids(ids), iters)
+    row["plain_ms"] = cuda_ms(
+        lambda: eref.embedding_bag_backward_ref(ids, w, dout, V),
+        max(iters // 5, 2))
+    row["library_ms"] = cuda_ms(lambda: torch.zeros(
+        (V, d), device=dev).index_add_(0, flat, prods), iters)
+    # dout, the ids and weights read once, dtable written once; a product
+    # and an add a (position, column), each over the fp32 add rate
+    bytes_ = (n * d * 4 + P * ids.element_size()
+              + (0 if w is None else P * 4) + V * d * 4)
+    ops = P * d * (1 if w is None else 2)
+    row["bound_ms"], row["bound_by"] = bound(
+        bytes_, {"fp32 adds and multiplies": (ops, FADD_PER_S)})
+    row["device_ms"], top = device_profile(
+        torch, lambda _: ec.launch_backward(ids, w, dout, V, order=order),
+        range(5 if n > B else 20))
+    check(row["device_ms"] > 0, f"the profiler traced no device time for "
+          f"the embedding_bag backward ({what})")
+    row["device_top"] = top
+    row["shape"] = {"V": V, "d": d, "n_bags": n, "L": L,
+                    "weights": w is not None}
+    del order, flat, prods
+    torch.cuda.empty_cache()
+    print(f"   {what} (V={V} d={d} n_bags={n} L={L}): {row['ms']:.4f} ms "
+          f"kernel (device {row['device_ms']:.4f}), sort {row['sort_ms']:.4f}"
+          f" ms, plain {row['plain_ms']:.4f} ms, zeros + index_add_ "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); longest chain {row['longest_chain']}, "
+          f"|err| vs float64 {row['f64_err']:.3e}; bit-identical twice, "
+          f"bit-equal to the CPU, on {smi}")
+    return row
+
+
+def ctr_train_phases(torch, np, dev, smi, data):
+    """Phases 23-24: the embedding_bag backward on the card, then CTR
+    training at full width (seven bundles, one on the card at a time).
+    Returns (the backward's entry of the kernels line, the forward's
+    launches in training, the ctr_train summary)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.recsys_archs import DLRM_VOCABS
+    from repro_torch.data.clicks import ClickDataConfig, SyntheticClicks
+    from repro_torch.data.clicks import dien_batch
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+
+    counters = (ec, kc, sc, lc)
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    t0 = phase("embedding_bag backward on the card: bit-identical, bit-equal"
+               " to the CPU, fp32 sum bound; timed (CUDA events)")
+    shapes = {}
+    for what, (V, d, n, L, kind, weights) in BAG_BWD_SHAPES.items():
+        ids = torch.randint(0, V, (n, L), generator=gen, device=dev)
+        if kind == "padded":
+            ids[torch.rand((n, L), generator=gen, device=dev) < 0.1] = 0
+        elif kind == "skewed":
+            ids.view(-1)[::2] = V // 3
+        w = (ids > 0).float() if weights == "masked" else None
+        dout = torch.randn((n, d), generator=gen, device=dev)
+        shapes[what] = bag_bwd_row(torch, ids, w, dout, V,
+                                   5 if n > B else 50, what, smi)
+        del ids, w, dout
+    done(t0)
+
+    t0 = phase(f"main path: CTR training at full width, B={CTR_B}, adamw lr "
+               f"3e-3, TF32 off, 1 + {CTR_STEPS} steps per bundle")
+    rows = sum(DLRM_VOCABS)
+    table_gb = rows * 64 * 4 / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"   dlrm-rm2 (full table) is not trained on one card: its fp32 "
+          f"table is {rows:,} rows x 64 x 4 B = {table_gb:.1f} GB, and "
+          f"adamw keeps the values, a dense gradient and two moments: "
+          f"4 x {table_gb:.1f} = {4 * table_gb:.1f} GB against the card's "
+          f"{card_gb:.1f} GB ({smi})")
+
+    cache = {}
+
+    def make_batches(name, model):
+        """1 + CTR_STEPS host batches of CTR_B rows (one set a family):
+        the two-tower smoke template's distributions at full shape from
+        (seed 0, step); SyntheticClicks for FM and DLRM; dien_batch over
+        phase 7's sequences for DIEN."""
+        fam = name.replace("-jpq", "")
+        if fam in cache:
+            return cache[fam]
+        t1 = time.perf_counter()
+        steps = range(1 + CTR_STEPS)
+        if fam == "two-tower-retrieval":
+            n_items, H = model.cfg.n_items, model.cfg.hist_len
+
+            def one(s):
+                r = np.random.default_rng((0, s))
+                return {"user_hist": r.integers(0, n_items + 1, (CTR_B, H)),
+                        "pos_item": r.integers(1, n_items + 1, (CTR_B,)),
+                        "logq": np.zeros(CTR_B, np.float32)}
+            bs = [one(s) for s in steps]
+        elif fam == "dien":
+            bs = [dien_batch(data, s, CTR_B, model.cfg.seq_len)
+                  for s in steps]
+        else:
+            clicks = SyntheticClicks(ClickDataConfig(
+                n_dense=getattr(model.cfg, "n_dense", 13),
+                vocab_sizes=model.cfg.vocabs(), seed=0))
+            keys = ("sparse", "label") if fam == "fm" else \
+                ("dense", "sparse", "label")
+            bs = [{k: b[k] for k in keys}
+                  for b in (clicks.batch(s, CTR_B) for s in steps)]
+        cache[fam] = bs, (time.perf_counter() - t1) / len(bs) * 1e3
+        return cache[fam]
+
+    def grads_at(model, params, batch):
+        """(loss, gradients of the float leaves) of one step on batch."""
+        fl = [x for x in tree_leaves(params) if torch.is_floating_point(x)]
+        for x in fl:
+            x.requires_grad_(True)
+        try:
+            loss, _ = model.train_loss(params, {
+                k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+            g = torch.autograd.grad(loss, fl, allow_unused=True)
+        finally:
+            for x in fl:
+                x.requires_grad_(False)
+        return float(loss.detach()), g
+
+    summary, main_rows, fwd_launches = {}, {}, 0
+    opt = OptConfig(lr=3e-3)
+    for name in CTR_TRAIN_ARCHS:
+        free_card(torch, dev, name)
+        t1 = time.perf_counter()
+        model = get_bundle(name).make_model(device=dev, seed=0)
+        params = model.params()
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t1
+        bs, batch_ms = make_batches(name, model)
+        # the warm-up step picks microbatches: the smallest power of two
+        # whose peak stays under PEAK_LIMIT (the step's slices take B / n
+        # rows each; for the two-tower model B / n in-batch negatives)
+        n, over = 1, []
+        while True:
+            for c in counters:
+                c.reset_launches()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            warm = Trainer(model, opt, TrainConfig(
+                steps=1, log_every=1, eval_every=0, microbatches=n),
+                data_fn=lambda s: bs[0])
+            try:
+                _, h0 = warm.run(params=params)
+                warm_peak = torch.cuda.max_memory_allocated(dev)
+            except torch.cuda.OutOfMemoryError:
+                warm_peak = None
+            del warm
+            if warm_peak is not None and warm_peak <= PEAK_LIMIT:
+                break
+            over.append({"microbatches": n, "peak_gb": None if warm_peak
+                         is None else warm_peak / 1e9})
+            print(f"   {name}: microbatches={n} "
+                  + ("ran out of memory" if warm_peak is None else
+                     f"peaked at {warm_peak / 1e9:.2f} GB")
+                  + f" (limit {PEAK_LIMIT / 1e9:.0f} GB): trying {2 * n}")
+            n *= 2
+            check(n <= 16, f"{name}: no microbatches up to 16 fits")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(model, opt, TrainConfig(
+            steps=CTR_STEPS, log_every=1, eval_every=0, microbatches=n),
+            data_fn=lambda s: bs[s + 1])
+        _, hist = tr.run(params=params)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: v for c in counters for k, v in c.launches.items()
+                    if v}
+        losses = [h0[0]["loss"]] + [h["loss"] for h in hist if "loss" in h]
+        steps_s = [h["sec"] for h in hist if "sec" in h]
+        check(len(losses) == 1 + CTR_STEPS and
+              all(np.isfinite(x) for x in losses),
+              f"{name}: losses {losses}")
+        check(peak <= PEAK_LIMIT, f"{name}: peak {peak / 1e9:.2f} GB")
+        if name in BAG_ARCHS:
+            check(ec.launches["embedding_bag"] > 0 and
+                  ec.launches["embedding_bag_backward"] > 0,
+                  f"the {name} training run did not launch embedding_bag "
+                  f"forward and backward: {launches}")
+            fwd_launches += ec.launches["embedding_bag"]
+        # one step at B = 64 through the kernels against the same step
+        # with the plain versions in their place, on the card
+        small = {k: v[:64] for k, v in bs[0].items()}
+        k_loss, k_g = grads_at(model, params, small)
+        with plain_bag():
+            p_loss, p_g = grads_at(model, params, small)
+        check(abs(k_loss - p_loss) <= 1e-5 * abs(p_loss),
+              f"{name}: B=64 loss {k_loss} (kernels) vs {p_loss} (plain)")
+        worst = 0.0
+        for a, b in zip(k_g, p_g):
+            if b is None:
+                continue
+            scale = float(b.abs().max())
+            e = float((a - b).abs().max())
+            check(e <= 1e-4 * scale, f"{name}: B=64 gradient {e} vs scale "
+                  f"{scale} (kernels vs plain)")
+            worst = max(worst, e / scale if scale else 0.0)
+        del k_g, p_g
+        # where a step's time goes: the card's busy time (kernels and
+        # copies) in one more step under the profiler, against the median
+        one = Trainer(model, opt, TrainConfig(
+            steps=1, log_every=1, eval_every=0, microbatches=n),
+            data_fn=lambda s: bs[1])
+        busy_ms, top = device_profile(
+            torch, lambda _: one.run(params=params), [None], top_n=6)
+        del one
+        if name in BAG_ARCHS:
+            # the backward at the main path's own inputs: the last
+            # slice's ids of the first timed batch
+            rows_ = CTR_B // n
+            if name.startswith("two-tower"):
+                ids = torch.as_tensor(bs[1]["user_hist"][-rows_:],
+                                      device=dev)
+                w = (ids > 0).float()
+                V, d = params["item_emb"]["table"].shape
+            else:
+                ids = (torch.as_tensor(bs[1]["sparse"][-rows_:], device=dev)
+                       + model.offsets[None, :]).contiguous()
+                w, V, d = None, params["linear"].shape[0], 1
+            dout = torch.randn((rows_, d), generator=gen, device=dev)
+            main_rows[name] = bag_bwd_row(
+                torch, ids, w, dout, V, 10, f"{name} training slice", smi)
+            del ids, w, dout
+        summary[name] = {
+            "microbatches": n, "over_limit": over,
+            "step_ms": float(np.median(steps_s)) * 1e3,
+            "steps_ms": [x * 1e3 for x in steps_s], "batch_ms": batch_ms,
+            "peak_gb": peak / 1e9, "warmup_peak_gb": warm_peak / 1e9,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses, "build_s": build_s, "launches": launches,
+            "b64_grad_worst": worst, "b64_loss": [k_loss, p_loss],
+            "device_busy_ms": busy_ms, "top_device_ms": top}
+        step_ms = summary[name]["step_ms"]
+        print(f"   {name}: microbatches={n}, step {step_ms:.1f} ms (median "
+              f"of {CTR_STEPS}), batch {batch_ms:.1f} ms on the "
+              f"host, peak {peak / 1e9:.2f} GB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, launches {launches}; B=64 kernels vs "
+              f"plain: loss {k_loss:.7f} / {p_loss:.7f}, worst gradient "
+              f"{worst:.2e} of its leaf's largest entry; built in "
+              f"{build_s:.1f}s, on {smi}")
+        print(f"   {name}: device busy {busy_ms:.1f} ms of a step; top: "
+              + "; ".join(f"{k} {v:.1f} ms" for k, v in top))
+        del model, params, tr, hist, bs
+        if name.endswith("-jpq"):        # its family's last bundle
+            cache.pop(name[:-len("-jpq")], None)
+    done(t0)
+
+    main = main_rows["two-tower-retrieval"]
+    entry = {"name": "embedding_bag_backward", "route": "cuda",
+             "source": "src/repro_torch/csrc/embedding_bag.cu",
+             "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:59",
+             "launches": sum(r["launches"].get("embedding_bag_backward", 0)
+                             for r in summary.values()),
+             "max_abs_err": 0.0, "f64_err": max(
+                 r["f64_err"] for r in [*shapes.values(),
+                                        *main_rows.values()]),
+             "ms": main["ms"], "sort_ms": main["sort_ms"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+             "device_ms": main["device_ms"], "shape": main["shape"],
+             "main_path": main_rows, "shapes": shapes}
+    return entry, fwd_launches, summary
 
 
 def main() -> int:
@@ -2158,7 +2519,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bag_kernel, serve_ctr = ctr_phases(torch, np, dev, smi, data, template)
-    kernels.append(bag_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bag_bwd, bag_train_launches, ctr_train = ctr_train_phases(
+        torch, np, dev, smi, data)
+    bag_kernel["train_launches"] = bag_train_launches
+    kernels += [bag_kernel, bag_bwd]
 
     print(json.dumps({"serve": {
         n: {key: r[key] for key in ("path", "p50_ms", "p99_ms", "skip",
@@ -2167,6 +2533,7 @@ def main() -> int:
                                     "p50_ms_by_launches")}
         for n, r in runs.items()}, "card": smi}))
     print(json.dumps({"serve_ctr": serve_ctr, "card": smi}))
+    print(json.dumps({"ctr_train": ctr_train, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,43 @@
 // owns the bag's first slab writes the bag's count of them to bad[n]
 // (written for every bag, so the launcher zeroes nothing: one device
 // operation a call).  The wrapper sums bad and raises.
+//
+// Backward (embedding_bag_backward_launch; the TPU kernel has none: the
+// reference differentiates XLA's gather).  From ids, weights and
+// dout [n_bags, d] it computes
+//     dtable[v, :] = sum over the flat positions p = n * L + l with
+//                    ids[n, l] = v, in ascending p, of w[p] * dout[n, :]
+// as one chain a (row, column): +0.0, then __fadd_rn of each term, the
+// term the rounded product __fmul_rn(w[p], dout[n, c]) (dout[n, c]
+// itself without weights).  The intrinsics keep nvcc from contracting
+// the two into an FMA, so the result is bit-equal to the plain version
+// on the CPU (index_add_ onto zeros) and identical run to run: no float
+// atomics.  The wrapper orders the positions by id first
+// (torch.sort(flat ids, stable=True): integer index preparation, no
+// float of the gradient), so a row's positions are one run of the
+// sorted list, still in ascending p; one memset zero-fills dtable (the
+// rows no id names stay +0.0), then:
+//   - d >= 32 (bwd_slab_kernel): one warp per (32 sorted positions, slab
+//     of 32 * VEC columns).  A lane that holds a run's first position
+//     marks it; the warp walks each marked run in turn, loading 32 of
+//     its positions and weights at a time with coalesced loads,
+//     shuffling them out and keeping U rows of dout in flight; lanes go
+//     across the slab's columns (two-tower: d = 256, two slabs).
+//   - d < 32 (bwd_run_kernel): one thread per sorted position; the
+//     thread that holds a run's first position walks the run, column
+//     by column, BU terms in flight (FM's linear term: d = 1, lanes go
+//     across runs).
+// Ids outside [0, V) sort to the ends: their runs are skipped and the
+// first thread writes their presence to bad[0] (the wrapper raises).
+// A run is one thread's (or warp's) serial chain, so a row that half of
+// all positions name takes as long as the whole chain's dependent adds
+// and loads: the first design's limit (ROADMAP, kernel work).
+// Limits: V up to 3,090,000 (FM) and 1,000,448 (two-tower) rows and
+// n_bags * L up to 65,536 * 50 = 3,276,800 positions on the main path;
+// every position, row and element offset is a 64-bit integer (V * d
+// and P may pass 2^31), L and d are ints.
+// What bounds it: dout, the ids and weights read once and dtable
+// written once (two-tower: 1.02 GB of dtable, 0.3 ms at 3.35 TB/s).
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -227,6 +264,159 @@ int launch_ids(const float* table, long long V, int d, const void* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- backward
+
+constexpr int BU = 16;            // run kernel: terms a thread keeps in flight
+
+__device__ __forceinline__ float vadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// Thread 0 of the grid: 1 in *bad if any id lies outside [0, V) (the
+// sorted list's ends).
+template <typename IdT>
+__device__ __forceinline__ void flag_bad(const IdT* sids, long long P,
+                                         long long V, int* bad) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *bad = (static_cast<long long>(sids[0]) < 0 ||
+            static_cast<long long>(sids[P - 1]) >= V)
+               ? 1
+               : 0;
+}
+
+template <typename IdT, int VEC>
+__global__ void __launch_bounds__(NT)
+    bwd_slab_kernel(const IdT* __restrict__ sids,
+                    const long long* __restrict__ perm,
+                    const float* __restrict__ w,
+                    const float* __restrict__ dout, long long P, int L,
+                    int d, long long V, float* __restrict__ dtable,
+                    int* __restrict__ bad) {
+  using V_ = Vec<VEC>;
+  using T = typename V_::T;
+  flag_bad(sids, P, V, bad);
+  const int lane = threadIdx.x & 31;
+  const int cols = d / VEC;
+  const int slabs = (cols + 31) / 32;
+  const long long gw = static_cast<long long>(blockIdx.x) * NW +
+                       (threadIdx.x >> 5);
+  const long long chunks = (P + 31) / 32;
+  if (gw >= chunks * slabs) return;                   // whole warp
+  const long long chunk = gw / slabs;
+  const int slab = static_cast<int>(gw - chunk * slabs);
+  const int c = slab * 32 + lane;                     // this lane's vector
+  const bool active = c < cols;
+  const T* grad = reinterpret_cast<const T*>(dout);
+  // lane k: is sorted position chunk * 32 + k the first of an in-range run
+  const long long i = chunk * 32 + lane;
+  long long my_id = -1;
+  bool start = false;
+  if (i < P) {
+    my_id = static_cast<long long>(sids[i]);
+    start = my_id >= 0 && my_id < V &&
+            (i == 0 || static_cast<long long>(sids[i - 1]) != my_id);
+  }
+  unsigned starts = __ballot_sync(FULL, start);
+  while (starts) {
+    const int s = __ffs(starts) - 1;
+    starts &= starts - 1;
+    const long long id = __shfl_sync(FULL, my_id, s);
+    T acc = T{};                                      // +0.0
+    for (long long j0 = chunk * 32 + s;; j0 += 32) {
+      // lane k: position j0 + k, if it is still in the run
+      const long long j = j0 + lane;
+      const bool in = j < P && static_cast<long long>(sids[j]) == id;
+      const long long p = in ? perm[j] : 0;
+      const float wt = in && w != nullptr ? w[p] : 1.0f;
+      const int cnt = __popc(__ballot_sync(FULL, in));  // a prefix
+      for (int s0 = 0; s0 < cnt; s0 += U) {
+        T r[U];
+        float wu[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {                 // the same on every lane
+          const long long pu = __shfl_sync(FULL, p, (s0 + u) & 31);
+          wu[u] = __shfl_sync(FULL, wt, (s0 + u) & 31);
+          r[u] = T{};
+          if (s0 + u < cnt && active)
+            r[u] = __ldg(grad + (pu / L) * cols + c);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (s0 + u < cnt)
+            acc = vadd(acc, w != nullptr ? V_::mul(r[u], wu[u]) : r[u]);
+      }
+      if (cnt < 32) break;
+    }
+    if (active) reinterpret_cast<T*>(dtable)[id * cols + c] = acc;
+  }
+}
+
+template <typename IdT>
+__global__ void __launch_bounds__(NT)
+    bwd_run_kernel(const IdT* __restrict__ sids,
+                   const long long* __restrict__ perm,
+                   const float* __restrict__ w,
+                   const float* __restrict__ dout, long long P, int L, int d,
+                   long long V, float* __restrict__ dtable,
+                   int* __restrict__ bad) {
+  flag_bad(sids, P, V, bad);
+  const long long i = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+  if (i >= P) return;
+  const long long id = static_cast<long long>(sids[i]);
+  if (id < 0 || id >= V ||
+      (i > 0 && static_cast<long long>(sids[i - 1]) == id))
+    return;                                           // not a run's first
+  for (int c = 0; c < d; ++c) {
+    float acc = 0.0f;
+    for (long long j0 = i;; j0 += BU) {
+      float t[BU];
+      int cnt = 0;
+#pragma unroll
+      for (int u = 0; u < BU; ++u) {
+        const long long j = j0 + u;
+        t[u] = 0.0f;
+        if (j < P && static_cast<long long>(sids[j]) == id) {
+          const long long p = perm[j];
+          const float g = __ldg(dout + (p / L) * d + c);
+          t[u] = w != nullptr ? __fmul_rn(w[p], g) : g;
+          ++cnt;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BU; ++u)
+        if (u < cnt) acc = __fadd_rn(acc, t[u]);
+      if (cnt < BU) break;
+    }
+    dtable[id * d + c] = acc;
+  }
+}
+
+template <typename IdT>
+int launch_bwd_ids(const void* sorted_ids, const long long* perm,
+                   const float* w, const float* dout, long long P, int L,
+                   int d, long long V, float* dtable, int* bad,
+                   cudaStream_t st) {
+  const auto sid = static_cast<const IdT*>(sorted_ids);
+  if (d < SMALL) {
+    bwd_run_kernel<IdT><<<static_cast<unsigned>((P + NT - 1) / NT), NT, 0,
+                           st>>>(sid, perm, w, dout, P, L, d, V, dtable,
+                                 bad);
+  } else if (vec4(dout, dtable, d)) {
+    const long long slabs = (d / 4 + 31) / 32;
+    bwd_slab_kernel<IdT, 4><<<blocks((P + 31) / 32 * slabs), NT, 0, st>>>(
+        sid, perm, w, dout, P, L, d, V, dtable, bad);
+  } else {
+    const long long slabs = (d + 31) / 32;
+    bwd_slab_kernel<IdT, 1><<<blocks((P + 31) / 32 * slabs), NT, 0, st>>>(
+        sid, perm, w, dout, P, L, d, V, dtable, bad);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace embedding_bag
 
 extern "C" {
@@ -253,6 +443,36 @@ int embedding_bag_launch(const void* table, long long V, int d,
                                               b, st);
   return embedding_bag::launch_ids<int64_t>(t, V, d, ids, w, n_bags, L, o, b,
                                             st);
+}
+
+// The backward on `stream`: dtable [V, d] f32, zero-filled here (one
+// memset) and then each named row written once, from the flat ids sorted
+// stably (`sorted_ids`, P of `id_bytes` each), their flat positions
+// (`perm`, int64), the weights by flat position (or null: unit weights)
+// and dout [n_bags, d]; bad [1] int32: 1 if any id lies outside [0, V).
+// Returns 0, a CUDA error code (> 0), or -1 for arguments the kernel does
+// not take.
+int embedding_bag_backward_launch(const void* sorted_ids, int id_bytes,
+                                  const void* perm, const void* weights,
+                                  const void* dout, long long P, int L,
+                                  int d, long long V, void* dtable,
+                                  void* bad, void* stream) {
+  if (V < 1 || d < 1 || P < 1 || L < 1 || (id_bytes != 4 && id_bytes != 8))
+    return -1;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pm = static_cast<const long long*>(perm);
+  auto w = static_cast<const float*>(weights);
+  auto g = static_cast<const float*>(dout);
+  auto o = static_cast<float*>(dtable);
+  auto b = static_cast<int*>(bad);
+  const cudaError_t rc = cudaMemsetAsync(
+      dtable, 0, static_cast<size_t>(V) * static_cast<size_t>(d) * 4, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (id_bytes == 4)
+    return embedding_bag::launch_bwd_ids<int32_t>(sorted_ids, pm, w, g, P, L,
+                                                  d, V, o, b, st);
+  return embedding_bag::launch_bwd_ids<int64_t>(sorted_ids, pm, w, g, P, L,
+                                                d, V, o, b, st);
 }
 
 const char* jpq_error_string(int code) {

@@ -1,5 +1,7 @@
 """Training entrypoint: a sequential recommender on the synthetic
-sequence pipeline, with a RecJPQ (or full) item table.
+sequence pipeline, with a RecJPQ (or full) item table, or a CTR arch of
+the registry (two-tower, FM, DLRM-RM2, DIEN; full or ``-jpq``) on its
+reduced smoke config.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 300 [--device cpu]
@@ -14,9 +16,14 @@ gathers).  ``--arch bert4rec`` trains on batches masked by
 saves a checkpoint every ``--ckpt-every`` steps and at the end (the
 reference's format), resumes from the latest one there, and on SIGTERM
 saves at the step reached and exits; ``--microbatches`` accumulates
-gradients over equal batch slices.  Sequential archs only; flags that
-name paths not yet ported (``--devices``/``--mesh``/``--model-axis`` > 1,
-the elastic-exchange cluster) raise.
+gradients over equal batch slices.  A CTR arch trains, as the
+reference's CLI trains it, its bundle's ``make_smoke`` model on the
+fixed template batch, with no eval (``--ckpt-dir``, ``--ckpt-every`` and
+``--microbatches`` as above); its pooled lookups train through the
+embedding_bag kernels on the card.  Archs outside the port's registry
+(the LM and MACE bundles) and flags that name paths not yet ported
+(``--devices``/``--mesh``/``--model-axis`` > 1, the elastic-exchange
+cluster) raise.
 """
 from __future__ import annotations
 
@@ -82,10 +89,14 @@ def build(args):
     from repro_torch.train.metrics import ndcg_at_k
     from repro_torch.train.optimizer import OptConfig
 
-    if args.arch not in SEQ_ARCHS:
+    from repro_torch.configs import get_bundle, list_archs
+
+    if args.arch not in SEQ_ARCHS and args.arch not in list_archs():
         raise NotImplementedError(
-            f"arch {args.arch!r}: only the sequential archs {SEQ_ARCHS} "
-            f"train in repro_torch")
+            f"arch {args.arch!r} is not yet ported to repro_torch: it trains "
+            f"the sequential archs {SEQ_ARCHS} and the registry's "
+            f"{list_archs()}; the LM and MACE bundles are ROADMAP queue 1, "
+            f"item 10")
     devices = args.mesh if args.mesh is not None else args.devices
     if devices > 1:
         raise NotImplementedError("--devices/--mesh > 1 is not yet ported")
@@ -93,6 +104,22 @@ def build(args):
         raise NotImplementedError("--model-axis > 1 is not yet ported")
     dev = resolve_device(args.device)
     fp32_matmuls()
+    train_cfg = TrainConfig(
+        steps=args.steps, batch_size=args.batch_size,
+        log_every=max(args.steps // 10, 1), eval_every=args.eval_every,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        early_stop_patience=args.early_stop_patience,
+        microbatches=args.microbatches,
+        grad_compression=args.grad_compression,
+        grad_accum_shards=args.grad_accum_shards, fsdp=args.fsdp,
+        overlap=args.overlap, seed=args.seed)
+    if args.arch not in SEQ_ARCHS:
+        bundle = get_bundle(args.arch)
+        model, template = bundle.make_smoke(device=dev, seed=args.seed)
+        print(f"arch {args.arch}: training the reduced smoke config "
+              f"({bundle.description})")
+        return (model, lambda s: template, None, train_cfg,
+                OptConfig(lr=args.lr))
     data = SyntheticSequences(SeqDataConfig(
         n_users=max(args.n_items, 500), n_items=args.n_items, seq_len=32,
         seed=args.seed))
@@ -130,15 +157,6 @@ def build(args):
         s = model.score_last(params, ev["seq"])
         return {"ndcg10": float(torch.mean(ndcg_at_k(s, ev["target"])))}
 
-    train_cfg = TrainConfig(
-        steps=args.steps, batch_size=args.batch_size,
-        log_every=max(args.steps // 10, 1), eval_every=args.eval_every,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        early_stop_patience=args.early_stop_patience,
-        microbatches=args.microbatches,
-        grad_compression=args.grad_compression,
-        grad_accum_shards=args.grad_accum_shards, fsdp=args.fsdp,
-        overlap=args.overlap, seed=args.seed)
     return model, data_fn, eval_fn, train_cfg, OptConfig(lr=args.lr)
 
 

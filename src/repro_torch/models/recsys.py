@@ -9,16 +9,24 @@ pooled lookups — the full-table two-tower user tower
 hand-written embedding_bag kernel on the card.
 
 Each model is an ``nn.Module`` whose parameters are drawn from a
-``torch.Generator`` on its device; ``params()`` returns the tree of
-(detached) tensors in the reference's shape, which the functional
-methods take as the reference's methods take its params.  ``train_loss``
-of FM, DLRM and DIEN is a later slice.
+``torch.Generator`` on its device (``init_params``, which the
+constructor calls and ``Trainer`` may call again); ``params()`` returns
+the tree of tensors in the reference's shape, which the functional
+methods take as the reference's methods take its params.  Its float
+leaves are detached views of the parameters, so serving builds no
+autograd graph; ``Trainer`` makes them require a gradient for its run
+(and trains the parameters through them, in place), and the pooled
+lookups carry the gradient through the embedding_bag backward kernel.
+``train_loss(p, batch, rng=None)`` is each reference model's, with its
+metric keys.
 
 Batch layouts (fixed shapes):
-  two-tower : user_hist [B, H] item ids (0 pad)
+  two-tower : user_hist [B, H] item ids (0 pad), pos_item [B], logq [B]
+              (training)
   fm/dlrm   : dense [B, 13] (DLRM), sparse ids [B, n_fields] (one id
-              per field)
-  dien      : hist [B, S] (0 pad), target [B]
+              per field), label [B] (training)
+  dien      : hist [B, S] (0 pad), target [B]; hist_neg [B, S] and
+              label [B] (training)
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.kernels.embedding_bag import ops as _bag
@@ -41,6 +50,18 @@ def _mlp_modules(mlp) -> torch.nn.ModuleList:
 
 def _mlp_tree(mods) -> dict:
     return {"layers": [m.tensors() for m in mods]}
+
+
+def _drop(module, *names):
+    """Remove the named parameter holders (before they are drawn again,
+    so an old table is freed before its successor is made)."""
+    for name in names:
+        if name in module._modules:
+            delattr(module, name)
+
+
+def _bce(logit, y):
+    return -(y * F.logsigmoid(logit) + (1.0 - y) * F.logsigmoid(-logit))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,11 +95,19 @@ class TwoTower(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         self.emb = make_embedding(cfg.emb_cfg())
-        self.item_emb = Tensors(self.emb.init(generator, codes=codes,
-                                               device=device))
+        self._codes = codes
+        self.init_params(generator)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """(Re)draw every parameter from ``generator`` (on the model's
+        device) in the reference's order; returns ``params()``."""
+        cfg, dev = self.cfg, generator.device
+        _drop(self, "item_emb", "user_mlp")
+        self.item_emb = Tensors(self.emb.init(generator, codes=self._codes,
+                                               device=dev))
         dims = [cfg.embed_dim, *cfg.tower_mlp, cfg.embed_dim]
-        self.user_mlp = _mlp_modules(L.mlp_init(generator, dims,
-                                                device=device))
+        self.user_mlp = _mlp_modules(L.mlp_init(generator, dims, device=dev))
+        return self.params()
 
     @property
     def device(self) -> torch.device:
@@ -103,6 +132,32 @@ class TwoTower(torch.nn.Module):
             pooled = torch.sum(e * mask[..., None], 1)
         pooled = pooled / torch.clamp(mask.sum(1, keepdim=True), min=1.0)
         return L.mlp(p["user_mlp"], pooled)                  # [B, d]
+
+    def train_loss(self, p, batch, rng=None):
+        """In-batch sampled softmax over the B positives, with the logQ
+        correction when the batch has ``logq``; on one device the
+        reference's ``negatives="local"`` groups are one group (its
+        ``dist.data_shard_count()`` is 1 off a mesh).  Returns (loss,
+        {"loss", "in_batch_acc"})."""
+        del rng
+        cfg = self.cfg
+        u = self.user_vec(p, batch["user_hist"])            # [B, d]
+        pos = torch.as_tensor(batch["pos_item"], device=self.device)
+        v = self.emb.lookup(p["item_emb"], pos)
+        B = u.shape[0]
+        G = 1
+        b = B // G
+        logits = torch.bmm(u.reshape(G, b, -1),
+                           v.reshape(G, b, -1).transpose(1, 2))  # in-batch
+        if cfg.logq_correction and "logq" in batch:
+            logq = torch.as_tensor(batch["logq"], device=self.device)
+            logits = logits - logq.reshape(G, 1, b)
+        lse = torch.logsumexp(logits, -1)                   # [G, b]
+        picked = torch.diagonal(logits, dim1=1, dim2=2)     # [G, b]
+        loss = torch.mean(lse - picked)
+        acc = torch.mean((torch.argmax(logits, -1) == torch.arange(
+            b, device=self.device)[None, :]).float())
+        return loss, {"loss": loss, "in_batch_acc": acc}
 
     def bind_engine(self, p, spec, *, catalogue=None):
         """Bind a ``core.engine.RetrievalSpec`` to this model + params:
@@ -189,17 +244,26 @@ class FM(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         vocabs = cfg.vocabs()
-        total = int(sum(vocabs))
         base = cfg.embedding or EmbeddingConfig(n_items=0, d=0)
         self.emb = make_embedding(dataclasses.replace(
-            base, n_items=total, d=cfg.embed_dim))
-        self.emb_table = Tensors(self.emb.init(generator, codes=codes,
-                                               device=device))
-        linear = torch.randn((total,), generator=generator, device=device)
-        self.head = Tensors({"linear": linear.mul_(0.01),
-                             "bias": torch.zeros((), device=device)})
+            base, n_items=int(sum(vocabs)), d=cfg.embed_dim))
+        self._codes = codes
         self.register_buffer("offsets", _offsets(vocabs, device),
                              persistent=False)
+        self.init_params(generator)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """(Re)draw every parameter from ``generator`` (on the model's
+        device) in the reference's order; returns ``params()``."""
+        dev = generator.device
+        total = self.emb.cfg.n_items
+        _drop(self, "emb_table", "head")
+        self.emb_table = Tensors(self.emb.init(generator, codes=self._codes,
+                                               device=dev))
+        linear = torch.randn((total,), generator=generator, device=dev)
+        self.head = Tensors({"linear": linear.mul_(0.01),
+                             "bias": torch.zeros((), device=dev)})
+        return self.params()
 
     @property
     def device(self) -> torch.device:
@@ -221,6 +285,15 @@ class FM(torch.nn.Module):
         sum_sq = torch.sum(v * v, 1)
         pair = 0.5 * torch.sum(sum_v * sum_v - sum_sq, -1)  # [B]
         return pair + self._linear_bag(p, flat) + p["bias"]
+
+    def train_loss(self, p, batch, rng=None):
+        """Mean BCE; returns (loss, {"loss", "auc_proxy"})."""
+        del rng
+        logit = self.scores(p, batch["sparse"])
+        y = torch.as_tensor(batch["label"], device=self.device).float()
+        loss = torch.mean(_bce(logit, y))
+        return loss, {"loss": loss, "auc_proxy": torch.mean(
+            ((logit > 0) == (y > 0.5)).float())}
 
     def serve(self, p, batch):
         return torch.sigmoid(self.scores(p, batch["sparse"]))
@@ -273,20 +346,28 @@ class DLRM(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         vocabs = cfg.vocabs()
-        total = int(sum(vocabs))
         base = cfg.embedding or EmbeddingConfig(n_items=0, d=0)
         self.emb = make_embedding(dataclasses.replace(
-            base, n_items=total, d=cfg.embed_dim))
-        self.emb_table = Tensors(self.emb.init(generator, codes=codes,
-                                               device=device))
-        F = cfg.n_sparse + 1
-        top_in = F * (F - 1) // 2 + cfg.bot_mlp[-1]
-        self.bot = _mlp_modules(L.mlp_init(
-            generator, [cfg.n_dense, *cfg.bot_mlp], device=device))
-        self.top = _mlp_modules(L.mlp_init(
-            generator, [top_in, *cfg.top_mlp], device=device))
+            base, n_items=int(sum(vocabs)), d=cfg.embed_dim))
+        self._codes = codes
         self.register_buffer("offsets", _offsets(vocabs, device),
                              persistent=False)
+        self.init_params(generator)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """(Re)draw every parameter from ``generator`` (on the model's
+        device) in the reference's order; returns ``params()``."""
+        cfg, dev = self.cfg, generator.device
+        _drop(self, "emb_table", "bot", "top")
+        self.emb_table = Tensors(self.emb.init(generator, codes=self._codes,
+                                               device=dev))
+        nf = cfg.n_sparse + 1
+        top_in = nf * (nf - 1) // 2 + cfg.bot_mlp[-1]
+        self.bot = _mlp_modules(L.mlp_init(
+            generator, [cfg.n_dense, *cfg.bot_mlp], device=dev))
+        self.top = _mlp_modules(L.mlp_init(
+            generator, [top_in, *cfg.top_mlp], device=dev))
+        return self.params()
 
     @property
     def device(self) -> torch.device:
@@ -304,11 +385,19 @@ class DLRM(torch.nn.Module):
         e = self.emb.lookup(p["emb"], flat)                 # [B, F, d]
         feats = torch.cat([x[:, None, :], e], 1)            # [B, F+1, d]
         gram = torch.bmm(feats, feats.transpose(1, 2))
-        F = feats.shape[1]
-        iu = torch.triu_indices(F, F, offset=1, device=self.device)
+        nf = feats.shape[1]
+        iu = torch.triu_indices(nf, nf, offset=1, device=self.device)
         pairs = gram[:, iu[0], iu[1]]                       # [B, F(F-1)/2]
         z = torch.cat([x, pairs], -1)
         return L.mlp(p["top"], z)[..., 0]
+
+    def train_loss(self, p, batch, rng=None):
+        """Mean BCE; returns (loss, {"loss"})."""
+        del rng
+        logit = self.scores(p, batch["dense"], batch["sparse"])
+        y = torch.as_tensor(batch["label"], device=self.device).float()
+        loss = torch.mean(_bce(logit, y))
+        return loss, {"loss": loss}
 
     def serve(self, p, batch):
         return torch.sigmoid(self.scores(p, batch["dense"], batch["sparse"]))
@@ -343,6 +432,7 @@ class DIENConfig:
     gru_dim: int = 108
     mlp: Sequence[int] = (200, 80)
     embedding: Optional[EmbeddingConfig] = None
+    aux_loss_weight: float = 0.1
 
     def emb_cfg(self) -> EmbeddingConfig:
         base = self.embedding or EmbeddingConfig(n_items=0, d=0)
@@ -361,9 +451,19 @@ class DIEN(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         self.emb = make_embedding(cfg.emb_cfg())
+        self._codes = codes
+        self.init_params(generator)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """(Re)draw every parameter from ``generator`` (on the model's
+        device) in the reference's order; returns ``params()``."""
+        cfg = self.cfg
         d, g = cfg.embed_dim, cfg.gru_dim
-        gen, dev = generator, device
-        self.item_emb = Tensors(self.emb.init(gen, codes=codes, device=dev))
+        gen, dev = generator, generator.device
+        _drop(self, "item_emb", "gru1", "att", "augru", "fc", "tgt_proj",
+              "aux")
+        self.item_emb = Tensors(self.emb.init(gen, codes=self._codes,
+                                              device=dev))
         self.gru1 = Tensors(gru_init(gen, d, g, device=dev))
         self.att = _mlp_modules(L.mlp_init(gen, [3 * g, 36, 1], device=dev))
         self.augru = Tensors(gru_init(gen, g, g, device=dev))
@@ -371,6 +471,7 @@ class DIEN(torch.nn.Module):
                                           device=dev))
         self.tgt_proj = Tensors(L.linear_init(gen, d, g, device=dev))
         self.aux = _mlp_modules(L.mlp_init(gen, [g + d, 32, 1], device=dev))
+        return self.params()
 
     @property
     def device(self) -> torch.device:
@@ -387,6 +488,37 @@ class DIEN(torch.nn.Module):
         e = self.emb.lookup(p["item_emb"], hist)            # [B, S, d]
         states, _ = gru_scan(p["gru1"], e)                  # [B, S, g]
         return e, states
+
+    def train_loss(self, p, batch, rng=None):
+        """BCE on the target plus ``aux_loss_weight`` times the auxiliary
+        next-behaviour loss on the interest states (over ``hist_neg``,
+        when the batch has it); returns (loss, {"loss", "main", "aux"})."""
+        del rng
+        dev = self.device
+        hist = torch.as_tensor(batch["hist"], device=dev)
+        target = torch.as_tensor(batch["target"], device=dev)
+        y = torch.as_tensor(batch["label"], device=dev).float()
+        mask = (hist > 0).float()
+        e, states = self._interest(p, hist)
+
+        # auxiliary loss: next-behaviour discrimination on the GRU states
+        aux = torch.zeros((), device=dev)
+        if "hist_neg" in batch:
+            e_neg = self.emb.lookup(p["item_emb"], torch.as_tensor(
+                batch["hist_neg"], device=dev))
+            h_t = states[:, :-1]                            # [B, S-1, g]
+            pos_in = torch.cat([h_t, e[:, 1:]], -1)
+            neg_in = torch.cat([h_t, e_neg[:, 1:]], -1)
+            lp = L.mlp(p["aux"], pos_in)[..., 0]
+            ln = L.mlp(p["aux"], neg_in)[..., 0]
+            m = mask[:, 1:]
+            aux = -(torch.sum((F.logsigmoid(lp) + F.logsigmoid(-ln)) * m)
+                    / torch.clamp(torch.sum(m), min=1.0))
+
+        logit = self._head(p, e, states, mask, target)
+        main = torch.mean(_bce(logit, y))
+        loss = main + self.cfg.aux_loss_weight * aux
+        return loss, {"loss": loss, "main": main, "aux": aux}
 
     def _head(self, p, e, states, mask, target):
         te = self.emb.lookup(p["item_emb"], target)         # [B, d]
@@ -427,8 +559,3 @@ class DIEN(torch.nn.Module):
         mb = mask.expand(chunk, S)
         return torch.cat([self._head(p, eb, sb, mb, c)
                           for c in cands.reshape(NC // chunk, chunk)])
-
-
-def _bce(logit, y):
-    return -(y * torch.nn.functional.logsigmoid(logit)
-             + (1.0 - y) * torch.nn.functional.logsigmoid(-logit))

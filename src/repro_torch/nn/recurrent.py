@@ -51,14 +51,18 @@ def gru_scan(p, xs, h0=None, attn=None, *, reverse: bool = False):
 
     attn: optional [B, S] attention scores (AUGRU when given).  The input
     projection of every step is one product before the loop; the
-    recurrence is a Python loop over the S steps."""
+    recurrence is a Python loop over the S steps.  The steps' inputs are
+    taken with ``unbind``, whose backward stacks the S gradients once:
+    a step's ``gxs[:, t]`` would have a backward that writes a zero
+    [B, S, 3 Dh] tensor a step, S times the projection's bytes."""
     B, S, _ = xs.shape
     d_h = p["wh"].shape[0]
     h = torch.zeros((B, d_h), dtype=xs.dtype, device=xs.device) \
         if h0 is None else h0
-    gxs = _in_proj(p, xs)                           # [B, S, 3 Dh]
+    gxs = _in_proj(p, xs).unbind(1)                 # S x [B, 3 Dh]
+    ats = (None,) * S if attn is None else attn.unbind(1)
     hs = [None] * S
     for t in (range(S - 1, -1, -1) if reverse else range(S)):
-        h = _step(p, h, gxs[:, t], None if attn is None else attn[:, t])
+        h = _step(p, h, gxs[t], ats[t])
         hs[t] = h
     return torch.stack(hs, 1), h

@@ -142,7 +142,8 @@ class Trainer:
                     a.add_(g)
             slices.append(mets)
             del loss, got
-        mets = {k: torch.stack([m[k].float() for m in slices]).mean(0)
+        mets = {k: torch.stack([m[k].detach().float()
+                                for m in slices]).mean(0)
                 for k in slices[0]}
         return [a.div_(n) for a in acc], mets
 
@@ -172,7 +173,9 @@ class Trainer:
     def run(self, generator: Optional[torch.Generator] = None, params=None):
         """Train up to ``cfg.steps`` steps; returns (params, history).
         ``params`` (a ``model.params()`` tree, e.g. with bridged weights)
-        is trained in place; without it the model is re-initialised from
+        is trained in place (detached float leaves require a gradient
+        for the run, and no longer after it); without it the model is
+        re-initialised from
         ``generator`` (default: seeded with ``cfg.seed``).  With
         ``cfg.ckpt_dir``, the latest checkpoint there is restored first
         (values, optimizer state, early-stop state) and the run goes on
@@ -207,6 +210,12 @@ class Trainer:
         # (a preemption or early stop ends the run before cfg.steps);
         # last_saved keeps the trailing save from repeating one
         done_step, last_saved = start_step, None
+        # float leaves handed over detached (the CTR models' params():
+        # views of the parameters) are made differentiable for the run
+        # and handed back as they came
+        detached = [x for x in floats if not x.requires_grad]
+        for x in detached:
+            x.requires_grad_(True)
         old_handler = self._install_sigterm()
         try:
             for step in range(start_step, cfg.steps):
@@ -261,6 +270,8 @@ class Trainer:
         finally:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler)
+            for x in detached:
+                x.requires_grad_(False)
         self.done_step = done_step
         problems = validate_history(self.history[hist_start:])
         if problems:

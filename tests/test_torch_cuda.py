@@ -5,8 +5,9 @@ on the H100 with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Tolerance for the PQTopK kernels and the
 training kernels' forwards: none — values (as bits) and ids must be
 equal, and skip maps equal when no floor is set; the training kernels'
-backwards are held as the comment above their tests says; embedding_bag:
-none (bit-equal, signed zeros included).
+backwards are held as the comment above their tests says; embedding_bag
+and its backward: none (bit-equal, signed zeros included; the backward
+also bit-equal to its plain version on the CPU and across two calls).
 """
 import numpy as np
 import pytest
@@ -803,7 +804,7 @@ def test_embedding_bag_kernel_matches_plain(dev, case):
     table, ids, w = _bag_case(dev, *case)
     ec.reset_launches()
     got = ec.embedding_bag(table, ids, w)
-    assert ec.launches == {"embedding_bag": 1}
+    assert ec.launches == {"embedding_bag": 1, "embedding_bag_backward": 0}
     want = eref.embedding_bag_ref(table, ids, w)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     # the same bits as the plain version on the CPU
@@ -845,7 +846,8 @@ def test_embedding_bag_ops_combiners_on_the_card(dev, combiner, monkeypatch):
     for weights in (None, w):
         ec.reset_launches()
         got = eops.embedding_bag(table, ids, weights, combiner=combiner)
-        assert ec.launches == {"embedding_bag": 1}
+        assert ec.launches == {"embedding_bag": 1,
+                               "embedding_bag_backward": 0}
         with monkeypatch.context() as m:
             m.setattr(ec, "embedding_bag", eref.embedding_bag_ref)
             want = eops.embedding_bag(table, ids, weights, combiner=combiner)
@@ -860,6 +862,137 @@ def test_embedding_bag_refuses_out_of_range_ids(dev, bad):
         ec.embedding_bag(table, ids, w)
     with pytest.raises(IndexError, match="outside"):
         eops.embedding_bag(table, ids, w)
+
+
+BAG_BWD = [
+    # V, d, n_bags, L, weights, ids dtype
+    (3_000, 1, 700, 39, None, torch.int64),        # the FM linear term
+    (3_000, 1, 700, 39, None, torch.int32),
+    (20_000, 256, 130, 50, "masked", torch.int32),  # the two-tower width
+    (20_000, 256, 130, 50, "masked", torch.int64),
+    (1_000, 18, 21, 7, "random", torch.int64),     # d = 18: a run a thread
+    (5_000, 64, 64, 50, "random", torch.int32),    # float4 slabs
+    (1_000, 33, 20, 38, "random", torch.int64),    # d = 33: a scalar slab
+    (100, 3, 9, 1, "random", torch.int64),         # L = 1, odd d
+]
+
+
+def _bwd_check(dev, ids, w, dout, V):
+    """The backward kernel: one launch, bit-identical across two calls,
+    bit-equal to its plain version run on CPU copies."""
+    ec.reset_launches()
+    got = ec.embedding_bag_backward(ids, w, dout, V)
+    assert ec.launches == {"embedding_bag": 0, "embedding_bag_backward": 1}
+    again = ec.embedding_bag_backward(ids, w, dout, V)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    cpu = eref.embedding_bag_backward_ref(
+        ids.cpu(), None if w is None else w.cpu(), dout.cpu(), V)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("case", BAG_BWD, ids=[str(c[:5]) for c in BAG_BWD])
+def test_embedding_bag_backward_kernel_matches_plain(dev, case):
+    V, d, n, L, weights, id_dtype = case
+    _, ids, w = _bag_case(dev, *case)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dout = torch.randn((n, d), generator=g, device=dev)
+    got = _bwd_check(dev, ids, w, dout, V)
+    # the rows no id names stay +0.0
+    named = torch.zeros(V, dtype=torch.bool, device=dev)
+    named[ids.long().reshape(-1)] = True
+    assert not bool(got[~named].view(torch.int32).any())
+
+
+@pytest.mark.parametrize("d", [1, 256])
+def test_embedding_bag_backward_skewed_ids(dev, d):
+    """Half of all positions name one row: one long chain."""
+    _, ids, w = _bag_case(dev, 5_000, d, 400, 50, "random", torch.int64)
+    flat = ids.reshape(-1)
+    flat[::2] = 1234
+    dout = torch.randn((400, d), generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev)
+    _bwd_check(dev, ids, w, dout, 5_000)
+
+
+def test_embedding_bag_backward_misaligned_dout(dev):
+    """A dout view 4 bytes past a 16-byte boundary takes the scalar
+    slabs: bit-equal to the plain version on the CPU."""
+    _, ids, w = _bag_case(dev, 3_000, 256, 40, 50, "masked", torch.int64)
+    buf = torch.randn(40 * 256 + 1, device=dev)
+    dout = buf[1:].view(40, 256)
+    assert dout.data_ptr() % 16 == 4
+    _bwd_check(dev, ids, w, dout, 3_000)
+
+
+def test_embedding_bag_backward_empty_bag_list(dev):
+    ids = torch.zeros((0, 5), dtype=torch.int64, device=dev)
+    ec.reset_launches()
+    got = ec.embedding_bag_backward(ids, None, torch.zeros((0, 4),
+                                                           device=dev), 30)
+    assert got.shape == (30, 4) and not bool(got.any())
+    assert ec.launches["embedding_bag_backward"] == 0
+
+
+@pytest.mark.parametrize("bad", [-1, 700])
+def test_embedding_bag_backward_refuses_out_of_range_ids(dev, bad):
+    _, ids, w = _bag_case(dev, 700, 16, 12, 9, "masked", torch.int32)
+    ids[4, 2] = bad
+    with pytest.raises(IndexError, match="outside"):
+        ec.embedding_bag_backward(ids, w, torch.ones((12, 16), device=dev),
+                                  700)
+
+
+@pytest.mark.parametrize("weights", [None, "masked"])
+def test_embedding_bag_gradient_on_the_card(dev, weights):
+    """``ops.embedding_bag`` on a table that requires a gradient: the
+    forward and backward kernels each launch once, the gradient
+    bit-equal to the CPU's through the plain versions."""
+    table, ids, w = _bag_case(dev, 2_000, 256, 64, 50, weights,
+                              torch.int64)
+    dout = torch.randn((64, 256), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    t = table.clone().requires_grad_()
+    ec.reset_launches()
+    (got,) = torch.autograd.grad(eops.embedding_bag(t, ids, w), t, dout)
+    assert ec.launches == {"embedding_bag": 1, "embedding_bag_backward": 1}
+    tc = table.cpu().requires_grad_()
+    (want,) = torch.autograd.grad(
+        eops.embedding_bag(tc, ids.cpu(), None if w is None else w.cpu()),
+        tc, dout.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["fm", "two-tower-retrieval"])
+def test_ctr_train_step_on_the_card(dev, name):
+    """A smoke bundle's loss and gradients on the card (the embedding_bag
+    kernels, forward and backward, one launch each) against the same
+    weights on the CPU (their plain versions): loss within 1e-5
+    relative, gradients within 1e-4 of each leaf's largest entry."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_bundle
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train import optimizer as T_opt
+    m, batch = get_bundle(name).make_smoke(device=dev, seed=0)
+    c, _ = get_bundle(name).make_smoke(device="cpu", seed=0)
+    bridge.load_values(c, T_opt.tree_map(lambda x: x.cpu().numpy(),
+                                         m.params()))
+    out = {}
+    for where, model in (("cuda", m), ("cpu", c)):
+        p = model.params()
+        fl = [x for x in tree_leaves(p) if x.is_floating_point()]
+        for x in fl:
+            x.requires_grad_(True)
+        ec.reset_launches()
+        loss, _ = model.train_loss(p, batch)
+        grads = torch.autograd.grad(loss, fl)
+        if where == "cuda":
+            assert ec.launches == {"embedding_bag": 1,
+                                   "embedding_bag_backward": 1}
+        out[where] = float(loss.detach()), [g.cpu() for g in grads]
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 # ======== the other objectives, microbatches, checkpoints, semantic head

@@ -281,7 +281,7 @@ def test_cli_flags_and_defaults_match_the_reference():
     assert t == j
 
 
-@pytest.mark.parametrize("flags", [["--arch", "fm"], ["--mesh", "2"],
+@pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"], ["--mesh", "2"],
                                    ["--model-axis", "2"],
                                    ["--grad-compression", "bf16"]])
 def test_cli_unported_flags_raise(flags):
