@@ -150,19 +150,30 @@ Phases 23-24 run after phase 11, one model on the card at a time:
  23. the embedding_bag backward on the card (the two-tower table,
      V=1,000,448, d=256, L=50, mask weights with ~10% pads; FM's linear
      term, V=3,090,000, d=1, L=39, unit weights; each at n_bags=65,536
-     and 512; FM's with half of all ids on one row): bit-identical
+     and 512; FM's with half of all ids on one row) and the table
+     gathers' route through it (L=1, unit weights: DIEN's hist, hist_neg
+     and target ids of one 32,768-row training slice over its 1,000,001
+     rows at d=18, the same ids' flat centroid ids for DIEN-jpq over
+     m*b=1,536 rows at dk=3, a 100,000-term run at d=18): bit-identical
      across two calls, bit-equal to its plain version run on CPU copies
      and within the fp32 recursive-sum bound of a float64 sum; timed by
-     CUDA events (the kernel and its memset, the stable sort apart, the
-     plain version, ``torch.zeros`` + ``index_add_``, the bound) and
-     under ``torch.profiler``;
+     CUDA events (the whole call as autograd runs it, the kernels alone,
+     the sort apart, the plain version, the one PyTorch call —
+     ``F.embedding_bag``'s or ``F.embedding``'s backward —, ``torch.
+     zeros`` + ``index_add_``, ``zero_`` of dtable, for a gather
+     ``table[ids]``'s backward;
+     the bytes bound and the chain bound: the longest run's dependent
+     adds at 4 cycles each at nvidia-smi's clocks.max.sm) and under
+     ``torch.profiler``;
  24. main path, CTR training: seven bundles at the reference's full
      width (two-tower-retrieval and -jpq, fm and -jpq, dlrm-rm2-jpq,
      dien and -jpq) train through ``Trainer`` at B=65,536, adamw lr
      3e-3, 1 + 5 steps, at the smallest power-of-two ``microbatches``
      whose warm-up step peaks under 70 GB; launch counters zeroed before
-     the run, embedding_bag forward and backward launched for the
-     two-tower model and both FMs, losses finite, a B=64 step through
+     the run, the embedding_bag backward launched for every bundle (the
+     table gathers' route) and the forward for the two-tower model and
+     both FMs, losses finite, DIEN's and DIEN-jpq's profiled step free of
+     PyTorch's ``indexing_backward_kernel``, a B=64 step through
      the kernels against the plain versions in their place (loss within
      1e-5 relative, gradients within 1e-4 of each leaf's largest entry);
      the backward timed again at the main path's own ids; the
@@ -228,7 +239,8 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3):
+def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3,
+                   names=None):
     """Run ``fn`` on each request under ``torch.profiler`` and return
     (device-busy ms per request: the summed durations of the kernels
     and copies the card ran, the top ``top_n`` of them by name as
@@ -240,7 +252,8 @@ def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3):
     more than a millisecond of short kernels can come back empty.  Each
     session therefore waits ``pad_s`` of idle host time on both sides
     of the requests (no device work, so the busy time is unchanged),
-    and a session that still traced nothing is run again."""
+    and a session that still traced nothing is run again.  ``names``: a
+    dict to fill with every device item's full name and ms a request."""
     from torch.profiler import ProfilerActivity, profile
     reqs = list(reqs)
     per = {}
@@ -262,6 +275,8 @@ def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3):
         print(f"   (the profiler traced no device time in session "
               f"{attempt + 1} of {attempts})")
     n = len(reqs) * 1e3
+    if names is not None:
+        names.update({k: v / n for k, v in per.items()})
     top = sorted(per.items(), key=lambda kv: -kv[1])[:top_n]
     return sum(per.values()) / n, [(k[:80], v / n) for k, v in top]
 
@@ -1500,18 +1515,21 @@ BAG_SHAPES = {   # V, d, n_bags, L, weights
 
 @contextlib.contextmanager
 def plain_bag():
-    """``ops.embedding_bag`` on CUDA tensors, forward and backward,
-    through its plain versions for the duration (to hold the kernels'
-    callers against them)."""
+    """``ops.embedding_bag`` on CUDA tensors, forward and backward, and
+    the table gathers' backward (``ops.gather``), through their plain
+    versions for the duration (to hold the kernels' callers against
+    them)."""
     from repro_torch.kernels.embedding_bag import cuda as ec
     from repro_torch.kernels.embedding_bag import ref as eref
-    kernels = ec.embedding_bag, ec.embedding_bag_backward
+    kernels = ec.embedding_bag, ec.embedding_bag_backward, ec.gather_backward
     ec.embedding_bag = eref.embedding_bag_ref
     ec.embedding_bag_backward = eref.embedding_bag_backward_ref
+    ec.gather_backward = eref.gather_backward_ref
     try:
         yield
     finally:
-        ec.embedding_bag, ec.embedding_bag_backward = kernels
+        (ec.embedding_bag, ec.embedding_bag_backward,
+         ec.gather_backward) = kernels
 
 
 def ctr_phases(torch, np, dev, smi, data, tt_template):
@@ -1807,12 +1825,17 @@ def ctr_phases(torch, np, dev, smi, data, tt_template):
 
 # the CTR training slice: the bundles trained at full width, their batch
 # and steps, the peak they must stay under, the bundles whose path runs
-# the embedding_bag backward, and the backward's shapes in phase 23 (ids
-# "uniform" as the training data draws them, "padded" with ~10% pad
-# slots of weight 0, or "skewed": half of all positions one row)
+# the embedding_bag (bag) kernels, and the backward's shapes in phase 23
+# (ids "uniform" as the training data draws them, "padded" with ~10% pad
+# slots of weight 0, "skewed": half of all positions one row, "dien":
+# one training slice's hist, hist_neg and target ids from dien_batch,
+# "dien-jpq": the same ids' flat centroid ids j * b + code over random
+# codes, "run": 100,000 of the positions one row; weights "masked", None
+# or "gather": the table gathers' route, L = 1 and unit weights)
 CTR_TRAIN_ARCHS = ("two-tower-retrieval", "two-tower-retrieval-jpq", "fm",
                    "fm-jpq", "dlrm-rm2-jpq", "dien", "dien-jpq")
 CTR_B, CTR_STEPS, PEAK_LIMIT = 65_536, 5, 70e9
+DIEN_SLICE, DIEN_ROWS, DIEN_M, DIEN_B = 32_768, 1_000_001, 6, 256
 BAG_BWD_SHAPES = {   # V, d, n_bags, L, ids, weights
     "two-tower B=65536, 10% pads": (1_000_448, 256, 65_536, 50, "padded",
                                     "masked"),
@@ -1820,30 +1843,52 @@ BAG_BWD_SHAPES = {   # V, d, n_bags, L, ids, weights
     "two-tower B=512, 10% pads": (1_000_448, 256, B, 50, "padded", "masked"),
     "FM linear B=512": (3_090_000, 1, B, 39, "uniform", None),
     "FM linear B=65536, skewed": (3_090_000, 1, 65_536, 39, "skewed", None),
+    "DIEN gather, a training slice": (DIEN_ROWS, 18, DIEN_SLICE * 201, 1,
+                                      "dien", "gather"),
+    "DIEN-jpq flat centroid gather": (DIEN_M * DIEN_B, 3,
+                                      DIEN_SLICE * 201 * DIEN_M, 1,
+                                      "dien-jpq", "gather"),
+    "a 100K-term run, d=18": (DIEN_ROWS, 18, 400_000, 1, "run", "gather"),
 }
 
 
-def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi):
-    """embedding_bag's backward kernel on (ids, w, dout): bit-identical
-    across two calls, bit-equal to its plain version run on CPU copies
-    (one chain a row in ascending position from +0.0), and |kernel -
-    float64| <= gamma_n sum|w dout| a row (n: its positions; the float64
-    plain version on the card).  Then timed by CUDA events: the kernel
-    (its memset included) on an order made beforehand, the sort apart,
-    the plain version on the card, ``torch.zeros`` + ``index_add_`` over
-    the products (the one library call: atomics, no fixed order) and
-    the bound; and the card's own time of the kernel under
-    ``torch.profiler``.  Returns the row."""
+def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi, clock_hz,
+                gather=False):
+    """embedding_bag's backward kernels on (ids, w, dout) — with
+    ``gather``, the table gathers' route (``cuda.gather_backward``: L =
+    1, unit weights) — bit-identical across two calls, bit-equal to its
+    plain version run on CPU copies (one chain a row in ascending
+    position from +0.0), and |kernel - float64| <= gamma_n sum|w dout| a
+    row (n: its positions; the float64 plain version on the card).  Then
+    timed by CUDA events: the whole call as autograd runs it (the sort
+    and the id check in), the kernels alone on an order made
+    beforehand (and the short-run kernel alone), the sort apart, the plain version on the card, the one
+    PyTorch call (``F.embedding_bag``'s backward for a bag,
+    ``F.embedding``'s for a gather), ``torch.zeros`` + ``index_add_``
+    over the products (atomics, no fixed order), ``zero_`` of dtable
+    (the write alone), for a gather today's
+    ``table[ids]`` backward, the bytes bound and the chain bound (the
+    longest run's dependent adds at 4 cycles each); and the card's own
+    time of the kernels under ``torch.profiler``.  Returns the row."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.embedding_bag import cuda as ec
     from repro_torch.kernels.embedding_bag import ref as eref
     dev = dout.device
     n, L = ids.shape
     d, P = dout.shape[1], n * L
-    got = ec.embedding_bag_backward(ids, w, dout, V)
-    check(bits_equal(got, ec.embedding_bag_backward(ids, w, dout, V)),
+    if gather:
+        def whole():
+            return ec.gather_backward(ids, dout, V)
+        on_cpu = eref.gather_backward_ref(ids.cpu(), dout.cpu(), V)
+    else:
+        def whole():
+            return ec.embedding_bag_backward(ids, w, dout, V)
+        on_cpu = eref.embedding_bag_backward_ref(
+            ids.cpu(), None if w is None else w.cpu(), dout.cpu(), V)
+    got = whole()
+    check(bits_equal(got, whole()),
           f"embedding_bag backward differs between calls ({what})")
-    on_cpu = eref.embedding_bag_backward_ref(
-        ids.cpu(), None if w is None else w.cpu(), dout.cpu(), V)
     check(bits_equal(got.cpu(), on_cpu),
           f"embedding_bag backward != plain on the CPU ({what})")
     del on_cpu
@@ -1860,19 +1905,47 @@ def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi):
            "rows_named": int((cnt > 0).sum())}
     del got, want, mass, lim, diff, cnt, wd
     torch.cuda.empty_cache()
-    order = ec.sort_ids(ids)
+    order = ec.sort_ids(ids, V, wrap=gather)
+    row["long_runs"] = order.n_long
+    row["whole_ms"] = cuda_ms(whole, iters)
+    row["ms"] = cuda_ms(
+        lambda: ec.launch_backward(ids, w, dout, V, order=order), iters)
+    row["rows_ms"] = cuda_ms(lambda: ec.launch_backward(
+        ids, w, dout, V, order=order, rows_only=True), iters)
+    row["sort_ms"] = cuda_ms(lambda: ec.sort_ids(ids, V, wrap=gather),
+                             iters)
+    row["plain_ms"] = cuda_ms(
+        lambda: eref.embedding_bag_backward_ref(ids, w, dout, V),
+        max(iters // 5, 2))
     flat = ids.reshape(-1)
     prods = dout.repeat_interleave(L, 0)
     if w is not None:
         prods = w.reshape(-1, 1) * prods
-    row["ms"] = cuda_ms(
-        lambda: ec.launch_backward(ids, w, dout, V, order=order), iters)
-    row["sort_ms"] = cuda_ms(lambda: ec.sort_ids(ids), iters)
-    row["plain_ms"] = cuda_ms(
-        lambda: eref.embedding_bag_backward_ref(ids, w, dout, V),
-        max(iters // 5, 2))
-    row["library_ms"] = cuda_ms(lambda: torch.zeros(
+    row["index_add_ms"] = cuda_ms(lambda: torch.zeros(
         (V, d), device=dev).index_add_(0, flat, prods), iters)
+    del prods
+    # the table written once and nothing read: a floor for any kernel
+    # that writes every row
+    table = torch.empty((V, d), device=dev)
+    row["write_ms"] = cuda_ms(lambda: table.zero_(), iters)
+    # the one PyTorch call for the same function, its backward alone
+    table = table.requires_grad_()
+    if gather:
+        lib_out = F.embedding(flat, table)
+    else:
+        lib_out = F.embedding_bag(ids, table, mode="sum",
+                                  per_sample_weights=w)
+    row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, table, dout, retain_graph=True), iters)
+    row["library"] = ("F.embedding backward" if gather
+                      else "F.embedding_bag backward")
+    del lib_out
+    if gather:                       # today's table[ids] backward
+        idx_out = table[flat]
+        row["indexing_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            idx_out, table, dout, retain_graph=True), max(iters // 3, 1))
+        del idx_out
+    del table
     # dout, the ids and weights read once, dtable written once; a product
     # and an add a (position, column), each over the fp32 add rate
     bytes_ = (n * d * 4 + P * ids.element_size()
@@ -1880,6 +1953,8 @@ def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi):
     ops = P * d * (1 if w is None else 2)
     row["bound_ms"], row["bound_by"] = bound(
         bytes_, {"fp32 adds and multiplies": (ops, FADD_PER_S)})
+    row["bytes_bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
+    row["chain_ms"] = row["longest_chain"] * 4 / clock_hz * 1e3
     row["device_ms"], top = device_profile(
         torch, lambda _: ec.launch_backward(ids, w, dout, V, order=order),
         range(5 if n > B else 20))
@@ -1887,16 +1962,23 @@ def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi):
           f"the embedding_bag backward ({what})")
     row["device_top"] = top
     row["shape"] = {"V": V, "d": d, "n_bags": n, "L": L,
-                    "weights": w is not None}
-    del order, flat, prods
+                    "weights": "gather" if gather else w is not None}
+    del order, flat
     torch.cuda.empty_cache()
-    print(f"   {what} (V={V} d={d} n_bags={n} L={L}): {row['ms']:.4f} ms "
-          f"kernel (device {row['device_ms']:.4f}), sort {row['sort_ms']:.4f}"
-          f" ms, plain {row['plain_ms']:.4f} ms, zeros + index_add_ "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); longest chain {row['longest_chain']}, "
-          f"|err| vs float64 {row['f64_err']:.3e}; bit-identical twice, "
-          f"bit-equal to the CPU, on {smi}")
+    extra = (f", table[ids] backward {row['indexing_ms']:.4f} ms"
+             if gather else "")
+    print(f"   {what} (V={V} d={d} n_bags={n} L={L}): whole call "
+          f"{row['whole_ms']:.4f} ms; kernels {row['ms']:.4f} ms (short "
+          f"runs alone {row['rows_ms']:.4f}; device {row['device_ms']:.4f})"
+          f", sort {row['sort_ms']:.4f} ms; plain "
+          f"{row['plain_ms']:.4f} ms; {row['library']} "
+          f"{row['library_ms']:.4f} ms, zeros + index_add_ "
+          f"{row['index_add_ms']:.4f} ms{extra}; dtable's zero_ "
+          f"{row['write_ms']:.4f} ms; bound {row['bound_ms']:.4f}"
+          f" ms ({row['bound_by']}), chain bound {row['chain_ms']:.4f} ms "
+          f"(longest chain {row['longest_chain']}, {row['long_runs']} long "
+          f"runs); |err| vs float64 {row['f64_err']:.3e}; bit-identical "
+          f"twice, bit-equal to the CPU, on {smi}")
     return row
 
 
@@ -1922,18 +2004,41 @@ def ctr_train_phases(torch, np, dev, smi, data):
 
     t0 = phase("embedding_bag backward on the card: bit-identical, bit-equal"
                " to the CPU, fp32 sum bound; timed (CUDA events)")
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
     shapes = {}
     for what, (V, d, n, L, kind, weights) in BAG_BWD_SHAPES.items():
-        ids = torch.randint(0, V, (n, L), generator=gen, device=dev)
+        if kind in ("dien", "dien-jpq"):
+            bd = dien_batch(data, 0, DIEN_SLICE, 100)
+            ids = torch.as_tensor(np.concatenate(
+                [bd["hist"], bd["hist_neg"], bd["target"][:, None]], 1),
+                device=dev).reshape(-1, 1)
+            if kind == "dien-jpq":
+                codes = torch.randint(0, DIEN_B, (DIEN_ROWS, DIEN_M),
+                                      generator=gen, device=dev)
+                ids = (codes[ids[:, 0]] + DIEN_B * torch.arange(
+                    DIEN_M, device=dev)).reshape(-1, 1)
+                del codes
+            del bd
+        else:
+            ids = torch.randint(0, V, (n, L), generator=gen, device=dev)
         if kind == "padded":
             ids[torch.rand((n, L), generator=gen, device=dev) < 0.1] = 0
         elif kind == "skewed":
             ids.view(-1)[::2] = V // 3
+        elif kind == "run":
+            ids.view(-1)[::4] = V // 3
+        check(tuple(ids.shape) == (n, L), f"{what}: ids {tuple(ids.shape)}")
         w = (ids > 0).float() if weights == "masked" else None
         dout = torch.randn((n, d), generator=gen, device=dev)
-        shapes[what] = bag_bwd_row(torch, ids, w, dout, V,
-                                   5 if n > B else 50, what, smi)
+        shapes[what] = bag_bwd_row(
+            torch, ids, w, dout, V, 3 if n > 10 * CTR_B else
+            5 if n > B else 50, what, smi, clock_hz,
+            gather=weights == "gather")
         del ids, w, dout
+        torch.cuda.empty_cache()
     done(t0)
 
     t0 = phase(f"main path: CTR training at full width, B={CTR_B}, adamw lr "
@@ -2052,11 +2157,15 @@ def ctr_train_phases(torch, np, dev, smi, data):
               all(np.isfinite(x) for x in losses),
               f"{name}: losses {losses}")
         check(peak <= PEAK_LIMIT, f"{name}: peak {peak / 1e9:.2f} GB")
+        # every bundle's tables take their gradient from the backward
+        # kernels: the bags' and the table gathers' (ops.gather)
+        check(ec.launches["embedding_bag_backward"] > 0,
+              f"the {name} training run did not launch the embedding_bag "
+              f"backward: {launches}")
         if name in BAG_ARCHS:
-            check(ec.launches["embedding_bag"] > 0 and
-                  ec.launches["embedding_bag_backward"] > 0,
-                  f"the {name} training run did not launch embedding_bag "
-                  f"forward and backward: {launches}")
+            check(ec.launches["embedding_bag"] > 0,
+                  f"the {name} training run did not launch embedding_bag: "
+                  f"{launches}")
             fwd_launches += ec.launches["embedding_bag"]
         # one step at B = 64 through the kernels against the same step
         # with the plain versions in their place, on the card
@@ -2081,9 +2190,21 @@ def ctr_train_phases(torch, np, dev, smi, data):
         one = Trainer(model, opt, TrainConfig(
             steps=1, log_every=1, eval_every=0, microbatches=n),
             data_fn=lambda s: bs[1])
+        names = {}
         busy_ms, top = device_profile(
-            torch, lambda _: one.run(params=params), [None], top_n=6)
+            torch, lambda _: one.run(params=params), [None], top_n=6,
+            names=names)
         del one
+        # PyTorch's gather backward, which the route replaces
+        indexing_ms = sum(v for k, v in names.items()
+                          if "indexing_backward_kernel" in k)
+        bag_bwd_ms = sum(v for k, v in names.items()
+                         if "embedding_bag::rows_" in k
+                         or "embedding_bag::long_kernel" in k)
+        if name.startswith("dien"):
+            check(indexing_ms == 0, f"{name}: the profiled step ran "
+                  f"indexing_backward_kernel ({indexing_ms:.1f} ms): a "
+                  f"table gather's backward missed the route")
         if name in BAG_ARCHS:
             # the backward at the main path's own inputs: the last
             # slice's ids of the first timed batch
@@ -2099,7 +2220,8 @@ def ctr_train_phases(torch, np, dev, smi, data):
                 w, V, d = None, params["linear"].shape[0], 1
             dout = torch.randn((rows_, d), generator=gen, device=dev)
             main_rows[name] = bag_bwd_row(
-                torch, ids, w, dout, V, 10, f"{name} training slice", smi)
+                torch, ids, w, dout, V, 10, f"{name} training slice", smi,
+                clock_hz)
             del ids, w, dout
         summary[name] = {
             "microbatches": n, "over_limit": over,
@@ -2109,7 +2231,9 @@ def ctr_train_phases(torch, np, dev, smi, data):
             "first_loss": losses[0], "last_loss": losses[-1],
             "losses": losses, "build_s": build_s, "launches": launches,
             "b64_grad_worst": worst, "b64_loss": [k_loss, p_loss],
-            "device_busy_ms": busy_ms, "top_device_ms": top}
+            "device_busy_ms": busy_ms, "top_device_ms": top,
+            "indexing_backward_ms": indexing_ms,
+            "bag_backward_device_ms": bag_bwd_ms}
         step_ms = summary[name]["step_ms"]
         print(f"   {name}: microbatches={n}, step {step_ms:.1f} ms (median "
               f"of {CTR_STEPS}), batch {batch_ms:.1f} ms on the "
@@ -2118,7 +2242,9 @@ def ctr_train_phases(torch, np, dev, smi, data):
               f"plain: loss {k_loss:.7f} / {p_loss:.7f}, worst gradient "
               f"{worst:.2e} of its leaf's largest entry; built in "
               f"{build_s:.1f}s, on {smi}")
-        print(f"   {name}: device busy {busy_ms:.1f} ms of a step; top: "
+        print(f"   {name}: device busy {busy_ms:.1f} ms of a step; the "
+              f"backward kernels {bag_bwd_ms:.1f} ms, indexing_backward_"
+              f"kernel {indexing_ms:.1f} ms; top: "
               + "; ".join(f"{k} {v:.1f} ms" for k, v in top))
         del model, params, tr, hist, bs
         if name.endswith("-jpq"):        # its family's last bundle
@@ -2134,10 +2260,17 @@ def ctr_train_phases(torch, np, dev, smi, data):
              "max_abs_err": 0.0, "f64_err": max(
                  r["f64_err"] for r in [*shapes.values(),
                                         *main_rows.values()]),
-             "ms": main["ms"], "sort_ms": main["sort_ms"],
-             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+             "ms": main["ms"], "whole_ms": main["whole_ms"],
+             "sort_ms": main["sort_ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "chain_ms": main["chain_ms"], "library_ms": main["library_ms"],
+             "library": main["library"],
+             "index_add_ms": main["index_add_ms"],
              "device_ms": main["device_ms"], "shape": main["shape"],
+             "callers": ["ops.embedding_bag (FM's linear term, the two-"
+                         "tower user tower)", "ops.gather (core/full.lookup"
+                         ", core/jpq.lookup with use_kernel=False: every "
+                         "CTR and sequential table gather in training)"],
              "main_path": main_rows, "shapes": shapes}
     return entry, fwd_launches, summary
 

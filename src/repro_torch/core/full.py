@@ -1,7 +1,14 @@
-"""Baseline uncompressed item-embedding table (the paper's "Base")."""
+"""Baseline uncompressed item-embedding table (the paper's "Base").
+
+``lookup`` is the gather ``table[ids]``; where the table takes a
+gradient, that gradient comes from the embedding_bag backward kernel
+(``kernels/embedding_bag/ops.gather``; its plain version on the CPU).
+"""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.embedding_bag import ops as _bag
 
 
 def init(gen: torch.Generator, n_items: int, d: int, *,
@@ -15,7 +22,7 @@ def init(gen: torch.Generator, n_items: int, d: int, *,
 
 
 def lookup(p, ids):
-    return p["table"][ids.long()]
+    return _bag.gather(p["table"], ids)
 
 
 def logits(p, h):

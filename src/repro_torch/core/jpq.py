@@ -11,11 +11,16 @@ port's counterpart of the reference's parameter subtree.
 ``use_kernel=True`` sends ``logits`` through the jpq_scores kernels and
 ``lookup`` through the jpq_lookup kernels (forward and backward, so the
 model trains through them); on a CPU tensor they run their plain
-versions.  ``use_kernel=False`` keeps the PyTorch gathers.
+versions.  ``use_kernel=False`` keeps the PyTorch gathers; ``lookup``'s
+centroid gather then reads the flat ``[m * b, dk]`` view at ``j * b +
+code``, so where the centroids take a gradient it comes from the
+embedding_bag backward kernel (``kernels/embedding_bag/ops.gather``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.embedding_bag import ops as _bag
 
 
 def init(gen: torch.Generator, n_items: int, d: int, m: int, b: int = 256,
@@ -45,9 +50,10 @@ def lookup(p, ids, *, use_kernel: bool = False):
     if use_kernel:
         from repro_torch.kernels.jpq_lookup import ops as kops
         return kops.jpq_lookup(ids, p["codes"], cent)
-    m = cent.shape[0]
+    m, b, dk = cent.shape
     codes = p["codes"][ids.long()].long()                 # [..., m]
-    emb = cent[torch.arange(m, device=cent.device), codes]  # [..., m, dk]
+    flat = codes + b * torch.arange(m, device=cent.device)   # j * b + code
+    emb = _bag.gather(cent.reshape(m * b, dk), flat)      # [..., m, dk]
     return emb.reshape(*ids.shape, -1)
 
 

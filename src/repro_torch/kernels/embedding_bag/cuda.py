@@ -13,16 +13,25 @@ alone.  A call's host work is larger than the kernel's time on the card
 at serving shapes, so it is kept short: the checks are inline
 comparisons, the device is entered only when it is not the current one.
 
-``launch_backward`` orders the flat ids with ``torch.sort(stable=True)``
-(``sort_ids``: integer index preparation; a caller may pass the order
-it made), allocates dtable and a one-entry out-of-range flag with
-``torch.empty`` (the launcher zero-fills dtable with one memset),
-launches and adds one to ``launches["embedding_bag_backward"]``;
-``embedding_bag_backward`` reads the flag and raises.
+``sort_ids`` is the backward's index preparation (integer work, no
+float of the gradient): the flat ids as 32-bit keys, sorted stably by
+CUB's radix sort over the bits a key has, the flat positions in that
+order, the row offsets, the rows whose run is longer than ``LONG_RUN``
+terms and an out-of-range flag (``Order``; ``ref.sort_ids_ref`` is its
+plain version); it reads the flag and the long runs' count on the host,
+the one synchronisation of a call.  ``launch_backward`` makes the order
+(or takes the one a caller made), allocates dtable with ``torch.empty``
+(the kernels write every row, so nothing is zero-filled), launches the
+long-run kernel only where a run is long, and adds one to
+``launches["embedding_bag_backward"]``; ``embedding_bag_backward``
+raises on the flag before any kernel runs.  ``gather_backward`` is the
+gradient of a plain gather ``table[ids]``: the same kernels at L = 1
+with unit weights, a negative id counting from the end.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +40,16 @@ from repro_torch.kernels import build as _build
 _LIB = "embedding_bag"
 _P, _I = _build.P, _build.I
 _SIG = [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _I, _P, _P, _P]
-_BWD_SIG = [_P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong,
-            _P, _P, _P]
+_LL = ctypes.c_longlong
+_TEMP_SIG = [_LL, _LL, _I]
+_SORT_SIG = [_P, _I, _I, _LL, _LL, _I, _I, _P, _P, _P, _P, _LL, _P, _P, _P,
+             _P, _P]
+_BWD_SIG = [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _LL, _P, _I, _I, _I, _P]
 _ID_T = (torch.int32, torch.int64)
+# a run longer than this many terms is a long_kernel item (a CTA a run
+# and column slab); shorter ones are walked by a warp a group of rows
+LONG_RUN = 64
+LONG_BLOCKS_PER_SM = 1        # long_kernel's persistent CTAs an SM
 
 # kernel launches made by the wrapper, for showing which kernels a run
 # went through (reset with ``reset_launches``)
@@ -118,18 +134,79 @@ def embedding_bag(table, ids, weights=None):
     return out
 
 
-def sort_ids(ids):
-    """The order the backward walks: (the flat ids sorted, their flat
-    positions int64), equal ids in ascending position (a stable sort)."""
-    return torch.sort(ids.reshape(-1), stable=True)
+class Order(NamedTuple):
+    """The backward's index preparation for one set of flat ids (P of
+    them, over a V-row table), on the card."""
+    perm: torch.Tensor      # [P] int32 (int64 if P >= 2^31): flat
+                            # positions, ids ascending, equal ids by p
+    offs: torch.Tensor      # [V + 1] perm's dtype: row v's run is
+                            # perm[offs[v]:offs[v + 1]]
+    work: torch.Tensor      # int32: the rows whose run is longer than
+                            # LONG_RUN terms, n_long of them, any order
+    counters: torch.Tensor  # [3] int32: work's length, long_kernel's next
+                            # item and its CTAs done
+    bad: torch.Tensor       # [1] int32: 1 if an id lies outside [0, V)
+    V: int
+    n_long: int             # work's length, read on the host
+    n_bad: int              # bad, read on the host
 
 
-def launch_backward(ids, weights, dout, V: int, order=None):
-    """The backward kernel alone: ids [n_bags, L] int32/int64, weights
+def sort_ids(ids, V: int, *, wrap: bool = False) -> Order:
+    """The order the backward walks, for ids (any shape, int32/int64,
+    contiguous, on the card) over a V-row table: their flat positions
+    sorted stably by id, the row offsets and the long runs (``Order``).
+    ``wrap``: a negative id counts from the end, as ``table[ids]`` reads
+    it; otherwise, like any id outside [0, V), it sets ``bad``.  Reads
+    the long runs' count and ``bad`` on the host: the one host
+    synchronisation of a backward call."""
+    if not isinstance(ids, torch.Tensor) or not ids.is_cuda:
+        raise ValueError("sort_ids runs on CUDA tensors; "
+                         "ref.sort_ids_ref takes CPU ones")
+    if ids.dtype not in _ID_T:
+        raise TypeError(f"ids dtype {ids.dtype} not in {_ID_T}")
+    if not ids.is_contiguous():
+        raise ValueError("ids must be contiguous")
+    V, P = int(V), ids.numel()
+    if not 1 <= V < 2 ** 31:
+        raise ValueError(f"V={V} must be in [1, 2^31)")
+    if P < 1:
+        raise ValueError("sort_ids needs at least one id")
+    dev = ids.device
+    pos_t = torch.int32 if P < 2 ** 31 else torch.int64
+    pos_bytes = 4 if pos_t == torch.int32 else 8
+    temp_bytes = _build.fn(_LIB, "embedding_bag_sort_temp_bytes", _TEMP_SIG,
+                           _LL)(P, V, pos_bytes)
+    if temp_bytes < 0:
+        _build.raise_on(-temp_bytes, _LIB)
+    keys = torch.empty((2 * P,), dtype=torch.int32, device=dev)
+    pos = torch.empty((P,), dtype=pos_t, device=dev)
+    temp = torch.empty((max(temp_bytes, 1),), dtype=torch.uint8, device=dev)
+    perm = torch.empty((P,), dtype=pos_t, device=dev)
+    offs = torch.empty((V + 1,), dtype=pos_t, device=dev)
+    work = torch.empty((min(V, P // (LONG_RUN + 1)) + 1,), dtype=torch.int32,
+                       device=dev)
+    meta = torch.empty((4,), dtype=torch.int32, device=dev)  # counters, bad
+    rc = _build.launch(
+        _build.fn(_LIB, "embedding_bag_sort_launch", _SORT_SIG), dev,
+        ids.data_ptr(), ids.element_size(), int(wrap), P, V, LONG_RUN,
+        pos_bytes, keys.data_ptr(), pos.data_ptr(), perm.data_ptr(),
+        temp.data_ptr(), temp_bytes, offs.data_ptr(), work.data_ptr(),
+        meta.data_ptr(), meta.data_ptr() + 12)
+    if rc:
+        _build.raise_on(rc, _LIB)
+    n_long, _, _, n_bad = meta.tolist()
+    return Order(perm, offs, work, meta[:3], meta[3:], V, n_long, n_bad)
+
+
+def launch_backward(ids, weights, dout, V: int, order=None, *,
+                    wrap: bool = False, rows_only: bool = False):
+    """The backward kernels alone: ids [n_bags, L] int32/int64, weights
     [n_bags, L] f32 or None (unit weights), dout [n_bags, d] f32, on the
     card -> (dtable [V, d] f32, bad [1] int32: 1 if an id lies outside
-    [0, V), not yet read).  ``order``: ``sort_ids(ids)``, made here when
-    None."""
+    [0, V), not yet read).  ``order``: ``sort_ids(ids, V, wrap=wrap)``,
+    made here when None.  ``rows_only``: the short-run kernel alone,
+    the long runs' rows left unwritten (for timing the kernels apart;
+    not counted as a launch)."""
     if not dout.is_cuda:
         raise ValueError("embedding_bag_backward runs on CUDA tensors; the "
                          "plain version in repro_torch.kernels."
@@ -148,26 +225,44 @@ def launch_backward(ids, weights, dout, V: int, order=None):
     if P == 0:                                   # nothing to walk: no launch
         return (torch.zeros((V, d), dtype=torch.float32, device=dev),
                 torch.zeros((1,), dtype=torch.int32, device=dev))
-    sids, perm = sort_ids(ids) if order is None else order
-    if sids.shape != (P,) or perm.shape != (P,) or perm.dtype != torch.int64:
-        raise ValueError("order must be sort_ids(ids)")
+    if order is None:
+        order = sort_ids(ids, V, wrap=wrap)
+    elif order.V != V or order.perm.shape != (P,):
+        raise ValueError("order must be sort_ids(ids, V)")
     dtable = torch.empty((V, d), dtype=torch.float32, device=dev)
-    bad = torch.empty((1,), dtype=torch.int32, device=dev)
     rc = _build.launch(
         _build.fn(_LIB, "embedding_bag_backward_launch", _BWD_SIG), dev,
-        sids.data_ptr(), sids.element_size(), perm.data_ptr(),
+        order.perm.data_ptr(), order.offs.data_ptr(),
+        order.perm.element_size(), order.work.data_ptr(),
+        order.counters.data_ptr(), LONG_RUN,
         None if weights is None else weights.data_ptr(), dout.data_ptr(),
-        P, L, d, V, dtable.data_ptr(), bad.data_ptr())
+        L, d, V, dtable.data_ptr(), order.n_long,
+        LONG_BLOCKS_PER_SM * _build.sm_count(dev), int(rows_only))
     if rc:
         _build.raise_on(rc, _LIB)
-    launches["embedding_bag_backward"] += 1
-    return dtable, bad
+    if not rows_only:
+        launches["embedding_bag_backward"] += 1
+    return dtable, order.bad
 
 
-def embedding_bag_backward(ids, weights, dout, V: int):
-    """``launch_backward``, then refuse the result if an id was outside
-    [0, V)."""
-    dtable, bad = launch_backward(ids, weights, dout, V)
-    if int(bad[0]):
-        raise IndexError(f"embedding_bag backward: ids outside [0, {V})")
-    return dtable
+def embedding_bag_backward(ids, weights, dout, V: int, *, wrap: bool = False):
+    """``launch_backward``, refused before its kernels if an id lies
+    outside [0, V) (after ``wrap``)."""
+    order = None
+    if isinstance(ids, torch.Tensor) and ids.is_cuda and ids.numel():
+        order = sort_ids(ids, V, wrap=wrap)
+        if order.n_bad:
+            raise IndexError(f"embedding_bag backward: ids outside "
+                             f"[0, {V})")
+    return launch_backward(ids, weights, dout, V, order, wrap=wrap)[0]
+
+
+def gather_backward(ids, dout, V: int):
+    """The gradient of ``table[ids]`` for a [V, d] table: ids (any shape;
+    a negative id counts from the end), dout [*ids.shape, d] -> dtable
+    [V, d], the backward kernels at L = 1 with unit weights."""
+    flat = ids.reshape(-1, 1)
+    d = dout.shape[-1]
+    return embedding_bag_backward(
+        flat if flat.is_contiguous() else flat.contiguous(), None,
+        dout.reshape(-1, d).contiguous(), V, wrap=True)

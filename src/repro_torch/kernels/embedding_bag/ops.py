@@ -14,6 +14,13 @@ table requires a gradient, so serving runs the forward alone.  Ids get
 no gradient, and neither do the weights: every caller passes a mask or
 None, and weights that require a gradient are refused.  The ``mean``
 combiner's normalisation stays outside the Function.
+
+``gather`` is a plain table gather ``table[ids]`` whose gradient comes
+from the same backward kernel (``TableGather``: L = 1, unit weights, a
+negative id counting from the end as indexing reads it).  Its forward
+is PyTorch's indexing, the same bits; the reference computes the gather
+outside any Pallas kernel.  The tables of ``core/full`` and the
+centroids of ``core/jpq`` (``use_kernel=False``) train through it.
 """
 from __future__ import annotations
 
@@ -46,6 +53,38 @@ class EmbeddingBag(torch.autograd.Function):
         impl = _cuda.embedding_bag_backward if dout.is_cuda \
             else _ref.embedding_bag_backward_ref
         return impl(ids, weights, dout.contiguous(), ctx.V), None, None
+
+
+class TableGather(torch.autograd.Function):
+    """table [V, d], ids int64 (any shape) -> table[ids]; the gradient
+    flows to ``table`` alone."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.V = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        impl = _cuda.gather_backward if dout.is_cuda \
+            else _ref.gather_backward_ref
+        return impl(ids, dout, ctx.V), None
+
+
+def gather(table, ids):
+    """``table[ids]`` for a [V, d] table and integer ids of any shape;
+    where the table takes a gradient, through ``TableGather``."""
+    ids = ids.long()
+    if table.requires_grad and torch.is_grad_enabled():
+        if table.dim() != 2:
+            raise ValueError(f"gather takes a [V, d] table, got "
+                             f"{tuple(table.shape)}")
+        return TableGather.apply(table, ids)
+    return table[ids]
 
 
 def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):

@@ -1,6 +1,8 @@
 """Plain oracles for embedding_bag: the fixed-fanout bag, summed in slot
-order as the TPU kernel's grid sums it, and its gradient with respect
-to the table (the port's; the TPU kernel has no backward).
+order as the TPU kernel's grid sums it, its gradient with respect to
+the table (the port's; the TPU kernel has no backward), the gradient of
+a plain gather ``table[ids]`` (the same function at L = 1 with unit
+weights), and the backward's index preparation (``sort_ids_ref``).
 
 Slot 0 is the rounded product ``row * w``; every later slot one fused
 multiply-add ``torch.addcmul`` (one rounding per slot), so the result is
@@ -56,3 +58,49 @@ def embedding_bag_backward_ref(ids, weights, dout, V: int):
     dtable = torch.zeros((V, dout.shape[1]), dtype=dout.dtype,
                          device=dout.device)
     return dtable.index_add_(0, flat, src)
+
+
+def gather_backward_ref(ids, dout, V: int):
+    """The gradient of ``table[ids]`` for a [V, d] table: ids (any shape;
+    a negative id counts from the end, as indexing reads it), dout
+    [*ids.shape, d] -> dtable [V, d], each row +0.0 plus its terms
+    ``dout[p]`` in ascending flat position p (``index_add_`` on the CPU).
+    Raises on an id outside [-V, V)."""
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + V, flat)
+    if flat.numel():
+        lo, hi = torch.aminmax(flat)
+        if int(lo) < 0 or int(hi) >= V:
+            raise IndexError(f"gather backward: ids outside [-{V}, {V})")
+    d = dout.shape[-1]
+    dtable = torch.zeros((V, d), dtype=dout.dtype, device=dout.device)
+    return dtable.index_add_(0, flat, dout.reshape(-1, d))
+
+
+def sort_ids_ref(ids, V: int, *, wrap: bool = False, long_run: int = 64):
+    """The plain version of ``cuda.sort_ids``, the same algorithm in
+    torch: each id becomes a key (an id outside [0, V), after ``wrap``,
+    the sentinel V); a stable sort gives the flat positions ``perm``;
+    sorted position i (i in [0, P]) gives the rows after the key before
+    it, up to its own key (V at i = P), the offset i, so ``offs[v]`` is
+    the first sorted position whose key is >= v; a run is long when the
+    key ``long_run`` places after its first position is still its own.
+    Returns (perm int64 [P], offs int64 [V + 1], the long rows ascending,
+    bad: 1 if a sentinel exists)."""
+    keys = ids.reshape(-1).long()
+    if wrap:
+        keys = torch.where(keys < 0, keys + V, keys)
+    keys = torch.where((keys >= 0) & (keys < V), keys, V)
+    P = keys.numel()
+    skeys, perm = torch.sort(keys, stable=True)
+    ends = torch.cat([skeys, skeys.new_tensor([V])])      # key at i, V at P
+    starts = torch.cat([skeys.new_tensor([-1]), skeys])   # the key before i
+    gaps = (ends - starts).clamp_(min=0)
+    offs = torch.repeat_interleave(torch.arange(P + 1), gaps)[:V + 1]
+    first = torch.ones(P, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    i = torch.arange(P)
+    ahead = skeys[(i + long_run).clamp(max=max(P - 1, 0))]
+    lng = first & (skeys < V) & (i + long_run < P) & (ahead == skeys)
+    bad = int(offs[V]) < P
+    return perm, offs, skeys[lng], bad

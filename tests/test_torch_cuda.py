@@ -7,7 +7,9 @@ training kernels' forwards: none — values (as bits) and ids must be
 equal, and skip maps equal when no floor is set; the training kernels'
 backwards are held as the comment above their tests says; embedding_bag
 and its backward: none (bit-equal, signed zeros included; the backward
-also bit-equal to its plain version on the CPU and across two calls).
+also bit-equal to its plain version on the CPU and across two calls,
+the table gathers' route too; its index preparation equal to the plain
+version's).
 """
 import numpy as np
 import pytest
@@ -943,6 +945,139 @@ def test_embedding_bag_backward_refuses_out_of_range_ids(dev, bad):
                                   700)
 
 
+def _long_ids(dev, V, n, L, hot, seed):
+    """ids with runs of every class: 40% of positions on row ``hot``, a
+    few rows of 65-300 terms (just over ``ec.LONG_RUN``), the rest
+    uniform."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, V, (n, L), generator=g, device=dev)
+    flat = ids.view(-1)
+    r = torch.rand(flat.shape, generator=g, device=dev)
+    flat[r < 0.4] = hot
+    for k, row in enumerate((11, 12, 13, 14)):
+        flat[(k + 1) * 1000:(k + 1) * 1000 + 65 + 70 * k] = row
+    return ids
+
+
+@pytest.mark.parametrize("d", [1, 18, 256])
+@pytest.mark.parametrize("weights", [None, "random"])
+def test_embedding_bag_backward_long_runs(dev, d, weights):
+    """Runs far longer than ``ec.LONG_RUN`` (a 6,000-term run, runs of
+    65-275 terms) beside short ones: bit-equal to the plain version on
+    the CPU, bit-identical across two calls, and the long runs listed
+    as the plain index preparation lists them."""
+    V, n, L = 5_000, 300, 50
+    ids = _long_ids(dev, V, n, L, 4321, seed=d)
+    g = torch.Generator(device=dev).manual_seed(8)
+    w = None if weights is None else torch.randn((n, L), generator=g,
+                                                 device=dev)
+    dout = torch.randn((n, d), generator=g, device=dev)
+    _bwd_check(dev, ids, w, dout, V)
+    order = ec.sort_ids(ids, V)
+    _, _, lng, _ = eref.sort_ids_ref(ids.cpu(), V, long_run=ec.LONG_RUN)
+    got = order.work[:int(order.counters[0])].sort().values.cpu()
+    assert torch.equal(got.long(), lng) and len(lng) >= 5
+
+
+@pytest.mark.parametrize("d", [1, 18, 256])
+def test_embedding_bag_backward_writes_every_row_on_dirty_memory(dev, d):
+    """dtable comes from ``torch.empty``: on memory first filled with NaN
+    (the block the allocator hands back), the rows no id names are +0.0
+    and every named row is its chain: the kernels write every row."""
+    V, n, L = 40_000, 64, 20
+    ids = _long_ids(dev, V, n, L, 7, seed=3)[:, :L]
+    ids[:, :5] = 0                                   # a long pad run too
+    dout = torch.randn((n, d), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    order = ec.sort_ids(ids, V)
+    dirty = torch.full((V, d), float("nan"), device=dev)
+    ptr = dirty.data_ptr()
+    del dirty
+    got, bad = ec.launch_backward(ids, None, dout, V, order=order)
+    assert got.data_ptr() == ptr and int(bad[0]) == 0
+    named = torch.zeros(V, dtype=torch.bool, device=dev)
+    named[ids.reshape(-1)] = True
+    assert not bool(got[~named].view(torch.int32).any())
+    cpu = eref.embedding_bag_backward_ref(ids.cpu(), None, dout.cpu(), V)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+SORTS = [
+    # V, P, kind, wrap, ids dtype
+    (1_000, 20_000, "uniform", False, torch.int64),
+    (1_000, 20_000, "uniform", False, torch.int32),
+    (3_090_000, 65_536, "uniform", False, torch.int64),   # long gaps
+    (500, 30_000, "skewed", False, torch.int64),
+    (50, 4_000, "negative", True, torch.int64),
+    (50, 4_000, "negative", False, torch.int32),         # refused: bad
+    (1, 777, "uniform", False, torch.int64),
+]
+
+
+@pytest.mark.parametrize("case", SORTS, ids=[str(c) for c in SORTS])
+def test_sort_ids_matches_plain(dev, case):
+    """The index preparation (keys, CUB's stable sort, offsets, the long
+    runs, the out-of-range flag) against ``ref.sort_ids_ref``: equal."""
+    V, P, kind, wrap, dtype = case
+    g = torch.Generator(device=dev).manual_seed(P)
+    if kind == "negative":
+        ids = torch.randint(-V, V, (P,), generator=g, device=dev)
+    else:
+        ids = torch.randint(0, V, (P,), generator=g, device=dev)
+    if kind == "skewed":
+        ids[::3] = 77
+    ids = ids.to(dtype)
+    order = ec.sort_ids(ids, V, wrap=wrap)
+    perm, offs, lng, bad = eref.sort_ids_ref(ids.cpu(), V, wrap=wrap,
+                                             long_run=ec.LONG_RUN)
+    assert torch.equal(order.perm.cpu().long(), perm)
+    assert torch.equal(order.offs.cpu().long(), offs)
+    got = order.work[:int(order.counters[0])].sort().values.cpu()
+    assert torch.equal(got.long(), lng)
+    assert int(order.bad[0]) == int(bad)
+
+
+@pytest.mark.parametrize("kind", ["full", "jpq"])
+def test_gather_route_on_the_card(dev, kind):
+    """``core/full.lookup`` and ``core/jpq.lookup(use_kernel=False)`` on
+    a table that takes a gradient: the forward the plain gather's bits,
+    the gradient through the backward kernel (one launch) bit-equal to
+    the plain version on the CPU; negative ids count from the end."""
+    from repro_torch.core import full as full_mod
+    g = torch.Generator(device=dev).manual_seed(12)
+    ids = _long_ids(dev, 3_000, 40, 60, 0, seed=5)
+    if kind == "full":
+        ids[1::7] -= 3_000                           # negative: from the end
+        table = torch.randn((3_000, 18), generator=g, device=dev)
+        p = {"table": table}
+        leaf = "table"
+        look = full_mod.lookup
+    else:
+        codes = torch.randint(0, 256, (3_000, 6), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        p = {"codes": codes,
+             "centroids": torch.randn((6, 256, 3), generator=g, device=dev)}
+        leaf = "centroids"
+        look = jpq_mod.lookup
+    out = {}
+    for where in ("cuda", "cpu"):
+        q = {k: v.to(where) for k, v in p.items()}
+        q[leaf] = q[leaf].clone().requires_grad_()
+        ec.reset_launches()
+        e = look(q, ids.to(where))
+        dout = torch.randn(e.shape, generator=torch.Generator(
+            device=dev).manual_seed(13), device=dev).to(where)
+        (gr,) = torch.autograd.grad(e, q[leaf], dout)
+        if where == "cuda":
+            assert ec.launches == {"embedding_bag": 0,
+                                   "embedding_bag_backward": 1}
+        out[where] = e.detach().cpu(), gr.cpu()
+    assert torch.equal(out["cuda"][0].view(torch.int32),
+                       out["cpu"][0].view(torch.int32))
+    assert torch.equal(out["cuda"][1].view(torch.int32),
+                       out["cpu"][1].view(torch.int32))
+
+
 @pytest.mark.parametrize("weights", [None, "masked"])
 def test_embedding_bag_gradient_on_the_card(dev, weights):
     """``ops.embedding_bag`` on a table that requires a gradient: the
@@ -966,7 +1101,8 @@ def test_embedding_bag_gradient_on_the_card(dev, weights):
 @pytest.mark.parametrize("name", ["fm", "two-tower-retrieval"])
 def test_ctr_train_step_on_the_card(dev, name):
     """A smoke bundle's loss and gradients on the card (the embedding_bag
-    kernels, forward and backward, one launch each) against the same
+    kernels: the forward once, the backward for the bag and for the
+    table gather) against the same
     weights on the CPU (their plain versions): loss within 1e-5
     relative, gradients within 1e-4 of each leaf's largest entry."""
     from repro_torch import bridge
@@ -987,8 +1123,11 @@ def test_ctr_train_step_on_the_card(dev, name):
         loss, _ = model.train_loss(p, batch)
         grads = torch.autograd.grad(loss, fl)
         if where == "cuda":
+            # the backward twice: the bag (FM's linear term, the user
+            # tower) and the table gather (FM's field embeddings, the
+            # item side) through ops.gather
             assert ec.launches == {"embedding_bag": 1,
-                                   "embedding_bag_backward": 1}
+                                   "embedding_bag_backward": 2}
         out[where] = float(loss.detach()), [g.cpu() for g in grads]
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
