@@ -179,9 +179,39 @@ Phases 23-24 run after phase 11, one model on the card at a time:
      the backward timed again at the main path's own ids; the
      arithmetic that keeps the full dlrm-rm2 off one card; a
      ``{"ctr_train": ...}`` line.
-Then JSON lines of the serving runs, the CTR serving runs, CTR training
-and the per-kernel numbers (eight kernels), the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}`` last.  Imports nothing of
+Phase 25 runs after phase 22, on the card beside phase 20's SASRec:
+ 25. main path, the request-level server: the full-width
+     two-tower-retrieval-jpq model serves 400 single-user requests
+     (Poisson at 500/s, the real clock) through ``launch/server
+     .serve_requests``, the CLI's body, three times: (a) the CLI's
+     defaults (pruned, ``--max-batch 8 --max-delay-ms 5``, one replica)
+     with a non-blocking hot swap to a popularity-permuted catalogue
+     after 200 requests (both versions serve, one swap, the build on a
+     stream of its own; its seconds and the batches served meanwhile
+     printed); (b) ``--prune --perm --warm --replicas 2 --merge-every
+     4``; (c) ``--no-prune``; launch counters zeroed just before each
+     timed run: ``jpq_topk_pruned`` launched in (a) (once a batch,
+     the swap probe's launches, counted alone, taken off) and (b),
+     ``jpq_topk`` and not the pruned kernel in (c); every response
+     bit-equal to the request served alone (row 0 of an all-pad [8, L]
+     batch, unpruned fused path) and to the plain scan of the batch it
+     was served in (``ops.jpq_topk_scan``, no kernel); snapshot valid, completed = submitted,
+     nothing dropped or duplicated, fewer batches than requests; p50 /
+     p95 / p99, wall, occupancy, queue depth, skip fraction, warm-hit
+     rate and the largest arrival-to-submit lag (``server.submit``
+     wrapped); then phase 20's SASRec in one replica (buckets (100,
+     200), 64 requests, some longer than 200), each response bit-equal
+     to its alone-at-shape reference and to the top-10 of
+     ``score_last``; then ``jpq_topk`` and ``jpq_topk_pruned`` held
+     bit-equal to their plain versions (the pruned skip map too) and
+     timed at B = 8 and 64 on real batches' LUTs beside their bounds,
+     blocks,
+     the pruned skip fraction and launches a request.
+Then JSON lines of the serving runs, the CTR serving runs, CTR
+training, the request server (``{"server": ...}``) and the per-kernel
+numbers (eight kernels; the two top-k kernels also carry phase 25's
+``server_shape``), the nvidia-smi line, and the result line ``{"ok":
+true, "device": {...}}`` last.  Imports nothing of
 JAX or of the JAX package.
 """
 import contextlib
@@ -425,6 +455,30 @@ def topk_work(Bq, N, k):
     values and ids written once, one lookup and add a (query, item,
     split)."""
     return N * M + Bq * M * BC * 4 + Bq * k * 8, Bq * N * M, Bq * N * M
+
+
+def pruned_work(torch, st, skip, Bq, k):
+    """(bytes, fp32 adds, LUT lookups, swept items) of a pruned sweep of
+    ``Bq`` queries over the state ``st`` whose skip map [groups, tiles]
+    is ``skip``: only the (group, tile) pairs it swept, plus every
+    tile's bound (its LUT reads and max/add)."""
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    group = kc.pruned_group_size()        # queries per block (the library's)
+    n_rows, dev = st.codes.shape[0], skip.device
+    nt = st.present.shape[0]
+    tile_items = torch.full((nt,), st.block_n, device=dev)
+    tile_items[-1] = n_rows - (nt - 1) * st.block_n
+    rows_per_group = torch.full((skip.shape[0],), group, device=dev)
+    rows_per_group[-1] = Bq - group * (skip.shape[0] - 1)
+    swept = (1 - skip).to(torch.int64)
+    scored = int((swept * tile_items[None, :] * rows_per_group[:, None]
+                  ).sum()) * M                  # (query, item, split)s
+    lookups = scored + Bq * nt * M * BC       # + the bound's LUT reads
+    adds = scored + Bq * nt * M * (BC + 1)    # + the bound's max/add
+    items = int(((1 - skip.min(0).values) * tile_items).sum())
+    bytes_ = (items * (M + 4) + nt * M * BC * 4 + Bq * M * BC * 4 + Bq * 4
+              + 2 * Bq * k * 8)
+    return bytes_, adds, lookups, items
 
 
 def bound_of(bytes_, adds, lookups):
@@ -1289,6 +1343,412 @@ def semantic_phases(torch, np, dev, smi, data, template, seq_model,
           f"(launches {dict(kc.launches)})")
     done(t0)
     print(json.dumps({"semantic_serve": out, "card": smi}))
+    return out
+
+
+# the request-level server at full width (phase 25): the reference CLI's
+# defaults and two more configurations, each on the same Poisson stream
+SRV_REQUESTS, SRV_SWAP_AT, SRV_SEQ_REQUESTS, SRV_K = 400, 200, 64, 10
+SRV_RUNS = (("a", [], "jpq_topk_pruned"),
+            ("b", ["--prune", "--perm", "--warm", "--replicas", "2",
+                   "--merge-every", "4"], "jpq_topk_pruned"),
+            ("c", ["--no-prune"], "jpq_topk"))
+
+
+def server_phases(torch, np, dev, smi, seq_model, seq_params):
+    """Phase 25: the request-level server (``repro_torch.serve``) at full
+    width.  The full-width two-tower-retrieval-jpq model serves 400
+    single-user requests, Poisson arrivals at 500/s on the real clock,
+    through ``launch/server.serve_requests`` (the CLI's body; every
+    (bucket, replica) dispatch warmed first) three times: (a) the CLI's
+    defaults (``--max-batch 8 --max-delay-ms 5``, pruned, one replica),
+    with a non-blocking hot swap to a popularity-permuted catalogue
+    after 200 requests; (b) ``--prune --perm --warm --replicas 2
+    --merge-every 4``; (c) ``--no-prune``.  Launch counters zeroed just
+    before each timed run and read just after (run (a)'s less the hot
+    swap probe's, counted alone first).  Every response is bit-equal to
+    the same request served alone (row 0 of an all-pad [8, L] batch
+    through ``TwoTower.retrieve``'s unpruned fused path) and to the
+    plain scan (``ops.jpq_topk_scan``, no kernel) of the batch it was
+    served in; the snapshot validates, nothing is dropped or
+    duplicated, the queue batched.  The arrival-to-submit lag is read by wrapping
+    ``server.submit``.  Then the trained full-width SASRec of phase 20
+    in one replica, buckets (100, 200), 64 requests some longer than
+    200, each bit-equal to its alone-at-shape reference and to the
+    top-10 of ``score_last`` on its window; and both top-k kernels held
+    against their plain versions (results and skip map) and timed at the
+    server's B = 8 and at B = 64 on real batches' LUTs.  Returns
+    the ``server`` summary (the kernel times under
+    ``kernels_at_server_shape``)."""
+    from repro_torch import serve
+    from repro_torch.configs import get_bundle
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.core.assign import popularity_permutation
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.kernels.jpq_topk import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import server as server_mod
+
+    t0 = phase(f"main path: the request server at full width, "
+               f"two-tower-retrieval-jpq, {len(SRV_RUNS)} configurations "
+               f"x {SRV_REQUESTS} requests")
+    free_card(torch, dev, "the request server")
+    model = get_bundle("two-tower-retrieval-jpq").make_model(device=dev,
+                                                             seed=0)
+    params = model.params()
+    codes = params["item_emb"]["codes"]
+    n_rows, b = codes.shape[0], int(model.emb.cfg.b)
+    serving_stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def alone(hist, L, max_batch):
+        """``hist`` served alone: row 0 of an all-pad [max_batch, L]
+        batch through the unpruned fused path."""
+        xb = np.zeros((max_batch, L), np.int32)
+        h = np.asarray(hist)[-L:]
+        xb[0, :h.size] = h
+        with torch.inference_mode():
+            v, i = model.retrieve(params, {"user_hist": xb}, top_k=SRV_K)
+        return v[0].cpu().numpy(), i[0].cpu().numpy()
+
+    def same(res, v, i):
+        return (np.array_equal(res.values.view(np.int32), v.view(np.int32))
+                and np.array_equal(res.ids, i))
+
+    def lut(hist):
+        with torch.inference_mode():
+            return ops.canonicalise_lut(jpq_mod.partial_scores(
+                params["item_emb"], model.user_vec(params, hist))
+            ).contiguous()
+
+    def plain_batch(batch):
+        """A served batch through the plain unpruned scan
+        (``ops.jpq_topk_scan``, no kernel): its rows' top-k on the host."""
+        v, i = ops.jpq_topk_scan(lut(batch.padded_hist()), codes, SRV_K,
+                                 block_n=ops.scan_block_n(n_rows))
+        return v.cpu().numpy(), i.cpu().numpy()
+
+    # the stream every run serves (the CLI's seed 0), and run (a)'s hot
+    # swap: its popularity order, computed before the timed run
+    arrivals = serve.poisson_arrivals(500.0, SRV_REQUESTS, seed=0)
+    hists = serve.request_stream(SRV_REQUESTS, n_items=model.cfg.n_items,
+                                 max_len=model.cfg.hist_len, seed=0)
+    perm = popularity_permutation(serve_mod._template_popularity(
+        {"user_hist": np.concatenate(hists)}, n_rows))
+    # the hot swap's probe launches both kernels on the build thread,
+    # inside run (a)'s counted window: count one publish of the same
+    # catalogue alone, and take it off run (a)'s counts
+    kc.reset_launches()
+    serve.CatalogueRegistry(prune=True).publish(codes, b, perm=perm)
+    probe = dict(kc.launches)
+    out = {"requests": SRV_REQUESTS, "k": SRV_K, "card": smi,
+           "probe_launches": probe}
+    for name, flags, kern in SRV_RUNS:
+        args = server_mod.build_parser().parse_args(
+            ["--requests", str(SRV_REQUESTS), "--rate", "500",
+             "--max-batch", "8", "--max-delay-ms", "5", "--top-k",
+             str(SRV_K), "--seed", "0", "--device", "cuda", *flags])
+        seen = {"hists": {}, "lag": [], "service_ms": [], "t_batch": [],
+                "batches": [], "server": None}
+        swap = {}
+
+        def on_ready(server, name=name, seen=seen, swap=swap):
+            """Wrap ``server.submit``: each request's lag behind its
+            scheduled arrival (an upper bound: this clock starts a few
+            microseconds before the loop's), and in run (a) the hot swap
+            before request ``SRV_SWAP_AT``; wrap ``server.pool.serve``:
+            each batch's service time on the host clock (it ends with
+            the batch's readback); zero the counters."""
+            submit, t_start = server.submit, time.monotonic()
+            serve_batch = server.pool.serve
+
+            def batches():
+                return sum(r.batches_served for r in server.pool.replicas)
+
+            def timed_serve(batch, version):
+                t = time.perf_counter()
+                out = serve_batch(batch, version)
+                seen["service_ms"].append((time.perf_counter() - t) * 1e3)
+                seen["t_batch"].append(t)
+                seen["batches"].append(batch)
+                return out
+
+            def timed_submit(hist):
+                i = len(seen["lag"])
+                seen["lag"].append(time.monotonic() - t_start - arrivals[i])
+                if name == "a" and i == SRV_SWAP_AT:
+                    swap["at_batches"] = batches()
+                    swap["t"] = time.perf_counter()
+                    server.registry.publish(codes, b, perm=perm,
+                                            block=False)
+                if swap and "during_build" not in swap and \
+                        server.registry.live().version == 2:
+                    swap["during_build"] = batches() - swap["at_batches"]
+                rid = submit(hist)
+                seen["hists"][rid] = hist
+                return rid
+
+            server.submit, server.pool.serve = timed_submit, timed_serve
+            seen["server"] = server
+            kc.reset_launches()
+
+        snap, wall = server_mod.serve_requests(model, params, args,
+                                               on_ready=on_ready)
+        counts = dict(kc.launches)
+        if name == "a":                   # the probe's launches taken off
+            counts = {n: c - probe[n] for n, c in counts.items()}
+        server = seen["server"]
+        check(serve.validate_snapshot(snap) == [],
+              f"server run {name}: snapshot invalid "
+              f"{serve.validate_snapshot(snap)}")
+        check(snap["requests_completed"] == snap["requests_submitted"]
+              == SRV_REQUESTS and snap["requests_dropped"] == 0
+              and snap["requests_duplicated"] == 0,
+              f"server run {name}: completed {snap['requests_completed']} "
+              f"of {snap['requests_submitted']}, dropped "
+              f"{snap['requests_dropped']}, duplicated "
+              f"{snap['requests_duplicated']}")
+        check(snap["batches"] < SRV_REQUESTS,
+              f"server run {name}: the queue never batched")
+        check(counts[kern] > 0, f"server run {name} never launched {kern}")
+        if kern == "jpq_topk":
+            check(counts["jpq_topk_pruned"] == 0,
+                  f"server run {name} (--no-prune) launched the pruned "
+                  f"kernel")
+        if name == "a":                   # cold floors: one sweep a batch
+            check(counts["jpq_topk"] == 0
+                  and counts["jpq_topk_pruned"] == snap["batches"],
+                  f"server run a: {counts} launches (probe's taken off) "
+                  f"for {snap['batches']} batches")
+        versions = set()
+        for rid, hist in seen["hists"].items():
+            res = server.result(rid)
+            versions.add(res.version)
+            check(same(res, *alone(hist, server.queue.bucket_of(len(hist)),
+                                   server.queue.max_batch)),
+                  f"server run {name}: request {rid} != the request "
+                  f"served alone")
+        # every served batch against the plain scan (no kernel) on its
+        # own padded rows
+        check(len(seen["batches"]) == snap["batches"],
+              f"server run {name}: {len(seen['batches'])} batches seen, "
+              f"{snap['batches']} in the snapshot")
+        for batch in seen["batches"]:
+            pv, pi = plain_batch(batch)
+            for i, r in enumerate(batch.requests):
+                check(same(server.result(r.rid), pv[i], pi[i]),
+                      f"server run {name}: request {r.rid} != the plain "
+                      f"scan of its batch")
+        run = {"config": snap["config"], "wall_s": wall,
+               "latency_ms": snap["latency_ms"],
+               "batch_occupancy": snap["batch_occupancy"],
+               "queue_depth": snap["queue_depth"],
+               "batches": snap["batches"],
+               "skip_fraction": snap["skip_fraction"],
+               "warm_hit_rate": snap["warm_hit_rate"],
+               "catalogue_swaps": snap["catalogue_swaps"],
+               "max_submit_lag_ms": max(seen["lag"]) * 1e3,
+               "max_lag_request": int(np.argmax(seen["lag"])),
+               "service_ms": {"p50": float(np.percentile(
+                   seen["service_ms"], 50)), "max": max(seen["service_ms"])},
+               "launches": counts,
+               "launches_per_request": {
+                   n: c / SRV_REQUESTS for n, c in counts.items()},
+               "versions": sorted(versions), "bit_equal_alone": True,
+               "bit_equal_plain": True}
+        if name == "a":
+            live = server.registry.live()
+            check(versions == {1, 2} and snap["catalogue_swaps"] == 1,
+                  f"hot swap: versions {sorted(versions)}, swaps "
+                  f"{snap['catalogue_swaps']}")
+            check(live.validated and live.build_stream is not None
+                  and live.build_stream != serving_stream,
+                  f"hot swap: the build ran on stream {live.build_stream} "
+                  f"(serving {serving_stream})")
+            slowest = int(np.argmax(seen["service_ms"]))
+            run["swap"] = {"build_s": live.built_s,
+                           "batches_during_build": swap.get("during_build"),
+                           "own_stream": True,
+                           "slowest_batch_after_publish_ms":
+                           (seen["t_batch"][slowest] - swap["t"]) * 1e3}
+        out[name] = run
+        lat = snap["latency_ms"]
+        print(f"   ({name}) {snap['config']}: p50={lat['p50']:.3f} "
+              f"p95={lat['p95']:.3f} p99={lat['p99']:.3f} ms, wall "
+              f"{wall:.3f} s, occupancy {snap['batch_occupancy']:.3f}, "
+              f"queue depth mean {snap['queue_depth']['mean']:.2f} max "
+              f"{snap['queue_depth']['max']}, skip {snap['skip_fraction']}, "
+              f"warm-hit {snap['warm_hit_rate']}, max submit lag "
+              f"{run['max_submit_lag_ms']:.3f} ms (request "
+              f"{run['max_lag_request']}), {snap['batches']} "
+              f"batches (service p50 {run['service_ms']['p50']:.3f} ms, "
+              f"max {run['service_ms']['max']:.3f}), launches {counts}"
+              + (f" (the probe's {probe} taken off)" if name == "a" else "")
+              + f"; every response bit-equal to the request served alone "
+              f"and to the plain scan of its batch, on {smi}")
+        if name == "a":
+            print(f"   (a) hot swap after {SRV_SWAP_AT} requests: versions "
+                  f"{sorted(versions)}, built and probed in "
+                  f"{run['swap']['build_s']:.4f} s on its own stream, "
+                  f"{run['swap']['batches_during_build']} batches served "
+                  f"meanwhile (counted at the first submit that saw it); "
+                  f"the slowest batch started "
+                  f"{run['swap']['slowest_batch_after_publish_ms']:.1f} ms "
+                  f"after the publish")
+        del server, seen
+    done(t0)
+
+    t0 = phase(f"the request server with the trained full-width SASRec: "
+               f"buckets (100, 200), max_batch 8, {SRV_SEQ_REQUESTS} "
+               f"requests, the fused path")
+    cfg = seq_model.cfg
+    registry = serve.CatalogueRegistry(prune=False)
+    registry.publish(seq_params["item_emb"]["codes"], int(seq_model.emb.cfg.b))
+    spec = engine_mod.RetrievalSpec(kind="jpq", k=SRV_K)
+    server = serve.RetrievalServer(
+        serve.ReplicaPool([serve.Replica(seq_model, seq_params, k=SRV_K,
+                                         spec=spec)]),
+        registry, max_batch=8, max_delay=0.005, buckets=(100, 200))
+    for L in server.queue.buckets:
+        server.pool.replicas[0].serve(
+            serve.Batch([serve.Request(-1, np.ones(L, np.int32))], L, 8),
+            registry.live())
+    hists = serve.request_stream(SRV_SEQ_REQUESTS, n_items=cfg.n_items,
+                                 max_len=300, reserved=(0, cfg.mask_id),
+                                 seed=1)
+    kc.reset_launches()
+    submitted = serve.run_open_loop(
+        server, hists, serve.poisson_arrivals(500.0, len(hists), seed=1))
+    server.drain()
+    counts = dict(kc.launches)
+    check(counts["jpq_topk"] > 0, f"the SASRec server launched {counts}")
+    bound = seq_model.bind_engine(seq_params, spec)
+    overlong = 0
+    for (rid, _), hist in zip(submitted, hists):
+        overlong += hist.size > 200
+        L = server.queue.bucket_of(hist.size)
+        padded = torch.as_tensor(serve.Batch(
+            [serve.Request(rid, hist)], L, 8).padded_hist(), device=dev)
+        with torch.inference_mode():
+            rv, ri = bound.retrieve(padded)
+            s = seq_model.score_last(seq_params, padded)
+            sv, si = engine_mod.rerank_candidates(
+                s, torch.arange(s.shape[1], dtype=torch.int32,
+                                device=dev).expand_as(s), SRV_K)
+        res = server.result(rid)
+        for v, i, what in ((rv, ri, "served alone"),
+                           (sv, si, "the top-10 of score_last")):
+            check(same(res, v[0].cpu().numpy(), i[0].cpu().numpy()),
+                  f"SASRec server: request {rid} != {what}")
+    check(overlong > 0, "no SASRec request was longer than 200")
+    snap = server.metrics.snapshot()
+    out["sasrec"] = {"requests": len(hists), "overlong": int(overlong),
+                     "batches": snap["batches"],
+                     "latency_ms": snap["latency_ms"], "launches": counts,
+                     "bit_equal_alone": True, "equal_score_last": True}
+    print(f"   {len(hists)} requests ({overlong} longer than 200) in "
+          f"{snap['batches']} batches, p50={snap['latency_ms']['p50']:.3f} "
+          f"ms; each bit-equal to its alone-at-shape reference and to the "
+          f"top-{SRV_K} of score_last (launches {counts})")
+    del server, registry, bound
+    done(t0)
+
+    t0 = phase("both top-k kernels at the server's shape: B = 8 and 64, "
+               "full-width catalogue, real batches' LUTs (CUDA events); "
+               "a batch's host and device time")
+    st = engine_mod.build_prune_state(codes, b)       # run (a)'s v1
+    group = kc.pruned_group_size()
+    hists = serve.request_stream(64, n_items=model.cfg.n_items,
+                                 max_len=model.cfg.hist_len, seed=0)
+    shapes = {}
+    for Bq in (8, 64):
+        hist = serve.Batch([serve.Request(i, h) for i, h in
+                            enumerate(hists[:Bq])], model.cfg.hist_len,
+                           Bq).padded_hist()
+        P = lut(hist)
+        cold = (torch.full((Bq,), -float("inf"), device=dev),
+                torch.full((Bq, SRV_K), -float("inf"), device=dev),
+                torch.zeros((Bq, SRV_K), dtype=torch.int32, device=dev))
+        pr = dict(k=SRV_K, block_n=st.block_n, tie_break_ids=st.tie_break_ids)
+        args_p = (P, st.codes, st.ids, st.present, *cold)
+        top = kc.jpq_topk(P, codes, SRV_K)
+        ranges = kc.launch_shape["ranges"]
+        blocks_u = kc.launch_shape["blocks"]
+        pv, pi, skip = kc.jpq_topk_pruned(*args_p, **pr)
+        # both kernels against their plain versions at this launch plan
+        plain = ops.jpq_topk_scan(P, codes, SRV_K,
+                                  block_n=ops.scan_block_n(n_rows))
+        ppv, ppi, pskip = ops.jpq_topk_scan_pruned(*args_p, **pr)
+        check(bits_equal(top[0], plain[0]) and torch.equal(top[1], plain[1]),
+              f"jpq_topk != plain at B={Bq}")
+        check(bits_equal(pv, ppv) and torch.equal(pi, ppi)
+              and bits_equal(pv, plain[0]) and torch.equal(pi, plain[1]),
+              f"jpq_topk_pruned != plain at B={Bq}")
+        check(torch.equal(skip.min(0).values, pskip),
+              f"pruned skip map != plain at B={Bq}")
+        row = {}
+        for kname, fn, work in (
+                ("jpq_topk", lambda: kc.jpq_topk(P, codes, SRV_K),
+                 topk_work(Bq, n_rows, SRV_K)),
+                ("jpq_topk_pruned", lambda: kc.jpq_topk_pruned(*args_p, **pr),
+                 pruned_work(torch, st, skip, Bq, SRV_K)[:3])):
+            b_ms, b_by, _ = bound_of(*work)
+            row[kname] = {"ms": cuda_ms(fn, 50), "bound_ms": b_ms,
+                          "bound_by": b_by}
+        row["jpq_topk"].update(
+            blocks=blocks_u, ranges=ranges,
+            max_abs_err=float((top[0] - plain[0]).abs().max()))
+        row["jpq_topk_pruned"].update(
+            blocks=-(-Bq // group),
+            skip_fraction=float(skip.float().mean()),
+            max_abs_err=float((pv - ppv).abs().max()))
+        shapes[Bq] = row
+        for kname, r in row.items():
+            print(f"   B={Bq} {kname}: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{r['blocks']} blocks, bit-equal to plain"
+                  + (f", skip fraction {r['skip_fraction']:.4f}"
+                     if "skip_fraction" in r else
+                     f" ({r['ranges']} item ranges)") + f", on {smi}")
+    for kname, run in (("jpq_topk", "c"), ("jpq_topk_pruned", "a")):
+        per = out[run]["launches_per_request"][kname]
+        for Bq in shapes:
+            shapes[Bq][kname]["launches_per_request"] = per
+        print(f"   {kname}: {per:.4f} launches a request in run ({run})")
+    out["kernels_at_server_shape"] = shapes
+    # where a batch's service time goes: one replica serves 20 real
+    # batches of 8 (bucket 50) on the host clock, then again under
+    # torch.profiler for the card's busy time
+    hists = serve.request_stream(160, n_items=model.cfg.n_items,
+                                 max_len=model.cfg.hist_len, seed=2)
+    batches = [serve.Batch([serve.Request(j, h) for j, h in
+                            enumerate(hists[i:i + 8])],
+                           model.cfg.hist_len, 8) for i in range(0, 160, 8)]
+    out["batch_split"] = {}
+    for label, prune in (("pruned", True), ("unpruned", False)):
+        registry = serve.CatalogueRegistry(prune=prune)
+        registry.publish(codes, b)
+        live, rep = registry.live(), serve.Replica(model, params, k=SRV_K)
+        rep.serve(batches[0], live)
+        t1 = time.perf_counter()
+        for bt in batches:
+            rep.serve(bt, live)
+        host_ms = (time.perf_counter() - t1) * 1e3 / len(batches)
+        busy_ms, top = device_profile(
+            torch, lambda bt, rep=rep, live=live: rep.serve(bt, live),
+            batches)
+        check(busy_ms > 0, f"the profiler traced no device time ({label})")
+        out["batch_split"][label] = {"host_ms": host_ms,
+                                     "device_busy_ms": busy_ms,
+                                     "idle_share": 1 - busy_ms / host_ms,
+                                     "top": top}
+        print(f"   a batch of 8, {label}: {host_ms:.3f} ms on the host "
+              f"clock, the card busy {busy_ms:.3f} ms of it (idle "
+              f"{1 - busy_ms / host_ms:.2f}); largest device items "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in top))
+        del registry, live, rep
+    del st, P, model, params, codes
+    done(t0)
     return out
 
 
@@ -2496,33 +2956,13 @@ def main() -> int:
     # fp32 adds (and, pruned, the bound's maxes) and LUT lookups, which
     # run on different units, so the slower of the two.  Pruned: only
     # the (group, tile) pairs this run swept.
-    lut_bytes, out_bytes = B * M * BC * 4, B * k * 8
     bytes_u, adds_u, lookups_u = topk_work(B, n_rows, k)
-    group = kc.pruned_group_size()        # queries per block (the library's)
-
-    def pruned_work(st, skip):
-        """(bytes, fp32 adds, LUT lookups, swept items) of a pruned sweep
-        whose skip map [groups, tiles] is ``skip``."""
-        nt = st.present.shape[0]
-        tile_items = torch.full((nt,), st.block_n, device=dev)
-        tile_items[-1] = n_rows - (nt - 1) * st.block_n
-        rows_per_group = torch.full((skip.shape[0],), group, device=dev)
-        rows_per_group[-1] = B - group * (skip.shape[0] - 1)
-        swept = (1 - skip).to(torch.int64)
-        scored = int((swept * tile_items[None, :] * rows_per_group[:, None]
-                      ).sum()) * M                  # (query, item, split)s
-        lookups = scored + B * nt * M * BC        # + the bound's LUT reads
-        adds = scored + B * nt * M * (BC + 1)     # + the bound's max/add
-        items = int(((1 - skip.min(0).values) * tile_items).sum())
-        bytes_ = (items * (M + 4) + nt * M * BC * 4 + lut_bytes + B * 4
-                  + 2 * out_bytes)
-        return bytes_, adds, lookups, items
-
     pruned_out = kc.jpq_topk_pruned(P, st.codes, st.ids, st.present, *cold,
                                     k=k, block_n=st.block_n,
                                     tie_break_ids=st.tie_break_ids)
     skip = pruned_out[2]
-    bytes_p, adds_p, lookups_p, swept_items = pruned_work(st, skip)
+    bytes_p, adds_p, lookups_p, swept_items = pruned_work(
+        torch, st, skip, B, k)
     # the general code path (codes read a byte at a time), which uint8
     # codes at m = 8 take when their rows are not 8-byte aligned, against
     # the main path's one 8-byte load a row
@@ -2584,7 +3024,8 @@ def main() -> int:
     check(key_equal(sh_kern[:2], sh_plain[:2]) and
           torch.equal(sh_kern[2].min(0).values, sh_plain[2]),
           "jpq_topk_pruned != plain on the skip-heavy catalogue")
-    sh_bytes, sh_adds, sh_lookups, sh_items = pruned_work(sh_st, sh_kern[2])
+    sh_bytes, sh_adds, sh_lookups, sh_items = pruned_work(
+        torch, sh_st, sh_kern[2], B, k)
     sh_bound, sh_by, sh_parts = bound_of(sh_bytes, sh_adds, sh_lookups)
     skip_heavy = {
         "ms": cuda_ms(lambda: kc.jpq_topk_pruned(*sh_args, **sh_kw), 20),
@@ -2645,6 +3086,7 @@ def main() -> int:
                                                 codes_np)
     semantic_phases(torch, np, dev, smi, data, template, seq_model,
                     seq_params)
+    server = server_phases(torch, np, dev, smi, seq_model, seq_params)
     del codes_np, seq_model, seq_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2658,6 +3100,11 @@ def main() -> int:
         torch, np, dev, smi, data)
     bag_kernel["train_launches"] = bag_train_launches
     kernels += [bag_kernel, bag_bwd]
+    for entry in kernels:                 # phase 25's times at B = 8, 64
+        if entry["name"] in server["kernels_at_server_shape"][8]:
+            entry["server_shape"] = {
+                Bq: row[entry["name"]]
+                for Bq, row in server["kernels_at_server_shape"].items()}
 
     print(json.dumps({"serve": {
         n: {key: r[key] for key in ("path", "p50_ms", "p99_ms", "skip",
@@ -2667,6 +3114,7 @@ def main() -> int:
         for n, r in runs.items()}, "card": smi}))
     print(json.dumps({"serve_ctr": serve_ctr, "card": smi}))
     print(json.dumps({"ctr_train": ctr_train, "card": smi}))
+    print(json.dumps({"server": server}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

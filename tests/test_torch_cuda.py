@@ -1394,3 +1394,124 @@ def test_seqrec_retrieve_topk_equals_score_last(dev, prune):
         got = model.retrieve_topk(p, seq, k=10, prune=prune)
     assert kc.launches["jpq_topk_pruned" if prune else "jpq_topk"] > 0
     assert _same(got, want)
+
+
+# ================================================ the request-level server
+# (repro_torch.serve at the CPU suite's smoke sizes: max_batch 4, buckets
+# (4, 8), k = 7; tolerance 0 against the request served alone)
+
+def _server_case(dev, *, prune=True, warm=True, replicas=2):
+    """The two-tower-retrieval-jpq smoke model on the card, a registry
+    with its codes published, and a server over ``replicas`` replicas
+    on a virtual clock; returns (model, params, server, clock)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.core.serve import ThresholdState
+    from repro_torch import serve
+    model, _ = get_bundle("two-tower-retrieval-jpq").make_smoke(device=dev)
+    params = model.params()
+    registry = serve.CatalogueRegistry(prune=prune)
+    registry.publish(params["item_emb"]["codes"], int(model.emb.cfg.b))
+    pool = serve.ReplicaPool(
+        [serve.Replica(model, params, k=7, name=f"r{i}",
+                       warm=ThresholdState(0.9) if warm else None)
+         for i in range(replicas)], merge_every=2)
+    clk = serve.VirtualClock()
+    server = serve.RetrievalServer(pool, registry, max_batch=4,
+                                   max_delay=0.005, buckets=(4, 8),
+                                   clock=clk)
+    return model, params, server, clk
+
+
+def _served_alone(model, params, hist):
+    """Row 0 of an otherwise all-pad [4, L] batch through the unpruned
+    fused path (jpq_topk), the server's conformance reference, and the
+    same batch through the plain scan (``ops.jpq_topk_scan``, no
+    kernel); returns both rows' (values, ids) on the host."""
+    hist = np.asarray(hist, np.int32)
+    L = 4 if hist.size <= 4 else 8
+    xb = np.zeros((4, L), np.int32)
+    h = hist[-L:]
+    xb[0, :h.size] = h
+    codes = params["item_emb"]["codes"]
+    with torch.inference_mode():
+        fused = model.retrieve(params, {"user_hist": xb}, top_k=7)
+        P = ops.canonicalise_lut(jpq_mod.partial_scores(
+            params["item_emb"], model.user_vec(params, xb))).contiguous()
+        plain = ops.jpq_topk_scan(P, codes, 7,
+                                  block_n=ops.scan_block_n(codes.shape[0]))
+    return [(v[0].cpu(), i[0].cpu()) for v, i in (fused, plain)]
+
+
+def _assert_served_alone(model, params, res, hist):
+    for v, i in _served_alone(model, params, hist):
+        assert _bits_equal(torch.as_tensor(res.values), v)
+        assert torch.equal(torch.as_tensor(res.ids), i)
+
+
+def test_server_conformance_on_the_card(dev):
+    """Poisson arrivals on a virtual clock, bucketing, partial flushes,
+    two warm replicas with merged floors: every response bit-equal to
+    the request served alone, through the pruned kernel."""
+    from repro_torch import serve
+    model, params, server, clk = _server_case(dev)
+    hists = serve.request_stream(40, n_items=200, max_len=8, seed=7)
+    arrivals = serve.poisson_arrivals(400.0, len(hists), seed=7)
+    kc.reset_launches()
+    submitted = serve.run_open_loop(server, hists, arrivals, clock=clk)
+    server.drain()
+    assert kc.launches["jpq_topk_pruned"] > 0
+    for (rid, _), hist in zip(submitted, hists):
+        _assert_served_alone(model, params, server.result(rid), hist)
+    snap = server.metrics.snapshot()
+    assert serve.validate_snapshot(snap) == []
+    assert snap["requests_completed"] == len(hists)
+    assert snap["batches"] < len(hists)
+
+
+def test_server_off_thread_hot_swap_on_the_card(dev):
+    """publish(block=False) mid-stream: the build runs on its own
+    stream and thread while the server keeps serving on version 1;
+    both versions serve, and every response stays bit-equal."""
+    from repro_torch import serve
+    model, params, server, clk = _server_case(dev)
+    codes = params["item_emb"]["codes"]
+    hists = serve.request_stream(24, n_items=200, max_len=8, seed=11)
+    rids = []
+    for i, h in enumerate(hists):
+        if i == 12:
+            perm = torch.arange(codes.shape[0] - 1, -1, -1, device=dev)
+            server.registry.publish(codes, int(model.emb.cfg.b), perm=perm,
+                                    block=False)
+        if i == 18:
+            server.registry.wait()
+        rids.append(server.submit(h))
+        clk.advance_to(clk() + 0.001)
+        server.pump()
+    server.drain()
+    versions = set()
+    for rid, h in zip(rids, hists):
+        res = server.result(rid)
+        versions.add(res.version)
+        _assert_served_alone(model, params, res, h)
+    assert versions == {1, 2}
+    assert server.metrics.snapshot()["catalogue_swaps"] == 1
+    assert server.registry.live().validated
+
+
+def test_registry_builds_on_its_own_stream(dev):
+    """The registry's build and probe run on a stream other than the
+    publisher's (here the serving stream), on and off the thread."""
+    from repro_torch import serve
+    model, params, server, _ = _server_case(dev, warm=False, replicas=1)
+    serving = torch.cuda.current_stream(dev).cuda_stream
+    codes = params["item_emb"]["codes"]
+    first = server.registry.live()
+    assert first.build_stream is not None and first.build_stream != serving
+    server.registry.publish(codes, int(model.emb.cfg.b),
+                            perm=torch.randperm(codes.shape[0], device=dev),
+                            block=False)
+    server.registry.wait()
+    second = server.registry.live()
+    assert second.version == 2 and second.validated
+    assert second.build_stream is not None and second.build_stream != serving
+    assert torch.cuda.current_stream(dev).cuda_stream == serving

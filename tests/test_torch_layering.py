@@ -48,7 +48,11 @@ def test_port_files_found():
                 ("kernels", "jpq_lookup", "ops.py"),
                 ("models", "sequential.py"), ("train", "loop.py"),
                 ("core", "semantic.py"), ("ckpt", "checkpoint.py"),
-                ("launch", "train.py"), ("data", "sequences.py")):
+                ("launch", "train.py"), ("data", "sequences.py"),
+                ("launch", "server.py"), ("serve", "__init__.py"),
+                ("serve", "queue.py"), ("serve", "metrics.py"),
+                ("serve", "loadgen.py"), ("serve", "registry.py"),
+                ("serve", "replica.py"), ("serve", "server.py")):
         assert os.path.join(PORT, *mod) in files
 
 
@@ -76,7 +80,7 @@ def test_import_builds_nothing_and_loads_no_jax():
             "repro_torch.configs.recsys_archs, "
             "repro_torch.launch.train, repro_torch.train.loop, "
             "repro_torch.models.sequential, repro_torch.core.semantic, "
-            "repro_torch.ckpt, "
+            "repro_torch.ckpt, repro_torch.serve, repro_torch.launch.server, "
             "repro_torch.kernels.jpq_scores.ops, "
             "repro_torch.kernels.jpq_lookup.ops, "
             "repro_torch.kernels.jpq_topk.cuda as c\n"
