@@ -207,10 +207,40 @@ Phase 25 runs after phase 22, on the card beside phase 20's SASRec:
      timed at B = 8 and 64 on real batches' LUTs beside their bounds,
      blocks,
      the pruned skip fraction and launches a request.
+Phase 26 runs after phase 25, phase 7's data and codebook:
+ 26. main path, the training engine: ``Trainer`` with elastic specs on
+     a mesh of one card (NCCL, ``launch.mesh.make_host_mesh``), V = 4
+     virtual shards.  Full-width SASRec-RecJPQ, 3 steps a run: none and
+     int8 under each overlap mode (none / dispatch / backward), bf16,
+     and int8 + fsdp; launch counters zeroed just before each run and
+     the jpq_scores and jpq_lookup pairs launched in every one; the
+     modes bit-identical (values, moments, err); int8's err nonzero and
+     finite; one exchange with fsdp within 2e-6 of dp's gradients
+     with err bit-equal (none and int8; after the 3-step runs, max |d|
+     recorded); none's gradients and loss after one step against the
+     plain step at ``microbatches=4`` on the same batch (phase 19's
+     microbatch limits: 1e-5 and 1e-4 of each leaf's largest entry),
+     max |d| recorded; with clip_norm=None (no global norm in the
+     update) int8 + fsdp bit-equal to int8 after the 3 steps; the four
+     training kernels at a round's shape (T = 800: round 0 of step 0)
+     held against their plain versions as phase 8 holds them; an int8
+     run of 4 steps bit-equal to 2 + a checkpoint (train_spec stamp,
+     err arrays) + a resume of 2.  Then the full-table and RecJPQ
+     two-tower models at B = 65,536, int8, 2 steps each (the
+     embedding_bag pair launched), and the embedding_bag kernels at a
+     round's shape (16,384 bags of 50 over the 1,000,448 x 256 table,
+     the item gather; RecJPQ's centroid gathers) held against their
+     plain versions as phase 23 holds them.
+     Each run: median step ms, peak GB, forward/backward and
+     quantise_pack + combine ms by CUDA events, payload bytes a shard
+     and a step, err bytes, the card; a ``{"engine": ...}`` line with
+     each kernel's max |err| at the rounds' shapes.
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``) and the per-kernel
 numbers (eight kernels; the two top-k kernels also carry phase 25's
-``server_shape``), the nvidia-smi line, and the result line ``{"ok":
+``server_shape``, rows 3-5 phase 26's ``elastic_launches`` and
+``elastic_round_max_abs_err``), the
+nvidia-smi line, and the result line ``{"ok":
 true, "device": {...}}`` last.  Imports nothing of
 JAX or of the JAX package.
 """
@@ -427,6 +457,39 @@ def lookup_errs(ids, codes, cent, dout, what):
     check(bool((diff <= ids.numel() * U * mass).all()),
           f"jpq_lookup backward outside the fp32 sum bound ({what})")
     return e_fwd, float(diff.max())
+
+
+def slice_kernel_errs(torch, dev, model, params, seq, what):
+    """The four training kernels at one slice's shape, T = rows of
+    ``seq`` x S: jpq_scores on the LUT that ``model`` makes of ``seq``
+    with ``params`` and its backward on a random [T, N] dS, jpq_lookup
+    and its backward on seq's ids and a random dout, each held against
+    its plain version as ``scores_fwd_err``, ``scores_bwd_err`` and
+    ``lookup_errs`` hold them.  Returns (errs, inputs): {"T", each
+    kernel's max |err|, the backward's bound, chain and chunks, the
+    forward's launch shape} and {P, codes, cent, ids, dS, dout}."""
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    T = seq.numel()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    codes = params["item_emb"]["codes"]
+    cent = params["item_emb"]["centroids"].detach()
+    ids = seq.reshape(-1)
+    with torch.no_grad():
+        P = jpq_mod.partial_scores(params["item_emb"],
+                                   model.encode(params, seq)).reshape(
+            T, M, BC).contiguous()
+    out = {"T": T, "jpq_scores_err": scores_fwd_err(P, codes, what),
+           "jpq_scores_launch_shape": dict(sc.fwd_launch_shape)}
+    dS = torch.randn((T, codes.shape[0]), generator=gen, device=dev)
+    (out["jpq_scores_bwd_err"], out["jpq_scores_bwd_bound"],
+     out["jpq_scores_bwd_chain"],
+     out["jpq_scores_bwd_chunks"]) = scores_bwd_err(dS, codes, BC, what)
+    dout = torch.randn((T, M, cent.shape[-1]), generator=gen, device=dev)
+    out["jpq_lookup_err"], out["jpq_lookup_bwd_err"] = lookup_errs(
+        ids, codes, cent, dout, what)
+    return out, {"P": P, "codes": codes, "cent": cent, "ids": ids,
+                 "dS": dS, "dout": dout}
 
 
 def train_kernel_work(T, N, b, dk):
@@ -974,12 +1037,12 @@ def objective_phases(torch, np, dev, smi, data, codes_np):
     step against the single step on one batch and against the mean of
     the single steps on its two halves.  Returns the ``seq_objectives``
     summary."""
-    from repro_torch.core import jpq as jpq_mod
     from repro_torch.kernels.jpq_lookup import cuda as lc
     from repro_torch.kernels.jpq_scores import cuda as sc
     from repro_torch.nn.module import tree_leaves
-    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.loop import TrainConfig, Trainer, step_generator
     from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.spec import accumulate_grads
 
     summary = {}
     for loss, w in OBJECTIVES:
@@ -1006,27 +1069,15 @@ def objective_phases(torch, np, dev, smi, data, codes_np):
     # trained weights and a training batch's ids, held as phase 8 holds
     # them at T = 3,200, then timed
     half = TRAIN_B // 2
-    T2, n_rows, dk = half * SEQ_LEN, N_ITEMS + 2, 512 // M
-    gen = torch.Generator(device=dev).manual_seed(3)
-    codes = params["item_emb"]["codes"]
-    cent = params["item_emb"]["centroids"].detach()
     seq = torch.as_tensor(data.train_batch(0, TRAIN_B)["seq"][:half],
                           device=dev)
-    ids = seq.reshape(-1)
-    with torch.no_grad():
-        P = jpq_mod.partial_scores(params["item_emb"],
-                                   model.encode(params, seq)).reshape(
-            T2, M, BC).contiguous()
-    slice_k = {"T": T2}
-    slice_k["jpq_scores_err"] = scores_fwd_err(P, codes, f"T={T2}")
-    slice_k["jpq_scores_launch_shape"] = dict(sc.fwd_launch_shape)
-    dS = torch.randn((T2, n_rows), generator=gen, device=dev)
-    (slice_k["jpq_scores_bwd_err"], worst, chain,
-     slice_k["jpq_scores_bwd_chunks"]) = scores_bwd_err(dS, codes, BC,
-                                                        f"T={T2}")
-    dout = torch.randn((T2, M, dk), generator=gen, device=dev)
-    slice_k["jpq_lookup_err"], slice_k["jpq_lookup_bwd_err"] = lookup_errs(
-        ids, codes, cent, dout, f"T={T2}")
+    slice_k, ins = slice_kernel_errs(torch, dev, model, params, seq,
+                                     f"T={half * SEQ_LEN}")
+    T2, worst, chain = (slice_k[k] for k in (
+        "T", "jpq_scores_bwd_bound", "jpq_scores_bwd_chain"))
+    P, codes, cent, ids, dS, dout = (ins[k] for k in (
+        "P", "codes", "cent", "ids", "dS", "dout"))
+    n_rows, dk = codes.shape[0], cent.shape[-1]
     work = train_kernel_work(T2, n_rows, BC, dk)
     for name, fn, iters in (
             ("jpq_scores", lambda: sc.jpq_scores(P, codes), 5),
@@ -1046,7 +1097,7 @@ def objective_phases(torch, np, dev, smi, data, codes_np):
         f"{n} {slice_k[n + '_ms']:.4f} / {slice_k[n + '_bound_ms']:.4f}"
         for n in ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
                   "jpq_lookup_bwd")) + f" on {smi}")
-    del model, params, P, dS, dout, cent, codes, seq, ids
+    del model, params, P, dS, dout, cent, codes, seq, ids, ins
     free_card(torch, dev, "the microbatched step against the single step")
     # one step at microbatches=2 on [x; x] gives each slice the single
     # step's gradient on x, and (g + g) / 2 == g: the two steps must end
@@ -1088,11 +1139,10 @@ def objective_phases(torch, np, dev, smi, data, codes_np):
     floats = [x for x in tree_leaves(p) if torch.is_floating_point(x)]
 
     def step_grads(n, b):
-        tr = Trainer(m, OptConfig(lr=3e-3),
-                     TrainConfig(steps=1, batch_size=len(b["seq"]),
-                                 eval_every=0, microbatches=n), data_fn=None)
-        g, mets = tr._grads(p, floats, {k: torch.as_tensor(v, device=dev)
-                                        for k, v in b.items()}, 0)
+        _, g, mets = accumulate_grads(
+            m.train_loss, n, p, {k: torch.as_tensor(v, device=dev)
+                                 for k, v in b.items()},
+            lambda i: step_generator(0, 0, dev, i), floats, has_aux=True)
         return float(mets["loss"]), g
 
     lm, gm = step_grads(2, ab)
@@ -1221,6 +1271,504 @@ def checkpoint_phase(torch, np, dev, smi, data, codes_np):
     done(t0)
     print(json.dumps({"checkpoint": out, "card": smi}))
     return model, want, out
+
+
+# the training engine on the card (phase 26): V virtual shards, the
+# SASRec runs' methods and overlap modes, and the two-tower models whose
+# exchange is heavy
+ENG_V, ENG_STEPS, ENG_RESUME = 4, 3, (2, 2)
+ENG_SEQ_RUNS = (("none", False, "none"), ("none", False, "dispatch"),
+                ("none", False, "backward"), ("int8", False, "none"),
+                ("int8", False, "dispatch"), ("int8", False, "backward"),
+                ("bf16", False, "dispatch"), ("int8", True, "dispatch"))
+ENG_TT = ("two-tower-retrieval", "two-tower-retrieval-jpq")
+ENG_TT_B, ENG_TT_STEPS = 65_536, 2
+
+
+def _timed_trainer(Trainer, torch):
+    """A Trainer whose elastic step records CUDA events around each
+    stage call (the scheduler calls the stages through the step's
+    attributes): ``stage_events[name]`` = [(start, end), ...]."""
+    class Timed(Trainer):
+        def _build_dp_step(self, shapes):
+            step = super()._build_dp_step(shapes)
+            self.stage_events = {"forward_backward": [],
+                                 "quantise_pack": [], "combine": []}
+            for name, evs in self.stage_events.items():
+                def wrapped(*a, _fn=getattr(step, name), _evs=evs):
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    out = _fn(*a)
+                    e.record()
+                    _evs.append((s, e))
+                    return out
+                setattr(step, name, wrapped)
+            return step
+
+        def stage_ms(self):
+            """Each stage's ms a step: the events' sum over the run's
+            steps after its first (the warm-up), over their count."""
+            torch.cuda.synchronize()
+            n = len(self.stage_events["combine"])     # one a step
+            out = {}
+            for k, v in self.stage_events.items():
+                per = len(v) // n
+                out[k] = sum(s.elapsed_time(e) for s, e in v[per:]) / max(
+                    n - 1, 1)
+            return out
+    return Timed
+
+
+def _state_bits(torch, tr, params):
+    """(values, moments, err) of a finished run, cloned on the card."""
+    from repro_torch.nn.module import tree_leaves
+    pick = [x.detach().clone() for x in tree_leaves(params)]
+    opt = [x.clone() for x in tree_leaves({"m": tr.opt_state["m"],
+                                           "v": tr.opt_state["v"]})]
+    err = [x.clone() for x in tree_leaves(tr.err_state)]
+    return pick, opt, err
+
+
+def _bits_equal_lists(torch, a, b):
+    """Two lists of tensors equal bit for bit."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and (not x.numel() or (
+            torch.equal(x.contiguous().view(torch.uint8),
+                        y.contiguous().view(torch.uint8))))
+        for x, y in zip(a, b))
+
+
+def _max_rel(torch, a, b):
+    """The largest |a - b| of any float leaf over that leaf's largest
+    |b| (0 for all-zero leaves), and the largest |a - b|."""
+    rel, ab = 0.0, 0.0
+    for x, y in zip(a, b):
+        if not torch.is_floating_point(y) or not y.numel():
+            continue
+        d = float((x - y).abs().max())
+        s = float(y.abs().max())
+        ab = max(ab, d)
+        rel = max(rel, d / s if s else (0.0 if d == 0 else float("inf")))
+    return rel, ab
+
+
+def tt_round_errs(torch, dev, name, params, batch, n):
+    """The embedding_bag kernels at a two-tower elastic round's shape:
+    round 0's ``n`` rows of ``batch`` on the model's trained tables.
+    The full table: the user tower's bag forward (ids [n, H], mask
+    weights) bit-equal to its plain version, and its backward and the
+    item gather's (``bag_bwd_parity``) on random cotangents; RecJPQ:
+    the centroid gather's backward over the history's and the items'
+    code ids, as ``core/jpq.lookup`` forms them.  Returns each kernel's
+    max |err| (the backward's against float64)."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hist = torch.as_tensor(batch["user_hist"][:n], device=dev)
+    pos = torch.as_tensor(batch["pos_item"][:n], device=dev)
+    what = f"{name} round n={n}"
+    out = {}
+    if "table" in params["item_emb"]:
+        tab = params["item_emb"]["table"].detach()
+        V, d = tab.shape
+        w = (hist > 0).float()
+        kern = ec.embedding_bag(tab, hist, w)
+        plain = eref.embedding_bag_ref(tab, hist, w)
+        check(bits_equal(kern, plain), f"embedding_bag != plain ({what})")
+        out["embedding_bag"] = float((kern - plain).abs().max())
+        del kern, plain
+        dout = torch.randn((n, d), generator=gen, device=dev)
+        bag = bag_bwd_parity(torch, hist, w, dout, V, what)
+        dpos = torch.randn((n, d), generator=gen, device=dev)
+        item = bag_bwd_parity(torch, pos.reshape(-1, 1), None, dpos, V,
+                              what + " item gather", gather=True)
+        out["embedding_bag_backward"] = max(bag["f64_err"],
+                                            item["f64_err"])
+        shapes = (f"bag V={V} d={d} n_bags={n} L={hist.shape[1]}, item "
+                  f"gather n={n}")
+        del dout, dpos, w
+    else:
+        cent = params["item_emb"]["centroids"].detach()
+        codes = params["item_emb"]["codes"]
+        m, b, dk = cent.shape
+        shift = b * torch.arange(m, device=dev)
+        out["embedding_bag_backward"], sizes = 0.0, []
+        for x, part in ((hist, "history"), (pos, "items")):
+            flat = (codes[x.long()].long() + shift).reshape(-1, 1)
+            dout = torch.randn((flat.shape[0], dk), generator=gen,
+                               device=dev)
+            row = bag_bwd_parity(torch, flat, None, dout, m * b,
+                                 f"{what} {part} centroid gather",
+                                 gather=True)
+            out["embedding_bag_backward"] = max(
+                out["embedding_bag_backward"], row["f64_err"])
+            sizes.append(f"{part} n={flat.shape[0]}")
+            del flat, dout
+        shapes = f"centroid gathers V={m * b} d={dk}, " + ", ".join(sizes)
+    torch.cuda.empty_cache()
+    print(f"   {name}, the kernels at a round's shape ({shapes}): "
+          + ("forward bit-equal to plain; " if "embedding_bag" in out
+             else "") + f"backward bit-identical twice, bit-equal to "
+          f"plain on the CPU, max |err| vs float64 "
+          f"{out['embedding_bag_backward']:.3e}")
+    return out
+
+
+def engine_phases(torch, np, dev, smi, data, codes_np):
+    """Phase 26: the training engine (``repro_torch.train.spec``,
+    ``repro_torch.dist.compression``) on the card, NCCL at world 1,
+    V = 4 virtual shards.  Returns the ``{"engine": ...}`` summary."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint_metadata
+    from repro_torch.configs import get_bundle
+    from repro_torch.dist import compression
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train import spec as spec_mod
+    from repro_torch.train.loop import TrainConfig, Trainer, step_generator
+    from repro_torch.train.optimizer import OptConfig
+
+    Timed = _timed_trainer(Trainer, torch)
+    counters = (ec, sc, lc)
+    out = {"seq": {}, "two_tower": {}, "card": smi}
+    t0 = phase(f"main path: the training engine on the card (NCCL, world 1,"
+               f" V={ENG_V}): SASRec-RecJPQ at full width, B={TRAIN_B} "
+               f"S={SEQ_LEN}, {ENG_STEPS} steps a run; then the two-tower "
+               f"models at B={ENG_TT_B}, int8")
+    free_card(torch, dev, "the training engine phase")
+    mesh = make_host_mesh(1, device=dev)
+    batches = [data.train_batch(s, TRAIN_B)
+               for s in range(max(ENG_STEPS, sum(ENG_RESUME)))]
+    opt = OptConfig(lr=3e-3)
+    unclipped = OptConfig(lr=3e-3, clip_norm=None)
+
+    def seq_run(method, fsdp, overlap, steps, ckpt_dir=None, clip=True):
+        model = full_width_model(codes_np, dev)
+        params = model.params()
+        for c in counters:
+            c.reset_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Timed(model, opt if clip else unclipped, TrainConfig(
+            steps=steps, batch_size=TRAIN_B, log_every=1, eval_every=0,
+            ckpt_dir=ckpt_dir, ckpt_every=0, grad_compression=method,
+            grad_accum_shards=ENG_V, fsdp=fsdp, overlap=overlap),
+            data_fn=lambda s: batches[s], mesh=mesh)
+        _, hist = tr.run(params=params)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: v for c in counters for k, v in c.launches.items()}
+        return model, params, tr, hist, peak, launches
+
+    try:
+        states = {}
+        for method, fsdp, overlap in ENG_SEQ_RUNS:
+            key = f"{method}{'+fsdp' if fsdp else ''}/{overlap}"
+            model, params, tr, hist, peak, launches = seq_run(
+                method, fsdp, overlap, ENG_STEPS)
+            for k in ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+                      "jpq_lookup_bwd"):
+                check(launches[k] > 0, f"engine {key}: {k} never launched "
+                      f"in the elastic rounds: {launches}")
+            losses = [h["loss"] for h in hist if "loss" in h]
+            check(len(losses) == ENG_STEPS and all(np.isfinite(losses)),
+                  f"engine {key}: losses {losses}")
+            states[key] = _state_bits(torch, tr, params)
+            err = states[key][2]
+            err_max = max(float(e.abs().max()) for e in err if e.numel())
+            check(all(bool(torch.isfinite(e).all()) for e in err),
+                  f"engine {key}: non-finite error state")
+            if method == "none":
+                check(err_max == 0.0, f"engine {key}: err {err_max} != 0")
+            else:
+                check(err_max > 0.0, f"engine {key}: err all zero")
+            stage = tr.stage_ms()
+            steps_ms = [h["sec"] * 1e3 for h in hist if "sec" in h]
+            row = {k: hist[0][k] for k in (
+                "payload_bytes", "exchange_fraction", "exchange_shards",
+                "exchange_fsdp", "exchange_wire_bytes")}
+            row.update(
+                step_ms=float(np.median(steps_ms)), steps_ms=steps_ms,
+                peak_gb=peak / 1e9, losses=losses, launches=launches,
+                fb_ms=stage["forward_backward"],
+                qp_combine_ms=stage["quantise_pack"] + stage["combine"],
+                qp_ms=stage["quantise_pack"], combine_ms=stage["combine"],
+                err_bytes=sum(e.numel() * e.element_size() for e in err),
+                err_max=err_max)
+            out["seq"][key] = row
+            print(f"   SASRec {key}: step {row['step_ms']:.1f} ms (median "
+                  f"of {ENG_STEPS}; plain step 140.9-145.8), peak "
+                  f"{row['peak_gb']:.2f} GB, forward/backward "
+                  f"{row['fb_ms']:.1f} ms + quantise_pack/combine "
+                  f"{row['qp_combine_ms']:.2f} ms a step after the first; "
+                  f"payload "
+                  f"{row['payload_bytes']} B a shard, "
+                  f"{row['exchange_wire_bytes']} B a step; err "
+                  f"{row['err_bytes']} B (max {err_max:.3e}); loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+                  f"{launches}; on {smi}")
+            del model, params, tr, hist
+        for method in ("none", "int8"):
+            ref = states[f"{method}/none"]
+            for overlap in ("dispatch", "backward"):
+                got = states[f"{method}/{overlap}"]
+                check(all(_bits_equal_lists(torch, a, b)
+                          for a, b in zip(ref, got)),
+                      f"engine {method}: overlap {overlap} != none")
+        print("   none and int8: the three overlap modes bit-identical "
+              "(values, moments, err)")
+        # the four training kernels at a round's shape, T = 16 / V x 200 =
+        # 800: round 0 of step 0 (its rows of the batch, the fresh
+        # model's weights), each against its plain version
+        free_card(torch, dev, "the kernels at a round's shape")
+        model = full_width_model(codes_np, dev)
+        params = model.params()
+        seq = torch.as_tensor(batches[0]["seq"][:TRAIN_B // ENG_V],
+                              device=dev)
+        rnd, ins = slice_kernel_errs(torch, dev, model, params, seq,
+                                     f"elastic round T={seq.numel()}")
+        out["kernels_at_round_shape"] = {"T": rnd["T"], "max_abs_err": {
+            k: rnd[k + "_err"] for k in ("jpq_scores", "jpq_scores_bwd",
+                                         "jpq_lookup", "jpq_lookup_bwd")}}
+        print(f"   the kernels at a round's shape, T={rnd['T']}: "
+              f"jpq_scores forward bit-equal to plain; backward over "
+              f"{rnd['jpq_scores_bwd_chunks']} chunks deterministic, max "
+              f"|err| vs float64 {rnd['jpq_scores_bwd_err']:.3e} (largest "
+              f"bound {rnd['jpq_scores_bwd_bound']:.3e}); jpq_lookup "
+              f"forward bit-equal, backward bit-equal to plain on the CPU "
+              f"(max |err| vs float64 {rnd['jpq_lookup_bwd_err']:.3e})")
+        del model, params, seq, ins
+        # fsdp against dp as the reference's test holds it: one exchange
+        # (grads-only) on the same batch, gradients within rtol = atol =
+        # 2e-6 (the fsdp chain against the [V, ...] mean), err bit-equal
+        # (made before the combine); after the 3-step runs, max |d|
+        free_card(torch, dev, "the engine's fsdp check")
+        model = full_width_model(codes_np, dev)
+        p = model.params()
+        b0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in batches[0].items()}
+        fsdp_one = {}
+        for method in ("none", "int8"):
+            got = {}
+            for fsdp in (False, True):
+                step = compression.make_elastic_dp_step(
+                    lambda v, b: model.train_loss(v, b), mesh, method,
+                    accum_shards=ENG_V, has_aux=True, fsdp=fsdp, shapes=p)
+                vals = step.shard(p) if fsdp else p
+                g, e, _, _ = step(vals, compression.zeros_error_state(
+                    p, ENG_V), b0)
+                got[fsdp] = (tree_leaves(step.gather(g) if fsdp else g),
+                             tree_leaves(e))
+                del step, vals, g, e
+            (g_d, e_d), (g_f, e_f) = got[False], got[True]
+            check(_bits_equal_lists(torch, e_d, e_f),
+                  f"engine {method}: fsdp err != dp err after one exchange")
+            worst = 0.0
+            for x, y in zip(g_f, g_d):
+                if torch.is_floating_point(y) and y.numel():
+                    d = (x - y).abs()
+                    check(bool((d <= 2e-6 + 2e-6 * y.abs()).all()),
+                          f"engine {method}: fsdp gradients beyond 2e-6 of "
+                          f"dp: {float(d.max())}")
+                    worst = max(worst, float(d.max()))
+            fsdp_one[method] = worst
+            del got, g_d, e_d, g_f, e_f
+        dp, fs = states["int8/dispatch"], states["int8+fsdp/dispatch"]
+        _, fsdp_run = _max_rel(torch, fs[0] + fs[1], dp[0] + dp[1])
+        del states, model, p, b0
+        # without clipping no global norm enters the update, and the
+        # gradients agree bit for bit (above): so must the runs
+        unclip = {}
+        for fsdp in (False, True):
+            *_, tr, _, _, _ = seq_run("int8", fsdp, "dispatch", ENG_STEPS,
+                                      clip=False)
+            unclip[fsdp] = _state_bits(torch, tr, tr.model.params())
+            del tr
+        check(all(_bits_equal_lists(torch, a, b)
+                  for a, b in zip(unclip[False], unclip[True])),
+              f"engine int8, clip_norm=None: fsdp != dp after "
+              f"{ENG_STEPS} steps")
+        del unclip
+        out["fsdp_vs_dp"] = {"one_exchange_grad_max_abs": fsdp_one,
+                             "after_3_steps_max_abs": fsdp_run,
+                             "after_3_steps_unclipped_bit_equal": True}
+        print(f"   fsdp against dp, one exchange: err bit-equal, gradients "
+              f"within {fsdp_one} (limit 2e-6); int8 after "
+              f"{ENG_STEPS} steps: values and moments max |d| "
+              f"{fsdp_run:.3e} with clip_norm=1.0, bit-equal (values, "
+              f"moments, err) with clip_norm=None")
+
+        # "none" after one step against the plain step microbatched over
+        # the same V slices (phase 19's microbatch limits: loss 1e-5
+        # relative, gradients 1e-4 of each leaf's largest entry)
+        free_card(torch, dev, "the engine's one-step check")
+        model = full_width_model(codes_np, dev)
+        p = model.params()
+        floats = [x for x in tree_leaves(p) if torch.is_floating_point(x)]
+        b0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in batches[0].items()}
+        grad_step = compression.make_elastic_dp_step(
+            lambda v, b: model.train_loss(v, b), mesh, "none",
+            accum_shards=ENG_V, has_aux=True)
+        g_e, _, loss_e, _ = grad_step(
+            p, compression.zeros_error_state(p, ENG_V), b0)
+        g_e = [g for g, x in zip(tree_leaves(g_e), tree_leaves(p))
+               if torch.is_floating_point(x)]
+        _, g_m, mets = spec_mod.accumulate_grads(
+            model.train_loss, ENG_V, p, b0,
+            lambda i: step_generator(0, 0, dev, i), floats, has_aux=True)
+        loss_m = float(mets["loss"])
+        rel, ab = _max_rel(torch, g_e, g_m)
+        check(abs(float(loss_e) - loss_m) <= 1e-5 * abs(loss_m) and
+              rel <= 1e-4, f"engine none, one step: loss {float(loss_e)} vs "
+              f"{loss_m}, gradients within {rel:.3e} of their largest entry")
+        out["one_step_vs_microbatched"] = {
+            "loss": [float(loss_e), loss_m], "grad_rel": rel,
+            "grad_max_abs": ab}
+        print(f"   none, one step against microbatches={ENG_V} of the "
+              f"plain step on the same batch: loss {float(loss_e):.7f} / "
+              f"{loss_m:.7f}, gradients max |d| {ab:.3e} ({rel:.3e} of "
+              f"their leaf's largest entry)")
+        del model, p, floats, g_e, g_m, grad_step
+
+        # an int8 run of 4 steps against 2 + a checkpoint + a resume of 2
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt-engine-",
+                                dir=os.path.join(HERE, "build"))
+        try:
+            total = sum(ENG_RESUME)
+            *_, tr, _, _, _ = seq_run("int8", False, "dispatch", total)
+            want = _state_bits(torch, tr, tr.model.params())
+            del tr
+            d = os.path.join(root, "ck")
+            seq_run("int8", False, "dispatch", ENG_RESUME[0], ckpt_dir=d)
+            stamp = checkpoint_metadata(d).get("train_spec")
+            check(stamp == spec_mod.spec_for(
+                grad_compression="int8",
+                grad_accum_shards=ENG_V).layout_stamp(mesh),
+                f"engine: checkpoint stamp {stamp}")
+            with np.load(os.path.join(d, f"step_{ENG_RESUME[0]:010d}",
+                                      "arrays.npz")) as z:
+                err_keys = [k for k in z.files if k.startswith("err/")]
+            check(err_keys, "engine: the checkpoint holds no err tree")
+            *_, tr, hist, _, _ = seq_run("int8", False, "dispatch", total,
+                                         ckpt_dir=d)
+            check(hist[0]["step"] == ENG_RESUME[0],
+                  f"engine: resumed at {hist[0]['step']}")
+            got = _state_bits(torch, tr, tr.model.params())
+            check(all(_bits_equal_lists(torch, a, b)
+                      for a, b in zip(want, got)),
+                  "engine: int8 2 + checkpoint + 2 != 4 uninterrupted")
+            del tr, want, got
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out["resume"] = {"steps": list(ENG_RESUME), "bit_equal": True,
+                         "err_keys": len(err_keys), "stamp": stamp}
+        print(f"   int8: {ENG_RESUME[0]} steps + checkpoint (train_spec "
+              f"stamp, {len(err_keys)} err arrays) + resume of "
+              f"{ENG_RESUME[1]} bit-equal to {sum(ENG_RESUME)} "
+              f"uninterrupted")
+
+        # the two-tower models: a 1 GB table's gradient through int8
+        for name in ENG_TT:
+            free_card(torch, dev, f"the engine's {name} run")
+            model = get_bundle(name).make_model(device=dev, seed=0)
+            params = model.params()
+            n_items, H = model.cfg.n_items, model.cfg.hist_len
+
+            def one(s):
+                r = np.random.default_rng((0, s))
+                return {"user_hist": r.integers(0, n_items + 1,
+                                                (ENG_TT_B, H)),
+                        "pos_item": r.integers(1, n_items + 1, (ENG_TT_B,)),
+                        "logq": np.zeros(ENG_TT_B, np.float32)}
+            bs = [one(s) for s in range(ENG_TT_STEPS)]
+            for c in counters:
+                c.reset_launches()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr = Timed(model, opt, TrainConfig(
+                steps=ENG_TT_STEPS, batch_size=ENG_TT_B, log_every=1,
+                eval_every=0, grad_compression="int8",
+                grad_accum_shards=ENG_V),
+                data_fn=lambda s: bs[s], mesh=mesh)
+            _, hist = tr.run(params=params)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = {k: v for c in counters for k, v in
+                        c.launches.items()}
+            check(launches["embedding_bag_backward"] > 0,
+                  f"engine {name}: the embedding_bag backward never "
+                  f"launched in the elastic rounds: {launches}")
+            if name == "two-tower-retrieval":
+                check(launches["embedding_bag"] > 0,
+                      f"engine {name}: embedding_bag never launched: "
+                      f"{launches}")
+            losses = [h["loss"] for h in hist if "loss" in h]
+            check(all(np.isfinite(losses)), f"engine {name}: {losses}")
+            err = tree_leaves(tr.err_state)
+            check(all(bool(torch.isfinite(e).all()) for e in err) and
+                  max(float(e.abs().max()) for e in err if e.numel()) > 0,
+                  f"engine {name}: err not finite and nonzero")
+            stage = tr.stage_ms()
+            steps_ms = [h["sec"] * 1e3 for h in hist if "sec" in h]
+            row = {k: hist[0][k] for k in (
+                "payload_bytes", "exchange_fraction", "exchange_shards",
+                "exchange_wire_bytes")}
+            row.update(
+                step_ms=float(np.median(steps_ms)), steps_ms=steps_ms,
+                peak_gb=peak / 1e9, losses=losses, launches=launches,
+                fb_ms=stage["forward_backward"],
+                qp_combine_ms=stage["quantise_pack"] + stage["combine"],
+                qp_ms=stage["quantise_pack"], combine_ms=stage["combine"],
+                err_bytes=sum(e.numel() * e.element_size() for e in err),
+                fp32_payload_bytes=compression.payload_bytes(params, "none"))
+            out["two_tower"][name] = row
+            print(f"   {name}: step {row['step_ms']:.1f} ms (median of "
+                  f"{ENG_TT_STEPS}), peak {row['peak_gb']:.2f} GB, "
+                  f"forward/backward {row['fb_ms']:.1f} ms + quantise_pack"
+                  f"/combine {row['qp_combine_ms']:.1f} ms the second "
+                  f"step; int8 "
+                  f"payload {row['payload_bytes']} B a shard, "
+                  f"{row['exchange_wire_bytes']} B a step (fp32: "
+                  f"{row['fp32_payload_bytes']} B a shard); err "
+                  f"{row['err_bytes']} B; launches {launches}; on {smi}")
+            del tr, hist, err
+            row["kernels_at_round_shape"] = tt_round_errs(
+                torch, dev, name, params, bs[0], ENG_TT_B // ENG_V)
+            del model, params, bs
+        full, jpq = (out["two_tower"][n] for n in ENG_TT)
+        out["two_tower_payload_ratio"] = (full["payload_bytes"]
+                                          / jpq["payload_bytes"])
+        print(f"   RecJPQ ships {out['two_tower_payload_ratio']:.1f}x fewer "
+              f"payload bytes than the full table: "
+              f"{full['payload_bytes']} vs {jpq['payload_bytes']} B a "
+              f"virtual shard")
+    finally:
+        mesh.close()
+    done(t0)
+    names = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup", "jpq_lookup_bwd",
+             "embedding_bag", "embedding_bag_backward")
+    out["elastic_launches"] = {
+        k: sum(r["launches"].get(k, 0) for part in ("seq", "two_tower")
+               for r in out[part].values())
+        for k in names}
+    # each kernel's largest |err| at the rounds' shapes (the backward
+    # kernels' against float64)
+    errs = [out["kernels_at_round_shape"]["max_abs_err"]] + [
+        r["kernels_at_round_shape"] for r in out["two_tower"].values()]
+    out["elastic_round_max_abs_err"] = {
+        k: max(e[k] for e in errs if k in e) for k in names}
+    print(json.dumps({"engine": out}))
+    return out
 
 
 def semantic_phases(torch, np, dev, smi, data, template, seq_model,
@@ -2312,31 +2860,16 @@ BAG_BWD_SHAPES = {   # V, d, n_bags, L, ids, weights
 }
 
 
-def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi, clock_hz,
-                gather=False):
+def bag_bwd_parity(torch, ids, w, dout, V, what, gather=False):
     """embedding_bag's backward kernels on (ids, w, dout) — with
     ``gather``, the table gathers' route (``cuda.gather_backward``: L =
     1, unit weights) — bit-identical across two calls, bit-equal to its
     plain version run on CPU copies (one chain a row in ascending
     position from +0.0), and |kernel - float64| <= gamma_n sum|w dout| a
-    row (n: its positions; the float64 plain version on the card).  Then
-    timed by CUDA events: the whole call as autograd runs it (the sort
-    and the id check in), the kernels alone on an order made
-    beforehand (and the short-run kernel alone), the sort apart, the plain version on the card, the one
-    PyTorch call (``F.embedding_bag``'s backward for a bag,
-    ``F.embedding``'s for a gather), ``torch.zeros`` + ``index_add_``
-    over the products (atomics, no fixed order), ``zero_`` of dtable
-    (the write alone), for a gather today's
-    ``table[ids]`` backward, the bytes bound and the chain bound (the
-    longest run's dependent adds at 4 cycles each); and the card's own
-    time of the kernels under ``torch.profiler``.  Returns the row."""
-    import torch.nn.functional as F
-
+    row (n: its positions; the float64 plain version on the card).
+    Returns {"f64_err", "longest_chain", "rows_named"}."""
     from repro_torch.kernels.embedding_bag import cuda as ec
     from repro_torch.kernels.embedding_bag import ref as eref
-    dev = dout.device
-    n, L = ids.shape
-    d, P = dout.shape[1], n * L
     if gather:
         def whole():
             return ec.gather_backward(ids, dout, V)
@@ -2365,6 +2898,38 @@ def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi, clock_hz,
            "rows_named": int((cnt > 0).sum())}
     del got, want, mass, lim, diff, cnt, wd
     torch.cuda.empty_cache()
+    return row
+
+
+def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi, clock_hz,
+                gather=False):
+    """embedding_bag's backward kernels on (ids, w, dout), held as
+    ``bag_bwd_parity`` holds them (with ``gather``, the table gathers'
+    route).  Then
+    timed by CUDA events: the whole call as autograd runs it (the sort
+    and the id check in), the kernels alone on an order made
+    beforehand (and the short-run kernel alone), the sort apart, the plain version on the card, the one
+    PyTorch call (``F.embedding_bag``'s backward for a bag,
+    ``F.embedding``'s for a gather), ``torch.zeros`` + ``index_add_``
+    over the products (atomics, no fixed order), ``zero_`` of dtable
+    (the write alone), for a gather today's
+    ``table[ids]`` backward, the bytes bound and the chain bound (the
+    longest run's dependent adds at 4 cycles each); and the card's own
+    time of the kernels under ``torch.profiler``.  Returns the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    dev = dout.device
+    n, L = ids.shape
+    d, P = dout.shape[1], n * L
+    if gather:
+        def whole():
+            return ec.gather_backward(ids, dout, V)
+    else:
+        def whole():
+            return ec.embedding_bag_backward(ids, w, dout, V)
+    row = bag_bwd_parity(torch, ids, w, dout, V, what, gather=gather)
     order = ec.sort_ids(ids, V, wrap=gather)
     row["long_runs"] = order.n_long
     row["whole_ms"] = cuda_ms(whole, iters)
@@ -3087,7 +3652,11 @@ def main() -> int:
     semantic_phases(torch, np, dev, smi, data, template, seq_model,
                     seq_params)
     server = server_phases(torch, np, dev, smi, seq_model, seq_params)
-    del codes_np, seq_model, seq_params
+    del seq_model, seq_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = engine_phases(torch, np, dev, smi, data, codes_np)
+    del codes_np
     gc.collect()
     torch.cuda.empty_cache()
     example_phases(torch, np, dev, smi)
@@ -3100,6 +3669,12 @@ def main() -> int:
         torch, np, dev, smi, data)
     bag_kernel["train_launches"] = bag_train_launches
     kernels += [bag_kernel, bag_bwd]
+    for entry in kernels:                 # phase 26's launches and errs
+        if entry["name"] in engine["elastic_launches"]:
+            entry["elastic_launches"] = engine["elastic_launches"][
+                entry["name"]]
+            entry["elastic_round_max_abs_err"] = engine[
+                "elastic_round_max_abs_err"][entry["name"]]
     for entry in kernels:                 # phase 25's times at B = 8, 64
         if entry["name"] in server["kernels_at_server_shape"][8]:
             entry["server_shape"] = {

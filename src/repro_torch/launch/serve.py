@@ -92,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     if args.mesh > 1:
         raise NotImplementedError("--mesh > 1: multi-GPU serving is not "
-                                  "yet ported (ROADMAP.md queue 1, item 9)")
+                                  "yet ported (ROADMAP.md queue 1, item 9b)")
 
 
 def _is_retrieval(model) -> bool:

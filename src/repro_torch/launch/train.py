@@ -4,7 +4,9 @@ the registry (two-tower, FM, DLRM-RM2, DIEN; full or ``-jpq``) on its
 reduced smoke config.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
-        --steps 300 [--device cpu]
+        --steps 300 [--device cpu] [--devices 2] \
+        [--grad-compression int8 --grad-accum-shards 4] [--fsdp] \
+        [--overlap backward]
 
 The reference CLI's flags and defaults, plus ``--device`` (``cuda`` by
 default: the hand-written kernels; ``cpu``: their plain versions).  A
@@ -14,22 +16,36 @@ jpq_lookup kernels, forward and backward (the reference CLI keeps its
 gathers).  ``--arch bert4rec`` trains on batches masked by
 ``mask_batch`` with a generator seeded from the step.  ``--ckpt-dir``
 saves a checkpoint every ``--ckpt-every`` steps and at the end (the
-reference's format), resumes from the latest one there, and on SIGTERM
-saves at the step reached and exits; ``--microbatches`` accumulates
-gradients over equal batch slices.  A CTR arch trains, as the
-reference's CLI trains it, its bundle's ``make_smoke`` model on the
-fixed template batch, with no eval (``--ckpt-dir``, ``--ckpt-every`` and
-``--microbatches`` as above); its pooled lookups train through the
-embedding_bag kernels on the card.  Archs outside the port's registry
-(the LM and MACE bundles) and flags that name paths not yet ported
-(``--devices``/``--mesh``/``--model-axis`` > 1, the elastic-exchange
-cluster) raise.
+reference's format, stamped with the TrainSpec layout), resumes from
+the latest one there after checking the stamp, and on SIGTERM saves at
+the step reached and exits; ``--microbatches`` accumulates gradients
+over equal batch slices.  A CTR arch trains, as the reference's CLI
+trains it, its bundle's ``make_smoke`` model on the fixed template
+batch, with no eval; its pooled lookups train through the embedding_bag
+kernels on the card.
+
+The TrainSpec flag cluster (``train.spec.add_train_spec_args``:
+``--grad-compression`` / ``--grad-accum-shards`` / ``--fsdp`` /
+``--overlap`` / ``--microbatches``) resolves to one ``TrainSpec``.  Any
+elastic spec trains through ``repro_torch.dist.compression``'s exchange
+on a mesh, even on one device (gloo on the CPU, NCCL on a card).
+``--devices N`` (or ``--mesh N``) > 1 runs N ranks: on the CPU N gloo
+processes (``launch.mesh.spawn``; a SIGTERM to the CLI reaches every
+rank, and they stop and save at the same step); on ``cuda`` one process
+a card, and more than ``torch.cuda.device_count()`` raises.  An elastic
+run preempted on N ranks resumes bit-identically on any N' dividing
+``--grad-accum-shards``.  Not yet ported, and raising: the LM and MACE
+bundles, and ``--model-axis > 1``.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 
 import torch
+
+from repro_torch.train.spec import add_train_spec_args, spec_from_args
 
 SEQ_ARCHS = ("sasrec", "bert4rec", "gru4rec")
 
@@ -55,22 +71,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=100)
     ap.add_argument("--early-stop-patience", type=int, default=0)
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices for SPMD (not yet ported: > 1 raises)")
+                    help="data-parallel ranks (CPU: gloo processes)")
     ap.add_argument("--mesh", type=int, default=None,
-                    help="alias for --devices (not yet ported)")
+                    help="alias for --devices; spell the restart of a "
+                         "preempted run on another number of ranks")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="model-parallel axis (not yet ported: > 1 raises)")
-    # the reference's TrainSpec flag cluster (not yet ported: any value
-    # other than the default raises)
-    ap.add_argument("--grad-compression", default=None,
-                    choices=["none", "bf16", "int8"])
-    ap.add_argument("--grad-accum-shards", type=int, default=None)
-    ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--overlap", default="dispatch",
-                    choices=["none", "dispatch", "backward"])
-    ap.add_argument("--microbatches", type=int, default=1,
-                    help="gradient accumulation over this many equal "
-                         "batch slices")
+    add_train_spec_args(ap)        # the shared TrainSpec flag cluster
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -97,11 +104,6 @@ def build(args):
             f"the sequential archs {SEQ_ARCHS} and the registry's "
             f"{list_archs()}; the LM and MACE bundles are ROADMAP queue 1, "
             f"item 10")
-    devices = args.mesh if args.mesh is not None else args.devices
-    if devices > 1:
-        raise NotImplementedError("--devices/--mesh > 1 is not yet ported")
-    if args.model_axis > 1:
-        raise NotImplementedError("--model-axis > 1 is not yet ported")
     dev = resolve_device(args.device)
     fp32_matmuls()
     train_cfg = TrainConfig(
@@ -160,21 +162,80 @@ def build(args):
     return model, data_fn, eval_fn, train_cfg, OptConfig(lr=args.lr)
 
 
-def main(argv=None):
+def _train(mesh, args):
+    """One rank's run: the model, data and Trainer of ``args`` on
+    ``mesh`` (None: one device, no mesh); rank 0 prints."""
     from repro_torch.train.loop import Trainer
-    args = build_parser().parse_args(argv)
     model, data_fn, eval_fn, train_cfg, opt_cfg = build(args)
     tr = Trainer(model, opt_cfg, train_cfg, data_fn=data_fn,
-                 eval_fn=eval_fn)
+                 eval_fn=eval_fn, mesh=mesh, spec=spec_from_args(args))
     _, hist = tr.run(params=model.params())
+    if mesh is not None and mesh.rank != 0:
+        return hist
     for h in hist[-5:]:
         print(h)
     if tr._preempted:
         print(f"preempted: checkpoint stamped at step {tr.done_step}; "
-              f"resume with the same --ckpt-dir")
+              f"resume with the same --ckpt-dir (any number of ranks "
+              f"dividing the accum shards)")
     else:
-        print(f"done at step {tr.done_step} on {model.device}")
+        print(f"done at step {tr.done_step} on {model.device}"
+              + ("" if mesh is None else f", mesh {mesh.shape}"))
     return hist
+
+
+def _one_thread_on_cpu(device) -> None:
+    """An elastic run on the CPU computes with one thread a process, so
+    its bits do not depend on how a reduction is split over cores."""
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+
+
+def _rank_main(mesh, args):
+    _one_thread_on_cpu(mesh.device)
+    _train(mesh, args)
+
+
+def main(argv=None):
+    """Train; returns rank 0's history (None when ranks were spawned)."""
+    from repro_torch import resolve_device
+    from repro_torch.dist import NEXT_SLICE
+    from repro_torch.launch import mesh as mesh_mod
+    args = build_parser().parse_args(argv)
+    spec = spec_from_args(args)
+    if args.mesh is not None:
+        args.devices = args.mesh
+    if args.model_axis > 1:
+        raise NotImplementedError(f"--model-axis > 1: {NEXT_SLICE}")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and args.devices > torch.cuda.device_count():
+        raise ValueError(f"--devices {args.devices} on a machine with "
+                         f"{torch.cuda.device_count()} card(s)")
+    if args.devices > 1:
+        print(f"mesh: {{'data': {args.devices}, 'model': 1}} "
+              f"({mesh_mod.backend_for(dev)}, {args.devices} processes)")
+
+        def forward_sigterm(procs):
+            def _handler(signum, frame):
+                for p in procs:
+                    if p.is_alive():
+                        os.kill(p.pid, signal.SIGTERM)
+            signal.signal(signal.SIGTERM, _handler)
+
+        mesh_mod.spawn(_rank_main, args.devices, (args,), device=dev,
+                       on_start=forward_sigterm)
+        return None
+    if not spec.elastic:
+        return _train(None, args)
+    # the elastic path needs a mesh even on one device: one data shard,
+    # V rounds
+    _one_thread_on_cpu(dev)
+    mesh = mesh_mod.make_host_mesh(1, device=dev)
+    print(f"mesh: {mesh.shape} ({mesh_mod.backend_for(dev)})")
+    try:
+        return _train(mesh, args)
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

@@ -1,27 +1,38 @@
-"""Training loop, single device: seeded init, the step (loss, gradients,
-optimizer update), microbatching, history rows, periodic eval with early
-stopping, checkpoints with resume, SIGTERM save-and-exit, and the
-step-time watchdog (straggler rows).
+"""Training loop: the step (loss, gradients, optimizer update) built
+through the training engine (``repro_torch.train.spec``), history rows,
+periodic eval with early stopping, checkpoints stamped with the
+TrainSpec layout and resumed after checking it, SIGTERM save-and-exit,
+and the step-time watchdog (straggler rows).
+
+The policy is one ``TrainSpec``, handed over or derived from the legacy
+``TrainConfig`` / ``OptConfig`` knobs by ``spec_for`` (a conflicting
+duplicate raises), and the step comes from the step-builder registry:
+
+  * plain / microbatch: one device, or with ``mesh`` plain data
+    parallelism — each rank takes its rows of the batch and the
+    gradients are averaged by ``all_reduce`` (held to the reference
+    within tolerance, as its own mesh path is);
+  * elastic (``grad_compression`` / ``grad_accum_shards`` / ``fsdp`` /
+    ``overlap``): ``repro_torch.dist.compression``'s exchange over ``V``
+    virtual shards with error feedback, bitwise across world sizes
+    dividing ``V``.  The error state is checkpointed under ``"err"`` as
+    ``[V, ...]`` rows, so a run preempted on N processes resumes on any
+    N' dividing ``V`` bit-identically.  ``fsdp`` keeps this rank's rows
+    of the V-divisible leaves of the values and moments.
 
 Dropout draws from a generator that is a function of ``(seed, step)``,
-and of ``(seed, step, slice)`` inside a microbatched step
-(``step_generator``); no generator state is carried from step to step,
-so a resumed run draws the masks the uninterrupted run drew.
-
-``microbatches > 1`` accumulates the gradients of equal batch slices in
-sequence (fp32 accumulators), takes their mean over the slices and
-averages the metrics, as the reference's microbatch step does.
-Checkpoints (``repro_torch.ckpt``, the reference's format) hold
-``values``, ``opt`` and ``early_stop``; they carry no TrainSpec layout
-stamp (the port has no TrainSpec yet), and the reference restores such a
-checkpoint unchecked.  The reference's mesh path and elastic
-compressed-gradient exchange (``grad_compression`` /
-``grad_accum_shards`` / ``fsdp`` / ``overlap``) are not yet ported:
-asking for them raises.
+of ``(seed, step, slice)`` in a microbatched step and of ``(seed, step,
+v)`` for virtual shard ``v`` (``step_generator``); no generator state is
+carried from step to step, so a resumed run draws the masks the
+uninterrupted run drew.  Checkpoints are the reference's format
+(``repro_torch.ckpt``): ``values``, ``opt``, ``early_stop`` and, on the
+elastic path, ``err``; rank 0 writes them.  The ``"model"`` mesh axis
+is the next slice: a mesh with ``model > 1`` raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import signal
 import time
 from typing import Any, Callable, Optional
@@ -29,12 +40,14 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.ckpt import (AsyncCheckpointer, latest_step,
-                              restore_checkpoint)
+from repro_torch.ckpt import (AsyncCheckpointer, checkpoint_metadata,
+                              latest_step, restore_checkpoint)
 from repro_torch.nn.module import tree_leaves
+from repro_torch.train import spec as spec_mod
 from repro_torch.train.metrics import validate_history
 from repro_torch.train.optimizer import (OptConfig, apply_updates,
                                          init_opt_state, tree_map)
+from repro_torch.train.spec import TrainSpec
 
 
 @dataclasses.dataclass
@@ -50,55 +63,98 @@ class TrainConfig:
     microbatches: int = 1              # gradient accumulation
     watchdog_factor: float = 3.0       # flag steps slower than f * median
     seed: int = 0
-    grad_compression: Optional[str] = None     # not yet ported
-    grad_accum_shards: Optional[int] = None    # not yet ported
-    fsdp: bool = False                         # not yet ported
-    overlap: Any = None                        # not yet ported
-
-
-def _unported(train_cfg: TrainConfig, opt_cfg: OptConfig, mesh, spec):
-    c = train_cfg
-    asked = [name for name, on in (
-        ("mesh", mesh is not None), ("spec", spec is not None),
-        ("grad_compression",
-         c.grad_compression not in (None, "none")
-         or opt_cfg.grad_compression != "none"),
-        ("grad_accum_shards", c.grad_accum_shards is not None),
-        ("fsdp", c.fsdp), ("overlap", c.overlap not in (None, "dispatch")))
-        if on]
-    if asked:
-        raise NotImplementedError(
-            f"Trainer options {asked} are not yet ported to repro_torch "
-            f"(the single-device path is)")
-    if int(c.microbatches) < 1:
-        raise ValueError(f"microbatches={c.microbatches} must be >= 1")
+    # the elastic compressed-gradient exchange (repro_torch.dist.
+    # compression): setting grad_compression ("none" / "bf16" / "int8"),
+    # grad_accum_shards or fsdp routes the mesh step through it — the
+    # batch cut into grad_accum_shards virtual shards (default: the
+    # mesh's data-parallel degree), payloads exchanged compressed with
+    # per-shard error feedback, bitwise across world sizes dividing the
+    # shard count.  None inherits OptConfig.grad_compression
+    grad_compression: Optional[str] = None
+    grad_accum_shards: Optional[int] = None
+    # each rank owns a row slice of the values and moments whose leading
+    # dim divides by the shard count; the round's exchange becomes an
+    # ordered reduce-scatter
+    fsdp: bool = False
+    # host schedule of the exchange rounds: "none" | "dispatch" |
+    # "backward" (legacy bools accepted; None = "dispatch"); every mode
+    # is bitwise identical, so it is not part of the checkpoint layout
+    overlap: Any = None
 
 
 def step_generator(seed: int, step: int, device,
                    micro: Optional[int] = None) -> torch.Generator:
-    """The dropout generator of one step (of one slice of a microbatched
-    step), seeded from ``(seed, step[, micro])`` alone."""
+    """The dropout generator of one step (of slice or virtual shard
+    ``micro`` of a step), seeded from ``(seed, step[, micro])`` alone."""
     key = (step,) if micro is None else (step, micro)
     state = np.random.SeedSequence(seed, spawn_key=key).generate_state(
         1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+def _mean_over_ranks(tensors, mesh):
+    """The rank mean of each tensor (one ``all_reduce`` of their fp32
+    concatenation)."""
+    import torch.distributed as dist
+    buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(buf, group=mesh.group)
+    buf /= mesh.world_size
+    out, off = [], 0
+    for t in tensors:
+        out.append(buf[off:off + t.numel()].view(t.shape).to(t.dtype))
+        off += t.numel()
+    return out
+
+
 class Trainer:
     def __init__(self, model, opt_cfg: OptConfig, train_cfg: TrainConfig,
                  data_fn: Callable[[int], dict],
                  eval_fn: Optional[Callable[[Any], dict]] = None,
-                 mesh=None, spec=None):
-        _unported(train_cfg, opt_cfg, mesh, spec)
+                 mesh=None, rules=None, spec: Optional[TrainSpec] = None):
+        if rules is not None or (mesh is not None
+                                 and mesh.shape.get("model", 1) > 1):
+            # logical-axis rules only place the width axes on "model"
+            from repro_torch.dist import NEXT_SLICE
+            raise NotImplementedError(NEXT_SLICE)
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = train_cfg
         self.data_fn = data_fn
         self.eval_fn = eval_fn
+        self.mesh = mesh
         self._preempted = False
         self._step_times: list = []
         self.history: list = []
         self.done_step = 0
+        self.err_state = None              # error feedback, [V, ...] rows
+        self.opt_state = None
+        # the legacy knobs normalise to a TrainSpec; an explicit spec
+        # wins over default knobs, and disagreeing with non-default ones
+        # raises
+        derived = spec_mod.spec_for(
+            grad_compression=train_cfg.grad_compression,
+            opt_grad_compression=opt_cfg.grad_compression,
+            grad_accum_shards=train_cfg.grad_accum_shards,
+            fsdp=train_cfg.fsdp, overlap=train_cfg.overlap,
+            microbatches=train_cfg.microbatches)
+        if spec is None:
+            spec = derived
+        elif derived != TrainSpec() and derived != spec:
+            raise ValueError(
+                f"Trainer got an explicit TrainSpec {spec} AND "
+                f"conflicting legacy TrainConfig/OptConfig knobs "
+                f"(which resolve to {derived}); set the policy in one "
+                f"place")
+        self.spec = spec
+        self._use_dp = spec.elastic
+        self._fsdp = spec.fsdp
+        if self._use_dp and mesh is None:
+            raise ValueError(
+                "grad_compression / grad_accum_shards / fsdp "
+                "require a mesh")
+        self._accum = spec.resolve_accum(mesh) if self._use_dp else None
+        self._world = 1 if mesh is None else spec_mod.dp_degree(mesh)
+        self._rank = 0 if mesh is None else mesh.rank
 
     # ----------------------------------------------------------- setup
     def _install_sigterm(self):
@@ -112,40 +168,52 @@ class Trainer:
             return None
         return signal.SIG_DFL if old is None else old
 
-    def _grads(self, params, floats, batch, step: int):
-        """(gradients of ``floats``, metrics) of one step: the mean over
-        ``microbatches`` n equal batch slices, run in sequence into fp32
-        accumulators, slice i drawing dropout from
-        ``step_generator(seed, step, i)`` (``(seed, step)`` when n == 1);
-        the metrics are the slices' mean."""
-        n, seed, dev = int(self.cfg.microbatches), self.cfg.seed, \
-            self.model.device
-        rows = {int(v.shape[0]) for v in batch.values()}
-        if len(rows) != 1 or next(iter(rows)) % n:
-            raise ValueError(f"microbatches={n} must divide the batch into "
-                             f"equal slices; batch rows {sorted(rows)}")
-        size = next(iter(rows)) // n
-        acc, slices = None, []
-        for i in range(n):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss, mets = self.model.train_loss(
-                params, mb,
-                step_generator(seed, step, dev, i if n > 1 else None))
-            got = torch.autograd.grad(loss, floats, allow_unused=True)
-            if acc is None:
-                # made after the first backward, so a one-slice step's
-                # peak (inside its backward) does not hold them
-                acc = [torch.zeros_like(x, dtype=torch.float32)
-                       for x in floats]
-            for a, g in zip(acc, got):
-                if g is not None:
-                    a.add_(g)
-            slices.append(mets)
-            del loss, got
-        mets = {k: torch.stack([m[k].detach().float()
-                                for m in slices]).mean(0)
-                for k in slices[0]}
-        return [a.div_(n) for a in acc], mets
+    def _loss_and_apply(self):
+        """The StepContext ingredients of every builder: the model's
+        loss, and the optimizer hook (``grad_norm=`` is how the fsdp
+        combine passes its norm).  On a data-parallel mesh without the
+        elastic exchange, the hook first averages the gradients over the
+        ranks."""
+        model, opt_cfg, mesh = self.model, self.opt_cfg, self.mesh
+
+        def loss_fn(values, batch, generator=None):
+            return model.train_loss(values, batch, generator)
+
+        def apply_fn(values, opt_state, grads, grad_norm=None):
+            return apply_updates(opt_cfg, opt_state, values, grads,
+                                 grad_norm=grad_norm)
+
+        if self._use_dp or self._world == 1:
+            return loss_fn, apply_fn
+
+        def apply_dp(values, opt_state, grads, grad_norm=None):
+            idx = [i for i, g in enumerate(tree_leaves(grads))
+                   if g is not None]
+            flat = tree_leaves(grads)
+            by_i = dict(zip(idx, _mean_over_ranks([flat[i] for i in idx],
+                                                  mesh)))
+            it = iter(range(len(flat)))
+            grads = tree_map(lambda g: by_i.get(next(it), g), grads)
+            return apply_fn(values, opt_state, grads, grad_norm=grad_norm)
+        return loss_fn, apply_dp
+
+    def _build_step(self):
+        """The plain / microbatch step of the registry: ``train_step(
+        values, opt_state, batch, rng) -> (new_values, new_opt, mets)``."""
+        loss_fn, apply_fn = self._loss_and_apply()
+        spec = self.spec if not self.spec.elastic else TrainSpec()
+        return spec_mod.build_train_step(spec, loss_fn=loss_fn,
+                                         apply_fn=apply_fn, has_aux=True)
+
+    def _build_dp_step(self, shapes):
+        """The elastic exchange's step through the registry:
+        ``step(values, opt_state, err_rows, batch, rng) -> (new_values,
+        new_opt, new_err_rows, mets)``; ``shapes`` is the global values
+        tree (the fsdp classification reads it)."""
+        loss_fn, apply_fn = self._loss_and_apply()
+        return spec_mod.build_train_step(
+            self.spec, loss_fn=loss_fn, mesh=self.mesh, apply_fn=apply_fn,
+            has_aux=True, shapes=shapes)
 
     def _restore(self, params, opt_state):
         """Load the latest checkpoint: the values into ``params`` in
@@ -169,18 +237,33 @@ class Trainer:
         return opt, step, float(es["early_stop"]["best"]), \
             int(es["early_stop"]["stale"])
 
+    def _agree_preempted(self) -> bool:
+        """Whether any rank was sent SIGTERM (every rank stops at the
+        same step)."""
+        if self._world == 1:
+            return self._preempted
+        import torch.distributed as dist
+        flag = torch.tensor([int(self._preempted)], dtype=torch.int32,
+                            device=self.mesh.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        self._preempted = bool(flag.item())
+        return self._preempted
+
     # ------------------------------------------------------------- run
     def run(self, generator: Optional[torch.Generator] = None, params=None):
         """Train up to ``cfg.steps`` steps; returns (params, history).
         ``params`` (a ``model.params()`` tree, e.g. with bridged weights)
         is trained in place (detached float leaves require a gradient
         for the run, and no longer after it); without it the model is
-        re-initialised from
-        ``generator`` (default: seeded with ``cfg.seed``).  With
-        ``cfg.ckpt_dir``, the latest checkpoint there is restored first
-        (values, optimizer state, early-stop state) and the run goes on
-        from its step; a fresh start takes an empty directory."""
-        cfg, model = self.cfg, self.model
+        re-initialised from ``generator`` (default: seeded with
+        ``cfg.seed``).  With ``cfg.ckpt_dir``, the latest checkpoint
+        there is restored first (after its TrainSpec stamp is checked:
+        values, optimizer state, error state, early-stop state) and the
+        run goes on from its step; a fresh start takes an empty
+        directory.  After the run ``err_state`` holds the ``[V, ...]``
+        error rows and ``opt_state`` the optimizer state."""
+        from repro_torch.dist import compression
+        cfg, model, mesh = self.cfg, self.model, self.mesh
         self._step_times = []
         self._preempted = False
         hist_start = len(self.history)
@@ -190,22 +273,83 @@ class Trainer:
                 generator = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = model.init_params(generator)
         opt_state = init_opt_state(params)
-        floats = [x for x in tree_leaves(params) if torch.is_floating_point(x)]
+        elastic, fsdp, V = self._use_dp, self._fsdp, self._accum
+        err_full = (compression.zeros_error_state(params, V)
+                    if elastic else None)
         best_metric, stale = -np.inf, 0
         start_step = 0
         ckpt = None
         if cfg.ckpt_dir:
-            ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep_ckpts)
+            if self._rank == 0:
+                ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep_ckpts)
             if latest_step(cfg.ckpt_dir) is not None:
+                # the layout stamp is checked before any array is read,
+                # so a wrong --grad-accum-shards / --fsdp fails with the
+                # spec's error rather than a bare shape mismatch
+                stamp = checkpoint_metadata(cfg.ckpt_dir).get("train_spec")
+                spec_mod.check_restore_layout(stamp, self.spec, self._accum)
                 opt_state, start_step, best_metric, stale = self._restore(
                     params, opt_state)
+                if elastic:
+                    # strict=False: a checkpoint without "err" (written
+                    # by a plain run) resumes from zero error state
+                    tree, _ = restore_checkpoint(
+                        cfg.ckpt_dir, {"err": err_full}, step=start_step,
+                        strict=False)
+                    err_full = tree["err"]
+
+        step_fn = (self._build_dp_step(params) if elastic
+                   else self._build_step())
+        err = (compression.shard_rows(err_full, mesh, V) if elastic
+               else None)
+        del err_full
+        local = params
+        if fsdp:
+            local = step_fn.shard(params)
+            opt_state = {**opt_state, "m": step_fn.shard(opt_state["m"]),
+                         "v": step_fn.shard(opt_state["v"])}
+
+        def sync_params():
+            """``params`` made the whole current values (fsdp: gathered
+            from the ranks' slices)."""
+            if fsdp:
+                full = step_fn.gather(local)
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(params),
+                                        tree_leaves(full)):
+                        if dst is not src:
+                            dst.copy_(src)
+
+        def full_opt():
+            if not fsdp:
+                return opt_state
+            return {**opt_state, "m": step_fn.gather(opt_state["m"]),
+                    "v": step_fn.gather(opt_state["v"])}
 
         def ckpt_state():
-            return {"values": params,
-                    "opt": {**opt_state, "step": np.int32(opt_state["step"])},
-                    "early_stop": {"best": np.float64(best_metric),
-                                   "stale": np.int64(stale)}}
+            sync_params()
+            opt = full_opt()
+            state = {"values": params,
+                     "opt": {**opt, "step": np.int32(opt["step"])},
+                     "early_stop": {"best": np.float64(best_metric),
+                                    "stale": np.int64(stale)}}
+            if elastic:
+                state["err"] = compression.gather_rows(err, mesh)
+            return state
 
+        # every save is stamped with the spec's layout fingerprint — the
+        # restore above is its consumer
+        ckpt_meta = {"train_spec": self.spec.layout_stamp(mesh)}
+
+        def save(step):
+            state = ckpt_state()            # every rank: the gathers
+            if ckpt is not None:
+                ckpt.save(state, step, metadata=ckpt_meta)
+
+        # the exchange's accounting in every history row (the fields:
+        # train.spec.payload_metrics)
+        payload_mets = (spec_mod.payload_metrics(self.spec, params, mesh)
+                        if elastic else {})
         # the last checkpoint is stamped with the step actually reached
         # (a preemption or early stop ends the run before cfg.steps);
         # last_saved keeps the trailing save from repeating one
@@ -213,25 +357,48 @@ class Trainer:
         # float leaves handed over detached (the CTR models' params():
         # views of the parameters) are made differentiable for the run
         # and handed back as they came
+        floats = [x for x in tree_leaves(params) if torch.is_floating_point(x)]
         detached = [x for x in floats if not x.requires_grad]
         for x in detached:
             x.requires_grad_(True)
+        rows = None
+        if not elastic and self._world > 1:
+            rows = (self._rank, self._world)
+            if cfg.batch_size % self._world:
+                raise ValueError(
+                    f"batch_size={cfg.batch_size} must divide over the "
+                    f"mesh's {self._world} data-parallel ranks")
         old_handler = self._install_sigterm()
         try:
             for step in range(start_step, cfg.steps):
                 t0 = time.perf_counter()
                 batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in self.data_fn(step).items()}
-                got, mets = self._grads(params, floats, batch, step)
-                by_id = {id(x): g for x, g in zip(floats, got)}
-                grads = tree_map(lambda x: by_id.get(id(x)), params)
-                new, opt_state, _ = apply_updates(self.opt_cfg, opt_state,
-                                                  params, grads)
-                with torch.no_grad():
-                    for n, x in zip(tree_leaves(new), tree_leaves(params)):
-                        if torch.is_floating_point(x):
-                            x.copy_(n)
-                del got, by_id, grads, new
+                if rows is not None:         # this rank's rows
+                    batch = {k: v[rows[0] * (v.shape[0] // rows[1]):
+                                  (rows[0] + 1) * (v.shape[0] // rows[1])]
+                             for k, v in batch.items()}
+                rng = functools.partial(step_generator, cfg.seed, step, dev)
+                if elastic:
+                    new, opt_state, err, mets = step_fn(local, opt_state,
+                                                        err, batch, rng)
+                else:
+                    new, opt_state, mets = step_fn(params, opt_state, batch,
+                                                   rng)
+                if fsdp:
+                    local = new
+                else:
+                    with torch.no_grad():
+                        for n, x in zip(tree_leaves(new), tree_leaves(params)):
+                            if torch.is_floating_point(x):
+                                x.copy_(n)
+                del new, batch
+                if rows is not None:          # the ranks' mean metrics
+                    keys = list(mets)
+                    mets = dict(zip(keys, _mean_over_ranks(
+                        [torch.as_tensor(mets[k], dtype=torch.float32,
+                                         device=dev).reshape(())
+                         for k in keys], mesh)))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 done_step = step + 1
@@ -239,18 +406,20 @@ class Trainer:
                 self._watchdog(step, dt)
                 if step % cfg.log_every == 0 or step == cfg.steps - 1:
                     self.history.append({"step": step, **{
-                        k: float(v) for k, v in mets.items()}, "sec": dt})
-                if ckpt and cfg.ckpt_every and \
+                        k: float(v) for k, v in mets.items()},
+                        **payload_mets, "sec": dt})
+                if cfg.ckpt_dir and cfg.ckpt_every and \
                         (step + 1) % cfg.ckpt_every == 0:
-                    ckpt.save(ckpt_state(), step + 1)
+                    save(step + 1)
                     last_saved = step + 1
-                if self._preempted:
-                    if ckpt and last_saved != step + 1:
-                        ckpt.save(ckpt_state(), step + 1)
+                if self._agree_preempted():
+                    if cfg.ckpt_dir and last_saved != step + 1:
+                        save(step + 1)
                         last_saved = step + 1
                     break
                 if self.eval_fn and cfg.eval_every and \
                         (step + 1) % cfg.eval_every == 0:
+                    sync_params()
                     with torch.no_grad():
                         ev = self.eval_fn(params)
                     self.history.append({"step": step, **{
@@ -263,10 +432,14 @@ class Trainer:
                             stale += 1
                             if stale >= cfg.early_stop_patience:
                                 break
+            if cfg.ckpt_dir and last_saved != done_step:
+                save(done_step)
             if ckpt:
-                if last_saved != done_step:
-                    ckpt.save(ckpt_state(), done_step)
                 ckpt.wait()                    # drain the async writer
+            sync_params()
+            self.opt_state = full_opt()
+            if elastic:
+                self.err_state = compression.gather_rows(err, mesh)
         finally:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler)

@@ -32,7 +32,8 @@ class OptConfig:
     warmup_steps: int = 0
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
-    # the reference's data-parallel gradient exchange: not yet ported
+    # deprecated duplicate of TrainConfig.grad_compression (the elastic
+    # exchange's method; train.spec.spec_for reads both, "none" = unset)
     grad_compression: str = "none"
 
 

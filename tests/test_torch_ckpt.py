@@ -45,6 +45,7 @@ from repro_torch.models.sequential import SeqRecConfig as T_Cfg
 from repro_torch.models.sequential import SeqRecModel as T_Model
 from repro_torch.train import loop as T_loop
 from repro_torch.train import optimizer as T_opt
+from repro_torch.train.spec import accumulate_grads
 
 DATA = dict(n_users=60, n_items=80, seq_len=8, seed=2)
 KW = dict(arch="sasrec", n_items=80, max_len=8, d_model=16, n_layers=1,
@@ -362,11 +363,11 @@ class TestMicrobatches:
         floats = list(tm.parameters())
 
         def step(n, b):
-            tr = T_loop.Trainer(tm, T_opt.OptConfig(),
-                                T_loop.TrainConfig(steps=1, microbatches=n),
-                                data_fn=None)
-            g, mets = tr._grads(p, floats, {k: torch.as_tensor(v)
-                                            for k, v in b.items()}, 0)
+            _, g, mets = accumulate_grads(
+                tm.train_loss, n, p, {k: torch.as_tensor(v)
+                                      for k, v in b.items()},
+                lambda i: T_loop.step_generator(0, 0, "cpu", i), floats,
+                has_aux=True)
             return float(mets["loss"]), g
 
         lm, gm = step(2, ab)

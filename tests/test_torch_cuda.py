@@ -1227,8 +1227,8 @@ def test_microbatched_step_on_distinct_halves(dev):
     the single steps on a and on b (loss 1e-5 relative, gradients 1e-4
     of their largest entry); b keeps only its last 3 positions, so the
     single step on [a; b] differs from that mean."""
-    from repro_torch.train.loop import TrainConfig, Trainer
-    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.loop import step_generator
+    from repro_torch.train.spec import accumulate_grads
     ab = _small_batch(dev, "sasrec", B=8)
     for v in ab.values():
         v[4:, :-3] = 0
@@ -1237,9 +1237,9 @@ def test_microbatched_step_on_distinct_halves(dev):
     floats = list(model.parameters())
 
     def step(n, b):
-        tr = Trainer(model, OptConfig(), TrainConfig(steps=1, microbatches=n),
-                     data_fn=None)
-        g, mets = tr._grads(p, floats, b, 0)
+        _, g, mets = accumulate_grads(
+            model.train_loss, n, p, b, lambda i: step_generator(0, 0, dev, i),
+            floats, has_aux=True)
         return float(mets["loss"]), g
 
     lm, gm = step(2, ab)
@@ -1515,3 +1515,65 @@ def test_registry_builds_on_its_own_stream(dev):
     assert second.version == 2 and second.validated
     assert second.build_stream is not None and second.build_stream != serving
     assert torch.cuda.current_stream(dev).cuda_stream == serving
+
+
+# ====================================================== the training engine
+
+@pytest.mark.parametrize("method", ["bf16", "int8"])
+def test_quantise_on_the_card_equals_the_cpu(dev, method):
+    """The exchange's quantisation on the card is the CPU's, bit for
+    bit: the error feedback stays the same on every device."""
+    from repro_torch.dist import compression as C
+    g = torch.Generator().manual_seed(3)
+    for t in (torch.randn((1000, 33), generator=g) * 1e-3,
+              torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, 0.0]),
+              torch.zeros(7)):
+        cq, cs, ce = C._quantise(t, method)
+        kq, ks, ke = C._quantise(t.to(dev), method)
+        assert torch.equal(kq.cpu().view(torch.uint8) if method == "int8"
+                           else kq.cpu().view(torch.int16),
+                           cq.view(torch.uint8) if method == "int8"
+                           else cq.view(torch.int16))
+        assert torch.equal(ke.cpu().view(torch.int32), ce.view(torch.int32))
+        if cs is not None:
+            assert torch.equal(ks.cpu().view(torch.int32),
+                               cs.view(torch.int32))
+
+
+def test_elastic_modes_bit_identical_on_the_card(dev):
+    """Trainer's elastic path on NCCL at world 1 (V = 4), through the
+    kernels: the three overlap modes, with fsdp off and on, end bit-equal
+    (values, moments, err); the training kernels launched in the
+    rounds."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    batch = _small_batch(dev, "sasrec", B=8)
+    mesh = make_host_mesh(1, device=dev)
+    try:
+        outs = {}
+        for fsdp in (False, True):
+            for overlap in ("none", "dispatch", "backward"):
+                model = _small_seqrec(dev)
+                sc.reset_launches()
+                lc.reset_launches()
+                tr = Trainer(model, OptConfig(lr=1e-2), TrainConfig(
+                    steps=2, log_every=1, eval_every=0,
+                    grad_compression="int8", grad_accum_shards=4,
+                    fsdp=fsdp, overlap=overlap),
+                    data_fn=lambda s: batch, mesh=mesh)
+                params, _ = tr.run(params=model.params())
+                assert sc.launches["jpq_scores_bwd"] > 0
+                assert lc.launches["jpq_lookup_bwd"] > 0
+                outs[fsdp, overlap] = [
+                    x.detach().clone() for x in tree_leaves(
+                        [params, tr.opt_state["m"], tr.opt_state["v"],
+                         tr.err_state])]
+        for fsdp in (False, True):
+            want = outs[fsdp, "none"]
+            for overlap in ("dispatch", "backward"):
+                got = outs[fsdp, overlap]
+                assert all(torch.equal(a, b) for a, b in zip(want, got))
+    finally:
+        mesh.close()

@@ -52,7 +52,10 @@ def test_port_files_found():
                 ("launch", "server.py"), ("serve", "__init__.py"),
                 ("serve", "queue.py"), ("serve", "metrics.py"),
                 ("serve", "loadgen.py"), ("serve", "registry.py"),
-                ("serve", "replica.py"), ("serve", "server.py")):
+                ("serve", "replica.py"), ("serve", "server.py"),
+                ("train", "spec.py"), ("dist", "__init__.py"),
+                ("dist", "rules.py"), ("dist", "compression.py"),
+                ("launch", "mesh.py")):
         assert os.path.join(PORT, *mod) in files
 
 
@@ -81,12 +84,15 @@ def test_import_builds_nothing_and_loads_no_jax():
             "repro_torch.launch.train, repro_torch.train.loop, "
             "repro_torch.models.sequential, repro_torch.core.semantic, "
             "repro_torch.ckpt, repro_torch.serve, repro_torch.launch.server, "
+            "repro_torch.train.spec, repro_torch.dist.compression, "
+            "repro_torch.launch.mesh, repro_torch.configs.base, "
             "repro_torch.kernels.jpq_scores.ops, "
             "repro_torch.kernels.jpq_lookup.ops, "
             "repro_torch.kernels.jpq_topk.cuda as c\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro' for m in sys.modules), 'jax/repro imported'\n"
             "assert 'triton' not in sys.modules\n"
+            "import torch.distributed as d; assert not d.is_initialized()\n"
             "from repro_torch.kernels import build\n"
             "assert not build._LIBS\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

@@ -49,6 +49,7 @@ from repro_torch.configs import list_archs
 from repro_torch.nn.module import tree_leaves
 from repro_torch.train import loop as T_loop
 from repro_torch.train import optimizer as T_opt
+from repro_torch.train.spec import accumulate_grads
 
 ARCHS = ["two-tower-retrieval", "two-tower-retrieval-jpq", "fm", "fm-jpq",
          "dlrm-rm2", "dlrm-rm2-jpq", "dien", "dien-jpq"]
@@ -105,16 +106,17 @@ def _pairs_by_path(tp, jt, path=""):
 
 
 def _port_grads(tm, batch):
-    """The Trainer's gradients of the loss on ``batch`` (its
+    """The plain step's gradients of the loss on ``batch`` (its
     ``autograd.grad`` over the float leaves of ``params()``), as a tree
     shaped like ``params()`` (None at the codes), and its metrics."""
     params = tm.params()
     floats = [x for x in tree_leaves(params) if torch.is_floating_point(x)]
     for x in floats:
         x.requires_grad_(True)
-    tr = T_loop.Trainer(tm, T_opt.OptConfig(), T_loop.TrainConfig(),
-                        data_fn=None)
-    got, mets = tr._grads(params, floats, _t(batch), 0)
+    _, got, mets = accumulate_grads(
+        tm.train_loss, 1, params, _t(batch),
+        lambda i: T_loop.step_generator(0, 0, tm.device, i), floats,
+        has_aux=True)
     by_id = {id(x): g for x, g in zip(floats, got)}
     return T_opt.tree_map(lambda x: by_id.get(id(x)), params), mets
 

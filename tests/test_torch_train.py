@@ -247,9 +247,27 @@ def test_trainer_eval_and_early_stop():
     dict(grad_compression="bf16"),
     dict(grad_accum_shards=4), dict(fsdp=True), dict(overlap="backward")])
 def test_trainer_unported_options_raise(knob):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The elastic knobs are ported: without a mesh the port raises the
+    reference's error, word for word; what still waits, a mesh with a
+    ``model`` axis > 1 or logical-axis rules (they place width axes on
+    it), raises NotImplementedError."""
+    import types
+
+    from repro.train import loop as J_loop
+    with pytest.raises(ValueError) as want:
+        J_loop.Trainer(None, J_opt.OptConfig(), J_loop.TrainConfig(**knob),
+                       data_fn=None)
+    with pytest.raises(ValueError) as got:
         T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
                        data_fn=None)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
+                       data_fn=None, mesh=types.SimpleNamespace(
+                           shape={"data": 1, "model": 2}, rank=0))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
+                       data_fn=None, rules={"embed": ("model",)})
 
 
 # -------------------------------------------------------------- CLI
@@ -281,10 +299,15 @@ def test_cli_flags_and_defaults_match_the_reference():
     assert t == j
 
 
-@pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"], ["--mesh", "2"],
+@pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"],
+                                   ["--mesh", "2", "--model-axis", "2"],
                                    ["--model-axis", "2"],
-                                   ["--grad-compression", "bf16"]])
+                                   ["--grad-compression", "bf16",
+                                    "--model-axis", "2"]])
 def test_cli_unported_flags_raise(flags):
+    """What the CLI still refuses: the LM and MACE bundles and the
+    ``model`` axis (``--mesh`` and the TrainSpec flags train:
+    tests/test_torch_elastic.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported|only"):
         T_cli.main(["--device", "cpu", "--steps", "1", "--n-items", "50",
                     *flags])
