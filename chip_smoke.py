@@ -235,8 +235,29 @@ Phase 26 runs after phase 25, phase 7's data and codebook:
      quantise_pack + combine ms by CUDA events, payload bytes a shard
      and a step, err bytes, the card; a ``{"engine": ...}`` line with
      each kernel's max |err| at the rounds' shapes.
+Phase 27 runs last:
+ 27. main path, serving over a model-sharded catalogue:
+     ``launch/serve.serve_mesh`` (the ``--mesh S`` CLI's body) with
+     ``--share-card``: S = 2 and 4 ranks time-share the one card as a
+     (1, S) mesh, collectives over gloo staged through host memory (NCCL
+     refuses two ranks on one device), the kernels built here before
+     they start; each rank builds phase 4's full-width model from the
+     seed and keeps its rows of the catalogue.  two-tower-retrieval-jpq
+     ``--fused`` and ``--prune --perm --warm`` (the global state at
+     block_n 7,816, total_tiles = nt_loc x S) at each S, 20 requests of
+     B = 512, every rank's every response bit-equal to the unsharded
+     fused path on the same request; the full-table two-tower at S = 4
+     through the row-sharded pooled_lookup (values within 1e-5 of the
+     largest, ids at least 99% equal: the pooled sum runs over the
+     ranks in another order); each rank launched its path's kernel;
+     p50/p99 beside the unsharded path's, the collectives' ms, bytes and
+     calls a request.  Then ``jpq_topk``, ``jpq_topk_pruned`` (its two
+     launches around the threshold exchange) and ``embedding_bag`` at
+     the last rank's shard shapes, bit-equal to their plain versions,
+     timed beside their bounds (the kernels JSON's ``mesh_shape``).
 Then JSON lines of the serving runs, the CTR serving runs, CTR
-training, the request server (``{"server": ...}``) and the per-kernel
+training, the request server (``{"server": ...}``), phase 27's
+``{"mesh_serve": ...}`` and the per-kernel
 numbers (eight kernels; the two top-k kernels also carry phase 25's
 ``server_shape``, rows 3-5 phase 26's ``elastic_launches`` and
 ``elastic_round_max_abs_err``), the
@@ -555,6 +576,21 @@ def bound_of(bytes_, adds, lookups):
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
             (t_bytes, t_adds, t_lookups))
+
+
+def full_two_tower(arch, device):
+    """The arch's model at full width (random weights from seed 0) and
+    phase 4's request template: Zipf-skewed history ids, the popularity
+    tally --perm sweeps by.  Module-level and deterministic, so phase
+    27's ranks (``launch.serve.serve_mesh``'s ``make``) build the same."""
+    import numpy as np
+
+    from repro_torch.configs import get_bundle
+    model = get_bundle(arch).make_model(device=device, seed=0)
+    rng = np.random.default_rng(0)
+    template = {"user_hist": (rng.zipf(1.2, (B, model.cfg.hist_len)) - 1)
+                % model.cfg.n_items + 1}
+    return model, template
 
 
 # the full-width training configuration (the repo's SeqRecConfig defaults
@@ -3300,6 +3336,261 @@ def ctr_train_phases(torch, np, dev, smi, data):
     return entry, fwd_launches, summary
 
 
+# ---------------------------------------------------------------- phase 27
+# serving over a model-sharded catalogue: launch/serve.py --mesh S
+# --share-card, S ranks time-sharing the one card (gloo, staged through
+# host memory: NCCL refuses two ranks on one device), each holding its
+# rows of the full-width catalogue
+
+MESH_SHARDS = (2, 4)
+
+
+def shard_kernel_rows(torch, dev, smi, template):
+    """The three kernels of the mesh path at its shard shapes, on the
+    last rank's block (the largest offset) of the full-width catalogue,
+    each against its plain version and timed: ``jpq_topk`` over the
+    block's code rows; ``jpq_topk_pruned``'s two launches (the first
+    tile, then the rest under the exchanged floor and the carried lists)
+    on its slice of one global popularity-permuted state at
+    ``mesh_prune_block_n`` (7,816); ``embedding_bag`` over the block's
+    rows of the 1,000,448 x 256 table with the ids rebased and those
+    outside clipped with weight 0 (``ms`` the launch alone, as phase 10
+    times it; ``checked_ms`` the wrapper with its id check).  Returns
+    {kernel: {S: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.kernels.jpq_topk import ops
+
+    N, k = 1_000_448, 10
+    gen = torch.Generator(device=dev).manual_seed(27)
+    codes = torch.randint(0, BC, (N, M), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    P = ops.canonicalise_lut(torch.randn((B, M, BC), generator=gen,
+                                         device=dev)).contiguous()
+    perm = torch.randperm(N, generator=gen, device=dev)
+    table = torch.randn((N, 256), generator=gen, device=dev)
+    ids = torch.as_tensor(template["user_hist"], device=dev)
+    rows = {"jpq_topk": {}, "jpq_topk_pruned": {}, "embedding_bag": {}}
+    for S in MESH_SHARDS:
+        L, s = N // S, S - 1
+        block = codes[s * L:(s + 1) * L]
+        kern = kc.jpq_topk(P, block, k)
+        plain = ops.jpq_topk_scan(P, block, k, block_n=ops.scan_block_n(L))
+        check(bits_equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1]),
+              f"jpq_topk != plain on a {S}-way shard")
+        b_ms, b_by, _ = bound_of(*topk_work(B, L, k))
+        rows["jpq_topk"][S] = {
+            "rows": L, "max_abs_err": float((kern[0] - plain[0]).abs().max()),
+            "ms": cuda_ms(lambda: kc.jpq_topk(P, block, k), 20),
+            "plain_ms": cuda_ms(lambda: ops.jpq_topk_scan(
+                P, block, k, block_n=ops.scan_block_n(L)), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+        bn = ops.mesh_prune_block_n(N, S)
+        check(bn == 7816, f"mesh_prune_block_n({N}, {S}) = {bn}, not 7816")
+        st = ops.prepare_pruning(codes, BC, bn, perm=perm)
+        nt, lo = L // bn, s * L
+        mine = ops.PruneState(st.codes[lo:lo + L], st.ids[lo:lo + L],
+                              st.present[s * nt:(s + 1) * nt], bn, True)
+
+        def sub(a, b, st=mine, bn=bn):
+            return (st.codes[a * bn:b * bn], st.ids[a * bn:b * bn],
+                    st.present[a:b])
+
+        cold = (torch.full((B,), -float("inf"), device=dev),
+                torch.full((B, k), -float("inf"), device=dev),
+                torch.zeros((B, k), dtype=torch.int32, device=dev))
+        kw = dict(k=k, block_n=bn, tie_break_ids=True)
+
+        def two(fn, sub=sub, cold=cold, kw=kw, nt=nt):
+            v1, i1, s1 = fn(P, *sub(0, 1), *cold, **kw)
+            fl = torch.maximum(cold[0], v1[:, -1])
+            v2, i2, s2 = fn(P, *sub(1, nt), fl, v1, i1, **kw)
+            return v2, i2, s1, s2
+
+        kv, ki, ks1, ks2 = two(kc.jpq_topk_pruned)
+        pv, pi, ps1, ps2 = two(ops.jpq_topk_scan_pruned)
+        check(bits_equal(kv, pv) and torch.equal(ki, pi)
+              and torch.equal(ks1.min(0).values, ps1)
+              and torch.equal(ks2.min(0).values, ps2),
+              f"jpq_topk_pruned != plain on a {S}-way shard at block_n {bn}")
+        skip = torch.cat([ks1, ks2], 1)
+        bytes_, adds, lookups, items = pruned_work(torch, mine, skip, B, k)
+        b_ms, b_by, _ = bound_of(bytes_, adds, lookups)
+        rows["jpq_topk_pruned"][S] = {
+            "rows": L, "block_n": bn, "tiles": nt, "swept_items": items,
+            "max_abs_err": float((kv - pv).abs().max()),
+            "ms": cuda_ms(lambda: two(kc.jpq_topk_pruned), 20),
+            "plain_ms": cuda_ms(lambda: two(ops.jpq_topk_scan_pruned), 2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+        tab = table[s * L:(s + 1) * L]
+        loc = ids - s * L
+        ok = (loc >= 0) & (loc < L)
+        w = ((ids > 0) & ok).float()
+        loc = loc.clamp(0, L - 1)
+        kern = ec.embedding_bag(tab, loc, w)
+        plain = eref.embedding_bag_ref(tab, loc, w)
+        check(bits_equal(kern, plain),
+              f"embedding_bag != plain on a {S}-way shard")
+        n, H = loc.shape
+        distinct = torch.unique(loc).numel()
+        b_ms, b_by = bound(distinct * 256 * 4 + loc.numel() * 8 + n * H * 4
+                           + n * 256 * 4,
+                           {"fp32 FMAs": (n * H * 256, FADD_PER_S)})
+        rows["embedding_bag"][S] = {
+            "rows": L, "bags": n, "distinct_rows": distinct,
+            "ids_in_shard": int(ok.sum()),
+            "max_abs_err": float((kern - plain).abs().max()),
+            "ms": cuda_ms(lambda: ec.launch(tab, loc, w), 50),
+            "checked_ms": cuda_ms(lambda: ec.embedding_bag(tab, loc, w), 50),
+            "plain_ms": cuda_ms(lambda: eref.embedding_bag_ref(tab, loc, w),
+                                10),
+            "library_ms": cuda_ms(lambda: F.embedding_bag(
+                loc, tab, mode="sum", per_sample_weights=w), 50),
+            "bound_ms": b_ms, "bound_by": b_by}
+        for name in rows:
+            r = rows[name][S]
+            print(f"   S={S} {name} on {r['rows']} rows: {r['ms']:.4f} ms "
+                  f"kernel"
+                  + ("" if "checked_ms" not in r else
+                     f" ({r['checked_ms']:.4f} with the id check)")
+                  + f", {r['plain_ms']:.4f} ms plain, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  + ("" if r.get("library_ms") is None else
+                     f", {r['library_ms']:.4f} ms F.embedding_bag")
+                  + f"; bit-equal to plain, on {smi}")
+    del codes, P, perm, table, st, mine
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_phases(torch, np, dev, smi):
+    """Phase 27: ``launch.serve.serve_mesh`` (the ``--mesh S`` CLI's
+    body) with ``--share-card``, S = 2 and 4 ranks on the one card, at
+    full width: two-tower-retrieval-jpq ``--fused`` and ``--prune --perm
+    --warm`` at each S, the full-table two-tower at S = 4; every rank's
+    every response held against the unsharded path on the same request
+    (RecJPQ: bit-equal; the full table: its pooled user tower sums over
+    the ranks in another order, so values within 1e-5 of the largest
+    and ids at least 99% equal); each rank launched its path's kernel;
+    the pruned stats' total_tiles = nt_loc * S.  Then the kernels at the
+    shards' shapes (``shard_kernel_rows``).  On one card the ranks
+    time-share the device: the latencies are what S ranks cost on one
+    card, not what S cards would give."""
+    import functools
+
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = phase("main path: serving over a model-sharded catalogue, S = 2 "
+               "and 4 ranks on the one card (serve --mesh S --share-card)")
+    k = 10
+
+    def parse(arch, flags, S=0):
+        argv = ["--arch", arch, "--batch-size", str(B), "--requests",
+                str(REQUESTS), "--device", "cuda", *flags]
+        if S:
+            argv += ["--mesh", str(S), "--share-card"]
+        return serve_mod.build_parser().parse_args(argv)
+
+    runs = {}
+    launches = {"jpq_topk": {}, "jpq_topk_pruned": {}, "embedding_bag": {}}
+    for arch, cases in (
+            ("two-tower-retrieval-jpq",
+             [(S, name, flags) for S in MESH_SHARDS
+              for name, flags in (("fused", ["--fused"]),
+                                  ("pruned", ["--prune", "--perm",
+                                              "--warm"]))]),
+            ("two-tower-retrieval", [(4, "full", [])])):
+        make = functools.partial(full_two_tower, arch)
+        model, template = make(dev)
+        ref = serve_mod.serve_loop(model, model.params(), template,
+                                   parse(arch, ["--fused"]),
+                                   keep_outputs=True)
+        n_rows = model.emb.cfg.n_items
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        for S, name, flags in cases:
+            kern = {"fused": "jpq_topk", "pruned": "jpq_topk_pruned",
+                    "full": "embedding_bag"}[name]
+            ranks = serve_mod.serve_mesh(parse(arch, flags, S), make=make,
+                                         keep_outputs=True, timeout=300)
+            worst = {"ids_differ": 0, "max_abs_dv": 0.0}
+            for r, res in enumerate(ranks):
+                check(res["mesh"] == S and res["transport"] == "gloo-staged"
+                      and res["rank"] == r, f"rank {r}: {res['transport']}")
+                check(res["launches"][kern] > 0,
+                      f"{arch} mesh={S} {name}: rank {r} never launched "
+                      f"{kern}")
+                if name == "pruned":
+                    nt_loc = n_rows // S // 7816
+                    check(res["total_tiles"] == [nt_loc * S]
+                          * (REQUESTS + 1),
+                          f"total_tiles {set(res['total_tiles'])} != "
+                          f"{nt_loc} x {S}")
+                check(len(res["outputs"]) == len(ref["outputs"]) == REQUESTS,
+                      "response counts differ")
+                for (gv, gi), (wv, wi) in zip(res["outputs"], ref["outputs"]):
+                    check(tuple(gv.shape) == (B, k)
+                          and bool(torch.isfinite(gv).all()),
+                          f"{arch} mesh={S} {name}: bad response")
+                    if name != "full":
+                        check(bits_equal(gv, wv) and torch.equal(gi, wi),
+                              f"{arch} mesh={S} {name}: rank {r} != the "
+                              f"unsharded path")
+                        continue
+                    dv = float((gv - wv).abs().max())
+                    worst["max_abs_dv"] = max(worst["max_abs_dv"], dv)
+                    worst["ids_differ"] += int((gi != wi).sum())
+                    check(dv <= 1e-5 * float(wv.abs().max()),
+                          f"full two-tower mesh={S}: |dv| {dv}")
+            if name == "full":
+                check(worst["ids_differ"] <= 0.01 * S * REQUESTS * B * k,
+                      f"full two-tower mesh={S}: {worst['ids_differ']} ids "
+                      f"differ")
+            r0 = ranks[0]
+            row = {"arch": arch, "S": S, "path": r0["path"],
+                   "transport": r0["transport"], "p50_ms": r0["p50_ms"],
+                   "p99_ms": r0["p99_ms"], "skip": r0["skip"],
+                   "unsharded_p50_ms": ref["p50_ms"],
+                   "unsharded_p99_ms": ref["p99_ms"],
+                   "comm_ms_per_request": float(np.median(r0["comm_ms"])),
+                   "comm_calls_per_request": int(np.median(
+                       r0["comm_calls"])),
+                   "comm_bytes_per_request": int(np.median(
+                       r0["comm_bytes"])),
+                   "merge_bytes": S * B * k * 8,
+                   "launches_per_rank": [x["launches"][kern] for x in ranks],
+                   **({"full_table": worst} if name == "full" else {})}
+            runs[f"{arch}@{S}:{name}"] = row
+            launches[kern][f"{arch}@{S}"] = row["launches_per_rank"]
+            print(f"   {arch} mesh={S} {row['path']}: p50={row['p50_ms']:.3f}"
+                  f"ms p99={row['p99_ms']:.3f}ms (unsharded "
+                  f"{row['unsharded_p50_ms']:.3f}/{row['unsharded_p99_ms']:.3f}"
+                  f" ms), collectives {row['comm_ms_per_request']:.3f} ms "
+                  f"and {row['comm_bytes_per_request']} bytes in "
+                  f"{row['comm_calls_per_request']} calls a request (the "
+                  f"merge's S·B·k·8 = {row['merge_bytes']}), transport "
+                  f"{row['transport']}, {kern} launches by rank "
+                  f"{row['launches_per_rank']}, skip={row['skip']}; "
+                  + ("every response bit-equal to the unsharded path"
+                     if name != "full" else
+                     f"|dv| <= {worst['max_abs_dv']:.3g}, "
+                     f"{worst['ids_differ']} ids differ")
+                  + f"; on {smi}")
+    done(t0)
+
+    t0 = phase("the mesh path's kernels at the shards' shapes (CUDA events)")
+    shard_rows = shard_kernel_rows(torch, dev, smi, template)
+    done(t0)
+    return {"mesh_serve": runs, "shard_kernels": shard_rows,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3309,7 +3600,6 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import fp32_matmuls
-    from repro_torch.configs import get_bundle
     from repro_torch.core import engine as engine_mod
     from repro_torch.core import jpq as jpq_mod
     from repro_torch.core.assign import popularity_permutation
@@ -3411,15 +3701,9 @@ def main() -> int:
     done(t0)
 
     t0 = phase("main path: full-width two-tower-retrieval-jpq serving")
-    bundle = get_bundle("two-tower-retrieval-jpq")
-    model = bundle.make_model(device=dev, seed=0)
+    model, template = full_two_tower("two-tower-retrieval-jpq", dev)
     params = model.params()
     n_rows = params["item_emb"]["codes"].shape[0]
-    rng = np.random.default_rng(0)
-    hist_len = model.cfg.hist_len
-    # Zipf-skewed history ids: the popularity tally --perm sweeps by
-    template = {"user_hist": (rng.zipf(1.2, (B, hist_len)) - 1)
-                % model.cfg.n_items + 1}
     runs = {}
     for name, flags, kern in (("fused", ["--fused"], "jpq_topk"),
                               ("pruned", ["--prune", "--perm", "--warm"],
@@ -3669,6 +3953,13 @@ def main() -> int:
         torch, np, dev, smi, data)
     bag_kernel["train_launches"] = bag_train_launches
     kernels += [bag_kernel, bag_bwd]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phases(torch, np, dev, smi)
+    for entry in kernels:                 # phase 27's shard shapes
+        if entry["name"] in mesh["shard_kernels"]:
+            entry["mesh_shape"] = mesh["shard_kernels"][entry["name"]]
+            entry["mesh_launches_per_rank"] = mesh["launches"][entry["name"]]
     for entry in kernels:                 # phase 26's launches and errs
         if entry["name"] in engine["elastic_launches"]:
             entry["elastic_launches"] = engine["elastic_launches"][
@@ -3690,6 +3981,7 @@ def main() -> int:
     print(json.dumps({"serve_ctr": serve_ctr, "card": smi}))
     print(json.dumps({"ctr_train": ctr_train, "card": smi}))
     print(json.dumps({"server": server}))
+    print(json.dumps({"mesh_serve": mesh["mesh_serve"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

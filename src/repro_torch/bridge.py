@@ -17,6 +17,10 @@ centroids arrive bit-identical.  The sequential models' trees carry over
 two-tower model, FM (``emb``, the ``[V]`` ``linear``, the scalar
 ``bias``), DLRM (``bot``/``top`` MLPs) and DIEN (``gru1``/``augru``
 ``wx``/``wh``/``b``, the ``att``/``fc``/``aux`` MLPs, ``tgt_proj``).
+
+On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
+catalogue leaf to this rank's rows (``dist.local_rows``), which the
+mesh branches of ``core/sharded.py`` serve from.
 """
 from __future__ import annotations
 
@@ -80,6 +84,35 @@ def load_values(model, values) -> None:
     emb = params.get("item_emb", params.get("emb", {}))
     if "codes" in emb and int(emb["codes"].max()) >= model.emb.cfg.b:
         raise ValueError(f"codes must be < b={model.emb.cfg.b}")
+
+
+def keep_local_rows(model, mesh=None) -> dict:
+    """Keep only this rank's rows of each catalogue leaf of ``model``
+    (the codes, a full table): every leaf whose first logical axis is in
+    ``dist.CATALOGUE_AXES`` and which ``dist.params_shardings`` places
+    on ``"model"`` is replaced, in place, by its ``dist.local_rows``, so
+    the whole catalogue is not held once per rank.  ``mesh`` defaults to
+    the ambient one.  Returns the placement specs of ``model.params()``
+    (before the cut)."""
+    from repro_torch import dist as _dist
+    from repro_torch.dist import rules as _rules
+    mesh = _rules._CTX.mesh if mesh is None else mesh
+    axes = model.param_axes()
+    specs = _dist.params_shardings(model.params(), axes, mesh)
+    for name, sub in model.named_children():
+        for leaf, ax in axes.get(name, {}).items():
+            if not (isinstance(ax, tuple) and ax[0] in _dist.CATALOGUE_AXES):
+                continue
+            old = getattr(sub, leaf)
+            new = _dist.local_rows(old.detach(), specs[name][leaf], mesh)
+            if new.shape == old.shape:
+                continue
+            if leaf in sub._parameters:
+                sub._parameters[leaf] = torch.nn.Parameter(
+                    new, requires_grad=old.requires_grad)
+            else:
+                sub._buffers[leaf] = new
+    return specs
 
 
 def load_opt_state(opt_state, src) -> dict:

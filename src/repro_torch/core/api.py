@@ -55,6 +55,18 @@ class Embedding:
                             init_scale=c.init_scale, device=device)
         raise ValueError(c.kind)
 
+    def param_axes(self) -> dict:
+        """The logical axes of each leaf of ``init``'s tree (the
+        reference's)."""
+        kind = self.cfg.kind
+        if kind == "full":
+            return {"table": ("table", "table_dim")}
+        if kind == "jpq":
+            return {"codes": ("items", "code_split"),
+                    "centroids": ("code_split", "centroid", "table_dim")}
+        raise NotImplementedError(
+            f"{kind} tables are not placed on a mesh in the port")
+
     def lookup(self, p, ids):
         c = self.cfg
         if c.kind == "full":

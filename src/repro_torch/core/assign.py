@@ -148,6 +148,21 @@ def popularity_permutation(counts=None, *, interactions=None,
 
 # ------------------------------------------------------------- factory
 
+def shard_sweep_ids(perm: np.ndarray, shards: int) -> np.ndarray:
+    """Permute-then-shard id layout: the global popularity permutation
+    is applied to the catalogue rows first and only then split into
+    ``shards`` contiguous blocks, so shard s sweeps ``perm[s*L:(s+1)*L]``
+    (L = n_items / shards), its own rows in popularity order.  Returns
+    ``[shards, L]``: row s is shard s's id-map, the rows a global
+    ``prepare_pruning(codes, b, bn, perm=perm)`` state's ``ids`` give
+    each shard under ``core.sharded.fused_topk_over_codes``."""
+    perm = np.asarray(perm)
+    n = perm.shape[0]
+    if n % shards != 0:
+        raise ValueError(f"{n} rows do not split over {shards} shards")
+    return perm.reshape(shards, n // shards)
+
+
 def build_codebook(strategy: str, n_items: int, m: int, b: int = 256, *,
                    interactions: Optional[Tuple[np.ndarray,
                                                 np.ndarray]] = None,

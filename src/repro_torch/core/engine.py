@@ -241,8 +241,12 @@ def _materialise_scorer(engine, p, h, floor):
             "the materialise path has no pruning threshold to seed — "
             "serve with kind='jpq', fused=True and a prune policy, or "
             "drop the floor")
-    scores = engine.emb.logits(p, h)                       # [B, N]
-    return sharded.topk_over_items(scores, int(spec.k))
+    # under a "model" mesh the parameters hold this rank's rows, so
+    # these are its own column block of the scores (the reference's
+    # constrain(scores, ("batch", "items")))
+    scores = engine.emb.logits(p, h)                       # [B, N(/S)]
+    return sharded.topk_over_items(scores, int(spec.k),
+                                   rows=_catalogue_rows(engine))
 
 
 def _jpq_fused_scorer(engine, p, h, floor):
@@ -253,7 +257,13 @@ def _jpq_fused_scorer(engine, p, h, floor):
     part = _jpq.partial_scores(p, h)                       # [B, m, b]
     return sharded.fused_topk_over_codes(
         part, p["codes"], spec.k, block_n=spec.block_n, prune=engine.prune,
-        perm=engine.perm, warm=floor, return_stats=spec.stats)
+        perm=engine.perm, warm=floor, return_stats=spec.stats,
+        rows=_catalogue_rows(engine))
+
+
+def _catalogue_rows(engine):
+    """The catalogue's row count (the operand may hold a rank's block)."""
+    return None if engine.emb is None else int(engine.emb.cfg.n_items)
 
 
 register_scorer(
@@ -396,20 +406,24 @@ class JitCache:
 
 def resolve_prune_block_n(N: int, *, shards: int = 0,
                           block_n: Optional[int] = None) -> int:
-    """Tile size for a pruning state: an explicit ``block_n`` wins, else
-    ``prune_block_n(N)``.  A sharded catalogue is a later slice."""
-    if shards and int(shards) > 1:
-        raise NotImplementedError("multi-GPU serving is a later slice of "
-                                  "the port")
+    """Tile size for a pruning state: an explicit ``block_n`` wins;
+    under an S-way mesh whose shards tile N, ``mesh_prune_block_n``
+    keeps one global state row-sliceable; otherwise
+    ``prune_block_n(N)``."""
     if block_n:
         return int(block_n)
+    if shards and int(shards) > 1 and N % int(shards) == 0:
+        return _tops.mesh_prune_block_n(N, int(shards))
     return _tops.prune_block_n(N)
 
 
 def build_prune_state(codes, b: int, *, shards: int = 0,
                       block_n: Optional[int] = None, perm=None):
     """Build the codes-only presence-mask state once, outside the
-    per-request path.  ``perm``: optional [N] sweep order."""
+    per-request path.  ``perm``: optional [N] sweep order, baked into
+    the state (permute-then-shard under a mesh).  ``codes`` is the
+    whole catalogue: every rank of a mesh holds the global state and
+    serves its slice of it."""
     bn = resolve_prune_block_n(codes.shape[0], shards=shards,
                                block_n=block_n)
     return _tops.prepare_pruning(codes, int(b), bn, perm=perm)

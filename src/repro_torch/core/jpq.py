@@ -50,11 +50,16 @@ def lookup(p, ids, *, use_kernel: bool = False):
     if use_kernel:
         from repro_torch.kernels.jpq_lookup import ops as kops
         return kops.jpq_lookup(ids, p["codes"], cent)
+    return lookup_codes(cent, p["codes"][ids.long()])
+
+
+def lookup_codes(cent, codes):
+    """centroids [m, b, dk], the code rows of some items [..., m] ->
+    their embeddings [..., d]: ``lookup``'s centroid gather."""
     m, b, dk = cent.shape
-    codes = p["codes"][ids.long()].long()                 # [..., m]
-    flat = codes + b * torch.arange(m, device=cent.device)   # j * b + code
+    flat = codes.long() + b * torch.arange(m, device=cent.device)  # j*b+code
     emb = _bag.gather(cent.reshape(m * b, dk), flat)      # [..., m, dk]
-    return emb.reshape(*ids.shape, -1)
+    return emb.reshape(*codes.shape[:-1], -1)
 
 
 def partial_scores(p, h):

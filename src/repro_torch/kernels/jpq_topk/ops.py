@@ -255,6 +255,26 @@ def prune_block_n(N: int, target: int = _PRUNE_BLOCK_N) -> int:
     return scan_block_n(N, target)
 
 
+def mesh_prune_block_n(N: int, shards: int,
+                       target: int = _PRUNE_BLOCK_N) -> int:
+    """Pruned tile size for a ``shards``-way row-sharded catalogue: the
+    divisor of the per-shard row count closest to ``target`` (the
+    reference's search, ties to the first found), so one global permute-then-shard ``PruneState``
+    tiles every shard's rows exactly."""
+    if N % shards:
+        raise ValueError(f"{N} rows do not split over {shards} shards")
+    local_n = N // shards
+    best = local_n
+    d = 1
+    while d * d <= local_n:
+        if local_n % d == 0:
+            for c in (d, local_n // d):
+                if abs(c - target) < abs(best - target):
+                    best = c
+        d += 1
+    return best
+
+
 def _tile_scores(partial, codes_tile):
     """[B, m, b] LUT, [Nt, m] codes -> [B, Nt] scores, split order."""
     c = codes_tile.long()

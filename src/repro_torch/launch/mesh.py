@@ -1,21 +1,34 @@
-"""The data-parallel mesh over ``torch.distributed``.
+"""The ``(data, model)`` mesh over ``torch.distributed``.
 
 ``HostMesh`` is the port's counterpart of the reference's host mesh
 (``repro.launch.mesh.make_host_mesh``): axis names ``("data",
 "model")``, their sizes, and this process's rank in the process group
-that carries the collectives (gloo for CPU tensors, NCCL for CUDA
-ones).  A mesh built from sizes alone (``group=False``) has no group and
-serves the layout arithmetic (``dist.compression.payload_bytes``,
+that carries the collectives.  Ranks take ``jax.make_mesh((data,
+model))``'s device order, ``rank = d * model + m``; each rank also holds
+the sub-groups of its ``"model"`` row and its ``"data"`` column.  A mesh
+built from sizes alone (``group=False``) has no group and serves the
+layout arithmetic (``dist.compression.payload_bytes``,
 ``TrainSpec.resolve_accum``) only.
+
+The transport is the caller's choice, never a fallback:
+  * ``"gloo"``        CPU tensors;
+  * ``"nccl"``        CUDA tensors, each rank on a card of its own;
+  * ``"gloo-staged"`` CUDA tensors of ranks that share one card
+    (``spawn(..., share_card=True)``): NCCL refuses two ranks on one
+    device, so ``HostMesh.all_gather`` / ``all_reduce`` copy the
+    payload to host memory, run gloo there and copy the result back.
+A tensor on the wrong side of its transport raises.
 
 The group is initialised from a ``FileStore`` in a temporary directory,
 so nothing needs a network.  ``make_host_mesh`` makes a world of one in
 the calling process; a world of N runs N processes, which ``spawn``
-starts (``launch/train.py --devices N`` on the CPU).
+starts (``launch/train.py --devices N`` on the CPU, ``launch/serve.py
+--mesh S``).
 """
 from __future__ import annotations
 
 import gc
+import math
 import os
 import shutil
 import tempfile
@@ -26,27 +39,107 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+TRANSPORTS = ("gloo", "nccl", "gloo-staged")
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class HostMesh:
     """A ``(data, model)`` mesh: ``shape`` maps axis name to size,
-    ``rank`` is this process's index on the data axis."""
+    ``rank`` is this process's rank in the group (``d * model + m``;
+    its index on the data axis when ``model == 1``), ``groups`` the
+    sub-group of each axis through this rank (``None`` for an axis of
+    size 1).  ``comm`` counts the collectives ``all_gather`` and
+    ``all_reduce`` ran: calls, the bytes of their results on this rank,
+    and host seconds (staging included; for NCCL, the enqueue)."""
 
     def __init__(self, data: int, model: int = 1, *, rank: int = 0,
-                 group=None, device="cpu", owned_dir: Optional[str] = None):
-        if model != 1:
-            from repro_torch.dist import NEXT_SLICE
-            raise NotImplementedError(NEXT_SLICE)
+                 group=None, device="cpu", owned_dir: Optional[str] = None,
+                 groups=None, transport: Optional[str] = None):
         self.shape = {"data": int(data), "model": int(model)}
         self.axis_names = AXES
         self.rank = int(rank)
         self.group = group
+        self.groups = dict(groups or {})
         self.device = _indexed(device)
+        self.transport = transport or backend_for(self.device)
+        if self.transport not in TRANSPORTS:
+            raise ValueError(f"transport {self.transport!r} not in "
+                             f"{TRANSPORTS}")
+        self.comm = {"calls": 0, "bytes": 0, "seconds": 0.0}
         self._owned_dir = owned_dir
 
     @property
     def world_size(self) -> int:
-        return self.shape["data"]
+        return self.shape["data"] * self.shape["model"]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.shape["model"]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.shape["model"]
+
+    def _group_of(self, axes):
+        axes = tuple(a for a in axes if self.shape[a] > 1)
+        n = math.prod(self.shape[a] for a in axes)
+        if n > 1 and self.group is None:
+            raise ValueError("a sizes-only mesh (group=False) runs no "
+                             "collective")
+        if len(axes) != 1:                   # none, or both: the world
+            return self.group, n
+        return self.groups[axes[0]], n
+
+    def _collective(self, x, fn):
+        """Run ``fn`` on ``x`` over this mesh's transport: in place on
+        the tensor for gloo and NCCL, on a host copy for gloo-staged."""
+        want_cuda = self.transport != "gloo"
+        if x.is_cuda != want_cuda:
+            raise ValueError(
+                f"a {x.device.type} tensor on the {self.transport} "
+                f"transport (gloo: CPU tensors; nccl and gloo-staged: "
+                f"CUDA tensors)")
+        if self.transport == "gloo-staged":
+            torch.cuda.synchronize(x.device)   # time the exchange alone
+        t0 = time.perf_counter()
+        if self.transport == "gloo-staged":
+            out = fn(x.cpu()).to(x.device)
+        else:
+            out = fn(x)
+        self.comm["calls"] += 1
+        self.comm["bytes"] += out.numel() * out.element_size()
+        self.comm["seconds"] += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, x, axis: str, dim: int = 0):
+        """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
+        ascending axis index (the reference's ``all_gather(...,
+        tiled=True)``)."""
+        group, n = self._group_of((axis,))
+        if n == 1:
+            return x
+
+        def fn(t):
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            return torch.cat(parts, dim)
+        return self._collective(x, fn)
+
+    def all_reduce(self, x, axes, op: str = "sum"):
+        """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of
+        ``axes`` (one axis name or a tuple); a new tensor."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        group, n = self._group_of(axes)
+        if n == 1:
+            return x
+
+        def fn(t):
+            t = t.clone()
+            dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+            return t
+        return self._collective(x, fn)
 
     def close(self) -> None:
         """Tear down a process group this mesh initialised."""
@@ -58,11 +151,44 @@ class HostMesh:
 
     def __repr__(self):
         return (f"HostMesh(shape={self.shape}, rank={self.rank}, "
-                f"device={self.device})")
+                f"device={self.device}, transport={self.transport})")
 
 
 def backend_for(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def transport_for(device, share_card: bool = False) -> str:
+    """The transport of a rank on ``device``: ``share_card`` (several
+    ranks on one card) stages CUDA payloads through gloo."""
+    if not share_card:
+        return backend_for(device)
+    if torch.device(device).type != "cuda":
+        raise ValueError("share_card is for ranks that share one CUDA "
+                         "card; a CPU mesh runs gloo as it is")
+    return "gloo-staged"
+
+
+def axis_groups(data: int, model: int, rank: int) -> dict:
+    """The sub-group of each axis through ``rank``: every rank creates
+    every group, in the same order (``"model"`` rows, then ``"data"``
+    columns), as ``dist.new_group`` requires.  An axis of size 1 has
+    none; an axis that spans the world is the default group."""
+    world = data * model
+    rows = [[d * model + m for m in range(model)] for d in range(data)]
+    cols = [[d * model + m for d in range(data)] for m in range(model)]
+    groups = {}
+    for axis, sets, size in (("model", rows, model), ("data", cols, data)):
+        if size == 1:
+            groups[axis] = None
+        elif size == world:
+            groups[axis] = dist.group.WORLD
+        else:
+            for ranks in sets:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axis] = g
+    return groups
 
 
 def _indexed(device) -> torch.device:
@@ -72,46 +198,49 @@ def _indexed(device) -> torch.device:
     return dev
 
 
-def init_group(rank: int, world: int, store_path: str, device) -> None:
+def init_group(rank: int, world: int, store_path: str, device,
+               share_card: bool = False) -> None:
     """Initialise this process's default group from a ``FileStore``."""
     dev = _indexed(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     store = dist.FileStore(store_path, world)
-    kw = {"device_id": dev} if dev.type == "cuda" else {}
-    dist.init_process_group(backend_for(dev), store=store, rank=rank,
+    backend = "gloo" if share_card else backend_for(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world, **kw)
 
 
 def make_host_mesh(n_devices: int = 1, model: int = 1, *, device="cpu",
-                   group=True) -> HostMesh:
+                   group=True, share_card: bool = False) -> HostMesh:
     """The mesh over the process group: the running group when there is
-    one (its world size must be ``n_devices``), else a new world of one
+    one (its world size must be ``n_devices``; every rank calls this
+    alike, since it creates the axis groups), else a new world of one
     (only ``n_devices == 1``).  ``group=False`` builds a sizes-only
-    mesh."""
+    mesh.  ``share_card``: the ranks share one card (gloo-staged)."""
     if model < 1 or n_devices % model != 0:
         raise ValueError(
             f"model axis {model} must divide the device count "
             f"{n_devices}")
     data = n_devices // model
-    if model != 1:
-        from repro_torch.dist import NEXT_SLICE
-        raise NotImplementedError(NEXT_SLICE)
+    transport = transport_for(device, share_card)
     if not group:
-        return HostMesh(data, model, device=device)
+        return HostMesh(data, model, device=device, transport=transport)
+    backend = "nccl" if transport == "nccl" else "gloo"
     if dist.is_initialized():
         world = dist.get_world_size()
         if world != n_devices:
             raise ValueError(
                 f"a mesh of {n_devices} devices in a process group of "
                 f"{world}")
-        if dist.get_backend() != backend_for(device):
+        if dist.get_backend() != backend:
             raise ValueError(
-                f"the process group runs {dist.get_backend()}, a "
-                f"{torch.device(device).type} mesh needs "
-                f"{backend_for(device)}")
-        return HostMesh(data, model, rank=dist.get_rank(),
-                        group=dist.group.WORLD, device=device)
+                f"the process group runs {dist.get_backend()}, the "
+                f"{transport} transport needs {backend}")
+        rank = dist.get_rank()
+        return HostMesh(data, model, rank=rank, group=dist.group.WORLD,
+                        device=device, transport=transport,
+                        groups=axis_groups(data, model, rank))
     if n_devices != 1:
         raise ValueError(
             f"a mesh of {n_devices} devices needs {n_devices} processes: "
@@ -123,12 +252,13 @@ def make_host_mesh(n_devices: int = 1, model: int = 1, *, device="cpu",
                     owned_dir=tmp)
 
 
-def _worker(rank, world, store_path, device, fn, args):
+def _worker(rank, world, model, store_path, device, share_card, fn, args):
     dev = torch.device(device)
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank)
-    init_group(rank, world, store_path, dev)
-    fn(HostMesh(world, 1, rank=rank, group=dist.group.WORLD, device=dev),
+        dev = torch.device("cuda", dev.index or 0) if share_card \
+            else torch.device("cuda", rank)
+    init_group(rank, world, store_path, dev, share_card)
+    fn(make_host_mesh(world, model, device=dev, share_card=share_card),
        *args)
     _leave()
 
@@ -144,21 +274,27 @@ def _leave() -> None:
     dist.destroy_process_group()
 
 
-def spawn(fn, n: int, args=(), *, device="cpu", on_start=None,
+def spawn(fn, n: int, args=(), *, device="cpu", model: int = 1,
+          share_card: bool = False, on_start=None,
           timeout: Optional[float] = None) -> None:
-    """Run ``fn(mesh, *args)`` in ``n`` new processes, one a rank of a
-    mesh of ``n`` (CUDA: rank r on card r), and wait for them all;
-    raises if one fails, and after ``timeout`` seconds kills them and
-    raises ``TimeoutError``.  ``on_start(processes)`` runs once they
-    have started (the train CLI forwards SIGTERM to them from there)."""
+    """Run ``fn(mesh, *args)`` in ``n`` new processes, one a rank of an
+    ``(n // model, model)`` mesh, and wait for them all; raises if one
+    fails, and after ``timeout`` seconds kills them and raises
+    ``TimeoutError``.  CUDA: rank r on card r, or with ``share_card``
+    every rank on ``device``'s card (the gloo-staged transport).
+    ``on_start(processes)`` runs once they have started (the train CLI
+    forwards SIGTERM to them from there)."""
     import torch.multiprocessing as mp
+    transport_for(device, share_card)            # validate before forking
+    if model < 1 or n % model:
+        raise ValueError(f"model axis {model} must divide {n} ranks")
     tmp = tempfile.mkdtemp(prefix="repro_torch_spawn-")
     deadline = None if timeout is None else time.monotonic() + timeout
     ctx = None
     try:
         ctx = mp.start_processes(
-            _worker, args=(n, os.path.join(tmp, "store"), str(device), fn,
-                           tuple(args)),
+            _worker, args=(n, model, os.path.join(tmp, "store"),
+                           str(device), share_card, fn, tuple(args)),
             nprocs=n, join=False, start_method="spawn")
         if on_start is not None:
             on_start(ctx.processes)

@@ -23,7 +23,7 @@ asserts p99 under ``--p99-budget-ms``, zero dropped/duplicated requests,
 and a schema-valid metrics snapshot, exiting non-zero on any violation.
 Every (bucket, replica) dispatch is warmed on dummy batches first (the
 kernels' build and first launches are not serve latency).  ``--mesh`` >
-1 is not yet ported and raises.
+1 is not yet ported and raises (ROADMAP queue 1, item 9d).
 """
 from __future__ import annotations
 
@@ -34,7 +34,16 @@ import time
 
 import numpy as np
 
-from repro_torch.launch.serve import _check_ported, _template_popularity
+from repro_torch.launch.serve import _template_popularity
+
+
+def _check_ported(args) -> None:
+    if args.mesh > 1:
+        raise NotImplementedError(
+            "--mesh > 1: the request server over a model-sharded catalogue "
+            "is not yet ported (ROADMAP.md queue 1, item 9d: S processes, "
+            "rank 0 broadcasting each batch); launch/serve.py --mesh S "
+            "serves batches from one")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = never)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="model-shard the catalogue S ways (not yet "
-                         "ported: S > 1 raises)")
+                         "ported: S > 1 raises, ROADMAP item 9d)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the full metrics snapshot as JSON")

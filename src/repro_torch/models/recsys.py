@@ -117,18 +117,37 @@ class TwoTower(torch.nn.Module):
         return {"item_emb": self.item_emb.tensors(),
                 "user_mlp": _mlp_tree(self.user_mlp)}
 
+    def param_axes(self) -> dict:
+        """The logical axes of each leaf of ``params()``: the
+        reference's (``nn.axes_tree`` of its ``init_params``)."""
+        layers = [{"w": ("embed" if i == 0 else "mlp", "mlp"), "b": ("mlp",)}
+                  for i in range(len(self.user_mlp))]
+        return {"item_emb": self.emb.param_axes(),
+                "user_mlp": {"layers": layers}}
+
     def forward(self, user_hist):
         return self.user_vec(self.params(), user_hist)
 
     def user_vec(self, p, user_hist):
+        """The user tower.  Under a ``"model"`` mesh the item leaves may
+        hold this rank's rows (``bridge.keep_local_rows``): the full
+        table pools through the row-sharded ``pooled_lookup``, and the
+        JPQ codes of the history are gathered exactly across the ranks
+        (``sharded.take_rows``) before the centroid gather."""
+        from repro_torch.core import sharded
         user_hist = torch.as_tensor(user_hist, device=self.device)
         mask = (user_hist > 0).float()
+        item, rows = p["item_emb"], self.emb.cfg.n_items
         if self.cfg.emb_cfg().kind == "full":
-            from repro_torch.core import sharded
-            pooled = sharded.pooled_lookup(p["item_emb"]["table"],
-                                           user_hist, mask)
+            pooled = sharded.pooled_lookup(item["table"], user_hist, mask,
+                                           rows=rows)
         else:
-            e = self.emb.lookup(p["item_emb"], user_hist)    # [B, H, d]
+            if item["codes"].shape[0] != rows:       # this rank's block
+                from repro_torch.core import jpq as _jpq
+                e = _jpq.lookup_codes(item["centroids"], sharded.take_rows(
+                    item["codes"], user_hist, rows=rows))
+            else:
+                e = self.emb.lookup(item, user_hist)          # [B, H, d]
             pooled = torch.sum(e * mask[..., None], 1)
         pooled = pooled / torch.clamp(mask.sum(1, keepdim=True), min=1.0)
         return L.mlp(p["user_mlp"], pooled)                  # [B, d]
@@ -204,7 +223,8 @@ class TwoTower(torch.nn.Module):
         for s in range(0, hist.shape[0], chunk):
             u = self.user_vec(p, hist[s:s + chunk])
             v, i = sharded.topk_over_items(
-                self.emb.logits(p["item_emb"], u), top_k)
+                self.emb.logits(p["item_emb"], u), top_k,
+                rows=self.emb.cfg.n_items)
             vals.append(v)
             idx.append(i)
         return torch.cat(vals), torch.cat(idx)

@@ -109,8 +109,10 @@ def _own_stream(codes, after):
 class CatalogueRegistry:
     """Holds the live catalogue version and the prebuilt-state cache.
 
-    ``block_n`` overrides the tile size; ``shards`` > 1 (a sharded
-    catalogue) is not ported yet and raises on publish.  ``prune=False``
+    ``block_n`` overrides the tile size; ``shards`` > 1 tiles each of
+    the S row blocks exactly (``engine.resolve_prune_block_n``), though
+    the request server under a mesh is not ported (ROADMAP queue 1,
+    item 9d: ``launch/server.py --mesh`` raises).  ``prune=False``
     publishes versions without pruning state (the plain fused path).
     """
 

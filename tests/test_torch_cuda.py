@@ -1577,3 +1577,72 @@ def test_elastic_modes_bit_identical_on_the_card(dev):
                 assert all(torch.equal(a, b) for a, b in zip(want, got))
     finally:
         mesh.close()
+
+
+# ---------------------------------------------- the catalogue's row slices
+# (the shapes core/sharded.py's mesh branches give each kernel: a rank's
+# block of the full-width catalogue, 1,000,448 rows, at S = 2 and 4)
+
+SHARDS = [(2, 1), (4, 3), (4, 2)]          # (S, the rank's block s)
+
+
+@pytest.mark.parametrize("S, s", SHARDS)
+def test_jpq_topk_on_a_row_slice(dev, S, s):
+    """``jpq_topk`` over rank s's rows (a view at an offset into the
+    whole codes), bit-equal to its plain version on the same slice."""
+    N = 1_000_448
+    P, codes = _case(dev, 11, 64, 8, 256, N)
+    L = N // S
+    block = codes[s * L:(s + 1) * L]
+    got = kc.jpq_topk(P, block, 10)
+    want = ops.jpq_topk_scan(P, block, 10, block_n=ops.scan_block_n(L))
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("S, s", SHARDS)
+def test_pruned_kernel_on_a_row_slice_at_7816(dev, S, s):
+    """The mesh path's two pruned launches on rank s's slice of one
+    global popularity-permuted state at block_n = mesh_prune_block_n
+    (7,816): the first tile, then the rest under a raised floor and the
+    carried lists — bit-equal to the plain version, skip maps too."""
+    N, B, k = 1_000_448, 64, 10
+    P, codes = _case(dev, 12, B, 8, 256, N)
+    bn = ops.mesh_prune_block_n(N, S)
+    assert bn == 7816
+    st = ops.prepare_pruning(codes, 256, bn,
+                             perm=torch.randperm(N, device=dev))
+    L, nt = N // S, N // S // bn
+    lo, t0 = s * L, s * nt
+
+    def sub(a, b):
+        return (st.codes[lo + a * bn:lo + b * bn], st.ids[lo + a * bn:
+                                                          lo + b * bn],
+                st.present[t0 + a:t0 + b])
+
+    floor, v0, i0 = _cold(dev, B, k)
+    kw = dict(k=k, block_n=bn, tie_break_ids=True)
+    k1 = kc.jpq_topk_pruned(P, *sub(0, 1), floor, v0, i0, **kw)
+    p1 = ops.jpq_topk_scan_pruned(P, *sub(0, 1), floor, v0, i0, **kw)
+    assert _same(k1[:2], p1[:2])
+    fl = torch.maximum(floor, k1[0][:, -1] - 0.5)
+    k2 = kc.jpq_topk_pruned(P, *sub(1, nt), fl, k1[0], k1[1], **kw)
+    p2 = ops.jpq_topk_scan_pruned(P, *sub(1, nt), fl, p1[0], p1[1], **kw)
+    assert _same(k2[:2], p2[:2])
+    assert torch.equal(k2[2].min(0).values, p2[2])
+
+
+@pytest.mark.parametrize("S, s", SHARDS)
+def test_embedding_bag_on_a_row_slice(dev, S, s):
+    """The row-sharded pooled lookup's launch: rank s's rows of the
+    1,000,448 x 256 table, ids rebased by its first row, those outside
+    clipped into range with weight 0 — bit-equal to the plain version."""
+    V, d, n, L = 1_000_448, 256, 512, 50
+    table, ids, w = _bag_case(dev, V, d, n, L, "masked", torch.int64, seed=3)
+    R = V // S
+    loc = ids - s * R
+    ok = (loc >= 0) & (loc < R)
+    loc, w = loc.clamp(0, R - 1), w * ok.float()
+    block = table[s * R:(s + 1) * R]
+    got = ec.embedding_bag(block, loc, w)
+    want = eref.embedding_bag_ref(block, loc, w)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

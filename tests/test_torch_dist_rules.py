@@ -124,10 +124,11 @@ def test_constrain_identity_and_next_slice():
         assert T_dist.constrain(x, ("batch", "mlp")) is x    # model == 1
     with T_R.use_mesh_rules(_mesh(data=2, model=2)):
         assert T_dist.constrain(x, ("batch", None)) is x     # data axis
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(NotImplementedError, match="item 9c"):
             T_dist.constrain(x, ("batch", "mlp"))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        make_host_mesh(4, model=2, group=False)
+    # the model axis itself is ported (serving's mesh branches)
+    m = make_host_mesh(4, model=2, group=False)
+    assert m.shape == {"data": 2, "model": 2} and m.group is None
     with pytest.raises(ValueError, match="must divide"):
         make_host_mesh(4, model=3, group=False)
 

@@ -107,18 +107,31 @@ class TestJpqModule:
             T_jpq.reconstruct_table(tp).numpy())
 
     def test_mesh_is_a_later_slice(self):
+        """The mesh branches are ported (tests/test_torch_sharded.py):
+        the functions read the ambient mesh.  Where its model axis does
+        not divide the rows they run unsharded, as the reference does;
+        where it does, a mesh without a process group refuses the
+        collective instead of serving a shard's answer."""
+        from repro_torch import dist as T_dist
         from repro_torch.core import sharded
-        x = torch.zeros(2, 5)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            sharded.topk_over_items(x, 3, mesh=object())
-        with pytest.raises(NotImplementedError, match="later slice"):
-            sharded.fused_topk_over_codes(torch.zeros(2, 1, 4),
-                                          torch.zeros(5, 1, dtype=torch.uint8),
-                                          3, mesh=object())
-        with pytest.raises(NotImplementedError, match="later slice"):
-            sharded.pooled_lookup(torch.zeros(4, 3),
-                                  torch.zeros(2, 2, dtype=torch.long),
-                                  torch.ones(2, 2), mesh=object())
+        from repro_torch.launch.mesh import HostMesh
+        x = torch.arange(10.0).reshape(2, 5)
+        part = torch.arange(8.0).reshape(2, 1, 4)
+        codes = torch.tensor([[3], [1], [2], [0], [3]], dtype=torch.uint8)
+        tab, ids = torch.arange(12.0).reshape(4, 3), torch.tensor([[1, 3]] * 2)
+        want = (sharded.topk_over_items(x, 3),
+                sharded.fused_topk_over_codes(part, codes, 3),
+                sharded.pooled_lookup(tab, ids, torch.ones(2, 2)))
+        with T_dist.use_mesh_rules(HostMesh(1, 3)):       # 3 ∤ 5, 3 ∤ 4
+            got = (sharded.topk_over_items(x, 3),
+                   sharded.fused_topk_over_codes(part, codes, 3),
+                   sharded.pooled_lookup(tab, ids, torch.ones(2, 2)))
+        for g, w in zip(got[:2], want[:2]):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+        assert torch.equal(got[2], want[2])
+        with T_dist.use_mesh_rules(HostMesh(1, 2)):       # 2 | 4
+            with pytest.raises(ValueError, match="sizes-only"):
+                sharded.pooled_lookup(tab, ids, torch.ones(2, 2))
 
     def test_init_dtypes_and_counts(self):
         g = torch.Generator().manual_seed(0)
@@ -209,8 +222,9 @@ class TestEngine:
         assert T_engine.resolve_prune_block_n(1_000_448) == \
             J_engine.resolve_prune_block_n(1_000_448)
         assert T_engine.resolve_prune_block_n(1000, block_n=64) == 64
-        with pytest.raises(NotImplementedError, match="later slice"):
-            T_engine.resolve_prune_block_n(1024, shards=2)
+        # a sharded catalogue tiles each shard exactly, as the reference
+        assert T_engine.resolve_prune_block_n(1024, shards=2) == \
+            J_engine.resolve_prune_block_n(1024, shards=2)
 
 
 # ==================================================== serve helpers
@@ -378,7 +392,9 @@ class TestServeCli:
         assert (res["skip"] is not None) == ("--prune" in flags)
         assert "two-tower-retrieval-jpq: batch=8" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("flags", [["--mesh", "2"]])
+    # --mesh is ported for the two-tower models (tests/test_torch_sharded
+    # .py); a CTR arch on a "model" mesh is not
+    @pytest.mark.parametrize("flags", [["--mesh", "2", "--arch", "fm"]])
     def test_unported_flags_raise(self, flags):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             T_serve.main(["--device", "cpu", *flags])
