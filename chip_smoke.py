@@ -255,9 +255,30 @@ Phase 27 runs last:
      launches around the threshold exchange) and ``embedding_bag`` at
      the last rank's shard shapes, bit-equal to their plain versions,
      timed beside their bounds (the kernels JSON's ``mesh_shape``).
+Phase 28 runs after phase 27:
+ 28. main path, training on a ``"model"`` mesh axis (the Trainer's
+     tensor parallelism: the catalogue's rows, the heads and the MLP's
+     width split, the vocab-parallel cross-entropy), ranks time-sharing
+     the one card over gloo staged through host memory, as
+     ``launch/train.py --model-axis 2 --share-card`` runs them: (a)
+     (1, 2) full-width RecJPQ SASRec ``full_ce``, 10 steps of phase 7's
+     batches from phase 7's start, step 0's loss within 1e-5 relative
+     of the (1, 1) step and its gathered gradient within ``leaf_rule``,
+     the later losses beside phase 7's, each rank's peak at most 0.55 x
+     64.40 GB, two runs bit-identical; (b) BERT4Rec, 5 steps, and (d)
+     GRU4Rec, 3 steps, at (1, 2), step 0 against phase 12's; (c) (2, 2)
+     SASRec on four ranks, step 0 against the mean of the two halves'
+     (1, 1) steps; (e) (a)'s step-5 checkpoint resumed at (1, 2),
+     bit-equal, and at (1, 1), its losses within 1e-4 relative; every
+     rank launched the four training kernels; the collectives' ms,
+     bytes and calls a step against their count.  Then the four
+     training kernels at the shards' shapes (500,001 code rows, T =
+     3,200 and 1,600), each against its plain version, timed beside its
+     bound and library call (the kernels JSON's ``model_axis_shape``).
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
-``{"mesh_serve": ...}`` and the per-kernel
+``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}`` and
+the per-kernel
 numbers (eight kernels; the two top-k kernels also carry phase 25's
 ``server_shape``, rows 3-5 phase 26's ``elastic_launches`` and
 ``elastic_round_max_abs_err``), the
@@ -602,7 +623,8 @@ EVAL_USERS, TRAIN_STEPS = 256, 20
 def train_phases(torch, np, dev, smi):
     """Phases 6-8: the training kernels' parity, the training main path
     and the kernels' timing.  Returns (their entries of the kernels line,
-    the synthetic data, the svd codebook), which phase 12 reuses."""
+    the synthetic data, the svd codebook, the main path's summary),
+    which phases 12 and 28 reuse."""
     from repro_torch.core import jpq as jpq_mod
     from repro_torch.core.assign import build_codebook
     from repro_torch.data.sequences import SeqDataConfig, SyntheticSequences
@@ -856,7 +878,7 @@ def train_phases(torch, np, dev, smi):
         "jpq_scores_bwd_device_ms": bwd_dev_ms,
         "jpq_scores_bwd_device_top": bwd_top, "card": smi}}))
     done(t0)
-    return out, data, codes_np
+    return out, data, codes_np, run
 
 
 # the paper's two other backbones at full width (SeqRecConfig defaults,
@@ -3591,6 +3613,492 @@ def mesh_phases(torch, np, dev, smi):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 28
+# training the sequential recommenders on a "model" mesh axis: the
+# Trainer's tensor parallelism (the catalogue's rows, the heads and the
+# MLP's width split, the vocab-parallel cross-entropy) with the ranks
+# time-sharing the one card, as ``launch/train.py --model-axis S
+# --share-card`` runs them (gloo staged through host memory: NCCL
+# refuses two ranks on one device)
+
+TP_SHARDS, TP_CKPT_AT = 2, 5
+TP_STEPS = {"sasrec": 10, "bert4rec": 5, "gru4rec": 3, "data": 5}
+TP_PEAK_LIMIT_GB = 0.55 * 64.40     # phase 7's single-card peak, 64.40 GB
+TP_KERNELS = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+              "jpq_lookup_bwd")
+
+
+def _flat(tree, path=""):
+    """{"a/b/0/c": leaf} of a tree of dicts and lists (tuples are
+    leaves: the placement specs)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {path[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{path}{k}/"))
+    return out
+
+
+def leaf_rule(want, got):
+    """Each leaf of a gradient against the rule of
+    tests/test_torch_recsys_train.py: |got - want| within 1e-5 of the
+    leaf's largest entry, or 1e-6 of the whole gradient's largest.
+    Returns the worst leaf's share of its allowance."""
+    top = max(float(w.abs().max()) for w in want.values())
+    check(set(want) == set(got), f"gradient leaves differ: "
+          f"{sorted(set(want) ^ set(got))}")
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k].double() - w.double()).abs().max())
+        lim = max(1e-5 * float(w.abs().max()), 1e-6 * top)
+        check(err <= lim, f"gradient leaf {k}: |err| {err:.3e} > {lim:.3e}")
+        worst = max(worst, err / lim if lim else 0.0)
+    return worst
+
+
+def tp_rank(mesh, codes_np, batches, jobs, out_dir):
+    """One rank of phase 28 (module-level: spawn pickles it).  Each job
+    builds the full-width RecJPQ model of phase 7 (``full_width_model``)
+    from seed 0, optionally takes one step's loss and gradient at the
+    start (this rank's data rows, the data group's mean, the blocks
+    gathered), then trains it through ``Trainer`` on this rank's mesh
+    for ``steps`` steps of phase 7's batches (BERT4Rec masked as phase
+    12 masks them), the launch counters, the peak memory and
+    ``HostMesh.comm`` read around the run; ``ckpt`` saves every 5 steps,
+    ``resume`` first copies a step's checkpoint there; ``keep`` gathers
+    the final parameters.  Writes ``out_dir/rank<r>.pt``."""
+    import shutil
+
+    import torch
+
+    from repro_torch import bridge, dist, fp32_matmuls
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.models.sequential import mask_batch
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    fp32_matmuls()
+    dev, D = mesh.device, mesh.shape["data"]
+    res = {"rank": mesh.rank, "transport": mesh.transport}
+    for job in jobs:
+        arch = job["arch"]
+        model = full_width_model(codes_np, dev, arch)
+        cfg = model.cfg
+
+        def data_fn(s, arch=arch, cfg=cfg):
+            b = batches[s]
+            if arch != "bert4rec":
+                return b
+            seq = torch.as_tensor(b["seq"], device=dev)
+            ms, tg = mask_batch(torch.Generator(device=dev).manual_seed(s),
+                                seq, cfg.mask_prob, cfg.mask_id)
+            return {"seq": ms, "targets": tg}
+
+        out = {}
+        if job.get("grad0"):
+            model.init_params(torch.Generator(device=dev).manual_seed(0))
+            specs = _flat(bridge.keep_local_blocks(model, mesh))
+            p = model.params()
+            leaves = {k: x for k, x in _flat(p).items()
+                      if torch.is_floating_point(x)}
+            n = TRAIN_B // D
+            b = {k: torch.as_tensor(v, device=dev)[mesh.data_index * n:
+                                                   (mesh.data_index + 1) * n]
+                 for k, v in data_fn(0).items()}
+            with dist.use_mesh_rules(mesh):
+                loss, _ = model.train_loss(p, b)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            out["grad0_loss"] = float(mesh.all_reduce(
+                loss.detach().reshape(1), "data") / D)
+            out["grad0"] = {k: dist.gather_block(
+                mesh.all_reduce(g, "data") / D, specs[k], mesh).cpu()
+                for k, g in zip(leaves, grads)}
+            del p, leaves, b, loss, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        if job.get("resume"):
+            src, step = job["resume"]
+            if mesh.rank == 0:
+                shutil.rmtree(job["ckpt"], ignore_errors=True)
+                os.makedirs(job["ckpt"])
+                name = f"step_{step:010d}"
+                shutil.copytree(os.path.join(src, name),
+                                os.path.join(job["ckpt"], name))
+        mesh.all_reduce(torch.zeros(1, device=dev), ("data", "model"))
+        trainer = Trainer(model, OptConfig(lr=3e-3), TrainConfig(
+            steps=job["steps"], batch_size=TRAIN_B, log_every=1,
+            eval_every=0, ckpt_dir=job.get("ckpt"), ckpt_every=TP_CKPT_AT),
+            data_fn=data_fn, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sc.reset_launches()
+        lc.reset_launches()
+        comm0 = dict(mesh.comm)
+        params, hist = trainer.run(
+            generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize(dev)
+        out["launches"] = {**sc.launches, **lc.launches}
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["comm"] = {k: mesh.comm[k] - comm0[k] for k in comm0}
+        rows = [h for h in hist if "loss" in h]
+        out["losses"] = [h["loss"] for h in rows]
+        out["grad_norms"] = [h["grad_norm"] for h in rows]
+        out["step_ms"] = [h["sec"] * 1e3 for h in rows]
+        out["steps_run"] = len(rows)
+        out["done_step"] = trainer.done_step
+        if job.get("keep"):
+            specs = _flat(bridge.keep_local_blocks(model, mesh))
+            out["final"] = {k: dist.gather_block(x.detach(), specs[k],
+                                                 mesh).cpu()
+                            for k, x in _flat(params).items()}
+        res[job["name"]] = out
+        del trainer, params, model, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def tp_step_bytes(T, d, n_layers, cent_bytes, n_split, D, held_floats):
+    """The bytes one rank's collectives return in a SASRec step on a
+    (D, S) mesh, ``T`` its positions: each layer's two forward
+    ``reduce_from_model`` and two backward ``copy_to_model`` sums of
+    [T, d]; the logits' dh [T, d] and dcent; the cross-entropy's max [T]
+    and its [2, T] of sum-exp and label logit; the input's code gather
+    [T, m] uint8; the clip norm's split leaves' squares; the stop flag;
+    at D > 1 the data group's mean of the rank's ``held_floats``
+    gradient entries and of the three metrics (loss, grad_norm, lr)."""
+    f = 4
+    b = (4 * n_layers * T * d * f + T * d * f + cent_bytes + 3 * T * f
+         + T * M + n_split * f + 4)
+    if D > 1:
+        b += (held_floats + 3) * f
+    return b
+
+
+def tp_shard_kernels(torch, dev, smi, codes_np, batches):
+    """The four training kernels at the shards' shapes of phase 28: the
+    jpq_scores pair over the last rank's 500,001 code rows at T = 3,200
+    ((1, 2): a rank's whole batch) and 1,600 ((2, 2): half of it), the
+    jpq_lookup pair on the code rows a rank gathers (``take_rows``) for
+    the batch's ids; each held against its plain version as phase 8
+    holds them (``scores_fwd_err``, ``scores_bwd_err``, ``lookup_errs``)
+    and timed beside its plain version, its bound and the library call
+    phase 8 times.  Returns {kernel: {T: row}}."""
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_lookup import ref as lref
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ref as sref
+    n_rows, dk = N_ITEMS + 2, 512 // M
+    L = n_rows // TP_SHARDS
+    codes_all = torch.as_tensor(codes_np, device=dev).to(torch.uint8)
+    block = codes_all[(TP_SHARDS - 1) * L:].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cent = torch.randn((M, BC, dk), generator=gen, device=dev)
+    col = (block.long() + BC * torch.arange(M, device=dev)).reshape(-1)
+    onehot = torch.sparse_csr_tensor(
+        torch.arange(0, L * M + 1, M, device=dev), col,
+        torch.ones(L * M, device=dev), size=(L, M * BC),
+        check_invariants=False)
+    onehot_t = onehot.to_sparse_coo().t().coalesce().to_sparse_csr()
+    rows = {k: {} for k in TP_KERNELS}
+    for T in (TRAIN_B * SEQ_LEN, TRAIN_B * SEQ_LEN // 2):
+        what = f"a rank's shard, T={T} N={L}"
+        P = torch.randn((T, M, BC), generator=gen, device=dev)
+        dS = torch.randn((T, L), generator=gen, device=dev)
+        seq = torch.as_tensor(batches[0]["seq"], device=dev).reshape(-1)[:T]
+        got_codes = codes_all[seq.long()].contiguous()    # take_rows' rows
+        ids = torch.arange(T, dtype=torch.int32, device=dev)
+        dout = torch.randn((T, M, dk), generator=gen, device=dev)
+        e_f = scores_fwd_err(P, block, what)
+        e_b, _, chain, chunks = scores_bwd_err(dS, block, BC, what)
+        e_l, e_lb = lookup_errs(ids, got_codes, cent, dout, what)
+        P2t = P.reshape(T, M * BC).t().contiguous()
+        flat = (got_codes.long() + BC * torch.arange(M, device=dev)
+                ).reshape(-1)
+        cent2 = cent.reshape(M * BC, dk)
+        work = train_kernel_work(T, L, BC, dk)
+        look = train_kernel_work(T, T, BC, dk)
+        timed = {
+            "jpq_scores": (e_f, work["jpq_scores"],
+                           lambda: sc.jpq_scores(P, block),
+                           lambda: sref.jpq_scores_lut_ref(P, block),
+                           lambda: torch.sparse.mm(onehot, P2t), 5, 2),
+            "jpq_scores_bwd": (e_b, work["jpq_scores_bwd"],
+                               lambda: sc.jpq_scores_bwd(dS, block, BC),
+                               lambda: sref.jpq_scores_lut_bwd_ref(
+                                   dS, block, BC),
+                               lambda: torch.sparse.mm(onehot_t, dS.t()),
+                               3, 2),
+            "jpq_lookup": (e_l, look["jpq_lookup"],
+                           lambda: lc.jpq_lookup(ids, got_codes, cent),
+                           lambda: lref.jpq_lookup_ref(ids, got_codes, cent),
+                           lambda: torch.index_select(cent2, 0, flat),
+                           50, 20),
+            "jpq_lookup_bwd": (e_lb, look["jpq_lookup_bwd"],
+                               lambda: lc.jpq_lookup_bwd(ids, got_codes,
+                                                         dout, BC),
+                               lambda: lref.jpq_lookup_bwd_ref(
+                                   ids, got_codes, dout, BC),
+                               lambda: torch.zeros_like(cent2).index_add_(
+                                   0, flat, dout.reshape(T * M, dk)),
+                               50, 20)}
+        for name, (err, wk, kern, plain, lib, it, pit) in timed.items():
+            b_ms, b_by = bound(*wk)
+            r = rows[name][T] = {
+                "T": T, "N": L if name.startswith("jpq_scores") else T,
+                "max_abs_err": err, "ms": cuda_ms(kern, it),
+                "plain_ms": cuda_ms(plain, pit),
+                "library_ms": cuda_ms(lib, it), "bound_ms": b_ms,
+                "bound_by": b_by}
+            if name == "jpq_scores_bwd":
+                r.update(chunks=chunks, chain=chain)
+            print(f"   {name} at T={T} over {r['N']} rows: {r['ms']:.4f} ms "
+                  f"kernel, {r['plain_ms']:.4f} ms plain, "
+                  f"{r['library_ms']:.4f} ms library, bound "
+                  f"{b_ms:.4f} ms ({b_by}), max |err| {err:.3e}, on {smi}")
+        del P, dS, dout, P2t, got_codes, timed
+        torch.cuda.empty_cache()
+    del codes_all, block, onehot, onehot_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
+    """Phase 28: full-width RecJPQ training on a ``(data, model)`` mesh
+    of ranks time-sharing the one card (``launch.mesh.spawn`` with
+    ``share_card``, the ``--model-axis S --share-card`` CLI's transport)
+    through the Trainer's tensor parallelism.  (a) (1, 2), SASRec
+    ``full_ce``, 10 steps of phase 7's batches from phase 7's start:
+    step 0's loss within 1e-5 relative of the (1, 1) step on the same
+    batch and its gathered gradient within ``leaf_rule`` of that step's;
+    each later loss printed beside phase 7's; each rank's peak under
+    0.55 x 64.40 GB; two runs bit-identical; every rank launched the
+    four training kernels.  (b) (1, 2) BERT4Rec, 5 steps, the [MASK]
+    column on the last rank; (d) (1, 2) GRU4Rec, 3 steps; each step 0
+    within 1e-5 relative of phase 12's.  (c) (2, 2) SASRec, 5 steps on
+    four ranks: step 0 against the mean of the two halves' (1, 1) steps
+    (the "data" group's mean).  (e) (a) saves at step 5; a (1, 2) resume
+    from it is bit-equal to (a), a (1, 1) resume within 1e-4 relative
+    of its losses.  Then the kernels at the shards' shapes
+    (``tp_shard_kernels``).  ``seq_runs``: phases 7's and 12's
+    summaries by arch (their losses, median step and peak).  Returns
+    {"runs", "shard_kernels", "launches"}."""
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+
+    t0 = phase(f"main path: training on a 'model' mesh axis, full-width "
+               f"RecJPQ, ranks sharing the one card (train --model-axis "
+               f"{TP_SHARDS} --share-card)")
+    free_card(torch, dev, "the model-axis training phase")
+    batches = [data.train_batch(s, TRAIN_B) for s in range(10)]
+    T = TRAIN_B * SEQ_LEN
+    # the (1, 1) step 0 (phase 7's start and batch), and its two halves'
+    ref = {}
+    model = full_width_model(codes_np, dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    leaves = {k: x for k, x in _flat(params).items()
+              if torch.is_floating_point(x)}
+    for name, lo, hi in (("whole", 0, TRAIN_B), ("half0", 0, TRAIN_B // 2),
+                         ("half1", TRAIN_B // 2, TRAIN_B)):
+        b = {k: torch.as_tensor(v[lo:hi], device=dev)
+             for k, v in batches[0].items()}
+        loss, _ = model.train_loss(params, b)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        ref[name] = (float(loss.detach()),
+                     {k: x.cpu() for k, x in zip(leaves, g)})
+        del loss, g, b
+    split_specs = _flat(model.placement(mesh_mod.HostMesh(1, TP_SHARDS)))
+    n_split = sum(1 for k, sp in split_specs.items()
+                  if k in leaves and any(e == "model" for e in sp))
+    held_floats = sum(x.numel() // (TP_SHARDS if any(
+        e == "model" for e in split_specs[k]) else 1)
+        for k, x in leaves.items())
+    del model, params, leaves
+    free_card(torch, dev, "the model-axis ranks")
+    root = os.path.join(HERE, "build", "chip_smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ck_a, ck_r = os.path.join(root, "ck_a"), os.path.join(root, "ck_r")
+    jobs = [dict(name="a", arch="sasrec", steps=TP_STEPS["sasrec"],
+                 grad0=True, ckpt=ck_a, keep=True),
+            dict(name="a_again", arch="sasrec", steps=TP_STEPS["sasrec"],
+                 keep=True),
+            dict(name="a_resume", arch="sasrec", steps=TP_STEPS["sasrec"],
+                 ckpt=ck_r, resume=(ck_a, TP_CKPT_AT), keep=True),
+            dict(name="b", arch="bert4rec", steps=TP_STEPS["bert4rec"]),
+            dict(name="d", arch="gru4rec", steps=TP_STEPS["gru4rec"])]
+    ranks = {}
+    for shape, n, js in (("1x2", TP_SHARDS, jobs),
+                         ("2x2", 2 * TP_SHARDS,
+                          [dict(name="c", arch="sasrec",
+                                steps=TP_STEPS["data"], grad0=True)])):
+        out_dir = tempfile.mkdtemp(prefix=f"ranks-{shape}-", dir=root)
+        t1 = time.perf_counter()
+        mesh_mod.spawn(tp_rank, n, (codes_np, batches, js, out_dir),
+                       device=dev, model=TP_SHARDS, share_card=True,
+                       timeout=900)
+        ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                   weights_only=False) for r in range(n)]
+        print(f"   {shape}: {n} ranks, {time.perf_counter() - t1:.1f} s "
+              f"(spawn, build, runs)")
+    runs, launches = {}, {k: {} for k in TP_KERNELS}
+    seq7 = seq_runs["sasrec"]
+    for shape, rs in ranks.items():
+        for name in rs[0]:
+            if name in ("rank", "transport"):
+                continue
+            r0 = rs[0][name]
+            for r, res in enumerate(rs):
+                check(res["transport"] == "gloo-staged",
+                      f"rank {r}: transport {res['transport']}")
+                for k in TP_KERNELS:
+                    check(res[name]["launches"][k] > 0,
+                          f"{shape} {name}: rank {r} never launched {k}")
+                check(res[name]["peak_gb"] <= TP_PEAK_LIMIT_GB,
+                      f"{shape} {name}: rank {r} peaked at "
+                      f"{res[name]['peak_gb']:.2f} GB > "
+                      f"{TP_PEAK_LIMIT_GB:.2f}")
+                check(res[name]["losses"] == r0["losses"],
+                      f"{shape} {name}: rank {r}'s losses differ from "
+                      f"rank 0's")
+            check(all(np.isfinite(r0["losses"])),
+                  f"{shape} {name}: losses not finite {r0['losses']}")
+            steps = r0["steps_run"]
+            row = {"shape": shape, "losses": r0["losses"],
+                   "grad_norms": r0["grad_norms"],
+                   "median_step_ms": float(np.median(r0["step_ms"][1:]))
+                   if steps > 1 else r0["step_ms"][0],
+                   "step_ms": r0["step_ms"],
+                   "peak_gb_by_rank": [x[name]["peak_gb"] for x in rs],
+                   "launches_by_rank": [x[name]["launches"] for x in rs],
+                   "comm_ms_per_step": 1e3 * r0["comm"]["seconds"] / steps,
+                   "comm_bytes_per_step": r0["comm"]["bytes"] / steps,
+                   "comm_calls_per_step": r0["comm"]["calls"] / steps}
+            for k in TP_KERNELS:
+                launches[k][f"{shape}:{name}"] = [
+                    x[name]["launches"][k] for x in rs]
+            runs[f"{shape}:{name}"] = row
+    a, again, resumed = (ranks["1x2"][0][k] for k in ("a", "a_again",
+                                                      "a_resume"))
+    # (a) step 0 against the (1, 1) step, the losses beside phase 7's
+    want_loss, want_g = ref["whole"]
+    check(abs(a["grad0_loss"] - want_loss) <= 1e-5 * abs(want_loss),
+          f"(1, 2) step 0 loss {a['grad0_loss']} != (1, 1) {want_loss}")
+    check(abs(a["losses"][0] - want_loss) <= 1e-5 * abs(want_loss),
+          f"(1, 2) Trainer step 0 loss {a['losses'][0]} != {want_loss}")
+    worst = leaf_rule(want_g, a["grad0"])
+    runs["1x2:a"]["step0"] = {"loss": a["grad0_loss"], "loss_1x1": want_loss,
+                              "grad_worst_share_of_rule": worst}
+    print(f"   (a) (1, 2) SASRec step 0: loss {a['grad0_loss']:.7f} vs "
+          f"(1, 1) {want_loss:.7f}; gathered gradients within the leaf rule "
+          f"(worst leaf at {worst:.3f} of its allowance)")
+    print("   (a) losses (1, 2) | phase 7's (1, 1): " + "; ".join(
+        f"{x:.5f} | {y:.5f}" for x, y in zip(a["losses"], seq7["losses"])))
+    # run to run, and the (1, 2) resume
+    check(again["losses"] == a["losses"] and all(
+        torch.equal(again["final"][k], a["final"][k]) for k in a["final"]),
+          "(a) two (1, 2) runs differ")
+    check(resumed["losses"] == a["losses"][TP_CKPT_AT:] and all(
+        torch.equal(resumed["final"][k], a["final"][k])
+        for k in a["final"]),
+          "(e) the (1, 2) resume from step 5 != the uninterrupted run")
+    print("   (a) two runs bit-identical; (e) the (1, 2) resume from step "
+          f"{TP_CKPT_AT} bit-equal to the uninterrupted run")
+    # (e) the (1, 1) resume from (a)'s step-5 checkpoint, on the parent
+    ck_1 = os.path.join(root, "ck_1x1")
+    name = f"step_{TP_CKPT_AT:010d}"
+    shutil.copytree(os.path.join(ck_a, name), os.path.join(ck_1, name))
+    model = full_width_model(codes_np, dev)
+    tr = Trainer(model, OptConfig(lr=3e-3), TrainConfig(
+        steps=TP_STEPS["sasrec"], batch_size=TRAIN_B, log_every=1,
+        eval_every=0, ckpt_dir=ck_1, ckpt_every=0),
+        data_fn=lambda s: batches[s])
+    params, hist = tr.run(generator=torch.Generator(device=dev).manual_seed(0))
+    l11 = [h["loss"] for h in hist if "loss" in h]
+    rel = max(abs(x - y) / abs(y) for x, y in
+              zip(l11, a["losses"][TP_CKPT_AT:]))
+    check(len(l11) == TP_STEPS["sasrec"] - TP_CKPT_AT and rel <= 1e-4,
+          f"(e) the (1, 1) resume's losses {l11} vs (1, 2)'s "
+          f"{a['losses'][TP_CKPT_AT:]}")
+    dmax = max(float((x.detach().cpu().double()
+                      - a["final"][k].double()).abs().max())
+               for k, x in _flat(params).items()
+               if torch.is_floating_point(x))
+    runs["1x2:a"]["resume_1x1"] = {"losses": l11, "max_rel_loss": rel,
+                                   "max_abs_param_diff": dmax}
+    print(f"   (e) the (1, 1) resume: losses within {rel:.2e} relative of "
+          f"(1, 2)'s; parameters at most {dmax:.3e} apart after "
+          f"{TP_STEPS['sasrec'] - TP_CKPT_AT} steps")
+    del model, params, tr, hist
+    # (b), (d): step 0 against phase 12's
+    for key, arch in (("b", "bert4rec"), ("d", "gru4rec")):
+        got, want = ranks["1x2"][0][key]["losses"][0], \
+            seq_runs[arch]["losses"][0]
+        check(abs(got - want) <= 1e-5 * abs(want),
+              f"({key}) {arch} (1, 2) step 0 loss {got} != phase 12's {want}")
+        print(f"   ({key}) {arch} (1, 2): losses "
+              + " ".join(f"{x:.5f}" for x in ranks["1x2"][0][key]["losses"])
+              + f"; phase 12's (1, 1) " + " ".join(
+                  f"{x:.5f}" for x in seq_runs[arch]["losses"][
+                      :TP_STEPS[arch]]))
+    # (c) the data group's mean
+    c = ranks["2x2"][0]["c"]
+    want_loss = (ref["half0"][0] + ref["half1"][0]) / 2
+    want_g = {k: (ref["half0"][1][k] + ref["half1"][1][k]) / 2
+              for k in ref["half0"][1]}
+    check(abs(c["grad0_loss"] - want_loss) <= 1e-5 * abs(want_loss)
+          and abs(c["losses"][0] - want_loss) <= 1e-5 * abs(want_loss),
+          f"(c) (2, 2) step 0 loss {c['grad0_loss']} != the halves' mean "
+          f"{want_loss}")
+    worst_c = leaf_rule(want_g, c["grad0"])
+    runs["2x2:c"]["step0"] = {"loss": c["grad0_loss"],
+                              "halves_mean": want_loss,
+                              "grad_worst_share_of_rule": worst_c}
+    print(f"   (c) (2, 2) SASRec step 0: loss {c['grad0_loss']:.7f} vs the "
+          f"(1, 1) halves' mean {want_loss:.7f}; gradients within the leaf "
+          f"rule (worst at {worst_c:.3f}); losses "
+          + " ".join(f"{x:.5f}" for x in c["losses"]))
+    # the collectives' bytes a step, against the count
+    cent_b = M * BC * (512 // M) * 4
+    for key, D in (("1x2:a_again", 1), ("2x2:c", 2)):
+        r = runs[key]
+        counted = tp_step_bytes(T // D, 512, 2, cent_b, n_split, D,
+                                held_floats)
+        r["counted_bytes_per_step_model_axis"] = counted
+        print(f"   {key}: step {r['median_step_ms']:.1f} ms (phase 7's "
+              f"plain step {seq7['median_step_ms']:.1f} ms), peak GB by rank "
+              + ", ".join(f"{x:.2f}" for x in r["peak_gb_by_rank"])
+              + f" (phase 7's {seq7['peak_gb']:.2f}); collectives "
+              f"{r['comm_ms_per_step']:.2f} ms, "
+              f"{r['comm_bytes_per_step']:.0f} bytes, "
+              f"{r['comm_calls_per_step']:.1f} calls a step (counted: "
+              f"{counted} bytes), on {smi}")
+    for key in ("1x2:b", "1x2:d"):
+        r = runs[key]
+        print(f"   {key}: step {r['median_step_ms']:.1f} ms, peak GB by rank "
+              + ", ".join(f"{x:.2f}" for x in r["peak_gb_by_rank"])
+              + f", collectives {r['comm_ms_per_step']:.2f} ms, "
+              f"{r['comm_bytes_per_step']:.0f} bytes a step")
+    shutil.rmtree(root, ignore_errors=True)
+    done(t0)
+
+    t0 = phase("the model-axis path's training kernels at the shards' "
+               "shapes (CUDA events)")
+    free_card(torch, dev, "the shard-shape kernels")
+    shard = tp_shard_kernels(torch, dev, smi, codes_np, batches)
+    done(t0)
+    return {"runs": runs, "shard_kernels": shard, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3925,11 +4433,13 @@ def main() -> int:
 
     del P, st, codes, params, model, h
     torch.cuda.empty_cache()
-    train_kernels, data, codes_np = train_phases(torch, np, dev, smi)
+    train_kernels, data, codes_np, sasrec_run = train_phases(
+        torch, np, dev, smi)
     kernels += train_kernels
     gc.collect()
     torch.cuda.empty_cache()
-    arch_phases(torch, np, dev, smi, data, codes_np)
+    seq_runs = {"sasrec": sasrec_run,
+                **arch_phases(torch, np, dev, smi, data, codes_np)}
     objective_phases(torch, np, dev, smi, data, codes_np)
     seq_model, seq_params, _ = checkpoint_phase(torch, np, dev, smi, data,
                                                 codes_np)
@@ -3940,7 +4450,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     engine = engine_phases(torch, np, dev, smi, data, codes_np)
-    del codes_np
     gc.collect()
     torch.cuda.empty_cache()
     example_phases(torch, np, dev, smi)
@@ -3956,6 +4465,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = mesh_phases(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs)
+    del codes_np, data
+    for entry in kernels:                 # phase 28's shard shapes
+        if entry["name"] in tp["shard_kernels"]:
+            entry["model_axis_shape"] = tp["shard_kernels"][entry["name"]]
+            entry["model_axis_launches_per_rank"] = tp["launches"][
+                entry["name"]]
     for entry in kernels:                 # phase 27's shard shapes
         if entry["name"] in mesh["shard_kernels"]:
             entry["mesh_shape"] = mesh["shard_kernels"][entry["name"]]
@@ -3982,6 +4500,7 @@ def main() -> int:
     print(json.dumps({"ctr_train": ctr_train, "card": smi}))
     print(json.dumps({"server": server}))
     print(json.dumps({"mesh_serve": mesh["mesh_serve"], "card": smi}))
+    print(json.dumps({"model_axis_train": tp["runs"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ two-tower model, FM (``emb``, the ``[V]`` ``linear``, the scalar
 
 On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
 catalogue leaf to this rank's rows (``dist.local_rows``), which the
-mesh branches of ``core/sharded.py`` serve from.
+mesh branches of ``core/sharded.py`` serve from; ``keep_local_blocks``
+cuts every leaf a sequential model's placement splits (its rows, heads
+and MLP width), which training on ``"model"`` runs from.
 """
 from __future__ import annotations
 
@@ -113,6 +115,71 @@ def keep_local_rows(model, mesh=None) -> dict:
             else:
                 sub._buffers[leaf] = new
     return specs
+
+
+def keep_local_blocks(model, mesh=None, rules=None) -> dict:
+    """Keep only this rank's block of every leaf of ``model`` that its
+    placement (``model.placement(mesh, rules)``: the reference's
+    ``params_shardings`` less the leaves the port keeps whole) puts on
+    ``"model"``, in place (``dist.local_block``): the catalogue's rows,
+    the attention heads, the MLP's width.  A reference checkpoint or
+    ``nn.values()`` tree loaded with ``load_values`` first leaves each
+    rank with exactly its blocks.  A leaf already cut is left as it is.
+    ``mesh`` defaults to the ambient one.  Returns the placement specs
+    of ``model.params()``."""
+    from repro_torch import dist as _dist
+    from repro_torch.dist import rules as _rules
+    mesh = _rules._CTX.mesh if mesh is None else mesh
+    specs = model.placement(mesh, rules)
+    whole = model.whole_shapes()
+    for path, spec in _paths(specs):
+        owner, name = _owner(model, path)
+        old = getattr(owner, name)
+        full = tuple(_at(whole, path))
+        if tuple(old.shape) != full:
+            if tuple(old.shape) != _dist.block_shape(full, spec, mesh):
+                raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                                 f"{tuple(old.shape)} is neither the whole "
+                                 f"{full} nor this rank's block of it")
+            continue
+        new = _dist.local_block(old.detach(), spec, mesh)
+        if new.shape == old.shape:
+            continue
+        if name in owner._parameters:
+            owner._parameters[name] = torch.nn.Parameter(
+                new, requires_grad=old.requires_grad)
+        else:
+            owner._buffers[name] = new
+    return specs
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of a tree of dicts and lists; a tuple is a leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _owner(model, path):
+    """(module, attribute name) holding the leaf at ``path`` of
+    ``model.params()``."""
+    mod = model
+    for k in path[:-1]:
+        mod = mod[k] if isinstance(mod, (torch.nn.ModuleList,
+                                         torch.nn.ModuleDict)) \
+            else getattr(mod, k)
+    return mod, path[-1]
 
 
 def load_opt_state(opt_state, src) -> dict:

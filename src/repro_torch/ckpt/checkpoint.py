@@ -17,7 +17,9 @@ Trees are nested dicts and lists; leaves are tensors (on any device),
 numpy arrays or Python scalars.  bfloat16 leaves are stored as raw
 2-byte records (numpy's ``V2``), as the reference's npz holds them.
 ``restore_checkpoint`` puts each tensor leaf on the device and dtype of
-the matching leaf of the target tree.
+the matching leaf of the target tree.  On a ``"model"`` mesh the Trainer
+gathers every split leaf (and its moments) before rank 0 writes, so the
+files hold whole leaves, and cuts each rank's blocks after a restore.
 """
 from __future__ import annotations
 

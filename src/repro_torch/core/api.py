@@ -64,23 +64,30 @@ class Embedding:
         if kind == "jpq":
             return {"codes": ("items", "code_split"),
                     "centroids": ("code_split", "centroid", "table_dim")}
-        raise NotImplementedError(
-            f"{kind} tables are not placed on a mesh in the port")
+        if kind == "qr":
+            return {"q_table": ("table", "table_dim"),
+                    "r_table": ("table", "table_dim")}
+        raise ValueError(kind)
 
     def lookup(self, p, ids):
+        """ids -> [..., d]; the leaves may hold this rank's rows of a
+        ``"model"`` mesh (gathered across the ranks)."""
         c = self.cfg
         if c.kind == "full":
-            return _full.lookup(p, ids)
+            return _full.lookup(p, ids, rows=c.n_items)
         if c.kind == "jpq":
-            return _jpq.lookup(p, ids, use_kernel=c.use_kernel)
+            return _jpq.lookup(p, ids, use_kernel=c.use_kernel,
+                               rows=c.n_items)
         return _qr.lookup(p, ids, c.n_items)
 
     def logits(self, p, h):
+        """h -> [..., n_items], or this rank's column block of them where
+        the ambient mesh splits the catalogue's rows over ``"model"``."""
         c = self.cfg
         if c.kind == "full":
-            return _full.logits(p, h)
+            return _full.logits(p, h, rows=c.n_items)
         if c.kind == "jpq":
-            return _jpq.logits(p, h, use_kernel=c.use_kernel)
+            return _jpq.logits(p, h, use_kernel=c.use_kernel, rows=c.n_items)
         return _qr.logits(p, h, c.n_items)
 
     def bag_lookup(self, p, ids, segment_ids, num_segments: int,

@@ -3,11 +3,15 @@
 ``lookup`` is the gather ``table[ids]``; where the table takes a
 gradient, that gradient comes from the embedding_bag backward kernel
 (``kernels/embedding_bag/ops.gather``; its plain version on the CPU).
+On a ``"model"`` mesh the table may hold this rank's rows: ``lookup``
+gathers across the ranks, ``logits`` scores this rank's rows.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import dist as _dist
+from repro_torch.core import sharded as _sharded
 from repro_torch.kernels.embedding_bag import ops as _bag
 
 
@@ -21,9 +25,24 @@ def init(gen: torch.Generator, n_items: int, d: int, *,
     return {"table": tab.mul_(scale).to(dtype)}
 
 
-def lookup(p, ids):
-    return _bag.gather(p["table"], ids)
+def lookup(p, ids, *, rows=None):
+    """``table[ids]``; a table held as this rank's block of a ``rows``-row
+    catalogue gathers the ids' rows across the ranks
+    (``core/sharded.take_rows``), each rank's gradient reaching its own
+    rows through the same kernel."""
+    tab = p["table"]
+    if rows is None or tab.shape[0] == rows:
+        return _bag.gather(tab, ids)
+    return _sharded.take_rows(tab, ids, rows=rows, gather=_bag.gather)
 
 
-def logits(p, h):
-    return h.float() @ p["table"].float().T
+def logits(p, h, *, rows=None):
+    """h [..., d] -> [..., n_items]; this rank's column block where the
+    ambient mesh splits the ``rows``-row catalogue (``h`` through
+    ``dist.copy_to_model``)."""
+    tab = p["table"]
+    if rows is not None:
+        mesh, _, tab = _sharded._split(tab, rows)
+        if mesh is not None:
+            h = _dist.copy_to_model(h, mesh)
+    return h.float() @ tab.float().T

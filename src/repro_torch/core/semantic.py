@@ -237,16 +237,19 @@ def semantic_decode(part, index: CodeIndex, k: int,
 
 # ====================================================== training head
 
-def code_xent(p, h, item_ids):
+def code_xent(p, h, item_ids, *, rows=None):
     """Per-position code cross-entropy of the target items' sequences.
 
     ``h [..., d]`` hidden states, ``item_ids [...]`` rows of the codes
     table -> ``[...]``: the sum over the m positions of
     ``-log softmax(part[j])[codes[item, j]]``, the NLL of decoding the
     target's codes under the per-step logits ``semantic_decode``
-    searches (teacher-forced: position j's logits depend on h only)."""
+    searches (teacher-forced: position j's logits depend on h only).
+    ``rows``: the catalogue's row count, where the codes hold only this
+    rank's block of them (the targets' rows gathered across the ranks,
+    ``core/jpq.code_rows``)."""
     part = _jpq.partial_scores(p, h)                       # [..., m, b]
-    t = p["codes"][item_ids.long()].long()                 # [..., m]
+    t = _jpq.code_rows(p["codes"], item_ids, rows).long()  # [..., m]
     lse = torch.logsumexp(part, -1)                        # [..., m]
     picked = part.gather(-1, t[..., None])[..., 0]
     return torch.sum(lse - picked, -1)

@@ -40,6 +40,10 @@ def _split(x, rows, dim: int = 0):
     rows = n if rows is None else int(rows)
     blk = _dist.row_block(rows)
     if blk is None:
+        if n != rows:
+            raise ValueError(f"an operand of {n} rows is a block of a "
+                             f"{rows}-row catalogue, but no ambient mesh "
+                             f"splits it (dist.use_mesh_rules)")
         return None, None, x
     lo, hi = blk
     if n == rows:
@@ -108,23 +112,28 @@ def pooled_lookup(table, ids, weights, *, rows=None):
     return mesh.all_gather(pooled, "data", 0) if split else pooled
 
 
-def take_rows(table, ids, *, rows=None):
+def take_rows(table, ids, *, rows=None, gather=None):
     """``table[ids]`` for a catalogue table held whole or as this rank's
     block (``rows``), exactly: on a mesh each rank gathers the ids of
     its own rows, zeros elsewhere, and the sum over ``"model"`` adds
     one nonzero term to zeros.  The port's counterpart of GSPMD's
     partitioned gather of the reference's row-sharded codes (the JPQ
-    user tower); every rank gets every row."""
+    user tower, the sequential models' inputs and labels); every rank
+    gets every row.  Differentiable in a float ``table``: the gradient
+    of the rows (the same on every rank) reaches each rank's own rows.
+    ``gather(table, idx)`` is the local gather (default indexing;
+    ``core/full`` passes the embedding_bag route)."""
+    gather = gather or (lambda t, i: t[i])
     mesh, blk, tab = _split(table, rows)
     if mesh is None:
-        return table[ids.long()]
+        return gather(table, ids.long())
     lo, hi = blk
     loc = ids.long() - lo
     ok = (loc >= 0) & (loc < hi - lo)
-    got = tab[loc.clamp(0, hi - lo - 1)]
+    got = gather(tab, loc.clamp(0, hi - lo - 1))
     got = torch.where(ok.reshape(*ok.shape, *([1] * (got.dim() - ok.dim()))),
                       got, torch.zeros_like(got))
-    return mesh.all_reduce(got, "model", "sum")
+    return _dist.reduce_from_model(got, mesh)
 
 
 def whole(x, rows=None):

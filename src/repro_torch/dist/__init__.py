@@ -3,31 +3,44 @@
 Model code never names mesh axes: a dimension carries a logical axis
 name, and ``rules`` resolves it onto the mesh in use
 (``resolve_axes``; the reference's table, ``repro.dist``).  Each
-process holds its own rows, so a placement on the data axis needs no
-work and ``constrain`` is the identity.
+process holds its own rows of the batch, so a placement on the data
+axis needs no work.
 
-On the ``"model"`` axis the port shards the catalogue and nothing else:
-a leaf whose first dimension is a catalogue axis (``CATALOGUE_AXES``:
-the items of the codes, the rows of a table) and resolves onto
-``"model"`` is held as this rank's block of rows (``local_rows``), and
-``core/sharded.py``'s mesh branches serve from those blocks.  Every
-other leaf stays whole on every rank, including those the reference's
-GSPMD would split on a width axis: tensor-parallel training is ROADMAP
-queue 1, item 9c, and ``constrain`` on a width axis raises, naming it.
+On the ``"model"`` axis the port is hand-written tensor parallelism
+(Megatron style) where the reference's GSPMD partitions the jit'd step:
+a leaf whose placement puts a dimension on ``"model"`` is held as this
+rank's block of that dimension (``local_block``), every other leaf is
+whole on every rank.  The sequential recommenders split the catalogue's
+rows (codes, full table, QR tables), the attention heads and the MLP's
+width; the model code reads the blocks' shapes and brackets each split
+region with the autograd-aware collectives below.  Training the CTR and
+two-tower models on ``"model"`` is ``NEXT_SLICE``.
 
 Public API
   resolve_axes(axes, shape, mesh[, rules]) -> placement spec (tuple)
   use_mesh_rules(mesh[, rules])   installs the ambient mesh
-  constrain(x, axes)              identity (raises on a width axis of a
-                                  model > 1 mesh)
+  constrain(x, axes)              this rank's block of the whole ``x``
+                                  as its logical axes place it
   data_shard_count()              data-parallel degree of the ambient
                                   mesh (1 off a mesh)
+  model_size()                    its "model" axis (1 off a mesh)
   params_shardings(params, axes, mesh[, rules])  the placement spec of
                                   every leaf of a parameter tree
   row_block(rows, mesh)           this rank's [lo, hi) of a catalogue of
                                   ``rows`` rows split over "model"
   local_rows(x, spec, mesh)       this rank's rows of a leaf placed by
-                                  ``spec``
+                                  ``spec`` (its first dimension only)
+  local_block(x, spec, mesh)      this rank's block of whichever
+                                  dimension ``spec`` puts on "model"
+  gather_block(x, spec, mesh)     the whole leaf from every rank's block
+  copy_to_model(x)                identity forward, sum over "model"
+                                  backward (enters a split region)
+  reduce_from_model(x)            sum over "model" forward, identity
+                                  backward (leaves a split region)
+  gather_from_model(x, dim)       every rank's block concatenated
+                                  forward, this rank's block of the
+                                  gradient backward
+  max_over_model(x)               the max over "model" (no gradient)
 
 Submodules: ``rules`` (the table and resolver), ``compression`` (the
 elastic data-parallel gradient exchange with bf16/int8 error feedback).
@@ -36,38 +49,42 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.dist.rules import (DATA_AXES, DEFAULT_RULES, _CTX,  # noqa: F401
                                     data_mesh_axes, resolve_axes,
                                     use_mesh_rules)
 
 __all__ = ["resolve_axes", "use_mesh_rules", "constrain",
            "data_shard_count", "params_shardings", "row_block",
-           "local_rows", "DEFAULT_RULES", "CATALOGUE_AXES"]
+           "local_rows", "local_block", "gather_block", "block_shape",
+           "model_dim",
+           "model_size",
+           "copy_to_model", "reduce_from_model", "gather_from_model",
+           "max_over_model", "DEFAULT_RULES", "CATALOGUE_AXES"]
 
-NEXT_SLICE = ("training on the 'model' mesh axis (tensor-parallel width "
-              "axes: constrain on them, sharded heads and MLPs, "
-              "vocab-parallel cross-entropy) is not yet ported to "
-              "repro_torch: ROADMAP queue 1, item 9c; the catalogue's "
-              "row-sharded serving is (core/sharded.py)")
+NEXT_SLICE = ("training the CTR and two-tower models on the 'model' mesh "
+              "axis (their tables' rows and MLPs split), the elastic "
+              "exchange on a model > 1 mesh and launch/serve.py --mesh "
+              "for FM, DLRM-RM2 and DIEN are not yet ported to "
+              "repro_torch: ROADMAP queue 1, item 9c-ii; the sequential "
+              "recommenders train on it (item 9c)")
 
 # logical axes that name catalogue rows: the leaves the port row-shards
 CATALOGUE_AXES = ("items", "table")
 
 
 def constrain(x, axes):
-    """``x`` placed as its logical ``axes`` resolve under the ambient
-    mesh.  Identity: off a mesh; and on the data axis, where each
-    process already holds its own rows (inside the elastic step too).
-    A width axis on a ``model > 1`` mesh raises."""
+    """The whole ``x`` placed as its logical ``axes`` resolve under the
+    ambient mesh: this rank's block (a view) of the dimension they put
+    on ``"model"``.  Identity off a mesh and on the data axes, where
+    each process already holds its own rows (inside the elastic step
+    too)."""
     mesh = _CTX.mesh
     if mesh is None:
         return x
     spec = resolve_axes(axes, tuple(x.shape), mesh, _CTX.rules)
-    named = [a for e in spec if e is not None
-             for a in ((e,) if isinstance(e, str) else e)]
-    if any(a not in DATA_AXES and mesh.shape[a] > 1 for a in named):
-        raise NotImplementedError(NEXT_SLICE)
-    return x
+    return local_block(x, spec, mesh, copy=False)
 
 
 def data_shard_count() -> int:
@@ -111,6 +128,67 @@ def row_block(rows: int, mesh=None):
     return lo, lo + n
 
 
+def model_dim(spec):
+    """The dimension a placement ``spec`` puts on ``"model"``, or None."""
+    for k, e in enumerate(spec or ()):
+        named = (e,) if isinstance(e, str) else tuple(e or ())
+        if "model" in named:
+            if len(named) > 1:
+                raise ValueError(f"placement {spec}: a dimension on "
+                                 f"'model' and other axes is not held "
+                                 f"as a block")
+            return k
+    return None
+
+
+def model_size(mesh=None) -> int:
+    """The ``"model"`` axis of ``mesh`` (default: the ambient one; 1 off
+    a mesh)."""
+    mesh = _CTX.mesh if mesh is None else mesh
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def local_block(x, spec, mesh=None, *, copy: bool = True):
+    """This rank's block of the whole ``x`` along the dimension that
+    ``spec`` (its placement) puts on ``"model"``: a copy that owns its
+    memory (so the whole leaf can be freed), or a view with
+    ``copy=False``; ``x`` itself when nothing splits it."""
+    mesh = _CTX.mesh if mesh is None else mesh
+    k = model_dim(spec)
+    S = model_size(mesh)
+    if k is None or S <= 1:
+        return x
+    n = x.shape[k]
+    if n % S:
+        raise ValueError(f"dimension {k} of {tuple(x.shape)} does not "
+                         f"split {S} ways (placement {spec})")
+    out = x.narrow(k, mesh.model_index * (n // S), n // S)
+    return out.clone(memory_format=torch.contiguous_format) if copy \
+        else out
+
+
+def block_shape(shape, spec, mesh=None) -> tuple:
+    """The shape of this rank's block of a whole ``shape`` placed by
+    ``spec``."""
+    mesh = _CTX.mesh if mesh is None else mesh
+    k, S = model_dim(spec), model_size(mesh)
+    shape = tuple(shape)
+    if k is None or S <= 1:
+        return shape
+    return shape[:k] + (shape[k] // S,) + shape[k + 1:]
+
+
+def gather_block(x, spec, mesh=None):
+    """The whole leaf from every rank's block of it (``spec`` its
+    placement), concatenated over ``"model"`` in rank order; ``x`` when
+    nothing splits it.  Every rank of the ``"model"`` group calls it."""
+    mesh = _CTX.mesh if mesh is None else mesh
+    k = model_dim(spec)
+    if k is None or model_size(mesh) <= 1:
+        return x
+    return mesh.all_gather(x.detach(), "model", k)
+
+
 def local_rows(x, spec, mesh=None):
     """This rank's block of rows of ``x`` when ``spec`` (its placement)
     puts its first dimension on a ``"model"`` axis that splits it, as a
@@ -119,3 +197,79 @@ def local_rows(x, spec, mesh=None):
     blk = row_block(x.shape[0], mesh) if spec and spec[0] == "model" \
         else None
     return x if blk is None else x[blk[0]:blk[1]].clone()
+
+
+# ------------------------------------------- autograd-aware collectives
+# Megatron's pair: a split region starts at ``copy_to_model`` (each rank
+# holds the whole input; the gradients the ranks' blocks send back are
+# partial, and are summed) and ends at ``reduce_from_model`` (the ranks'
+# partial outputs are summed; the gradient of the sum is the same on
+# every rank).  They run ``HostMesh.all_reduce`` / ``all_gather``, which
+# are not differentiable, over the ambient mesh's "model" group.
+
+def _mesh_or_ambient(mesh):
+    mesh = _CTX.mesh if mesh is None else mesh
+    return mesh if model_size(mesh) > 1 else None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), "model", "sum"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.contiguous(), "model", "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.n = dim, mesh, x.shape[dim]
+        return mesh.all_gather(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.model_index * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
+
+
+def copy_to_model(x, mesh=None):
+    """Identity forward; the gradient summed over ``"model"``.  ``x`` is
+    the whole input of a split region; off a splitting mesh, ``x``."""
+    mesh = _mesh_or_ambient(mesh)
+    return x if mesh is None else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x, mesh=None):
+    """The ranks' partial ``x`` summed over ``"model"``; the gradient
+    passes through unchanged.  Off a splitting mesh, ``x``."""
+    mesh = _mesh_or_ambient(mesh)
+    return x if mesh is None else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x, dim: int = 0, mesh=None):
+    """Every rank's block ``x`` concatenated on ``dim`` over ``"model"``;
+    the gradient of the whole is cut back to this rank's block (it is
+    the same on every rank: wrap a partial use in ``copy_to_model``)."""
+    mesh = _mesh_or_ambient(mesh)
+    return x if mesh is None else _GatherFromModel.apply(x, dim, mesh)
+
+
+def max_over_model(x, mesh=None):
+    """The elementwise max of ``x`` over ``"model"`` (no gradient: the
+    logsumexp's shift)."""
+    mesh = _mesh_or_ambient(mesh)
+    return x if mesh is None else mesh.all_reduce(x.detach().contiguous(),
+                                                  "model", "max")

@@ -338,8 +338,8 @@ def serve_mesh(args, *, make=None, keep_outputs: bool = False,
     if args.arch not in MESH_ARCHS:
         raise NotImplementedError(
             f"--mesh: {args.arch} on a 'model' mesh is not yet ported "
-            f"(its width axes split: ROADMAP queue 1, item 9c); --mesh "
-            f"serves {', '.join(MESH_ARCHS)}")
+            f"(its tables' rows and MLPs split: ROADMAP queue 1, item "
+            f"9c-ii); --mesh serves {', '.join(MESH_ARCHS)}")
     S = int(args.mesh)
     dev = resolve_device(args.device)
     if dev.type == "cuda":

@@ -6,7 +6,7 @@ reduced smoke config.
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 300 [--device cpu] [--devices 2] \
         [--grad-compression int8 --grad-accum-shards 4] [--fsdp] \
-        [--overlap backward]
+        [--overlap backward] [--model-axis 2 [--share-card]]
 
 The reference CLI's flags and defaults, plus ``--device`` (``cuda`` by
 default: the hand-written kernels; ``cpu``: their plain versions).  A
@@ -34,8 +34,19 @@ processes (``launch.mesh.spawn``; a SIGTERM to the CLI reaches every
 rank, and they stop and save at the same step); on ``cuda`` one process
 a card, and more than ``torch.cuda.device_count()`` raises.  An elastic
 run preempted on N ranks resumes bit-identically on any N' dividing
-``--grad-accum-shards``.  Not yet ported, and raising: the LM and MACE
-bundles, and ``--model-axis > 1``.
+``--grad-accum-shards``.
+
+``--model-axis S`` > 1 trains a sequential arch on a ``(D, S)`` mesh of
+D·S ranks (``--devices`` D·S; S alone when ``--devices`` is left at 1):
+the catalogue's rows, the attention heads and the MLP's width split
+over ``"model"`` (the Trainer's tensor parallelism), the batch over
+``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
+a card, or with ``--share-card`` all on one card, their collectives
+staged through host memory (``gloo-staged``: NCCL refuses two ranks on
+one device).  Rank 0 prints the history and its eval NDCG@10.  Not yet
+ported, and raising: the LM and MACE bundles (item 10); the CTR and
+two-tower archs and the elastic exchange with ``--model-axis`` > 1
+(item 9c-ii).
 """
 from __future__ import annotations
 
@@ -76,7 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="alias for --devices; spell the restart of a "
                          "preempted run on another number of ranks")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="model-parallel axis (not yet ported: > 1 raises)")
+                    help="model-parallel axis S: the ranks form a "
+                         "(devices / S, S) mesh")
+    ap.add_argument("--share-card", action="store_true",
+                    help="cuda: run every rank on one card (collectives "
+                         "staged through host memory)")
     add_train_spec_args(ap)        # the shared TrainSpec flag cluster
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -156,8 +171,10 @@ def build(args):
     ev = {k: torch.as_tensor(v, device=dev) for k, v in ev.items()}
 
     def eval_fn(params):
+        # on a "model" mesh, this rank's column block of the scores
         s = model.score_last(params, ev["seq"])
-        return {"ndcg10": float(torch.mean(ndcg_at_k(s, ev["target"])))}
+        return {"ndcg10": float(torch.mean(ndcg_at_k(
+            s, ev["target"], rows=cfg.n_rows)))}
 
     return model, data_fn, eval_fn, train_cfg, OptConfig(lr=args.lr)
 
@@ -174,6 +191,9 @@ def _train(mesh, args):
         return hist
     for h in hist[-5:]:
         print(h)
+    evals = [h["eval_ndcg10"] for h in hist if "eval_ndcg10" in h]
+    if evals:
+        print(f"eval NDCG@10 {evals[-1]:.4f}")
     if tr._preempted:
         print(f"preempted: checkpoint stamped at step {tr.done_step}; "
               f"resume with the same --ckpt-dir (any number of ranks "
@@ -196,6 +216,18 @@ def _rank_main(mesh, args):
     _train(mesh, args)
 
 
+def mesh_dims(args):
+    """(D, S): the ``(data, model)`` mesh of ``--devices`` /
+    ``--model-axis``; ``--devices`` left at 1 means one data rank."""
+    S = int(args.model_axis)
+    n = int(args.devices)
+    if S > 1 and n == 1:
+        n = S
+    if S < 1 or n % S:
+        raise ValueError(f"--model-axis {S} must divide --devices {n}")
+    return n // S, S
+
+
 def main(argv=None):
     """Train; returns rank 0's history (None when ranks were spawned)."""
     from repro_torch import resolve_device
@@ -205,15 +237,24 @@ def main(argv=None):
     spec = spec_from_args(args)
     if args.mesh is not None:
         args.devices = args.mesh
-    if args.model_axis > 1:
-        raise NotImplementedError(f"--model-axis > 1: {NEXT_SLICE}")
+    D, S = mesh_dims(args)
+    args.devices = D * S
+    if S > 1 and args.arch not in SEQ_ARCHS:
+        raise NotImplementedError(f"--model-axis > 1 with {args.arch}: "
+                                  f"{NEXT_SLICE}")
+    if S > 1 and spec.elastic:
+        raise NotImplementedError(f"--model-axis > 1 with the elastic "
+                                  f"exchange: {NEXT_SLICE}")
     dev = resolve_device(args.device)
-    if dev.type == "cuda" and args.devices > torch.cuda.device_count():
+    transport = mesh_mod.transport_for(dev, args.share_card)
+    if dev.type == "cuda" and not args.share_card \
+            and args.devices > torch.cuda.device_count():
         raise ValueError(f"--devices {args.devices} on a machine with "
-                         f"{torch.cuda.device_count()} card(s)")
+                         f"{torch.cuda.device_count()} card(s): pass "
+                         f"--share-card to run the ranks on one card")
     if args.devices > 1:
-        print(f"mesh: {{'data': {args.devices}, 'model': 1}} "
-              f"({mesh_mod.backend_for(dev)}, {args.devices} processes)")
+        print(f"mesh: {{'data': {D}, 'model': {S}}} "
+              f"({transport}, {args.devices} processes)")
 
         def forward_sigterm(procs):
             def _handler(signum, frame):
@@ -223,6 +264,7 @@ def main(argv=None):
             signal.signal(signal.SIGTERM, _handler)
 
         mesh_mod.spawn(_rank_main, args.devices, (args,), device=dev,
+                       model=S, share_card=args.share_card,
                        on_start=forward_sigterm)
         return None
     if not spec.elastic:

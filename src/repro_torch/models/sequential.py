@@ -22,7 +22,17 @@ Losses (the reference's):
                 ``semantic_weight > 0`` adds it to another loss as an
                 auxiliary term and reports it as ``code_ce``.
 The input vectors go through the jpq_lookup kernels with a RecJPQ table
-and ``use_kernel=True``.  ``bind_engine`` / ``retrieve_topk`` serve the
+and ``use_kernel=True``.
+
+On a ``(data, model)`` mesh (``dist.use_mesh_rules``; the Trainer
+installs it and cuts the parameters with ``bridge.keep_local_blocks``)
+each rank holds its blocks of the leaves ``placement`` puts on
+``"model"``: the catalogue's rows, the attention heads, the MLP's
+width.  The encoder runs head- and MLP-parallel (``nn/attention.py``,
+``nn/layers.dense_mlp``), the logits are this rank's column block, and
+``full_ce`` is the vocab-parallel cross-entropy
+(``vocab_parallel_xent``): the ranks exchange three ``[T]`` vectors,
+never the ``[T, N]`` logits.  ``bind_engine`` / ``retrieve_topk`` serve the
 top-k through the retrieval engine without the [B, n_rows] scores.
 """
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist as _dist
 from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.core import engine as _engine
 from repro_torch.core import semantic as _semantic
@@ -144,7 +155,7 @@ class SeqRecModel(torch.nn.Module):
                 for _ in range(cfg.n_layers))
             self.proj = Tensors(L.linear_init(gen, cfg.d_model, cfg.d_model,
                                               device=dev))
-            return self.params()
+            return self._record_shapes()
         self.pos_emb = torch.nn.Parameter(0.02 * torch.randn(
             (cfg.max_len, cfg.d_model), generator=gen, device=dev))
         blocks = []
@@ -160,7 +171,64 @@ class SeqRecModel(torch.nn.Module):
                                             for k, v in mlp.items()})}))
         self.blocks = torch.nn.ModuleList(blocks)
         self.ln_f = Tensors(L.layernorm_init(cfg.d_model, device=dev))
+        return self._record_shapes()
+
+    def _record_shapes(self):
+        """Note the whole leaves' shapes (``placement`` resolves on them
+        after ``bridge.keep_local_blocks`` has cut the leaves); returns
+        ``params()``."""
+        self._whole_shapes = _shapes(self.params())
         return self.params()
+
+    # ------------------------------------------------------- placement
+    def param_axes(self) -> dict:
+        """The logical axes of every leaf of ``params()``: the reference's
+        ``nn.axes_tree`` of its ``init_params``."""
+        cfg = self.cfg
+        emb = self.emb.param_axes()
+        if cfg.arch == "gru4rec":
+            return {"item_emb": emb,
+                    "gru": [{"wx": ("embed", "mlp"), "wh": ("mlp", "mlp"),
+                             "b": ("mlp",)} for _ in range(cfg.n_layers)],
+                    "proj": {"w": ("embed", "embed"), "b": ("embed",)}}
+
+        def ln():
+            return {"scale": ("embed",), "bias": ("embed",)}
+        return {
+            "item_emb": emb, "pos_emb": ("seq", "embed"),
+            "blocks": [{
+                "ln1": ln(),
+                "attn": {"wq": ("embed", "heads", "head_dim"),
+                         "wk": ("embed", "kv_heads", "head_dim"),
+                         "wv": ("embed", "kv_heads", "head_dim"),
+                         "wo": ("heads", "head_dim", "embed")},
+                "ln2": ln(),
+                "mlp": {"wi": {"w": ("embed", "mlp"), "b": ("mlp",)},
+                        "wo": {"w": ("mlp", "embed"), "b": ("embed",)}}}
+                for _ in range(cfg.n_layers)],
+            "ln_f": ln()}
+
+    def placement(self, mesh, rules=None) -> dict:
+        """The placement spec of every leaf as the port holds it on
+        ``mesh``: the reference's ``params_shardings`` of the whole
+        leaves (``dist.params_shardings`` of ``param_axes``), less three
+        leaves it keeps whole by design.  The centroids: every rank's
+        items reference every code, so each rank needs the whole
+        ``[T, m, b]`` LUT anyway.  GRU4Rec's GRU weights: their ``mlp``
+        split would cost an all-reduce a cell step.  (``pos_emb``, the
+        layer norms and GRU4Rec's ``proj`` resolve whole already.)"""
+        meta = _meta(self._whole_shapes)
+        specs = _dist.params_shardings(meta, self.param_axes(), mesh, rules)
+        if "centroids" in specs["item_emb"]:
+            specs["item_emb"]["centroids"] = (None, None, None)
+        if self.cfg.arch == "gru4rec":
+            specs["gru"] = [{k: (None,) * len(v) for k, v in g.items()}
+                            for g in specs["gru"]]
+        return specs
+
+    def whole_shapes(self) -> dict:
+        """The shape of every leaf of ``params()`` before any cut."""
+        return self._whole_shapes
 
     def params(self) -> dict:
         """``{"item_emb", "pos_emb", "blocks": [{"ln1", "attn", "ln2",
@@ -200,7 +268,8 @@ class SeqRecModel(torch.nn.Module):
             h = attention(blk["attn"], self.attn_cfg,
                           L.layernorm(blk["ln1"], x), pad_mask=valid)
             x = x + _dropout(generator, h, cfg.dropout)
-            h = L.dense_mlp(blk["mlp"], L.layernorm(blk["ln2"], x))
+            h = L.dense_mlp(blk["mlp"], L.layernorm(blk["ln2"], x),
+                            d_ff=cfg.d_ff)
             x = x + _dropout(generator, h, cfg.dropout)
         return L.layernorm(p["ln_f"], x)
 
@@ -249,16 +318,20 @@ class SeqRecModel(torch.nn.Module):
 
     def _full_ce(self, p, h, labels, valid):
         """Mean full-catalogue cross-entropy; every position is scored,
-        as in the reference."""
+        as in the reference.  On this rank's column block of the logits
+        (a ``"model"`` mesh), the vocab-parallel cross-entropy."""
         logits = self._mask_special(self.emb.logits(p["item_emb"], h))
-        ce = _xent(logits, labels)
+        lo, mesh = self._columns(logits)
+        ce = _xent(logits, labels) if mesh is None else \
+            vocab_parallel_xent(logits, labels, lo, mesh)
         return torch.sum(ce * valid) / _count(valid)
 
     def _code_loss(self, p, h, targets, valid):
         """Mean code cross-entropy of the targets' code sequences
         (``core/semantic.code_xent``): each position's logits are the
         ``partial_scores`` slices ``semantic_decode`` searches."""
-        ce = _semantic.code_xent(p["item_emb"], h, targets)   # [B, S]
+        ce = _semantic.code_xent(p["item_emb"], h, targets,
+                                 rows=self.cfg.n_rows)        # [B, S]
         return torch.sum(ce * valid) / _count(valid)
 
     def _with_aux(self, p, h, targets, valid, loss):
@@ -269,10 +342,28 @@ class SeqRecModel(torch.nn.Module):
     def _mask_special(self, logits):
         """Never rank pad / [MASK] rows.  In place: the reference's
         ``.at[].set`` copies, this writes into ``logits`` (no backward
-        here needs its values) and saves a [.., n_rows] copy."""
-        logits[..., 0] = NEG_INF
-        logits[..., -1] = NEG_INF
+        here needs its values) and saves a [.., n_rows] copy.  On a
+        column block the pad column is rank 0's first and the [MASK]
+        column the last rank's last."""
+        lo, _ = self._columns(logits)
+        if lo == 0:
+            logits[..., 0] = NEG_INF
+        if lo + logits.shape[-1] == self.cfg.n_rows:
+            logits[..., -1] = NEG_INF
         return logits
+
+    def _columns(self, logits):
+        """(first column, mesh) of scores that are this rank's column
+        block of the catalogue; (0, None) for the whole catalogue."""
+        n = logits.shape[-1]
+        if n == self.cfg.n_rows:
+            return 0, None
+        blk = _dist.row_block(self.cfg.n_rows)
+        if blk is None or blk[1] - blk[0] != n:
+            raise ValueError(f"{n} score columns are neither the catalogue "
+                             f"({self.cfg.n_rows}) nor this rank's block "
+                             f"of it ({blk})")
+        return blk[0], _dist._CTX.mesh
 
     # ------------------------------------------------------------ serve
     def _serve_seq(self, seq):
@@ -286,7 +377,9 @@ class SeqRecModel(torch.nn.Module):
         return torch.cat([seq[:, 1:], mask_col], 1)
 
     def score_last(self, p, seq):
-        """Rank the full catalogue from the last position: [B, n_rows]."""
+        """Rank the full catalogue from the last position: [B, n_rows]
+        (on a ``"model"`` mesh, this rank's column block of it; the
+        metrics of ``train/metrics.py`` take it with ``rows=n_rows``)."""
         h = self.encode(p, self._serve_seq(seq))
         return self._mask_special(self.emb.logits(p["item_emb"], h[:, -1]))
 
@@ -358,6 +451,69 @@ def _xent(logits, labels):
     lse = torch.logsumexp(logits, -1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - picked
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Cross-entropy over a catalogue whose logits' columns are split
+    over ``"model"``: ``logits [T, n]`` this rank's columns ``[lo, lo +
+    n)``, ``labels [T]`` global ids -> ``ce [T]``, the same on every
+    rank.  Forward: this rank's max, then the global max (one MAX
+    all-reduce of ``[T]``); this rank's sum of ``exp(l - max)`` and the
+    label's logit where this rank owns it, zero elsewhere, summed over
+    the ranks together (one SUM all-reduce of ``[2, T]``).  Backward:
+    ``g (softmax - onehot)`` on this rank's columns, written into one
+    ``[T, n]`` buffer; the logits are saved, nothing else of ``[T, n]``
+    is kept between the passes."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, mesh):
+        n = logits.shape[-1]
+        gmax = _dist.max_over_model(logits.max(-1).values, mesh)
+        sumexp = torch.sub(logits, gmax[:, None]).exp_().sum(-1)
+        loc = labels.long() - lo
+        own = (loc >= 0) & (loc < n)
+        picked = torch.gather(logits, -1, loc.clamp(0, n - 1)[:, None])[:, 0]
+        picked = torch.where(own, picked, torch.zeros_like(picked))
+        both = mesh.all_reduce(torch.stack([sumexp, picked]), "model", "sum")
+        lse = torch.log(both[0]) + gmax
+        ctx.save_for_backward(logits, lse, loc, own)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, loc, own = ctx.saved_tensors
+        n = logits.shape[-1]
+        d = torch.sub(logits, lse[:, None]).exp_()            # softmax
+        d.scatter_add_(-1, loc.clamp(0, n - 1)[:, None],
+                       -own.to(d.dtype)[:, None])
+        return d.mul_(g[:, None]), None, None, None
+
+
+def vocab_parallel_xent(logits, labels, lo: int, mesh):
+    """``_xent`` over the whole catalogue from this rank's column block
+    ``logits [..., n]`` (columns ``[lo, lo + n)``, split over
+    ``mesh``'s ``"model"`` axis) and the global ``labels [...]``: the
+    per-position cross-entropy ``[...]``, the same on every rank."""
+    n = logits.shape[-1]
+    ce = _VocabParallelXent.apply(logits.reshape(-1, n),
+                                  labels.reshape(-1), int(lo), mesh)
+    return ce.reshape(labels.shape)
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def _meta(shapes):
+    if isinstance(shapes, dict):
+        return {k: _meta(v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_meta(v) for v in shapes]
+    return torch.empty(shapes, device="meta")
 
 
 # --------------------------------------------------- bert4rec masking

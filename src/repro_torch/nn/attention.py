@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import dist as _dist
 from repro_torch.nn.layers import lecun_normal
 
 NEG_INF = -1e9
@@ -83,8 +84,15 @@ def _sdpa(q, k, v, bias):
 
 
 def attention(p, cfg: AttnConfig, x, *, positions=None, pad_mask=None):
-    """Full-sequence attention (training / prefill), x [B, S, d]."""
+    """Full-sequence attention (training / prefill), x [B, S, d].  When
+    ``wq/wk/wv/wo`` hold a block of the heads (a ``"model"`` mesh, the
+    reference's ``heads`` axis), this rank runs its heads: ``x`` enters
+    through ``dist.copy_to_model`` and the heads' partial outputs after
+    ``wo`` are summed by ``dist.reduce_from_model``."""
     _check_ported(cfg)
+    split = p["wq"].shape[1] != cfg.n_heads
+    if split:
+        x = _dist.copy_to_model(_ambient(x))
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -96,7 +104,17 @@ def attention(p, cfg: AttnConfig, x, *, positions=None, pad_mask=None):
     if bias.ndim == 3:
         bias = bias[:, None]                       # [B, 1, Sq, Skv]
     out = _sdpa(q, k, v, bias)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return _dist.reduce_from_model(out) if split else out
+
+
+def _ambient(x):
+    """``x``, after checking that a mesh is installed for a split leaf."""
+    if _dist.model_size() <= 1:
+        raise ValueError("the attention weights hold a block of the heads, "
+                         "but no ambient mesh splits them "
+                         "(dist.use_mesh_rules)")
+    return x
 
 
 def init_cache(*args, **kwargs):

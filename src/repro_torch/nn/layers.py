@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from repro_torch import dist as _dist
+
 
 def fan(shape, in_axis: int = -2, out_axis: int = -1):
     """(fan_in, fan_out) as the reference's ``nn._fan`` counts them: the
@@ -104,5 +106,19 @@ def dense_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
             "wo": linear_init(gen, d_ff, d_model, dtype=dtype, device=device)}
 
 
-def dense_mlp(p, x, act=gelu):
-    return linear(p["wo"], act(linear(p["wi"], x)))
+def dense_mlp(p, x, act=gelu, *, d_ff=None):
+    """``wo(act(wi(x)))``.  With ``d_ff`` (the layer's whole width) and a
+    narrower ``wi``, the weights hold this rank's block of the ``mlp``
+    axis (a ``"model"`` mesh): ``wi`` and its bias column-parallel,
+    ``wo`` row-parallel; ``x`` enters through ``dist.copy_to_model``,
+    the partial products are summed by ``dist.reduce_from_model``, and
+    ``wo``'s bias, which is whole, is added once after the sum."""
+    if d_ff is None or p["wi"]["w"].shape[1] == d_ff:
+        return linear(p["wo"], act(linear(p["wi"], x)))
+    if _dist.model_size() <= 1:
+        raise ValueError(f"wi holds {p['wi']['w'].shape[1]} of {d_ff} "
+                         f"columns, but no ambient mesh splits them "
+                         f"(dist.use_mesh_rules)")
+    h = act(linear(p["wi"], _dist.copy_to_model(x)))
+    y = _dist.reduce_from_model(h @ p["wo"]["w"].to(h.dtype))
+    return y + p["wo"]["b"].to(y.dtype)

@@ -9,9 +9,16 @@ The policy is one ``TrainSpec``, handed over or derived from the legacy
 duplicate raises), and the step comes from the step-builder registry:
 
   * plain / microbatch: one device, or with ``mesh`` plain data
-    parallelism — each rank takes its rows of the batch and the
-    gradients are averaged by ``all_reduce`` (held to the reference
-    within tolerance, as its own mesh path is);
+    parallelism — each rank takes its rows of the batch (by its index
+    on the ``"data"`` axis) and the gradients are averaged over the
+    ``"data"`` group by ``all_reduce`` (held to the reference within
+    tolerance, as its own mesh path is) — and, on a mesh whose
+    ``"model"`` axis is S > 1 (a sequential model), tensor parallelism:
+    the Trainer installs the mesh (``dist.use_mesh_rules``), cuts the
+    parameters to their blocks (``bridge.keep_local_blocks``; the Adam
+    moments are made from them), clips by the global norm with the
+    split leaves' squares summed over ``"model"``, and the model's own
+    collectives do the rest (``models/sequential.py``);
   * elastic (``grad_compression`` / ``grad_accum_shards`` / ``fsdp`` /
     ``overlap``): ``repro_torch.dist.compression``'s exchange over ``V``
     virtual shards with error feedback, bitwise across world sizes
@@ -26,8 +33,13 @@ v)`` for virtual shard ``v`` (``step_generator``); no generator state is
 carried from step to step, so a resumed run draws the masks the
 uninterrupted run drew.  Checkpoints are the reference's format
 (``repro_torch.ckpt``): ``values``, ``opt``, ``early_stop`` and, on the
-elastic path, ``err``; rank 0 writes them.  The ``"model"`` mesh axis
-is the next slice: a mesh with ``model > 1`` raises.
+elastic path, ``err``; rank 0 writes them.  On a ``"model"`` mesh every
+split leaf and its moments are gathered first, so a checkpoint holds
+whole leaves under the reference's keys, and a restore cuts each
+rank's blocks: a run saved at ``(1, 2)`` resumes at ``(1, 1)`` or
+``(1, 2)``.  Not yet ported, and raising (``dist.NEXT_SLICE``): the
+elastic exchange on a ``model > 1`` mesh, and models without a
+``placement`` (the CTR and two-tower models) on one.
 """
 from __future__ import annotations
 
@@ -42,11 +54,13 @@ import torch
 
 from repro_torch.ckpt import (AsyncCheckpointer, checkpoint_metadata,
                               latest_step, restore_checkpoint)
+from repro_torch.dist import gather_block, local_block, model_dim
 from repro_torch.nn.module import tree_leaves
 from repro_torch.train import spec as spec_mod
 from repro_torch.train.metrics import validate_history
 from repro_torch.train.optimizer import (OptConfig, apply_updates,
-                                         init_opt_state, tree_map)
+                                         global_norm, init_opt_state,
+                                         tree_map)
 from repro_torch.train.spec import TrainSpec
 
 
@@ -93,12 +107,11 @@ def step_generator(seed: int, step: int, device,
 
 
 def _mean_over_ranks(tensors, mesh):
-    """The rank mean of each tensor (one ``all_reduce`` of their fp32
-    concatenation)."""
-    import torch.distributed as dist
+    """The mean of each tensor over the ``"data"`` group (one
+    ``all_reduce`` of their fp32 concatenation)."""
     buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(buf, group=mesh.group)
-    buf /= mesh.world_size
+    buf = mesh.all_reduce(buf, "data", "sum")
+    buf /= mesh.shape["data"]
     out, off = [], 0
     for t in tensors:
         out.append(buf[off:off + t.numel()].view(t.shape).to(t.dtype))
@@ -106,17 +119,32 @@ def _mean_over_ranks(tensors, mesh):
     return out
 
 
+def _spec_leaves(specs):
+    """The placement specs (tuples) of a specs tree, in leaf order."""
+    if isinstance(specs, dict):
+        return [x for k in specs for x in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def _whole_like(x, spec, mesh):
+    """An empty host tensor shaped as the whole leaf whose block ``x`` is
+    (the shape a checkpoint holds)."""
+    shape = list(x.shape)
+    k = model_dim(spec)
+    if k is not None:
+        shape[k] *= mesh.shape["model"]
+    return torch.empty(shape, dtype=x.dtype, device="cpu")
+
+
 class Trainer:
     def __init__(self, model, opt_cfg: OptConfig, train_cfg: TrainConfig,
                  data_fn: Callable[[int], dict],
                  eval_fn: Optional[Callable[[Any], dict]] = None,
                  mesh=None, rules=None, spec: Optional[TrainSpec] = None):
-        if rules is not None or (mesh is not None
-                                 and mesh.shape.get("model", 1) > 1):
-            # logical-axis rules only place the width axes on "model"
-            from repro_torch.dist import NEXT_SLICE
-            raise NotImplementedError(NEXT_SLICE)
         self.model = model
+        self.rules = rules
         self.opt_cfg = opt_cfg
         self.cfg = train_cfg
         self.data_fn = data_fn
@@ -155,6 +183,18 @@ class Trainer:
         self._accum = spec.resolve_accum(mesh) if self._use_dp else None
         self._world = 1 if mesh is None else spec_mod.dp_degree(mesh)
         self._rank = 0 if mesh is None else mesh.rank
+        self._split = mesh is not None and mesh.shape.get("model", 1) > 1
+        if self._split:
+            from repro_torch.dist import NEXT_SLICE
+            if spec.elastic:
+                raise NotImplementedError(
+                    f"the elastic exchange on a mesh with model = "
+                    f"{mesh.shape['model']}: {NEXT_SLICE}")
+            if not hasattr(model, "placement"):
+                raise NotImplementedError(
+                    f"{type(model).__name__} on a 'model' mesh axis: "
+                    f"{NEXT_SLICE}")
+        self._specs = None                 # the placement, when split
 
     # ----------------------------------------------------------- setup
     def _install_sigterm(self):
@@ -175,11 +215,16 @@ class Trainer:
         elastic exchange, the hook first averages the gradients over the
         ranks."""
         model, opt_cfg, mesh = self.model, self.opt_cfg, self.mesh
+        split = (None if self._specs is None else
+                 [model_dim(sp) is not None
+                  for sp in _spec_leaves(self._specs)])
 
         def loss_fn(values, batch, generator=None):
             return model.train_loss(values, batch, generator)
 
         def apply_fn(values, opt_state, grads, grad_norm=None):
+            if split is not None and grad_norm is None:
+                grad_norm = global_norm(grads, split=split, mesh=mesh)
             return apply_updates(opt_cfg, opt_state, values, grads,
                                  grad_norm=grad_norm)
 
@@ -217,10 +262,25 @@ class Trainer:
 
     def _restore(self, params, opt_state):
         """Load the latest checkpoint: the values into ``params`` in
-        place, and (opt_state, step, best metric, stale rounds)."""
+        place, and (opt_state, step, best metric, stale rounds).  On a
+        ``"model"`` mesh the checkpoint's whole leaves are read on the
+        host and each rank keeps its blocks."""
         d = self.cfg.ckpt_dir
-        like = {"values": params, "opt": {**opt_state, "step": np.int32(0)}}
+        opt = {**opt_state, "step": np.int32(0)}
+        like = {"values": params, "opt": opt}
+        if self._split:
+            like = {"values": self._tree_blocks(params, _whole_like),
+                    "opt": {**opt, "m": self._tree_blocks(opt["m"],
+                                                          _whole_like),
+                            "v": self._tree_blocks(opt["v"], _whole_like)}}
         state, step = restore_checkpoint(d, like)
+        if self._split:
+            state["values"] = self._tree_blocks(state["values"], local_block)
+            for k in ("m", "v"):
+                state["opt"][k] = tree_map(
+                    lambda x, dst: x.to(dst.device),
+                    self._tree_blocks(state["opt"][k], local_block),
+                    opt_state[k])
         with torch.no_grad():
             for dst, src in zip(tree_leaves(params),
                                 tree_leaves(state["values"])):
@@ -240,14 +300,26 @@ class Trainer:
     def _agree_preempted(self) -> bool:
         """Whether any rank was sent SIGTERM (every rank stops at the
         same step)."""
-        if self._world == 1:
+        if self.mesh is None or self.mesh.world_size == 1:
             return self._preempted
-        import torch.distributed as dist
         flag = torch.tensor([int(self._preempted)], dtype=torch.int32,
                             device=self.mesh.device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        flag = self.mesh.all_reduce(flag, ("data", "model"), "max")
         self._preempted = bool(flag.item())
         return self._preempted
+
+    def _tree_blocks(self, tree, fn):
+        """``fn(leaf, spec, mesh)`` over a tree shaped as the parameters
+        (the values or a moment), each leaf with its placement; a
+        moment slot of a non-float leaf (empty) is passed over."""
+        it = iter(_spec_leaves(self._specs))
+
+        def one(x):
+            spec = next(it)
+            if x is None or x.dim() != len(spec):
+                return x
+            return fn(x, spec, self.mesh)
+        return tree_map(one, tree)
 
     # ------------------------------------------------------------- run
     def run(self, generator: Optional[torch.Generator] = None, params=None):
@@ -261,7 +333,17 @@ class Trainer:
         values, optimizer state, error state, early-stop state) and the
         run goes on from its step; a fresh start takes an empty
         directory.  After the run ``err_state`` holds the ``[V, ...]``
-        error rows and ``opt_state`` the optimizer state."""
+        error rows and ``opt_state`` the optimizer state.  On a
+        ``"model"`` mesh the model's leaves are cut to this rank's blocks
+        first (``params`` must be ``model.params()``; the returned tree
+        holds the blocks, and so does ``opt_state``)."""
+        if not self._split:
+            return self._run(generator, params)
+        from repro_torch.dist import use_mesh_rules
+        with use_mesh_rules(self.mesh, self.rules):
+            return self._run(generator, params)
+
+    def _run(self, generator, params):
         from repro_torch.dist import compression
         cfg, model, mesh = self.cfg, self.model, self.mesh
         self._step_times = []
@@ -272,6 +354,10 @@ class Trainer:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = model.init_params(generator)
+        if self._split:
+            from repro_torch import bridge
+            self._specs = bridge.keep_local_blocks(model, mesh, self.rules)
+            params = model.params()
         opt_state = init_opt_state(params)
         elastic, fsdp, V = self._use_dp, self._fsdp, self._accum
         err_full = (compression.zeros_error_state(params, V)
@@ -329,7 +415,12 @@ class Trainer:
         def ckpt_state():
             sync_params()
             opt = full_opt()
-            state = {"values": params,
+            values = params
+            if self._split:                 # whole leaves, every rank
+                values = self._tree_blocks(params, gather_block)
+                opt = {**opt, "m": self._tree_blocks(opt["m"], gather_block),
+                       "v": self._tree_blocks(opt["v"], gather_block)}
+            state = {"values": values,
                      "opt": {**opt, "step": np.int32(opt["step"])},
                      "early_stop": {"best": np.float64(best_metric),
                                     "stale": np.int64(stale)}}
@@ -363,7 +454,7 @@ class Trainer:
             x.requires_grad_(True)
         rows = None
         if not elastic and self._world > 1:
-            rows = (self._rank, self._world)
+            rows = (mesh.data_index, self._world)
             if cfg.batch_size % self._world:
                 raise ValueError(
                     f"batch_size={cfg.batch_size} must divide over the "

@@ -82,18 +82,36 @@ def validate_history(history: List[dict],
     return errs
 
 
-def rank_of(scores, target):
+def rank_of(scores, target, *, rows=None):
     """scores [B, N], target [B] -> 1-based rank of the target item.
-    Strict ``>``: items tied with the target rank below it."""
-    t = torch.gather(scores, -1, target[:, None].long())     # [B, 1]
-    return 1 + torch.sum(scores > t, dim=-1)
+    Strict ``>``: items tied with the target rank below it.  ``rows``:
+    the catalogue's size, where ``scores`` is this rank's column block
+    of it on the ambient ``"model"`` mesh (``score_last`` there): the
+    target's score comes from the rank that owns its column, summed over
+    ``"model"`` with the others' zeros, and the counts of higher scores
+    are summed over ``"model"``, so the rank equals the whole scores'."""
+    n = scores.shape[-1]
+    if rows is None or n == rows:
+        t = torch.gather(scores, -1, target[:, None].long())     # [B, 1]
+        return 1 + torch.sum(scores > t, dim=-1)
+    from repro_torch import dist
+    blk = dist.row_block(int(rows))
+    if blk is None or blk[1] - blk[0] != n:
+        raise ValueError(f"{n} score columns are neither the catalogue "
+                         f"({rows}) nor this rank's block of it ({blk})")
+    loc = target.long() - blk[0]
+    own = (loc >= 0) & (loc < n)
+    t = torch.gather(scores, -1, loc.clamp(0, n - 1)[:, None])[:, 0]
+    t = dist.reduce_from_model(torch.where(own, t, torch.zeros_like(t)))
+    higher = torch.sum(scores > t[:, None], dim=-1)
+    return 1 + dist.reduce_from_model(higher)
 
 
-def ndcg_at_k(scores, target, k: int = 10):
-    r = rank_of(scores, target)
+def ndcg_at_k(scores, target, k: int = 10, *, rows=None):
+    r = rank_of(scores, target, rows=rows)
     gain = 1.0 / torch.log2(1.0 + r.float())
     return torch.where(r <= k, gain, torch.zeros_like(gain))  # [B]
 
 
-def hr_at_k(scores, target, k: int = 10):
-    return (rank_of(scores, target) <= k).float()
+def hr_at_k(scores, target, k: int = 10, *, rows=None):
+    return (rank_of(scores, target, rows=rows) <= k).float()

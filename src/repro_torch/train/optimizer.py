@@ -75,12 +75,25 @@ def init_opt_state(values):
             "step": 0}
 
 
-def global_norm(grads) -> torch.Tensor:
-    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)
+def global_norm(grads, *, split=None, mesh=None) -> torch.Tensor:
+    """The L2 norm over every float leaf.  ``split`` (a bool a leaf of
+    ``tree_leaves(grads)``) marks the leaves that hold this rank's block
+    of a ``"model"`` mesh: their sums of squares are summed over
+    ``"model"`` (one all-reduce), the whole leaves' count once, so every
+    rank clips by the whole gradient's norm."""
+    sq = [(i, torch.sum(torch.square(g.float())))
+          for i, g in enumerate(tree_leaves(grads))
           if g is not None and torch.is_floating_point(g) and g.numel()]
     if not sq:
         return _f32(0.0)
-    return torch.sqrt(sum(sq))
+    mine = [j for j, (i, _) in enumerate(sq) if split is not None and
+            split[i]]
+    if mine and mesh is not None:
+        red = mesh.all_reduce(torch.stack([sq[j][1] for j in mine]),
+                              "model", "sum")
+        for j, r in zip(mine, red):
+            sq[j] = (sq[j][0], r)
+    return torch.sqrt(sum(s for _, s in sq))
 
 
 @torch.no_grad()

@@ -1646,3 +1646,105 @@ def test_embedding_bag_on_a_row_slice(dev, S, s):
     got = ec.embedding_bag(block, loc, w)
     want = eref.embedding_bag_ref(block, loc, w)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# --------------------------------------------- the model axis's shard shapes
+# (training on a "model" mesh: each rank's jpq_scores pair runs over its
+# block of the full-width catalogue's 1,000,002 code rows, 500,001 at
+# S = 2, at a rank's T = 3,200 positions, 1,600 at (2, 2))
+
+MODEL_SHARDS = [(3200, 0), (3200, 1), (1600, 1)]    # (T, the rank's block)
+
+
+@pytest.mark.parametrize("T, s", MODEL_SHARDS)
+def test_jpq_scores_pair_on_a_model_shard(dev, T, s):
+    """The forward over rank s's 500,001 code rows (a view at an offset
+    into the whole codes) bit-equal to its plain version; the backward
+    bit-identical across two calls and within gamma(chain - 1)
+    sum|terms| of the float64 plain version (row blocks of 512)."""
+    n_rows, m, b = 1_000_002, 8, 256
+    L = n_rows // 2
+    g = torch.Generator(device=dev).manual_seed(28 + s)
+    codes = torch.randint(0, b, (n_rows, m), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    block = codes[s * L:(s + 1) * L]
+    P = torch.randn((T, m, b), generator=g, device=dev)
+    got = sc.jpq_scores(P, block)
+    assert _bits_equal(got, sref.jpq_scores_lut_ref(P, block))
+    del got
+    dS = torch.randn((T, L), generator=g, device=dev)
+    d1 = sc.jpq_scores_bwd(dS, block, b)
+    assert _bits_equal(d1, sc.jpq_scores_bwd(dS, block, b))
+    chunks = sc.bwd_chunks(T, m, b, L, dev)
+    lim = torch.empty(d1.shape, dtype=torch.float64, device=dev)
+    want = torch.empty_like(lim)
+    for r in range(0, T, 512):
+        blk = dS[r:r + 512].double()
+        want[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk, block, b)
+        lim[r:r + 512] = sref.jpq_scores_lut_bwd_ref(blk.abs_(), block, b)
+    lim = _gamma_bound(block, b, chunks, lim)
+    assert bool(((d1.double() - want).abs() <= lim).all())
+
+
+def _xent_rank(mesh, inp, out_dir):
+    """One rank of the vocab-parallel cross-entropy on the card: its
+    column block of the shared logits through ``_mask_special`` and
+    ``vocab_parallel_xent``; rank 0 saves the loss and the gathered
+    gradient."""
+    import os
+
+    from repro_torch import dist
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.models.sequential import (SeqRecConfig, SeqRecModel,
+                                               vocab_parallel_xent)
+    logits, labels = (torch.as_tensor(x, device=mesh.device) for x in inp)
+    n_rows = logits.shape[-1]
+    model = SeqRecModel(SeqRecConfig(
+        arch="sasrec", n_items=n_rows - 2, max_len=8, d_model=16,
+        n_layers=1, n_heads=2, d_ff=32,
+        embedding=EmbeddingConfig(0, 0, kind="jpq", m=4, b=16)),
+        device=mesh.device)
+    with dist.use_mesh_rules(mesh):
+        lo, hi = dist.row_block(n_rows)
+        leaf = logits[..., lo:hi].clone().requires_grad_(True)
+        valid = labels > 0
+        ce = vocab_parallel_xent(model._mask_special(leaf * 1.0), labels,
+                                 lo, mesh)
+        loss = torch.sum(ce * valid) / valid.sum()
+        (g,) = torch.autograd.grad(loss, leaf)
+        g = mesh.all_gather(g, "model", 2)
+    if mesh.rank == 0:
+        torch.save((loss.detach().cpu(), g.cpu()),
+                   os.path.join(out_dir, "xent.pt"))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_vocab_parallel_xent_on_the_card(dev, S, tmp_path):
+    """S ranks sharing the card (gloo staged through host memory): the
+    vocab-parallel cross-entropy's loss within 1e-6 relative and its
+    gradient within 1e-6 of its largest entry of ``_xent`` after
+    ``_mask_special`` over the whole logits on the card; the labels on
+    every rank, the pad and [MASK] labels at the edges."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.sequential import SeqRecConfig, SeqRecModel, _xent
+    g = torch.Generator(device=dev).manual_seed(5)
+    T, n_rows = 64, 4_004
+    logits = 4 * torch.randn((2, T, n_rows), generator=g, device=dev)
+    labels = torch.randint(1, n_rows - 1, (2, T), generator=g, device=dev)
+    labels[0, :4] = torch.tensor([1, n_rows // 4, n_rows // 2 + 1,
+                                  n_rows - 2])
+    labels[1, :2] = torch.tensor([0, n_rows - 1])
+    M.spawn(_xent_rank, S, ((logits.cpu(), labels.cpu()), str(tmp_path)),
+            device=dev, model=S, share_card=True, timeout=300)
+    got, gg = torch.load(tmp_path / "xent.pt")
+    model = SeqRecModel(SeqRecConfig(
+        arch="sasrec", n_items=n_rows - 2, max_len=8, d_model=16,
+        n_layers=1, n_heads=2, d_ff=32), device=dev)
+    leaf = logits.clone().requires_grad_(True)
+    valid = labels > 0
+    loss = torch.sum(_xent(model._mask_special(leaf * 1.0), labels)
+                     * valid) / valid.sum()
+    (want,) = torch.autograd.grad(loss, leaf)
+    assert abs(float(got) - float(loss)) <= 1e-6 * abs(float(loss))
+    assert float((gg - want.cpu()).abs().max()) <= \
+        1e-6 * float(want.abs().max())

@@ -124,8 +124,13 @@ def test_constrain_identity_and_next_slice():
         assert T_dist.constrain(x, ("batch", "mlp")) is x    # model == 1
     with T_R.use_mesh_rules(_mesh(data=2, model=2)):
         assert T_dist.constrain(x, ("batch", None)) is x     # data axis
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            T_dist.constrain(x, ("batch", "mlp"))
+    # a width axis on model > 1 (item 9c): this rank's block, a view
+    for m in range(2):
+        with T_R.use_mesh_rules(HostMesh(2, 2, rank=2 + m)):
+            got = T_dist.constrain(x, ("batch", "mlp"))
+            assert torch.equal(got, x[:, m:m + 1])
+            assert got.untyped_storage().data_ptr() == \
+                x.untyped_storage().data_ptr()
     # the model axis itself is ported (serving's mesh branches)
     m = make_host_mesh(4, model=2, group=False)
     assert m.shape == {"data": 2, "model": 2} and m.group is None

@@ -117,9 +117,9 @@ def test_embedding_lookup_follows_use_kernel(monkeypatch):
     seen = []
     real = T_jpq.lookup
 
-    def spy(p, ids, *, use_kernel=False):
+    def spy(p, ids, *, use_kernel=False, **kw):
         seen.append(use_kernel)
-        return real(p, ids, use_kernel=use_kernel)
+        return real(p, ids, use_kernel=use_kernel, **kw)
 
     monkeypatch.setattr(T_jpq, "lookup", spy)
     for uk in (True, False):

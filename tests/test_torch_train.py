@@ -248,9 +248,10 @@ def test_trainer_eval_and_early_stop():
     dict(grad_accum_shards=4), dict(fsdp=True), dict(overlap="backward")])
 def test_trainer_unported_options_raise(knob):
     """The elastic knobs are ported: without a mesh the port raises the
-    reference's error, word for word; what still waits, a mesh with a
-    ``model`` axis > 1 or logical-axis rules (they place width axes on
-    it), raises NotImplementedError."""
+    reference's error, word for word (logical-axis rules, which the
+    Trainer now takes, change nothing there); what still waits, the
+    elastic exchange on a mesh with a ``model`` axis > 1, raises
+    NotImplementedError naming item 9c-ii."""
     import types
 
     from repro.train import loop as J_loop
@@ -261,13 +262,24 @@ def test_trainer_unported_options_raise(knob):
         T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
                        data_fn=None)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
-                       data_fn=None, mesh=types.SimpleNamespace(
-                           shape={"data": 1, "model": 2}, rank=0))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    model_mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                       rank=0)
+    if "overlap" in knob:        # not an elastic spec: the same error
+        with pytest.raises(ValueError) as got:
+            T_loop.Trainer(None, T_opt.OptConfig(),
+                           T_loop.TrainConfig(**knob), data_fn=None,
+                           mesh=model_mesh)
+        assert str(got.value) == str(want.value)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="not yet ported.*item 9c-ii"):
+            T_loop.Trainer(None, T_opt.OptConfig(),
+                           T_loop.TrainConfig(**knob), data_fn=None,
+                           mesh=model_mesh)
+    with pytest.raises(ValueError) as got:
         T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
                        data_fn=None, rules={"embed": ("model",)})
+    assert str(got.value) == str(want.value)
 
 
 # -------------------------------------------------------------- CLI
@@ -296,18 +308,22 @@ def test_cli_flags_and_defaults_match_the_reference():
     j = vars(J_cli.build_parser().parse_args([]))
     t = vars(T_cli.build_parser().parse_args([]))
     assert t.pop("device") == "cuda"
+    assert t.pop("share_card") is False       # ranks sharing one card
     assert t == j
 
 
 @pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"],
-                                   ["--mesh", "2", "--model-axis", "2"],
-                                   ["--model-axis", "2"],
+                                   ["--arch", "fm", "--mesh", "2",
+                                    "--model-axis", "2"],
+                                   ["--arch", "dien", "--model-axis", "2"],
                                    ["--grad-compression", "bf16",
                                     "--model-axis", "2"]])
 def test_cli_unported_flags_raise(flags):
-    """What the CLI still refuses: the LM and MACE bundles and the
-    ``model`` axis (``--mesh`` and the TrainSpec flags train:
-    tests/test_torch_elastic.py)."""
+    """What the CLI still refuses: the LM and MACE bundles (item 10), and
+    on a ``model`` axis the CTR archs and the elastic exchange (item
+    9c-ii).  ``--mesh``, the TrainSpec flags and a sequential arch's
+    ``--model-axis`` train (tests/test_torch_elastic.py,
+    tests/test_torch_model_axis_train.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported|only"):
         T_cli.main(["--device", "cpu", "--steps", "1", "--n-items", "50",
                     *flags])
