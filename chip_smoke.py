@@ -267,18 +267,39 @@ Phase 28 runs after phase 27:
      the later losses beside phase 7's, each rank's peak at most 0.55 x
      64.40 GB, two runs bit-identical; (b) BERT4Rec, 5 steps, and (d)
      GRU4Rec, 3 steps, at (1, 2), step 0 against phase 12's; (c) (2, 2)
-     SASRec on four ranks, step 0 against the mean of the two halves'
-     (1, 1) steps; (e) (a)'s step-5 checkpoint resumed at (1, 2),
+     SASRec on four ranks, step 0 against the (1, 1) step on the whole
+     batch (the data group's counted rule); (e) (a)'s step-5 checkpoint resumed at (1, 2),
      bit-equal, and at (1, 1), its losses within 1e-4 relative; every
      rank launched the four training kernels; the collectives' ms,
      bytes and calls a step against their count.  Then the four
      training kernels at the shards' shapes (500,001 code rows, T =
      3,200 and 1,600), each against its plain version, timed beside its
      bound and library call (the kernels JSON's ``model_axis_shape``).
+Phase 29 runs after phase 28:
+ 29. main path, the CTR and two-tower models on a ``"model"`` mesh axis,
+     ranks time-sharing the one card (gloo staged), as ``launch/train.py
+     --arch A --model-axis S --share-card`` runs them, phase 24's full
+     widths and batches: (a) two-tower-retrieval and (b) its ``-jpq`` at
+     (1, 2), B = 65,536 in 2 microbatches; (c) fm and fm-jpq and (d)
+     dlrm-rm2-jpq at (1, 4); (e) dien and dien-jpq at (1, 2), B cut to
+     32,768 (two ranks at phase 24's 41.25 GB do not fit); (f) fm at
+     (2, 2); 3-4 steps each: step 0 within 1e-5 relative of the one-card
+     step on the same batch, every rank's losses equal, the bag kernels
+     launched on every rank, each rank's peak, step and collectives
+     beside phase 24's; full-table dlrm-rm2 is left out (57 GB a
+     rank).  Then ``launch/serve.py --mesh S`` (the CLI's per-rank body,
+     ``serve._mesh_rank``) at S = 2 and 4 for fm, fm-jpq, dlrm-rm2-jpq,
+     dien and dien-jpq, 20 requests of B = 512, every rank's every
+     response bit-equal to the unsharded path; then the ``embedding_bag``
+     forward and backward at the shards' shapes (the two-tower pool on
+     a (1, 2) block, FM's table gather and linear term at (1, 4)),
+     bit-equal to their plain versions, timed beside bound, plain and
+     ``F.embedding_bag``, with the longest run the backward sees on a
+     block and on one card (the kernels JSON's ``model_axis_ctr``).
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
-``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}`` and
-the per-kernel
+``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
+phase 29's ``{"ctr_model_axis": ...}`` and the per-kernel
 numbers (eight kernels; the two top-k kernels also carry phase 25's
 ``server_shape``, rows 3-5 phase 26's ``elastic_launches`` and
 ``elastic_round_max_abs_err``), the
@@ -3453,7 +3474,7 @@ def shard_kernel_rows(torch, dev, smi, template):
         loc = ids - s * L
         ok = (loc >= 0) & (loc < L)
         w = ((ids > 0) & ok).float()
-        loc = loc.clamp(0, L - 1)
+        loc = torch.where(ok, loc, 0)    # embedding_bag_block's foreign ids
         kern = ec.embedding_bag(tab, loc, w)
         plain = eref.embedding_bag_ref(tab, loc, w)
         check(bits_equal(kern, plain),
@@ -3664,8 +3685,8 @@ def tp_rank(mesh, codes_np, batches, jobs, out_dir):
     """One rank of phase 28 (module-level: spawn pickles it).  Each job
     builds the full-width RecJPQ model of phase 7 (``full_width_model``)
     from seed 0, optionally takes one step's loss and gradient at the
-    start (this rank's data rows, the data group's mean, the blocks
-    gathered), then trains it through ``Trainer`` on this rank's mesh
+    start (this rank's data rows over the whole batch's counts, the
+    data group's sum, the blocks gathered), then trains it through ``Trainer`` on this rank's mesh
     for ``steps`` steps of phase 7's batches (BERT4Rec masked as phase
     12 masks them), the launch counters, the peak memory and
     ``HostMesh.comm`` read around the run; ``ckpt`` saves every 5 steps,
@@ -3679,7 +3700,7 @@ def tp_rank(mesh, codes_np, batches, jobs, out_dir):
     from repro_torch.kernels.jpq_lookup import cuda as lc
     from repro_torch.kernels.jpq_scores import cuda as sc
     from repro_torch.models.sequential import mask_batch
-    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.loop import TrainConfig, Trainer, counted_loss
     from repro_torch.train.optimizer import OptConfig
     fp32_matmuls()
     dev, D = mesh.device, mesh.shape["data"]
@@ -3709,13 +3730,15 @@ def tp_rank(mesh, codes_np, batches, jobs, out_dir):
             b = {k: torch.as_tensor(v, device=dev)[mesh.data_index * n:
                                                    (mesh.data_index + 1) * n]
                  for k, v in data_fn(0).items()}
-            with dist.use_mesh_rules(mesh):
-                loss, _ = model.train_loss(p, b)
+            loss_fn = counted_loss(model, mesh) if D > 1 \
+                else model.train_loss
+            with dist.use_mesh_rules(mesh, local_batch=D > 1):
+                loss, _ = loss_fn(p, b)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
             out["grad0_loss"] = float(mesh.all_reduce(
-                loss.detach().reshape(1), "data") / D)
+                loss.detach().reshape(1), "data"))
             out["grad0"] = {k: dist.gather_block(
-                mesh.all_reduce(g, "data") / D, specs[k], mesh).cpu()
+                mesh.all_reduce(g, "data"), specs[k], mesh).cpu()
                 for k, g in zip(leaves, grads)}
             del p, leaves, b, loss, grads
             gc.collect()
@@ -3769,13 +3792,13 @@ def tp_step_bytes(T, d, n_layers, cent_bytes, n_split, D, held_floats):
     [T, d]; the logits' dh [T, d] and dcent; the cross-entropy's max [T]
     and its [2, T] of sum-exp and label logit; the input's code gather
     [T, m] uint8; the clip norm's split leaves' squares; the stop flag;
-    at D > 1 the data group's mean of the rank's ``held_floats``
-    gradient entries and of the three metrics (loss, grad_norm, lr)."""
+    at D > 1 the data group's sums of the loss's count (one int64), of
+    the rank's ``held_floats`` gradient entries and of the loss."""
     f = 4
     b = (4 * n_layers * T * d * f + T * d * f + cent_bytes + 3 * T * f
          + T * M + n_split * f + 4)
     if D > 1:
-        b += (held_floats + 3) * f
+        b += 8 + (held_floats + 1) * f
     return b
 
 
@@ -3880,8 +3903,8 @@ def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
     four training kernels.  (b) (1, 2) BERT4Rec, 5 steps, the [MASK]
     column on the last rank; (d) (1, 2) GRU4Rec, 3 steps; each step 0
     within 1e-5 relative of phase 12's.  (c) (2, 2) SASRec, 5 steps on
-    four ranks: step 0 against the mean of the two halves' (1, 1) steps
-    (the "data" group's mean).  (e) (a) saves at step 5; a (1, 2) resume
+    four ranks: step 0 against the (1, 1) step on the whole batch (each
+    data rank's share over the whole batch's counts, summed).  (e) (a) saves at step 5; a (1, 2) resume
     from it is bit-equal to (a), a (1, 1) resume within 1e-4 relative
     of its losses.  Then the kernels at the shards' shapes
     (``tp_shard_kernels``).  ``seq_runs``: phases 7's and 12's
@@ -3907,8 +3930,7 @@ def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     leaves = {k: x for k, x in _flat(params).items()
               if torch.is_floating_point(x)}
-    for name, lo, hi in (("whole", 0, TRAIN_B), ("half0", 0, TRAIN_B // 2),
-                         ("half1", TRAIN_B // 2, TRAIN_B)):
+    for name, lo, hi in (("whole", 0, TRAIN_B),):
         b = {k: torch.as_tensor(v[lo:hi], device=dev)
              for k, v in batches[0].items()}
         loss, _ = model.train_loss(params, b)
@@ -4050,21 +4072,19 @@ def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
               + f"; phase 12's (1, 1) " + " ".join(
                   f"{x:.5f}" for x in seq_runs[arch]["losses"][
                       :TP_STEPS[arch]]))
-    # (c) the data group's mean
+    # (c) the data group: the whole batch's step
     c = ranks["2x2"][0]["c"]
-    want_loss = (ref["half0"][0] + ref["half1"][0]) / 2
-    want_g = {k: (ref["half0"][1][k] + ref["half1"][1][k]) / 2
-              for k in ref["half0"][1]}
+    want_loss, want_g = ref["whole"]
     check(abs(c["grad0_loss"] - want_loss) <= 1e-5 * abs(want_loss)
           and abs(c["losses"][0] - want_loss) <= 1e-5 * abs(want_loss),
-          f"(c) (2, 2) step 0 loss {c['grad0_loss']} != the halves' mean "
+          f"(c) (2, 2) step 0 loss {c['grad0_loss']} != the whole batch's "
           f"{want_loss}")
     worst_c = leaf_rule(want_g, c["grad0"])
     runs["2x2:c"]["step0"] = {"loss": c["grad0_loss"],
-                              "halves_mean": want_loss,
+                              "loss_1x1": want_loss,
                               "grad_worst_share_of_rule": worst_c}
     print(f"   (c) (2, 2) SASRec step 0: loss {c['grad0_loss']:.7f} vs the "
-          f"(1, 1) halves' mean {want_loss:.7f}; gradients within the leaf "
+          f"(1, 1) whole batch's {want_loss:.7f}; gradients within the leaf "
           f"rule (worst at {worst_c:.3f}); losses "
           + " ".join(f"{x:.5f}" for x in c["losses"]))
     # the collectives' bytes a step, against the count
@@ -4097,6 +4117,516 @@ def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
     shard = tp_shard_kernels(torch, dev, smi, codes_np, batches)
     done(t0)
     return {"runs": runs, "shard_kernels": shard, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 29
+# the CTR and two-tower models on a "model" mesh axis: training with their
+# tables' rows and towers split over the ranks, and serving FM, DLRM-RM2
+# and DIEN under --mesh, ranks time-sharing the one card (gloo staged
+# through host memory)
+
+# (run, arch, (D, S), batch rows, microbatches, steps): phase 24's
+# batches and microbatches; DIEN's batch cut to 32,768, since two ranks
+# at phase 24's 41.25 GB do not fit on the card
+CTR_TP_RUNS = (
+    ("a", "two-tower-retrieval", (1, 2), CTR_B, 2, 4),
+    ("b", "two-tower-retrieval-jpq", (1, 2), CTR_B, 2, 4),
+    ("c", "fm", (1, 4), CTR_B, 1, 4),
+    ("c", "fm-jpq", (1, 4), CTR_B, 1, 4),
+    ("d", "dlrm-rm2-jpq", (1, 4), CTR_B, 1, 4),
+    ("e", "dien", (1, 2), 32_768, 2, 3),
+    ("e", "dien-jpq", (1, 2), 32_768, 2, 3),
+    ("f", "fm", (2, 2), CTR_B, 1, 4))
+CTR_TP_PEAK_GB = 75.0            # the ranks' peaks together, one card
+CTR_MESH_ARCHS = ("fm", "fm-jpq", "dlrm-rm2-jpq", "dien", "dien-jpq")
+
+
+def ctr_batches(np, data, arch, rows, n):
+    """``n`` host batches of ``rows`` rows for ``arch``, phase 24's: the
+    two-tower template's distributions at full shape from (seed 0,
+    step), SyntheticClicks for FM and DLRM, dien_batch over phase 7's
+    sequences for DIEN."""
+    from repro_torch.configs.recsys_archs import (DLRM_VOCABS, FM_VOCABS,
+                                                  N_CANDIDATES)
+    from repro_torch.data.clicks import ClickDataConfig, SyntheticClicks
+    from repro_torch.data.clicks import dien_batch
+    fam = arch.replace("-jpq", "")
+    if fam == "two-tower-retrieval":
+        def one(s):
+            r = np.random.default_rng((0, s))
+            return {"user_hist": r.integers(0, N_CANDIDATES + 1, (rows, 50)),
+                    "pos_item": r.integers(1, N_CANDIDATES + 1, (rows,)),
+                    "logq": np.zeros(rows, np.float32)}
+        return [one(s) for s in range(n)]
+    if fam == "dien":
+        return [dien_batch(data, s, rows, 100) for s in range(n)]
+    vocabs, keys = ((FM_VOCABS, ("sparse", "label")) if fam == "fm" else
+                    (DLRM_VOCABS, ("dense", "sparse", "label")))
+    clicks = SyntheticClicks(ClickDataConfig(n_dense=13, vocab_sizes=vocabs,
+                                             seed=0))
+    return [{k: b[k] for k in keys}
+            for b in (clicks.batch(s, rows) for s in range(n))]
+
+
+def ctr_tp_rank(mesh, jobs, batch_dir, out_dir):
+    """One rank of phase 29's training (module-level: spawn pickles it).
+    Each job ``(run, arch, rows, microbatches, steps)`` builds the
+    arch's full-width model from seed 0 on the card and trains it
+    through ``Trainer`` on this rank's mesh (its placement's blocks
+    kept, the rows of the batch its data index gives it), on the host
+    batches saved under ``batch_dir``; the embedding_bag launch
+    counters, the peak memory and ``HostMesh.comm`` are read around the
+    run.  Writes ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import fp32_matmuls
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    fp32_matmuls()
+    dev = mesh.device
+    res = {"rank": mesh.rank, "transport": mesh.transport}
+    for run, arch, rows, mb, steps in jobs:
+        with np.load(os.path.join(batch_dir, f"{arch}.npz")) as z:
+            batches = [{k.split("/")[1]: z[k] for k in z.files
+                        if k.startswith(f"{s}/")} for s in range(steps)]
+        model = get_bundle(arch).make_model(device=dev, seed=0)
+        tr = Trainer(model, OptConfig(lr=3e-3), TrainConfig(
+            steps=steps, batch_size=rows, log_every=1, eval_every=0,
+            microbatches=mb), data_fn=lambda s: batches[s], mesh=mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ec.reset_launches()
+        comm0 = dict(mesh.comm)
+        params, hist = tr.run(params=model.params())
+        torch.cuda.synchronize(dev)
+        hrows = [h for h in hist if "loss" in h]
+        specs = _flat(tr._specs)
+        res[f"{run}:{arch}"] = {
+            "losses": [h["loss"] for h in hrows],
+            "step_ms": [h["sec"] * 1e3 for h in hrows],
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": dict(ec.launches),
+            "comm": {k: mesh.comm[k] - comm0[k] for k in comm0},
+            "split": {k: tuple(x.shape) for k, x in _flat(params).items()
+                      if any(e == "model" for e in specs[k])}}
+        del model, tr, params, hist, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def ctr_serve_model(arch, device):
+    """The arch's full-width model from seed 0 and a request template
+    whose ids lie in every field's range (``make_requests`` draws each
+    integer field over the template's [min, max]): FM's below its
+    smallest vocabulary, 10,000; DLRM's below 4,000; DIEN's histories
+    and targets over the catalogue.  Module-level: spawn pickles it."""
+    import numpy as np
+
+    from repro_torch.configs import get_bundle
+    model = get_bundle(arch).make_model(device=device, seed=0)
+    r = np.random.default_rng(29)
+    if arch.startswith("fm"):
+        tmpl = {"sparse": r.integers(0, 10_000, (B, 39))}
+    elif arch.startswith("dlrm"):
+        tmpl = {"dense": r.standard_normal((B, 13)).astype(np.float32),
+                "sparse": r.integers(0, 4_000, (B, 26))}
+    else:
+        tmpl = {"hist": r.integers(0, 1_000_001, (B, 100)),
+                "target": r.integers(1, 1_000_001, (B,))}
+    return model, tmpl
+
+
+def _ctr_serve_args(arch, S=0):
+    from repro_torch.launch import serve as serve_mod
+    argv = ["--arch", arch, "--batch-size", str(B), "--requests",
+            str(REQUESTS), "--device", "cuda"]
+    if S:
+        argv += ["--mesh", str(S), "--share-card"]
+    return serve_mod.build_parser().parse_args(argv)
+
+
+def ctr_serve_rank(mesh, archs, out_dir):
+    """One rank of phase 29's serving (module-level: spawn pickles it):
+    the ``--mesh S`` CLI's per-rank body (``serve._mesh_rank``: build,
+    keep this rank's catalogue rows, ``serve_loop`` under the mesh) for
+    each arch in turn, the results under ``out_dir/<arch>``."""
+    import functools
+
+    import torch
+
+    from repro_torch.launch import serve as serve_mod
+    for arch in archs:
+        sub = os.path.join(out_dir, arch)
+        os.makedirs(sub, exist_ok=True)
+        serve_mod._mesh_rank(mesh, _ctr_serve_args(arch, mesh.shape["model"]),
+                             functools.partial(ctr_serve_model, arch), sub,
+                             True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _longest_run(ec, ids, V):
+    """The longest run of one row the bag backward's sort gives ``ids``
+    over a ``V``-row table (the sentinel V, foreign slots, not a row)."""
+    order = ec.sort_ids(ids.contiguous(), V)
+    return int((order.offs[1:] - order.offs[:-1]).max())
+
+
+def ctr_shard_bag_rows(torch, dev, smi, tt_batch, fm_batch):
+    """The embedding_bag kernels at phase 29's shard shapes, each against
+    its plain version and timed beside its bound, plain version and
+    library call: (1) the two-tower user tower's pool on the last rank's
+    500,224-row block at (1, 2), one microbatch slice of 32,768 bags x
+    50 (``embedding_bag_block``), forward and backward; (2) FM's table
+    gather on the last rank's 772,500-row block at (1, 4), 65,536 x 39
+    slots, d = 10 (``gather_block``'s backward: ``cuda.block_backward``);
+    (3) FM's linear term at (1, 4), the bag over the 2,555,904 gathered
+    rows (forward).  Each block's backward is bit-equal to the same rows
+    of the whole table's backward on the same dout; the longest run the
+    backward sees on a block is printed beside one card's.  Returns
+    {kernel: {shape: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.recsys_archs import FM_VOCABS
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows = {"embedding_bag": {}, "embedding_bag_backward": {}}
+
+    def show(kernel, shape, r):
+        rows[kernel][shape] = r
+        print(f"   {kernel}, {shape}: {r['ms']:.4f} ms kernel"
+              + ("" if "checked_ms" not in r else
+                 f" ({r['checked_ms']:.4f} through the ops call)")
+              + f", {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
+              f"{r['library']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); bit-equal to plain"
+              + ("" if "longest_run" not in r else
+                 f"; longest run {r['longest_run']} on the block, "
+                 f"{r['longest_run_one_card']} on one card, "
+                 f"{r['foreign_slots']} foreign slots skipped (the old "
+                 f"clamp put {r['clamped_edge_max']} on one edge row)")
+              + f"; on {smi}")
+
+    # (1) the two-tower pool on a (1, 2) block
+    V, d, S = 1_000_448, 256, 2
+    nb = V // S
+    lo = (S - 1) * nb
+    ids = torch.as_tensor(tt_batch["user_hist"][:CTR_B // 2], device=dev)
+    mask = (ids > 0).float()
+    n, L = ids.shape
+    table = torch.randn((nb, d), generator=gen, device=dev)
+    loc = ids - lo
+    own = (loc >= 0) & (loc < nb)
+    safe, marked = torch.where(own, loc, 0), torch.where(own, loc, nb)
+    w = torch.where(own, mask, 0.0)
+    with torch.no_grad():
+        out = eops.embedding_bag_block(table, loc, own, mask)
+    check(bits_equal(out, eref.embedding_bag_ref(table, safe, w)),
+          "embedding_bag_block != plain on the two-tower block")
+    distinct = torch.unique(loc[own]).numel()
+    b_ms, b_by = bound(distinct * d * 4 + n * L * 12 + n * d * 4,
+                       {"fp32 FMAs": (n * L * d, FADD_PER_S)})
+    show("embedding_bag", "two-tower (1, 2) block, a 32,768-bag slice", {
+        "V": nb, "d": d, "n_bags": n, "L": L, "own_slots": int(own.sum()),
+        "distinct_rows": distinct, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ec.launch(table, safe, w), 20),
+        "checked_ms": cuda_ms(lambda: eops.embedding_bag_block(
+            table, loc, own, mask), 20),
+        "plain_ms": cuda_ms(lambda: eref.embedding_bag_ref(table, safe, w),
+                            3),
+        "library_ms": cuda_ms(lambda: F.embedding_bag(
+            safe, table, mode="sum", per_sample_weights=w), 20),
+        "library": "F.embedding_bag", "bound_ms": b_ms, "bound_by": b_by})
+    dout = torch.randn((n, d), generator=gen, device=dev)
+    g = ec.block_backward(marked, w, dout, nb)
+    whole = ec.embedding_bag_backward(ids, mask, dout, V)
+    check(bits_equal(g, whole[lo:].contiguous()),
+          "the two-tower block's backward != the whole table's rows")
+    del whole
+    leaf = table.clone().requires_grad_(True)
+    b_ms, b_by = bound(n * d * 4 + n * L * 12 + nb * d * 4,
+                       {"fp32 FMAs": (int(own.sum()) * d, FADD_PER_S)})
+    show("embedding_bag_backward", "two-tower (1, 2) block, a 32,768-bag "
+         "slice", {
+             "V": nb, "d": d, "n_bags": n, "L": L,
+             "own_slots": int(own.sum()), "max_abs_err": 0.0,
+             "longest_run": _longest_run(ec, marked, nb),
+             "longest_run_one_card": _longest_run(ec, ids, V),
+             "foreign_slots": int((~own).sum()),
+             "clamped_edge_max": int(max((loc < 0).sum(), (loc >= nb).sum())),
+             "ms": cuda_ms(lambda: ec.block_backward(marked, w, dout, nb),
+                           10),
+             "plain_ms": cuda_ms(lambda: eref.block_backward_ref(
+                 marked, w, dout, nb), 3),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                 F.embedding_bag(safe, leaf, mode="sum",
+                                 per_sample_weights=w), leaf, dout), 5),
+             "library": "F.embedding_bag's backward", "bound_ms": b_ms,
+             "bound_by": b_by})
+    del table, leaf, dout, g, ids, loc, own, safe, marked, w, mask, out
+    torch.cuda.empty_cache()
+
+    # (2) FM's table gather on a (1, 4) block, (3) its linear term
+    V, d, S = sum(FM_VOCABS), 10, 4
+    nb = V // S
+    lo = (S - 1) * nb
+    off = torch.cumsum(torch.tensor([0, *FM_VOCABS[:-1]], device=dev), 0)
+    flat = torch.as_tensor(fm_batch["sparse"], device=dev) + off[None, :]
+    n, L = flat.shape
+    loc = flat - lo
+    own = (loc >= 0) & (loc < nb)
+    marked = torch.where(own, loc, nb).reshape(-1, 1).contiguous()
+    dout = torch.randn((n * L, d), generator=gen, device=dev)
+    g = ec.block_backward(marked, None, dout, nb)
+    check(bits_equal(g, eref.block_backward_ref(marked.cpu(), None,
+                                                dout.cpu(), nb).to(dev)),
+          "FM's block gather backward != its plain version")
+    check(bits_equal(g, ec.gather_backward(flat, dout.view(n, L, d), V)[
+        lo:].contiguous()), "FM's block gather backward != the whole rows")
+    safe = torch.where(own, loc, 0).reshape(-1)
+    leaf = torch.randn((nb, d), generator=gen, device=dev,
+                       requires_grad=True)
+    b_ms, b_by = bound(n * L * (d * 4 + 8) + nb * d * 4,
+                       {"fp32 adds": (int(own.sum()) * d, FADD_PER_S)})
+    show("embedding_bag_backward", "FM table gather (1, 4) block, 65,536 x "
+         "39", {
+             "V": nb, "d": d, "slots": n * L, "own_slots": int(own.sum()),
+             "max_abs_err": 0.0,
+             "longest_run": _longest_run(ec, marked, nb),
+             "longest_run_one_card": _longest_run(ec, flat, V),
+             "foreign_slots": int((~own).sum()),
+             "clamped_edge_max": int(max((loc < 0).sum(), (loc >= nb).sum())),
+             "ms": cuda_ms(lambda: ec.block_backward(marked, None, dout, nb),
+                           10),
+             "plain_ms": cuda_ms(lambda: eref.block_backward_ref(
+                 marked, None, dout, nb), 3),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                 F.embedding(safe, leaf), leaf, dout), 10),
+             "library": "F.embedding's backward", "bound_ms": b_ms,
+             "bound_by": b_by})
+    lin = torch.randn((V, 1), generator=gen, device=dev)
+    got = lin[flat].reshape(-1, 1).contiguous()      # take_rows' rows
+    at = torch.arange(n * L, device=dev).view(n, L)
+    check(bits_equal(ec.embedding_bag(got, at), ec.embedding_bag(lin, flat)),
+          "FM's linear term over the gathered rows != over the whole linear")
+    check(bits_equal(ec.embedding_bag(got, at),
+                     eref.embedding_bag_ref(got, at)),
+          "FM's linear bag over the gathered rows != plain")
+    b_ms, b_by = bound(n * L * 12 + n * 4,
+                       {"fp32 FMAs": (n * L, FADD_PER_S)})
+    show("embedding_bag", "FM linear (1, 4), 65,536 bags over the "
+         "2,555,904 gathered rows", {
+             "V": n * L, "d": 1, "n_bags": n, "L": L, "max_abs_err": 0.0,
+             "ms": cuda_ms(lambda: ec.launch(got, at), 20),
+             "checked_ms": cuda_ms(lambda: ec.embedding_bag(got, at), 20),
+             "plain_ms": cuda_ms(lambda: eref.embedding_bag_ref(got, at), 3),
+             "library_ms": cuda_ms(lambda: F.embedding_bag(at, got,
+                                                           mode="sum"), 20),
+             "library": "F.embedding_bag", "bound_ms": b_ms,
+             "bound_by": b_by})
+    del flat, loc, own, marked, dout, g, safe, leaf, lin, got, at
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
+    """Phase 29: the CTR and two-tower models on a ``(data, model)`` mesh
+    of ranks time-sharing the one card (``launch.mesh.spawn`` with
+    ``share_card``, the ``--model-axis S --share-card`` CLI's
+    transport), then ``--mesh S`` serving of FM, DLRM-RM2 and DIEN, then
+    the embedding_bag kernels at the shards' shapes.  ``ctr_train``:
+    phase 24's summary by arch (its first loss, median step and peak),
+    printed beside each run.  Returns {"runs", "serve", "shard_kernels",
+    "launches"}."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs.recsys_archs import DLRM_VOCABS
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_mod
+
+    t0 = phase("main path: the CTR and two-tower models on a 'model' mesh "
+               "axis, full width, ranks sharing the one card (train --arch "
+               "A --model-axis S --share-card)")
+    free_card(torch, dev, "the CTR model-axis phase")
+    rows_ = sum(DLRM_VOCABS)
+    print(f"   dlrm-rm2 (full table) is left out: each of 4 ranks builds "
+          f"the whole {rows_ * 64 * 4 / 1e9:.1f} GB table before keeping its "
+          f"quarter, and a quarter with adamw is "
+          f"{4 * rows_ * 64 * 4 / 4 / 1e9:.1f} GB a rank: four ranks do "
+          f"not fit on one card (the CPU tests hold it at reduced rows)")
+    root = os.path.join(HERE, "build", "chip_smoke_ctr_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # the host batches (saved for the ranks) and the one-card step-0 loss
+    # on the same batch, microbatched as the run is
+    one_card, batches0 = {}, {}
+    for run, arch, (D, S), rows, mb, steps in CTR_TP_RUNS:
+        key = f"{run}:{arch}"
+        bs = ctr_batches(np, data, arch, rows, steps)
+        np.savez(os.path.join(root, f"{arch}.npz"),
+                 **{f"{s}/{k}": v for s, b in enumerate(bs)
+                    for k, v in b.items()})
+        batches0[arch] = bs[0]
+        model = get_bundle(arch).make_model(device=dev, seed=0)
+        params = model.params()
+        with torch.no_grad():
+            n = rows // mb
+            one_card[key] = float(np.mean([float(model.train_loss(params, {
+                k: torch.as_tensor(v[i * n:(i + 1) * n], device=dev)
+                for k, v in bs[0].items()})[0]) for i in range(mb)]))
+        del model, params, bs
+        free_card(torch, dev, f"{key}'s ranks")
+    ranks = {}
+    for shape in ((1, 2), (1, 4), (2, 2)):
+        D, S = shape
+        jobs = [(run, arch, rows, mb, steps)
+                for run, arch, sh, rows, mb, steps in CTR_TP_RUNS
+                if sh == shape]
+        out_dir = tempfile.mkdtemp(prefix=f"ranks-{D}x{S}-", dir=root)
+        t1 = time.perf_counter()
+        mesh_mod.spawn(ctr_tp_rank, D * S, (jobs, root, out_dir), device=dev,
+                       model=S, share_card=True, timeout=900)
+        ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                   weights_only=False)
+                        for r in range(D * S)]
+        print(f"   ({D}, {S}): {D * S} ranks, "
+              f"{time.perf_counter() - t1:.1f} s (spawn, build, runs)")
+    runs = {}
+    launches = {"embedding_bag": {}, "embedding_bag_backward": {}}
+    for run, arch, shape, rows, mb, steps in CTR_TP_RUNS:
+        key = f"{run}:{arch}"
+        rs = [x[key] for x in ranks[shape]]
+        r0 = rs[0]
+        for r, x in enumerate(rs):
+            check(ranks[shape][r]["transport"] == "gloo-staged",
+                  f"{key}: rank {r} transport "
+                  f"{ranks[shape][r]['transport']}")
+            check(x["losses"] == r0["losses"],
+                  f"{key}: rank {r}'s losses differ from rank 0's")
+            check(x["launches"]["embedding_bag_backward"] > 0,
+                  f"{key}: rank {r} never launched the embedding_bag "
+                  f"backward")
+            if arch in BAG_ARCHS:
+                check(x["launches"]["embedding_bag"] > 0,
+                      f"{key}: rank {r} never launched embedding_bag")
+        check(len(r0["losses"]) == steps and all(np.isfinite(r0["losses"])),
+              f"{key}: losses {r0['losses']}")
+        want = one_card[key]
+        check(abs(r0["losses"][0] - want) <= 1e-5 * abs(want),
+              f"{key}: step 0 loss {r0['losses'][0]} != one card's {want}")
+        peaks = [x["peak_gb"] for x in rs]
+        check(sum(peaks) <= CTR_TP_PEAK_GB,
+              f"{key}: the ranks' peaks {peaks} exceed {CTR_TP_PEAK_GB} GB")
+        p24 = ctr_train.get(arch, {})
+        row = {"shape": list(shape), "batch": rows, "microbatches": mb,
+               "losses": r0["losses"], "one_card_step0_loss": want,
+               "median_step_ms": float(np.median(r0["step_ms"][1:])),
+               "step_ms": r0["step_ms"], "peak_gb_by_rank": peaks,
+               "phase24_step_ms": p24.get("step_ms"),
+               "phase24_peak_gb": p24.get("peak_gb"),
+               "phase24_batch": CTR_B,
+               "comm_ms_per_step": 1e3 * r0["comm"]["seconds"] / steps,
+               "comm_bytes_per_step": r0["comm"]["bytes"] / steps,
+               "comm_calls_per_step": r0["comm"]["calls"] / steps,
+               "split_leaves": {k: list(v) for k, v in r0["split"].items()},
+               "launches_by_rank": [x["launches"] for x in rs]}
+        runs[key] = row
+        for k in launches:
+            launches[k][f"{shape[0]}x{shape[1]}:{arch}"] = [
+                x["launches"][k] for x in rs]
+        print(f"   ({run}) {arch} ({shape[0]}, {shape[1]}), B={rows}, "
+              f"microbatches={mb}: losses "
+              + " ".join(f"{x:.5f}" for x in r0["losses"])
+              + f" (one card's step 0 {want:.5f}); step "
+              f"{row['median_step_ms']:.1f} ms (phase 24's one-card step "
+              f"{p24.get('step_ms', float('nan')):.1f} ms at B={CTR_B}); "
+              f"peak GB by rank " + ", ".join(f"{x:.2f}" for x in peaks)
+              + f" (phase 24's {p24.get('peak_gb', float('nan')):.2f}); "
+              f"collectives {row['comm_ms_per_step']:.1f} ms, "
+              f"{row['comm_bytes_per_step']:.0f} bytes, "
+              f"{row['comm_calls_per_step']:.1f} calls a step; "
+              f"{len(r0['split'])} split leaves; launches by rank "
+              f"{[x['launches'] for x in rs]}; on {smi}")
+    done(t0)
+
+    t0 = phase(f"main path: serve --mesh S --share-card for "
+               f"{', '.join(CTR_MESH_ARCHS)}, S = 2 and 4, {REQUESTS} "
+               f"requests of B={B}, against the unsharded path")
+    print("   dlrm-rm2 (full table) is left out: each rank builds the whole "
+          "57.1 GB table before keeping its rows")
+    ref = {}
+    for arch in CTR_MESH_ARCHS:
+        model, tmpl = ctr_serve_model(arch, dev)
+        ref[arch] = serve_mod.serve_loop(model, model.params(), tmpl,
+                                         _ctr_serve_args(arch),
+                                         keep_outputs=True)
+        del model
+        free_card(torch, dev, f"{arch}'s unsharded reference")
+    serve = {}
+    for S in MESH_SHARDS:
+        out_dir = tempfile.mkdtemp(prefix=f"serve-{S}-", dir=root)
+        t1 = time.perf_counter()
+        mesh_mod.spawn(ctr_serve_rank, S, (CTR_MESH_ARCHS, out_dir),
+                       device=dev, model=S, share_card=True, timeout=600)
+        print(f"   S={S}: {S} ranks, {time.perf_counter() - t1:.1f} s "
+              f"(spawn, build, serve)")
+        for arch in CTR_MESH_ARCHS:
+            res = [torch.load(os.path.join(out_dir, arch, f"rank{r}.pt"),
+                              weights_only=False) for r in range(S)]
+            for r, x in enumerate(res):
+                check(x["mesh"] == S and x["transport"] == "gloo-staged",
+                      f"{arch} mesh={S}: rank {r} {x['transport']}")
+                check(len(x["outputs"]) == len(ref[arch]["outputs"])
+                      == REQUESTS, f"{arch} mesh={S}: response counts")
+                for got, want in zip(x["outputs"], ref[arch]["outputs"]):
+                    check(tuple(got.shape) == (B,)
+                          and bool(torch.isfinite(got).all())
+                          and bits_equal(got, want),
+                          f"{arch} mesh={S}: rank {r}'s response != the "
+                          f"unsharded path")
+            x = res[0]
+            row = {"arch": arch, "S": S, "p50_ms": x["p50_ms"],
+                   "p99_ms": x["p99_ms"],
+                   "unsharded_p50_ms": ref[arch]["p50_ms"],
+                   "unsharded_p99_ms": ref[arch]["p99_ms"],
+                   "comm_ms_per_request": float(np.median(x["comm_ms"])),
+                   "comm_bytes_per_request": int(np.median(
+                       x["comm_bytes"])),
+                   "comm_calls_per_request": int(np.median(
+                       x["comm_calls"])),
+                   "launches_by_rank": [y["launches"] for y in res]}
+            serve[f"{arch}@{S}"] = row
+            print(f"   {arch} mesh={S}: p50={row['p50_ms']:.3f}ms "
+                  f"p99={row['p99_ms']:.3f}ms (unsharded "
+                  f"{row['unsharded_p50_ms']:.3f}/"
+                  f"{row['unsharded_p99_ms']:.3f} ms), collectives "
+                  f"{row['comm_ms_per_request']:.3f} ms, "
+                  f"{row['comm_bytes_per_request']} bytes in "
+                  f"{row['comm_calls_per_request']} calls a request; every "
+                  f"rank's {REQUESTS} responses bit-equal to the unsharded "
+                  f"path; on {smi}")
+    shutil.rmtree(root, ignore_errors=True)
+    done(t0)
+
+    t0 = phase("the CTR model-axis path's embedding_bag kernels at the "
+               "shards' shapes (CUDA events)")
+    free_card(torch, dev, "the CTR shard-shape kernels")
+    shard = ctr_shard_bag_rows(torch, dev, smi,
+                               batches0["two-tower-retrieval"],
+                               batches0["fm"])
+    done(t0)
+    return {"runs": runs, "serve": serve, "shard_kernels": shard,
+            "launches": launches}
 
 
 def main() -> int:
@@ -4468,7 +4998,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp = model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs)
-    del codes_np, data
+    del codes_np
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctr_tp = ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train)
+    del data
+    for entry in kernels:                 # phase 29's shard shapes
+        if entry["name"] in ctr_tp["shard_kernels"]:
+            entry["model_axis_ctr_shape"] = ctr_tp["shard_kernels"][
+                entry["name"]]
+            entry["model_axis_ctr_launches_per_rank"] = ctr_tp["launches"][
+                entry["name"]]
     for entry in kernels:                 # phase 28's shard shapes
         if entry["name"] in tp["shard_kernels"]:
             entry["model_axis_shape"] = tp["shard_kernels"][entry["name"]]
@@ -4501,6 +5041,9 @@ def main() -> int:
     print(json.dumps({"server": server}))
     print(json.dumps({"mesh_serve": mesh["mesh_serve"], "card": smi}))
     print(json.dumps({"model_axis_train": tp["runs"], "card": smi}))
+    print(json.dumps({"ctr_model_axis": {"train": ctr_tp["runs"],
+                                         "serve": ctr_tp["serve"]},
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

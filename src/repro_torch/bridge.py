@@ -21,8 +21,9 @@ two-tower model, FM (``emb``, the ``[V]`` ``linear``, the scalar
 On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
 catalogue leaf to this rank's rows (``dist.local_rows``), which the
 mesh branches of ``core/sharded.py`` serve from; ``keep_local_blocks``
-cuts every leaf a sequential model's placement splits (its rows, heads
-and MLP width), which training on ``"model"`` runs from.
+cuts every leaf a model's placement splits (the catalogue's rows, a
+sequential model's heads, the MLPs' widths), which training on
+``"model"`` runs from.
 """
 from __future__ import annotations
 
@@ -90,31 +91,37 @@ def load_values(model, values) -> None:
 
 def keep_local_rows(model, mesh=None) -> dict:
     """Keep only this rank's rows of each catalogue leaf of ``model``
-    (the codes, a full table): every leaf whose first logical axis is in
-    ``dist.CATALOGUE_AXES`` and which ``dist.params_shardings`` places
-    on ``"model"`` is replaced, in place, by its ``dist.local_rows``, so
-    the whole catalogue is not held once per rank.  ``mesh`` defaults to
-    the ambient one.  Returns the placement specs of ``model.params()``
-    (before the cut)."""
+    (the codes, a full table, FM's ``linear``): every leaf whose first
+    logical axis is in ``dist.CATALOGUE_AXES`` and which
+    ``dist.params_shardings`` places on ``"model"`` is replaced, in
+    place, by its ``dist.local_rows``, so the whole catalogue is not
+    held once per rank.  ``mesh`` defaults to the ambient one.  Returns
+    the placement specs of ``model.params()`` (before the cut)."""
     from repro_torch import dist as _dist
     from repro_torch.dist import rules as _rules
     mesh = _rules._CTX.mesh if mesh is None else mesh
     axes = model.param_axes()
     specs = _dist.params_shardings(model.params(), axes, mesh)
-    for name, sub in model.named_children():
-        for leaf, ax in axes.get(name, {}).items():
-            if not (isinstance(ax, tuple) and ax[0] in _dist.CATALOGUE_AXES):
-                continue
-            old = getattr(sub, leaf)
-            new = _dist.local_rows(old.detach(), specs[name][leaf], mesh)
-            if new.shape == old.shape:
-                continue
-            if leaf in sub._parameters:
-                sub._parameters[leaf] = torch.nn.Parameter(
-                    new, requires_grad=old.requires_grad)
-            else:
-                sub._buffers[leaf] = new
+    for path, spec in _paths(specs):
+        ax = _at(axes, path)
+        if not ax or ax[0] not in _dist.CATALOGUE_AXES:
+            continue
+        owner, name = _owner(model, path)
+        old = getattr(owner, name)
+        _replace(owner, name, old, _dist.local_rows(old.detach(), spec, mesh))
     return specs
+
+
+def _replace(owner, name, old, new) -> None:
+    """Hold ``new`` in place of the leaf ``old`` (a parameter or a
+    buffer of ``owner``) where its shape differs."""
+    if new.shape == old.shape:
+        return
+    if name in owner._parameters:
+        owner._parameters[name] = torch.nn.Parameter(
+            new, requires_grad=old.requires_grad)
+    else:
+        owner._buffers[name] = new
 
 
 def keep_local_blocks(model, mesh=None, rules=None) -> dict:
@@ -142,14 +149,8 @@ def keep_local_blocks(model, mesh=None, rules=None) -> dict:
                                  f"{tuple(old.shape)} is neither the whole "
                                  f"{full} nor this rank's block of it")
             continue
-        new = _dist.local_block(old.detach(), spec, mesh)
-        if new.shape == old.shape:
-            continue
-        if name in owner._parameters:
-            owner._parameters[name] = torch.nn.Parameter(
-                new, requires_grad=old.requires_grad)
-        else:
-            owner._buffers[name] = new
+        _replace(owner, name, old, _dist.local_block(old.detach(), spec,
+                                                     mesh))
     return specs
 
 
@@ -173,9 +174,17 @@ def _at(tree, path):
 
 def _owner(model, path):
     """(module, attribute name) holding the leaf at ``path`` of
-    ``model.params()``."""
-    mod = model
-    for k in path[:-1]:
+    ``model.params()``.  A model's ``HOLDERS`` names the attribute that
+    holds a top-level key where the two differ (FM's ``emb`` in
+    ``emb_table``, its ``linear`` and ``bias`` in ``head``); a tower's
+    ``layers`` key is its ``ModuleList`` itself."""
+    holders = getattr(model, "HOLDERS", {})
+    mod, keys = model, list(path[:-1])
+    if path[0] in holders:
+        mod, keys = getattr(model, holders[path[0]]), keys[1:]
+    for k in keys:
+        if isinstance(mod, torch.nn.ModuleList) and k == "layers":
+            continue
         mod = mod[k] if isinstance(mod, (torch.nn.ModuleList,
                                          torch.nn.ModuleDict)) \
             else getattr(mod, k)

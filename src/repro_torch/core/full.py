@@ -33,7 +33,7 @@ def lookup(p, ids, *, rows=None):
     tab = p["table"]
     if rows is None or tab.shape[0] == rows:
         return _bag.gather(tab, ids)
-    return _sharded.take_rows(tab, ids, rows=rows, gather=_bag.gather)
+    return _sharded.take_rows(tab, ids, rows=rows)
 
 
 def logits(p, h, *, rows=None):

@@ -97,43 +97,43 @@ def pooled_lookup(table, ids, weights, *, rows=None):
     ids [B, H] int, weights [B, H] float -> pooled [B, d] =
     sum_h w * table[ids], through the embedding_bag kernel (its plain
     version on a CPU tensor).  On a mesh each rank pools the ids of its
-    own rows (the others clipped into range with weight 0) and the
-    ``[B, d]`` partial sums are summed over ``"model"``."""
+    own rows (``embedding_bag_block``: the other ranks' slots add
+    nothing, and their gradient reaches no row) and the ``[B, d]``
+    partial sums are summed over ``"model"`` (``reduce_from_model``, so
+    the pooled gradient reaches every rank's block).  Serving splits the
+    queries over ``"data"`` and gathers the result; inside the Trainer
+    each rank's rows are already its own (``local_batch``)."""
     mesh, blk, tab = _split(table, rows)
     if mesh is None:
         return _bag.embedding_bag(table, ids, weights)
     lo, hi = blk
-    b0, b1, split = _batch_rows(ids.shape[0], mesh)
+    b0, b1, split = (0, ids.shape[0], False) if _rules._CTX.local_batch \
+        else _batch_rows(ids.shape[0], mesh)
     loc = ids[b0:b1] - lo
-    ok = (loc >= 0) & (loc < hi - lo)
-    w = weights[b0:b1].to(tab.dtype) * ok.to(tab.dtype)
-    pooled = _bag.embedding_bag(tab, loc.clamp(0, hi - lo - 1), w)
-    pooled = mesh.all_reduce(pooled, "model", "sum")
+    own = (loc >= 0) & (loc < hi - lo)
+    pooled = _bag.embedding_bag_block(tab, loc, own, weights[b0:b1])
+    pooled = _dist.reduce_from_model(pooled, mesh)
     return mesh.all_gather(pooled, "data", 0) if split else pooled
 
 
-def take_rows(table, ids, *, rows=None, gather=None):
+def take_rows(table, ids, *, rows=None):
     """``table[ids]`` for a catalogue table held whole or as this rank's
     block (``rows``), exactly: on a mesh each rank gathers the ids of
-    its own rows, zeros elsewhere, and the sum over ``"model"`` adds
-    one nonzero term to zeros.  The port's counterpart of GSPMD's
-    partitioned gather of the reference's row-sharded codes (the JPQ
-    user tower, the sequential models' inputs and labels); every rank
-    gets every row.  Differentiable in a float ``table``: the gradient
-    of the rows (the same on every rank) reaches each rank's own rows.
-    ``gather(table, idx)`` is the local gather (default indexing;
-    ``core/full`` passes the embedding_bag route)."""
-    gather = gather or (lambda t, i: t[i])
+    its own rows, zeros elsewhere (``embedding_bag/ops.gather_block``),
+    and the sum over ``"model"`` adds one nonzero term to zeros.  The
+    port's counterpart of GSPMD's partitioned gather of the reference's
+    row-sharded codes and tables (the sequential models' inputs and
+    labels, the JPQ user tower, the CTR models' fields); every rank gets
+    every row.  Differentiable in a float ``table``: the gradient of the
+    rows (the same on every rank) reaches each rank's own rows through
+    the embedding_bag backward kernel, the other ranks' slots skipped."""
     mesh, blk, tab = _split(table, rows)
     if mesh is None:
-        return gather(table, ids.long())
+        return _bag.gather(table, ids)
     lo, hi = blk
     loc = ids.long() - lo
-    ok = (loc >= 0) & (loc < hi - lo)
-    got = gather(tab, loc.clamp(0, hi - lo - 1))
-    got = torch.where(ok.reshape(*ok.shape, *([1] * (got.dim() - ok.dim()))),
-                      got, torch.zeros_like(got))
-    return _dist.reduce_from_model(got, mesh)
+    own = (loc >= 0) & (loc < hi - lo)
+    return _dist.reduce_from_model(_bag.gather_block(tab, loc, own), mesh)
 
 
 def whole(x, rows=None):

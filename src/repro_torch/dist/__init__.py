@@ -12,9 +12,16 @@ a leaf whose placement puts a dimension on ``"model"`` is held as this
 rank's block of that dimension (``local_block``), every other leaf is
 whole on every rank.  The sequential recommenders split the catalogue's
 rows (codes, full table, QR tables), the attention heads and the MLP's
-width; the model code reads the blocks' shapes and brackets each split
-region with the autograd-aware collectives below.  Training the CTR and
-two-tower models on ``"model"`` is ``NEXT_SLICE``.
+width; the CTR and two-tower models their tables' rows and their MLPs'
+widths; the model code reads the blocks' shapes and brackets each split
+region with the autograd-aware collectives below.  What is left is
+``NEXT_SLICE``.
+
+On the ``"data"`` axis the Trainer gives each rank its own rows, and a
+loss is the whole batch's: each term's local sum over its count in the
+whole batch (``use_loss_counts`` installs the counts, all-reduced over
+``"data"`` before the forward; ``loss_count`` reads one), and the ranks'
+gradients are summed.
 
 Public API
   resolve_axes(axes, shape, mesh[, rules]) -> placement spec (tuple)
@@ -40,7 +47,24 @@ Public API
   gather_from_model(x, dim)       every rank's block concatenated
                                   forward, this rank's block of the
                                   gradient backward
+  scatter_to_model(x, dim)        this rank's block of the whole ``x``
+                                  forward, the blocks' gradients
+                                  gathered backward
+  column_linear(x, w)             ``x @ w`` for this rank's column block
+                                  ``w``; backward gathers ``dy`` and
+                                  ``w`` over "model" for the whole
+                                  ``dx`` (a narrowing layer)
   max_over_model(x)               the max over "model" (no gradient)
+  gather_from_data(x)             every data rank's rows concatenated
+                                  forward, the gradient summed over
+                                  "data" and cut to this rank's rows
+                                  backward
+  data_rank()                     (this rank's index, D) on "data" when
+                                  the ranks hold their own rows of the
+                                  batch, else (0, 1)
+  use_loss_counts(counts)         installs the whole batch's loss counts
+  loss_count(name)                one of them (None when none is
+                                  installed)
 
 Submodules: ``rules`` (the table and resolver), ``compression`` (the
 elastic data-parallel gradient exchange with bf16/int8 error feedback).
@@ -50,6 +74,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+import contextlib
 
 from repro_torch.dist.rules import (DATA_AXES, DEFAULT_RULES, _CTX,  # noqa: F401
                                     data_mesh_axes, resolve_axes,
@@ -61,14 +87,15 @@ __all__ = ["resolve_axes", "use_mesh_rules", "constrain",
            "model_dim",
            "model_size",
            "copy_to_model", "reduce_from_model", "gather_from_model",
-           "max_over_model", "DEFAULT_RULES", "CATALOGUE_AXES"]
+           "scatter_to_model", "column_linear", "max_over_model",
+           "gather_from_data", "data_rank",
+           "use_loss_counts", "loss_count", "DEFAULT_RULES",
+           "CATALOGUE_AXES"]
 
-NEXT_SLICE = ("training the CTR and two-tower models on the 'model' mesh "
-              "axis (their tables' rows and MLPs split), the elastic "
-              "exchange on a model > 1 mesh and launch/serve.py --mesh "
-              "for FM, DLRM-RM2 and DIEN are not yet ported to "
-              "repro_torch: ROADMAP queue 1, item 9c-ii; the sequential "
-              "recommenders train on it (item 9c)")
+NEXT_SLICE = ("not yet ported to repro_torch: the elastic exchange on a "
+              "model > 1 mesh (ROADMAP queue 1, item 9c-iii) and the "
+              "request server under a mesh (item 9d); every recsys model "
+              "trains on a (data, model) mesh (items 9c and 9c-ii)")
 
 # logical axes that name catalogue rows: the leaves the port row-shards
 CATALOGUE_AXES = ("items", "table")
@@ -245,6 +272,36 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
 
 
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        n = x.shape[dim] // mesh.shape["model"]
+        ctx.dim, ctx.mesh = dim, mesh
+        return x.narrow(dim, mesh.model_index * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), "model", ctx.dim), None, \
+            None
+
+
+class _ColumnLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mesh):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = mesh
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        mesh = ctx.mesh
+        dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        g_all = mesh.all_gather(g.contiguous(), "model", g.dim() - 1)
+        w_all = mesh.all_gather(w.contiguous(), "model", 1)
+        return g_all @ w_all.T, dw, None
+
+
 def copy_to_model(x, mesh=None):
     """Identity forward; the gradient summed over ``"model"``.  ``x`` is
     the whole input of a split region; off a splitting mesh, ``x``."""
@@ -267,9 +324,87 @@ def gather_from_model(x, dim: int = 0, mesh=None):
     return x if mesh is None else _GatherFromModel.apply(x, dim, mesh)
 
 
+def scatter_to_model(x, dim: int = -1, mesh=None):
+    """This rank's block of ``dim`` of the whole ``x`` (the same on every
+    rank); the gradient of the whole is every rank's block gradient
+    gathered over ``"model"`` (half the traffic of ``copy_to_model``'s
+    sum of a mostly zero gradient).  Off a splitting mesh, ``x``."""
+    mesh = _mesh_or_ambient(mesh)
+    return x if mesh is None else _ScatterToModel.apply(x, dim % x.dim(),
+                                                        mesh)
+
+
+def column_linear(x, w, mesh=None):
+    """``x @ w`` for the whole input ``x`` (the same on every rank) and
+    this rank's column block ``w`` [d_in, d_out/S]: this rank's column
+    block of the output.  The backward gathers ``dy``'s and ``w``'s
+    blocks over ``"model"`` and computes the whole ``dx`` on every rank,
+    which ships ``d_out`` floats a row where ``copy_to_model`` would sum
+    ``d_in``: the cheaper of the two where the layer narrows (DIEN's
+    attention tower, 324 -> 36).  Off a splitting mesh, ``x @ w``."""
+    mesh = _mesh_or_ambient(mesh)
+    return x @ w if mesh is None else _ColumnLinear.apply(x, w, mesh)
+
+
 def max_over_model(x, mesh=None):
     """The elementwise max of ``x`` over ``"model"`` (no gradient: the
     logsumexp's shift)."""
     mesh = _mesh_or_ambient(mesh)
     return x if mesh is None else mesh.all_reduce(x.detach().contiguous(),
                                                   "model", "max")
+
+
+# ------------------------------------------------- the data group's rows
+# Inside the Trainer each data rank holds its own rows of the batch
+# (``use_mesh_rules(..., local_batch=True)``).  A loss term over the
+# whole batch is then this rank's sum over the term's count in the whole
+# batch (``loss_count``), and the ranks' gradients are summed.
+
+def data_rank():
+    """(this rank's index on ``"data"``, D) where the ambient mesh's
+    ranks hold their own rows of the batch; (0, 1) otherwise."""
+    mesh = _CTX.mesh
+    if mesh is None or not _CTX.local_batch:
+        return 0, 1
+    return mesh.data_index, int(mesh.shape.get("data", 1))
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        return mesh.all_gather(x.contiguous(), "data", 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g.contiguous(), "data", "sum")
+        return g.narrow(0, ctx.mesh.data_index * ctx.n, ctx.n), None
+
+
+def gather_from_data(x):
+    """Every data rank's rows ``x`` concatenated on dim 0, in rank order
+    (the whole batch's); the gradient of the whole, which each rank
+    holds for its own loss, is summed over ``"data"`` and cut back to
+    this rank's rows.  ``x`` itself unless the ranks hold their own
+    rows (``data_rank``)."""
+    if data_rank()[1] <= 1:
+        return x
+    return _GatherFromData.apply(x, _CTX.mesh)
+
+
+@contextlib.contextmanager
+def use_loss_counts(counts):
+    """Install ``counts`` (name -> the whole batch's count, an int
+    tensor) as the denominators of the loss terms computed inside."""
+    prev, _CTX.counts = _CTX.counts, dict(counts)
+    try:
+        yield
+    finally:
+        _CTX.counts = prev
+
+
+def loss_count(name: str):
+    """The whole batch's count ``name`` installed by ``use_loss_counts``;
+    None outside it (a term is then its local mean, as on one device)."""
+    counts = _CTX.counts
+    return None if counts is None else counts[name]

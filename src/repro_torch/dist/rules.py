@@ -59,11 +59,16 @@ def data_mesh_axes(mesh) -> Tuple[str, ...]:
 
 
 class _Ctx(threading.local):
-    """The ambient (mesh, rules) installed by ``use_mesh_rules``."""
+    """The ambient (mesh, rules) installed by ``use_mesh_rules``; whether
+    each rank already holds only its own rows of the batch
+    (``local_batch``: inside the Trainer); the data group's loss counts
+    (``counts``: ``use_loss_counts``)."""
 
     def __init__(self):
         self.mesh = None
         self.rules = None
+        self.local_batch = False
+        self.counts = None
 
 
 _CTX = _Ctx()
@@ -109,12 +114,15 @@ def resolve_axes(logical_axes: Sequence[Optional[str]],
 
 
 @contextlib.contextmanager
-def use_mesh_rules(mesh, rules=None):
+def use_mesh_rules(mesh, rules=None, *, local_batch: bool = False):
     """Install ``mesh`` (and optional rule overrides) as the ambient
-    distribution context of ``constrain`` and ``data_shard_count``."""
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = mesh, rules
+    distribution context of ``constrain`` and ``data_shard_count``.
+    ``local_batch``: each rank holds only its own rows of the batch (the
+    Trainer's data split), so nothing splits it over ``"data"`` again;
+    without it every rank holds the whole batch (serving)."""
+    prev = (_CTX.mesh, _CTX.rules, _CTX.local_batch)
+    _CTX.mesh, _CTX.rules, _CTX.local_batch = mesh, rules, local_batch
     try:
         yield mesh
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.local_batch = prev

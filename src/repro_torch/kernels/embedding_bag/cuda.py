@@ -27,6 +27,8 @@ long-run kernel only where a run is long, and adds one to
 raises on the flag before any kernel runs.  ``gather_backward`` is the
 gradient of a plain gather ``table[ids]``: the same kernels at L = 1
 with unit weights, a negative id counting from the end.
+``block_backward`` is the backward on a rank's row block, whose
+foreign slots carry the id V and are skipped.
 """
 from __future__ import annotations
 
@@ -255,6 +257,17 @@ def embedding_bag_backward(ids, weights, dout, V: int, *, wrap: bool = False):
             raise IndexError(f"embedding_bag backward: ids outside "
                              f"[0, {V})")
     return launch_backward(ids, weights, dout, V, order, wrap=wrap)[0]
+
+
+def block_backward(ids, weights, dout, V: int):
+    """The backward on a row block ``[V, d]`` of a table (a rank's rows
+    on a ``"model"`` mesh): ids [n_bags, L] in [0, V], where V marks a
+    foreign slot.  The sort gives such a slot the sentinel key V, after
+    every row's run (``offs[V]``), so the kernels, which walk the rows
+    [0, V), never add it: no row receives a foreign slot, and every row
+    gets the terms and the order of ``embedding_bag_backward``.  The
+    sentinel's flag is not an error here."""
+    return launch_backward(ids, weights, dout, V)[0]
 
 
 def gather_backward(ids, dout, V: int):

@@ -2,7 +2,9 @@
 order as the TPU kernel's grid sums it, its gradient with respect to
 the table (the port's; the TPU kernel has no backward), the gradient of
 a plain gather ``table[ids]`` (the same function at L = 1 with unit
-weights), and the backward's index preparation (``sort_ids_ref``).
+weights), the gradient on a row block whose foreign slots are dropped
+(``block_backward_ref``), and the backward's index preparation
+(``sort_ids_ref``).
 
 Slot 0 is the rounded product ``row * w``; every later slot one fused
 multiply-add ``torch.addcmul`` (one rounding per slot), so the result is
@@ -58,6 +60,24 @@ def embedding_bag_backward_ref(ids, weights, dout, V: int):
     dtable = torch.zeros((V, dout.shape[1]), dtype=dout.dtype,
                          device=dout.device)
     return dtable.index_add_(0, flat, src)
+
+
+def block_backward_ref(ids, weights, dout, V: int):
+    """``embedding_bag_backward_ref`` on a row block ``[V, d]`` of a
+    table (a rank's rows on a ``"model"`` mesh): ids [n_bags, L] in
+    [0, V], where V marks a foreign slot (another rank's row) whose term
+    is dropped, so no row receives it; every other row adds its terms
+    onto +0.0 in ascending flat position, as there.  The plain version
+    of ``cuda.block_backward``."""
+    n_bags, L = ids.shape
+    flat = ids.reshape(-1).long()
+    keep = flat != V
+    src = dout.repeat_interleave(L, 0)                     # [n_bags * L, d]
+    if weights is not None:
+        src = weights.reshape(-1, 1).to(dout.dtype) * src
+    dtable = torch.zeros((V, dout.shape[1]), dtype=dout.dtype,
+                         device=dout.device)
+    return dtable.index_add_(0, flat[keep], src[keep])
 
 
 def gather_backward_ref(ids, dout, V: int):

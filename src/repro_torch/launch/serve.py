@@ -16,14 +16,19 @@ the codes, ``path=semantic[@W]``) and ``--beams W`` are the reference's
 retrieval flags; ``--ckpt-dir`` restores the parameters from the latest
 checkpoint there before serving.
 
-``--mesh S`` serves from a catalogue row-sharded S ways, as the
-reference's ``--mesh S`` does on S host devices: ``serve_mesh`` spawns S
-ranks as a ``(1, S)`` mesh (``launch.mesh.spawn``).  Each rank builds
-the model from the seed, keeps its rows of the catalogue
-(``bridge.keep_local_rows``), builds the one global ``PruneState`` with
-``shards=S`` and draws the same seeded request stream, so no batch
-crosses ranks; rank 0 prints the line, with ``mesh=S`` and the
-transport.  On CUDA each rank takes a card of its own (NCCL), or with
+``--mesh S`` serves any arch from a catalogue row-sharded S ways, as
+the reference's ``--mesh S`` does on S host devices: ``serve_mesh``
+spawns S ranks as a ``(1, S)`` mesh (``launch.mesh.spawn``).  Each rank
+builds the model from the seed, keeps its rows of every catalogue leaf
+S divides (``bridge.keep_local_rows``: the two-tower item table or
+codes, FM's and DLRM's tables and FM's ``linear``; DIEN's 1,000,001
+rows divide by neither 2 nor 4 and stay whole, as in the reference),
+builds the one global ``PruneState`` with ``shards=S`` and draws the
+same seeded request stream, so no batch crosses ranks; rank 0 prints
+the line, with ``mesh=S`` and the transport.  FM, DLRM-RM2 and DIEN
+serve through ``model.serve``, their fields' rows gathered exactly
+across the ranks (``core/sharded.take_rows``), so each response is the
+unsharded path's, bit for bit (a zero's sign aside).  On CUDA each rank takes a card of its own (NCCL), or with
 ``--share-card`` every rank shares the one card and the collectives run
 over gloo, staged through host memory; on the CPU the ranks are gloo
 processes.
@@ -129,7 +134,8 @@ def serve_loop(model, params, template, args, requests=None, *,
     EMA update stay outside it.  Prints one summary line (on rank 0 of a
     mesh) and returns it as a dict (latencies in ms; ``lat_ms`` each
     timed request's, in order; ``outputs`` each timed request's result
-    on the CPU when ``keep_outputs``).  Under the ambient ``"model"``
+    on the CPU when ``keep_outputs``: (values, ids) of a retrieval, the
+    scores of ``model.serve``).  Under the ambient ``"model"``
     mesh (``serve_mesh``) it also counts each timed request's
     collectives: ``comm_ms``, ``comm_bytes`` and ``comm_calls``."""
     from repro_torch.dist import rules as _rules
@@ -174,7 +180,8 @@ def serve_loop(model, params, template, args, requests=None, *,
                 comm.append({key: mesh.comm[key] - c0[key] for key in c0})
             account(out)
             if keep_outputs:
-                outputs.append(tuple(x.cpu() for x in out[:2]))
+                outputs.append(tuple(x.cpu() for x in out[:2])
+                               if isinstance(out, tuple) else out.cpu())
     lats = np.asarray(lats)
     mode, skip, demoted, extra_res = finish()
     res = {"arch": args.arch, "device": str(dev), "batch": args.batch_size,
@@ -279,14 +286,20 @@ def _retrieval(model, params, template, args, sync):
     return dispatch, account, finish
 
 
-# the archs whose catalogue --mesh row-shards (the two-tower models)
-MESH_ARCHS = ("two-tower-retrieval", "two-tower-retrieval-jpq")
+def _check_arch(arch: str) -> None:
+    from repro_torch.configs import list_archs
+    if arch not in list_archs():
+        raise NotImplementedError(
+            f"arch {arch!r} is not yet ported to repro_torch: it serves "
+            f"{list_archs()}; the LM and MACE bundles are ROADMAP queue "
+            f"1, item 10")
 
 
 def smoke_model(arch: str, device):
     """The arch's smoke model and its request template (the batch less
     its labels): the CLI's model, and ``serve_mesh``'s default."""
     from repro_torch.configs import get_bundle
+    _check_arch(arch)
     model, batch = get_bundle(arch).make_smoke(device=device)
     return model, {k: v for k, v in batch.items()
                    if k not in ("label", "labels")}
@@ -335,11 +348,8 @@ def serve_mesh(args, *, make=None, keep_outputs: bool = False,
     load them."""
     from repro_torch import resolve_device
     from repro_torch.launch import mesh as mesh_mod
-    if args.arch not in MESH_ARCHS:
-        raise NotImplementedError(
-            f"--mesh: {args.arch} on a 'model' mesh is not yet ported "
-            f"(its tables' rows and MLPs split: ROADMAP queue 1, item "
-            f"9c-ii); --mesh serves {', '.join(MESH_ARCHS)}")
+    if make is None:
+        _check_arch(args.arch)
     S = int(args.mesh)
     dev = resolve_device(args.device)
     if dev.type == "cuda":

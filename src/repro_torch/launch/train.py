@@ -36,17 +36,16 @@ a card, and more than ``torch.cuda.device_count()`` raises.  An elastic
 run preempted on N ranks resumes bit-identically on any N' dividing
 ``--grad-accum-shards``.
 
-``--model-axis S`` > 1 trains a sequential arch on a ``(D, S)`` mesh of
-D·S ranks (``--devices`` D·S; S alone when ``--devices`` is left at 1):
-the catalogue's rows, the attention heads and the MLP's width split
-over ``"model"`` (the Trainer's tensor parallelism), the batch over
-``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
+``--model-axis S`` > 1 trains any arch on a ``(D, S)`` mesh of D·S
+ranks (``--devices`` D·S; S alone when ``--devices`` is left at 1): the
+catalogue's rows (a table that S divides), the attention heads and the
+MLPs' widths split over ``"model"`` (the Trainer's tensor parallelism,
+each model's ``placement``), the batch over ``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
 a card, or with ``--share-card`` all on one card, their collectives
 staged through host memory (``gloo-staged``: NCCL refuses two ranks on
 one device).  Rank 0 prints the history and its eval NDCG@10.  Not yet
-ported, and raising: the LM and MACE bundles (item 10); the CTR and
-two-tower archs and the elastic exchange with ``--model-axis`` > 1
-(item 9c-ii).
+ported, and raising: the LM and MACE bundles (item 10); the elastic
+exchange with ``--model-axis`` > 1 (item 9c-iii).
 """
 from __future__ import annotations
 
@@ -239,9 +238,6 @@ def main(argv=None):
         args.devices = args.mesh
     D, S = mesh_dims(args)
     args.devices = D * S
-    if S > 1 and args.arch not in SEQ_ARCHS:
-        raise NotImplementedError(f"--model-axis > 1 with {args.arch}: "
-                                  f"{NEXT_SLICE}")
     if S > 1 and spec.elastic:
         raise NotImplementedError(f"--model-axis > 1 with the elastic "
                                   f"exchange: {NEXT_SLICE}")

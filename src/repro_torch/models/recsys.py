@@ -37,10 +37,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist as _dist
 from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.kernels.embedding_bag import ops as _bag
 from repro_torch.nn import layers as L
-from repro_torch.nn.module import Tensors
+from repro_torch.nn.module import Placed, Tensors
 from repro_torch.nn.recurrent import gru_init, gru_scan
 
 
@@ -64,6 +65,27 @@ def _bce(logit, y):
     return -(y * F.logsigmoid(logit) + (1.0 - y) * F.logsigmoid(-logit))
 
 
+def _mean(x, name: str = "rows"):
+    """The mean of ``x`` over the whole batch: this data rank's sum over
+    the whole batch's count ``name`` where the data group installed its
+    counts (``dist.loss_count``), else ``torch.mean``."""
+    n = _dist.loss_count(name)
+    return torch.mean(x) if n is None else torch.sum(x) / n
+
+
+def _rows(batch, key):
+    return {"rows": torch.tensor(len(batch[key]))}
+
+
+def _mlp_axes(n: int) -> dict:
+    """The reference's ``mlp_init`` axes of an ``n``-layer tower."""
+    return {"layers": [{"w": ("embed" if i == 0 else "mlp", "mlp"),
+                        "b": ("mlp",)} for i in range(n)]}
+
+
+GRU_AXES = {"wx": ("embed", "mlp"), "wh": ("mlp", "mlp"), "b": ("mlp",)}
+
+
 @dataclasses.dataclass(frozen=True)
 class TwoTowerConfig:
     n_items: int = 1_000_000
@@ -82,7 +104,7 @@ class TwoTowerConfig:
                                    d=self.embed_dim)
 
 
-class TwoTower(torch.nn.Module):
+class TwoTower(Placed, torch.nn.Module):
     """Sampled-softmax two-tower retrieval.  Parameters are drawn from
     ``generator`` (on ``device``): the item table first, then the user
     tower, in the reference's order.  ``params()`` returns the
@@ -105,9 +127,13 @@ class TwoTower(torch.nn.Module):
         _drop(self, "item_emb", "user_mlp")
         self.item_emb = Tensors(self.emb.init(generator, codes=self._codes,
                                                device=dev))
-        dims = [cfg.embed_dim, *cfg.tower_mlp, cfg.embed_dim]
-        self.user_mlp = _mlp_modules(L.mlp_init(generator, dims, device=dev))
-        return self.params()
+        self.user_mlp = _mlp_modules(L.mlp_init(generator, self._dims(),
+                                                device=dev))
+        return self._record_shapes()
+
+    def _dims(self):
+        cfg = self.cfg
+        return [cfg.embed_dim, *cfg.tower_mlp, cfg.embed_dim]
 
     @property
     def device(self) -> torch.device:
@@ -120,10 +146,8 @@ class TwoTower(torch.nn.Module):
     def param_axes(self) -> dict:
         """The logical axes of each leaf of ``params()``: the
         reference's (``nn.axes_tree`` of its ``init_params``)."""
-        layers = [{"w": ("embed" if i == 0 else "mlp", "mlp"), "b": ("mlp",)}
-                  for i in range(len(self.user_mlp))]
         return {"item_emb": self.emb.param_axes(),
-                "user_mlp": {"layers": layers}}
+                "user_mlp": _mlp_axes(len(self.user_mlp))}
 
     def forward(self, user_hist):
         return self.user_vec(self.params(), user_hist)
@@ -150,32 +174,50 @@ class TwoTower(torch.nn.Module):
                 e = self.emb.lookup(item, user_hist)          # [B, H, d]
             pooled = torch.sum(e * mask[..., None], 1)
         pooled = pooled / torch.clamp(mask.sum(1, keepdim=True), min=1.0)
-        return L.mlp(p["user_mlp"], pooled)                  # [B, d]
+        return L.mlp(p["user_mlp"], pooled, dims=self._dims())  # [B, d]
+
+    def loss_counts(self, batch) -> dict:
+        """Every row of the batch counts (``_mean``)."""
+        return _rows(batch, "pos_item")
 
     def train_loss(self, p, batch, rng=None):
-        """In-batch sampled softmax over the B positives, with the logQ
-        correction when the batch has ``logq``; on one device the
-        reference's ``negatives="local"`` groups are one group (its
-        ``dist.data_shard_count()`` is 1 off a mesh).  Returns (loss,
-        {"loss", "in_batch_acc"})."""
+        """In-batch sampled softmax over the positives, with the logQ
+        correction when the batch has ``logq``; returns (loss, {"loss",
+        "in_batch_acc"}).  ``negatives``: on one device both are the
+        reference's one group of B rows.  Where each data rank holds its
+        own b rows (the Trainer on a mesh), ``"local"`` scores them
+        against its own b positives (the reference's ``[G, b, b]``, G
+        the data ranks) and ``"global"`` against all B, gathered over
+        ``"data"`` (``dist.gather_from_data``; the reference's ``[B,
+        B]``), row i's label its index in the whole batch."""
         del rng
         cfg = self.cfg
-        u = self.user_vec(p, batch["user_hist"])            # [B, d]
+        u = self.user_vec(p, batch["user_hist"])            # [b, d]
         pos = torch.as_tensor(batch["pos_item"], device=self.device)
         v = self.emb.lookup(p["item_emb"], pos)
-        B = u.shape[0]
-        G = 1
-        b = B // G
-        logits = torch.bmm(u.reshape(G, b, -1),
-                           v.reshape(G, b, -1).transpose(1, 2))  # in-batch
+        logq = None
         if cfg.logq_correction and "logq" in batch:
             logq = torch.as_tensor(batch["logq"], device=self.device)
-            logits = logits - logq.reshape(G, 1, b)
-        lse = torch.logsumexp(logits, -1)                   # [G, b]
-        picked = torch.diagonal(logits, dim1=1, dim2=2)     # [G, b]
-        loss = torch.mean(lse - picked)
-        acc = torch.mean((torch.argmax(logits, -1) == torch.arange(
-            b, device=self.device)[None, :]).float())
+        r, D = _dist.data_rank()
+        b = u.shape[0]
+        if cfg.negatives == "global" and D > 1:
+            logits = u @ _dist.gather_from_data(v).T        # [b, B]
+            if logq is not None:
+                logits = logits - _dist.gather_from_data(logq)[None, :]
+            label = r * b + torch.arange(b, device=self.device)
+            lse = torch.logsumexp(logits, -1)
+            picked = torch.gather(logits, 1, label[:, None])[:, 0]
+        else:
+            G = 1
+            logits = torch.bmm(u.reshape(G, b, -1),
+                               v.reshape(G, b, -1).transpose(1, 2))
+            if logq is not None:
+                logits = logits - logq.reshape(G, 1, b)
+            lse = torch.logsumexp(logits, -1)               # [G, b]
+            picked = torch.diagonal(logits, dim1=1, dim2=2)  # [G, b]
+            label = torch.arange(b, device=self.device)[None, :]
+        loss = _mean(lse - picked)
+        acc = _mean((torch.argmax(logits, -1) == label).float())
         return loss, {"loss": loss, "in_batch_acc": acc}
 
     def bind_engine(self, p, spec, *, catalogue=None):
@@ -251,13 +293,16 @@ def _offsets(vocabs, device) -> torch.Tensor:
     return torch.as_tensor(off, device=device)
 
 
-class FM(torch.nn.Module):
+class FM(Placed, torch.nn.Module):
     """Factorisation Machine (Rendle ICDM'10), 2-way interactions via the
     O(nk) sum-square trick.  One shared "mega-table" with per-field row
     offsets -> one embedding object, JPQ-able.  The linear term is a
     fixed-fanout bag over the ``[V, 1]`` view of ``linear`` (the
     embedding_bag kernel on the card).  Parameters are drawn in the
-    reference's order: the table, then ``linear``; ``bias`` is zero."""
+    reference's order: the table, then ``linear``; ``bias`` is zero.
+    ``linear`` is ``("table",)`` and splits with the table's rows."""
+
+    HOLDERS = {"emb": "emb_table", "linear": "head", "bias": "head"}
 
     def __init__(self, cfg: FMConfig, *, generator: torch.Generator,
                  codes=None, device="cuda"):
@@ -283,7 +328,7 @@ class FM(torch.nn.Module):
         linear = torch.randn((total,), generator=generator, device=dev)
         self.head = Tensors({"linear": linear.mul_(0.01),
                              "bias": torch.zeros((), device=dev)})
-        return self.params()
+        return self._record_shapes()
 
     @property
     def device(self) -> torch.device:
@@ -292,9 +337,24 @@ class FM(torch.nn.Module):
     def params(self) -> dict:
         return {"emb": self.emb_table.tensors(), **self.head.tensors()}
 
+    def param_axes(self) -> dict:
+        """The reference's logical axes of each leaf of ``params()``."""
+        return {"emb": self.emb.param_axes(), "linear": ("table",),
+                "bias": ()}
+
     def _linear_bag(self, p, flat):
-        """sum over the fields of linear[flat]: [B, F] -> [B]."""
-        return _bag.embedding_bag(p["linear"].view(-1, 1), flat)[:, 0]
+        """sum over the fields of linear[flat]: [B, F] -> [B].  Where
+        ``linear`` is this rank's block of rows, the fields' entries are
+        gathered exactly across the ranks first (``sharded.take_rows``)
+        and the bag sums them in the same slot order, so the term is
+        bit-equal to the unsharded one."""
+        lin, rows = p["linear"], self.emb.cfg.n_items
+        if lin.shape[0] == rows:
+            return _bag.embedding_bag(lin.view(-1, 1), flat)[:, 0]
+        from repro_torch.core import sharded
+        got = sharded.take_rows(lin.view(-1, 1), flat, rows=rows)
+        at = torch.arange(flat.numel(), device=flat.device).view(flat.shape)
+        return _bag.embedding_bag(got.reshape(-1, 1), at)[:, 0]
 
     def scores(self, p, sparse_ids):
         """sparse_ids [B, F] per-field ids -> logit [B]."""
@@ -306,13 +366,17 @@ class FM(torch.nn.Module):
         pair = 0.5 * torch.sum(sum_v * sum_v - sum_sq, -1)  # [B]
         return pair + self._linear_bag(p, flat) + p["bias"]
 
+    def loss_counts(self, batch) -> dict:
+        """Every row of the batch counts (``_mean``)."""
+        return _rows(batch, "label")
+
     def train_loss(self, p, batch, rng=None):
         """Mean BCE; returns (loss, {"loss", "auc_proxy"})."""
         del rng
         logit = self.scores(p, batch["sparse"])
         y = torch.as_tensor(batch["label"], device=self.device).float()
-        loss = torch.mean(_bce(logit, y))
-        return loss, {"loss": loss, "auc_proxy": torch.mean(
+        loss = _mean(_bce(logit, y))
+        return loss, {"loss": loss, "auc_proxy": _mean(
             ((logit > 0) == (y > 0.5)).float())}
 
     def serve(self, p, batch):
@@ -356,10 +420,12 @@ class DLRMConfig:
                 for i in range(self.n_sparse)]
 
 
-class DLRM(torch.nn.Module):
+class DLRM(Placed, torch.nn.Module):
     """DLRM (arXiv:1906.00091) with dot interaction over a shared
     mega-table.  Parameters are drawn in the reference's order: the
     table, the bottom MLP, the top MLP."""
+
+    HOLDERS = {"emb": "emb_table"}
 
     def __init__(self, cfg: DLRMConfig, *, generator: torch.Generator,
                  codes=None, device="cuda"):
@@ -381,13 +447,18 @@ class DLRM(torch.nn.Module):
         _drop(self, "emb_table", "bot", "top")
         self.emb_table = Tensors(self.emb.init(generator, codes=self._codes,
                                                device=dev))
+        self.bot = _mlp_modules(L.mlp_init(generator, self._dims("bot"),
+                                           device=dev))
+        self.top = _mlp_modules(L.mlp_init(generator, self._dims("top"),
+                                           device=dev))
+        return self._record_shapes()
+
+    def _dims(self, tower: str):
+        cfg = self.cfg
+        if tower == "bot":
+            return [cfg.n_dense, *cfg.bot_mlp]
         nf = cfg.n_sparse + 1
-        top_in = nf * (nf - 1) // 2 + cfg.bot_mlp[-1]
-        self.bot = _mlp_modules(L.mlp_init(
-            generator, [cfg.n_dense, *cfg.bot_mlp], device=dev))
-        self.top = _mlp_modules(L.mlp_init(
-            generator, [top_in, *cfg.top_mlp], device=dev))
-        return self.params()
+        return [nf * (nf - 1) // 2 + cfg.bot_mlp[-1], *cfg.top_mlp]
 
     @property
     def device(self) -> torch.device:
@@ -397,10 +468,17 @@ class DLRM(torch.nn.Module):
         return {"emb": self.emb_table.tensors(), "bot": _mlp_tree(self.bot),
                 "top": _mlp_tree(self.top)}
 
+    def param_axes(self) -> dict:
+        """The reference's logical axes of each leaf of ``params()``."""
+        return {"emb": self.emb.param_axes(),
+                "bot": _mlp_axes(len(self.bot)),
+                "top": _mlp_axes(len(self.top))}
+
     def scores(self, p, dense, sparse_ids):
         dense = torch.as_tensor(dense, device=self.device)
         sparse_ids = torch.as_tensor(sparse_ids, device=self.device)
-        x = L.mlp(p["bot"], dense, final_act=True)          # [B, d]
+        x = L.mlp(p["bot"], dense, final_act=True,
+                  dims=self._dims("bot"))                   # [B, d]
         flat = sparse_ids + self.offsets[None, :]
         e = self.emb.lookup(p["emb"], flat)                 # [B, F, d]
         feats = torch.cat([x[:, None, :], e], 1)            # [B, F+1, d]
@@ -409,14 +487,18 @@ class DLRM(torch.nn.Module):
         iu = torch.triu_indices(nf, nf, offset=1, device=self.device)
         pairs = gram[:, iu[0], iu[1]]                       # [B, F(F-1)/2]
         z = torch.cat([x, pairs], -1)
-        return L.mlp(p["top"], z)[..., 0]
+        return L.mlp(p["top"], z, dims=self._dims("top"))[..., 0]
+
+    def loss_counts(self, batch) -> dict:
+        """Every row of the batch counts (``_mean``)."""
+        return _rows(batch, "label")
 
     def train_loss(self, p, batch, rng=None):
         """Mean BCE; returns (loss, {"loss"})."""
         del rng
         logit = self.scores(p, batch["dense"], batch["sparse"])
         y = torch.as_tensor(batch["label"], device=self.device).float()
-        loss = torch.mean(_bce(logit, y))
+        loss = _mean(_bce(logit, y))
         return loss, {"loss": loss}
 
     def serve(self, p, batch):
@@ -460,11 +542,16 @@ class DIENConfig:
                                    d=self.embed_dim)
 
 
-class DIEN(torch.nn.Module):
+class DIEN(Placed, torch.nn.Module):
     """Deep Interest Evolution Network (arXiv:1809.03672): interest
     extraction GRU over the behaviour embeddings, target-attention
     scores, interest-evolution AUGRU, final MLP.  Parameters are drawn
-    in the reference's order."""
+    in the reference's order.  On a ``"model"`` mesh the towers and
+    ``tgt_proj`` split as the reference places them; the two GRUs stay
+    whole (``WHOLE``), and so does the table, whose ``n_items + 1`` rows
+    (1,000,001) divide by neither 2 nor 4."""
+
+    WHOLE = ("gru1", "augru")       # an all-reduce a cell step, split
 
     def __init__(self, cfg: DIENConfig, *, generator: torch.Generator,
                  codes=None, device="cuda"):
@@ -485,13 +572,21 @@ class DIEN(torch.nn.Module):
         self.item_emb = Tensors(self.emb.init(gen, codes=self._codes,
                                               device=dev))
         self.gru1 = Tensors(gru_init(gen, d, g, device=dev))
-        self.att = _mlp_modules(L.mlp_init(gen, [3 * g, 36, 1], device=dev))
+        self.att = _mlp_modules(L.mlp_init(gen, self._dims("att"),
+                                           device=dev))
         self.augru = Tensors(gru_init(gen, g, g, device=dev))
-        self.fc = _mlp_modules(L.mlp_init(gen, [g + 2 * d, *cfg.mlp, 1],
+        self.fc = _mlp_modules(L.mlp_init(gen, self._dims("fc"),
                                           device=dev))
         self.tgt_proj = Tensors(L.linear_init(gen, d, g, device=dev))
-        self.aux = _mlp_modules(L.mlp_init(gen, [g + d, 32, 1], device=dev))
-        return self.params()
+        self.aux = _mlp_modules(L.mlp_init(gen, self._dims("aux"),
+                                           device=dev))
+        return self._record_shapes()
+
+    def _dims(self, tower: str):
+        cfg = self.cfg
+        d, g = cfg.embed_dim, cfg.gru_dim
+        return {"att": [3 * g, 36, 1], "fc": [g + 2 * d, *cfg.mlp, 1],
+                "tgt_proj": [d, g], "aux": [g + d, 32, 1]}[tower]
 
     @property
     def device(self) -> torch.device:
@@ -504,15 +599,39 @@ class DIEN(torch.nn.Module):
                 "tgt_proj": self.tgt_proj.tensors(),
                 "aux": _mlp_tree(self.aux)}
 
+    def param_axes(self) -> dict:
+        """The reference's logical axes of each leaf of ``params()``."""
+        return {"item_emb": self.emb.param_axes(), "gru1": dict(GRU_AXES),
+                "att": _mlp_axes(len(self.att)), "augru": dict(GRU_AXES),
+                "fc": _mlp_axes(len(self.fc)),
+                "tgt_proj": {"w": ("embed", "mlp"), "b": ("mlp",)},
+                "aux": _mlp_axes(len(self.aux))}
+
+    def _mlp(self, p, tower, x):
+        return L.mlp(p[tower] if tower != "tgt_proj" else
+                     {"layers": [p[tower]]}, x, dims=self._dims(tower))
+
     def _interest(self, p, hist):
         e = self.emb.lookup(p["item_emb"], hist)            # [B, S, d]
         states, _ = gru_scan(p["gru1"], e)                  # [B, S, g]
         return e, states
 
+    def loss_counts(self, batch) -> dict:
+        """The rows (``main``'s mean) and, with ``hist_neg``, the
+        positions after the first that hold an item (``aux``'s)."""
+        hist = torch.as_tensor(batch["hist"])
+        out = _rows(batch, "hist")
+        if "hist_neg" in batch:
+            out["aux"] = (hist[:, 1:] > 0).sum()
+        return out
+
     def train_loss(self, p, batch, rng=None):
         """BCE on the target plus ``aux_loss_weight`` times the auxiliary
         next-behaviour loss on the interest states (over ``hist_neg``,
-        when the batch has it); returns (loss, {"loss", "main", "aux"})."""
+        when the batch has it); returns (loss, {"loss", "main", "aux"}).
+        Each term is a mean over its own count (the rows; the history's
+        items after the first), in the whole batch where the data group
+        installed the counts."""
         del rng
         dev = self.device
         hist = torch.as_tensor(batch["hist"], device=dev)
@@ -529,31 +648,33 @@ class DIEN(torch.nn.Module):
             h_t = states[:, :-1]                            # [B, S-1, g]
             pos_in = torch.cat([h_t, e[:, 1:]], -1)
             neg_in = torch.cat([h_t, e_neg[:, 1:]], -1)
-            lp = L.mlp(p["aux"], pos_in)[..., 0]
-            ln = L.mlp(p["aux"], neg_in)[..., 0]
+            lp = self._mlp(p, "aux", pos_in)[..., 0]
+            ln = self._mlp(p, "aux", neg_in)[..., 0]
             m = mask[:, 1:]
+            n = _dist.loss_count("aux")
             aux = -(torch.sum((F.logsigmoid(lp) + F.logsigmoid(-ln)) * m)
-                    / torch.clamp(torch.sum(m), min=1.0))
+                    / torch.clamp(torch.sum(m) if n is None else n,
+                                  min=1.0))
 
         logit = self._head(p, e, states, mask, target)
-        main = torch.mean(_bce(logit, y))
+        main = _mean(_bce(logit, y))
         loss = main + self.cfg.aux_loss_weight * aux
         return loss, {"loss": loss, "main": main, "aux": aux}
 
     def _head(self, p, e, states, mask, target):
         te = self.emb.lookup(p["item_emb"], target)         # [B, d]
-        tg = L.linear(p["tgt_proj"], te)                    # [B, g]
+        tg = self._mlp(p, "tgt_proj", te)                   # [B, g]
         B, S, g = states.shape
         tgb = tg[:, None, :].expand(B, S, g)
         att_in = torch.cat([states, tgb, states * tgb], -1)
-        scores = L.mlp(p["att"], att_in)[..., 0]            # [B, S]
+        scores = self._mlp(p, "att", att_in)[..., 0]        # [B, S]
         scores = torch.where(mask > 0, scores, -1e9)
         alpha = torch.softmax(scores, -1) * mask
         _, final = gru_scan(p["augru"], states, attn=alpha)
         mean_e = torch.sum(e * mask[..., None], 1) / torch.clamp(
             torch.sum(mask, 1, keepdim=True), min=1.0)
         z = torch.cat([final, te, mean_e], -1)
-        return L.mlp(p["fc"], z)[..., 0]
+        return self._mlp(p, "fc", z)[..., 0]
 
     def serve(self, p, batch):
         hist = torch.as_tensor(batch["hist"], device=self.device)

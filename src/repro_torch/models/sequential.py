@@ -50,7 +50,7 @@ from repro_torch.core import engine as _engine
 from repro_torch.core import semantic as _semantic
 from repro_torch.nn import layers as L
 from repro_torch.nn.attention import AttnConfig, attention, attention_init
-from repro_torch.nn.module import Tensors
+from repro_torch.nn.module import Placed, Tensors
 from repro_torch.nn.recurrent import gru_init, gru_scan
 
 NEG_INF = -1e9
@@ -102,7 +102,7 @@ def _dropout(gen, x, rate: float):
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-class SeqRecModel(torch.nn.Module):
+class SeqRecModel(Placed, torch.nn.Module):
     """SASRec / BERT4Rec / GRU4Rec with a pluggable item embedding.
     Parameters are drawn from ``generator`` (on ``device``) in the
     reference's order: the item table, then for the transformers
@@ -128,6 +128,8 @@ class SeqRecModel(torch.nn.Module):
                 f"over JPQ code sequences — it needs a kind='jpq' "
                 f"embedding, got {cfg.emb_cfg().kind!r}")
         self.cfg = cfg
+        # GRU4Rec's GRU weights stay whole on a "model" mesh (Placed)
+        self.WHOLE = ("gru",) if cfg.arch == "gru4rec" else ()
         self.emb = make_embedding(cfg.emb_cfg())
         self._codes = codes
         self.attn_cfg = AttnConfig(
@@ -173,13 +175,6 @@ class SeqRecModel(torch.nn.Module):
         self.ln_f = Tensors(L.layernorm_init(cfg.d_model, device=dev))
         return self._record_shapes()
 
-    def _record_shapes(self):
-        """Note the whole leaves' shapes (``placement`` resolves on them
-        after ``bridge.keep_local_blocks`` has cut the leaves); returns
-        ``params()``."""
-        self._whole_shapes = _shapes(self.params())
-        return self.params()
-
     # ------------------------------------------------------- placement
     def param_axes(self) -> dict:
         """The logical axes of every leaf of ``params()``: the reference's
@@ -207,28 +202,6 @@ class SeqRecModel(torch.nn.Module):
                         "wo": {"w": ("mlp", "embed"), "b": ("embed",)}}}
                 for _ in range(cfg.n_layers)],
             "ln_f": ln()}
-
-    def placement(self, mesh, rules=None) -> dict:
-        """The placement spec of every leaf as the port holds it on
-        ``mesh``: the reference's ``params_shardings`` of the whole
-        leaves (``dist.params_shardings`` of ``param_axes``), less three
-        leaves it keeps whole by design.  The centroids: every rank's
-        items reference every code, so each rank needs the whole
-        ``[T, m, b]`` LUT anyway.  GRU4Rec's GRU weights: their ``mlp``
-        split would cost an all-reduce a cell step.  (``pos_emb``, the
-        layer norms and GRU4Rec's ``proj`` resolve whole already.)"""
-        meta = _meta(self._whole_shapes)
-        specs = _dist.params_shardings(meta, self.param_axes(), mesh, rules)
-        if "centroids" in specs["item_emb"]:
-            specs["item_emb"]["centroids"] = (None, None, None)
-        if self.cfg.arch == "gru4rec":
-            specs["gru"] = [{k: (None,) * len(v) for k, v in g.items()}
-                            for g in specs["gru"]]
-        return specs
-
-    def whole_shapes(self) -> dict:
-        """The shape of every leaf of ``params()`` before any cut."""
-        return self._whole_shapes
 
     def params(self) -> dict:
         """``{"item_emb", "pos_emb", "blocks": [{"ln1", "attn", "ln2",
@@ -274,11 +247,20 @@ class SeqRecModel(torch.nn.Module):
         return L.layernorm(p["ln_f"], x)
 
     # ------------------------------------------------------------ loss
+    def loss_counts(self, batch) -> dict:
+        """The count in ``batch`` of the positions every loss term is a
+        mean over: those with a label (BERT4Rec: with a masked target).
+        The Trainer sums it over the data group (``dist.loss_count``)."""
+        key = "targets" if self.cfg.arch == "bert4rec" else "labels"
+        return {"valid": (torch.as_tensor(batch[key]) > 0).sum()}
+
     def train_loss(self, p, batch, generator=None):
         """(loss, metrics): the mean over the positions with a label
         (BERT4Rec: with a masked target) of the configured loss, plus
         ``semantic_weight`` times the code cross-entropy when it is set
-        (then reported as ``code_ce``)."""
+        (then reported as ``code_ce``).  Each mean divides by the whole
+        batch's count where the data group installed it (``_count``), so
+        a data rank's terms are its share of the whole batch's."""
         cfg = self.cfg
         if cfg.arch == "bert4rec":
             return self._masked_lm_loss(p, batch, generator)
@@ -443,8 +425,11 @@ class SeqRecModel(torch.nn.Module):
 
 
 def _count(valid):
-    """The number of valid positions, at least 1."""
-    return torch.clamp(valid.sum(), min=1)
+    """The number of valid positions, at least 1: in the whole batch
+    where the data group installed its counts (``dist.loss_count``),
+    else in ``valid``."""
+    n = _dist.loss_count("valid")
+    return torch.clamp(valid.sum() if n is None else n, min=1)
 
 
 def _xent(logits, labels):
@@ -498,22 +483,6 @@ def vocab_parallel_xent(logits, labels, lo: int, mesh):
     ce = _VocabParallelXent.apply(logits.reshape(-1, n),
                                   labels.reshape(-1), int(lo), mesh)
     return ce.reshape(labels.shape)
-
-
-def _shapes(tree):
-    if isinstance(tree, dict):
-        return {k: _shapes(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_shapes(v) for v in tree]
-    return tuple(tree.shape)
-
-
-def _meta(shapes):
-    if isinstance(shapes, dict):
-        return {k: _meta(v) for k, v in shapes.items()}
-    if isinstance(shapes, list):
-        return [_meta(v) for v in shapes]
-    return torch.empty(shapes, device="meta")
 
 
 # --------------------------------------------------- bert4rec masking

@@ -67,14 +67,73 @@ def mlp_init(gen: torch.Generator, dims, *, bias: bool = True,
                        for a, b in zip(dims[:-1], dims[1:])]}
 
 
-def mlp(p, x, *, act=torch.relu, final_act: bool = False):
-    """ReLU between layers, none after the last unless ``final_act``."""
+def mlp(p, x, *, act=torch.relu, final_act: bool = False, dims=None):
+    """ReLU between layers, none after the last unless ``final_act``.
+    ``dims`` (the whole widths ``[in, h1, ..., out]``): a layer whose
+    weight is narrower holds this rank's block of it on a ``"model"``
+    mesh (``split_linear``), and the tower runs tensor-parallel."""
     n = len(p["layers"])
+    if dims is not None and any(
+            tuple(lp["w"].shape) != (a, b)
+            for lp, a, b in zip(p["layers"], dims[:-1], dims[1:])):
+        return _split_mlp(p, x, act, final_act, dims)
     for i, lp in enumerate(p["layers"]):
         x = linear(lp, x)
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def split_linear(lp, x, d_in: int, d_out: int, *, x_block: bool = False):
+    """One layer of a tower whose weight may be this rank's block on
+    the ambient ``"model"`` mesh, as the reference's ``mlp_init`` axes
+    place it (``("embed", "mlp")`` for layer 0, ``("mlp", "mlp")``
+    after; the first dimension that divides takes the axis):
+      * column block ``[d_in, d_out/S]`` (and its bias): the output is
+        this rank's column block; the whole input enters through
+        ``dist.copy_to_model`` (its gradient summed over the ranks), or
+        where the layer narrows (d_out < d_in) through
+        ``dist.column_linear`` (``dy`` gathered instead: fewer bytes);
+      * row block ``[d_in/S, d_out]``: the input's column block (cut
+        from a whole input by ``dist.scatter_to_model``) times it, the
+        partial products summed by ``dist.reduce_from_model``, then the
+        bias, gathered first where it is this rank's block;
+      * whole: a block input is gathered first.
+    ``x_block``: ``x`` is this rank's column block.  Returns (y, whether
+    y is a column block)."""
+    w, b = lp["w"], lp.get("b")
+    if w.shape[1] != d_out:                              # column block
+        if x_block:
+            x = _dist.gather_from_model(x, -1)
+        w = w.to(x.dtype)
+        y = (_dist.column_linear(x, w) if d_out < d_in else
+             _dist.copy_to_model(x) @ w)
+        return (y if b is None else y + b.to(y.dtype)), True
+    if w.shape[0] != d_in:                               # row block
+        if not x_block:
+            x = _dist.scatter_to_model(x, -1)
+        y = _dist.reduce_from_model(x @ w.to(x.dtype))
+        if b is not None:
+            if b.shape[0] != d_out:
+                b = _dist.gather_from_model(b, 0)
+            y = y + b.to(y.dtype)
+        return y, False
+    if x_block:
+        x = _dist.gather_from_model(x, -1)
+    return linear(lp, x), False
+
+
+def _split_mlp(p, x, act, final_act, dims):
+    if _dist.model_size() <= 1:
+        raise ValueError("a tower holds blocks of its weights, but no "
+                         "ambient mesh splits them (dist.use_mesh_rules)")
+    n = len(p["layers"])
+    blk = False
+    for i, lp in enumerate(p["layers"]):
+        x, blk = split_linear(lp, x, dims[i], dims[i + 1], x_block=blk)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return _dist.gather_from_model(x, -1) if blk else x
 
 
 def layernorm_init(d: int, *, dtype=torch.float32, device="cuda"):

@@ -1,5 +1,5 @@
 """Parameter holders: a reference parameter subtree as an ``nn.Module``,
-the leaves of a ``params()`` tree, and its size."""
+the leaves of a ``params()`` tree, its shapes, and its size."""
 from __future__ import annotations
 
 import torch
@@ -37,6 +37,74 @@ def tree_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_shapes(tree):
+    """The shape of every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def meta_tree(shapes):
+    """A tree of ``meta`` tensors of those shapes (what
+    ``dist.params_shardings`` resolves placements on)."""
+    if isinstance(shapes, dict):
+        return {k: meta_tree(v) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [meta_tree(v) for v in shapes]
+    return torch.empty(shapes, device="meta")
+
+
+def _whole(spec_tree):
+    """A specs tree with every leaf replicated."""
+    if isinstance(spec_tree, dict):
+        return {k: _whole(v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [_whole(v) for v in spec_tree]
+    return (None,) * len(spec_tree)
+
+
+class Placed:
+    """The placement of a model's leaves on a ``(data, model)`` mesh, for
+    an ``nn.Module`` whose ``param_axes()`` holds the reference's
+    logical axes of ``params()``.  ``WHOLE`` names the top-level
+    subtrees kept whole by design; ``HOLDERS`` the attribute that holds
+    a top-level key of ``params()`` where the two names differ
+    (``bridge``).  ``_record_shapes()`` notes the whole leaves' shapes
+    once they are drawn."""
+
+    WHOLE: tuple = ()
+    HOLDERS: dict = {}
+
+    def _record_shapes(self) -> dict:
+        self._whole_shapes = tree_shapes(self.params())
+        return self.params()
+
+    def whole_shapes(self) -> dict:
+        """The shape of every leaf of ``params()`` before any cut."""
+        return self._whole_shapes
+
+    def placement(self, mesh, rules=None) -> dict:
+        """The placement spec of every leaf as the port holds it on
+        ``mesh``: the reference's ``params_shardings`` of the whole
+        leaves (``dist.params_shardings`` of ``param_axes``, the
+        divisibility fallback included), less the leaves kept whole by
+        design: the RecJPQ centroids (every rank's items reference every
+        code, so each rank needs the whole LUT anyway) and the subtrees
+        in ``WHOLE`` (GRU weights, whose ``mlp`` split would cost an
+        all-reduce a cell step)."""
+        from repro_torch import dist
+        specs = dist.params_shardings(meta_tree(self._whole_shapes),
+                                      self.param_axes(), mesh, rules)
+        for sub in specs.values():
+            if isinstance(sub, dict) and "centroids" in sub:
+                sub["centroids"] = _whole(sub["centroids"])
+        for name in self.WHOLE:
+            specs[name] = _whole(specs[name])
+        return specs
 
 
 def param_count(tree) -> int:

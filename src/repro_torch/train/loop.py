@@ -10,15 +10,20 @@ duplicate raises), and the step comes from the step-builder registry:
 
   * plain / microbatch: one device, or with ``mesh`` plain data
     parallelism — each rank takes its rows of the batch (by its index
-    on the ``"data"`` axis) and the gradients are averaged over the
-    ``"data"`` group by ``all_reduce`` (held to the reference within
-    tolerance, as its own mesh path is) — and, on a mesh whose
-    ``"model"`` axis is S > 1 (a sequential model), tensor parallelism:
-    the Trainer installs the mesh (``dist.use_mesh_rules``), cuts the
-    parameters to their blocks (``bridge.keep_local_blocks``; the Adam
+    on the ``"data"`` axis), and the loss is the whole batch's, as the
+    reference's one step over the global batch is: before the forward
+    the counts each loss term is a mean over (``model.loss_counts``)
+    are summed over ``"data"`` in one small ``all_reduce`` and installed
+    (``dist.use_loss_counts``), so a rank's loss is its local sums over
+    the whole batch's counts, and the ranks' gradients and metrics are
+    summed (one ``all_reduce`` each) — and, on a mesh whose ``"model"``
+    axis is S > 1, tensor parallelism: the Trainer installs the mesh
+    (``dist.use_mesh_rules``), cuts the parameters to their blocks
+    (``bridge.keep_local_blocks`` of the model's ``placement``; the Adam
     moments are made from them), clips by the global norm with the
     split leaves' squares summed over ``"model"``, and the model's own
-    collectives do the rest (``models/sequential.py``);
+    collectives do the rest (``models/sequential.py``,
+    ``models/recsys.py``);
   * elastic (``grad_compression`` / ``grad_accum_shards`` / ``fsdp`` /
     ``overlap``): ``repro_torch.dist.compression``'s exchange over ``V``
     virtual shards with error feedback, bitwise across world sizes
@@ -38,8 +43,8 @@ split leaf and its moments are gathered first, so a checkpoint holds
 whole leaves under the reference's keys, and a restore cuts each
 rank's blocks: a run saved at ``(1, 2)`` resumes at ``(1, 1)`` or
 ``(1, 2)``.  Not yet ported, and raising (``dist.NEXT_SLICE``): the
-elastic exchange on a ``model > 1`` mesh, and models without a
-``placement`` (the CTR and two-tower models) on one.
+elastic exchange on a ``model > 1`` mesh.  A model without a
+``placement`` does not train on one.
 """
 from __future__ import annotations
 
@@ -58,9 +63,9 @@ from repro_torch.dist import gather_block, local_block, model_dim
 from repro_torch.nn.module import tree_leaves
 from repro_torch.train import spec as spec_mod
 from repro_torch.train.metrics import validate_history
-from repro_torch.train.optimizer import (OptConfig, apply_updates,
-                                         global_norm, init_opt_state,
-                                         tree_map)
+from repro_torch.train.optimizer import (OPT_STATS, OptConfig,
+                                         apply_updates, global_norm,
+                                         init_opt_state, tree_map)
 from repro_torch.train.spec import TrainSpec
 
 
@@ -106,17 +111,48 @@ def step_generator(seed: int, step: int, device,
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def _mean_over_ranks(tensors, mesh):
-    """The mean of each tensor over the ``"data"`` group (one
+def sum_over_ranks(tensors, mesh):
+    """The sum of each tensor over the ``"data"`` group (one
     ``all_reduce`` of their fp32 concatenation)."""
     buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
     buf = mesh.all_reduce(buf, "data", "sum")
-    buf /= mesh.shape["data"]
     out, off = [], 0
     for t in tensors:
         out.append(buf[off:off + t.numel()].view(t.shape).to(t.dtype))
         off += t.numel()
     return out
+
+
+def counted_loss(model, mesh, loss_fn=None):
+    """``loss_fn(values, batch[, generator])`` (default:
+    ``model.train_loss``; it returns (loss, metrics)) with the whole
+    batch's loss counts installed: this rank's
+    ``model.loss_counts(batch)`` summed over ``"data"`` (one
+    ``all_reduce`` before the forward).  Each rank's loss is then its
+    share of the whole batch's, and the sum over the ranks of the
+    losses, gradients and metrics is the whole batch's.  A model without
+    ``loss_counts`` counts its rows, its loss and metrics scaled by
+    this rank's share of them."""
+    from repro_torch import dist as _dist
+    loss_fn = loss_fn or model.train_loss
+    counts = getattr(model, "loss_counts", None)
+
+    def fn(values, batch, *args):
+        local = (counts(batch) if counts is not None else
+                 {"rows": len(next(iter(batch.values())))})
+        keys = list(local)
+        tot = mesh.all_reduce(torch.stack([
+            torch.as_tensor(local[k], device=mesh.device).reshape(())
+            .to(torch.int64) for k in keys]), "data", "sum")
+        if counts is None:
+            # a model without loss_counts is taken to be a mean over its
+            # rows: its share of the whole batch's mean
+            share = float(local["rows"]) / float(tot[0])
+            loss, mets = loss_fn(values, batch, *args)
+            return loss * share, {k: v * share for k, v in mets.items()}
+        with _dist.use_loss_counts(dict(zip(keys, tot.to(model.device)))):
+            return loss_fn(values, batch, *args)
+    return fn
 
 
 def _spec_leaves(specs):
@@ -191,9 +227,11 @@ class Trainer:
                     f"the elastic exchange on a mesh with model = "
                     f"{mesh.shape['model']}: {NEXT_SLICE}")
             if not hasattr(model, "placement"):
-                raise NotImplementedError(
-                    f"{type(model).__name__} on a 'model' mesh axis: "
-                    f"{NEXT_SLICE}")
+                raise ValueError(
+                    f"{type(model).__name__} has no placement, so it "
+                    f"does not train on a 'model' mesh axis")
+        # plain data parallelism: the data group's counts
+        self._counted = not self._use_dp and self._world > 1
         self._specs = None                 # the placement, when split
 
     # ----------------------------------------------------------- setup
@@ -212,8 +250,9 @@ class Trainer:
         """The StepContext ingredients of every builder: the model's
         loss, and the optimizer hook (``grad_norm=`` is how the fsdp
         combine passes its norm).  On a data-parallel mesh without the
-        elastic exchange, the hook first averages the gradients over the
-        ranks."""
+        elastic exchange, the loss divides by the whole batch's counts
+        (``counted_loss``) and the hook first sums the gradients over
+        the ranks."""
         model, opt_cfg, mesh = self.model, self.opt_cfg, self.mesh
         split = (None if self._specs is None else
                  [model_dim(sp) is not None
@@ -221,6 +260,9 @@ class Trainer:
 
         def loss_fn(values, batch, generator=None):
             return model.train_loss(values, batch, generator)
+
+        if self._counted:
+            loss_fn = counted_loss(model, mesh, loss_fn)
 
         def apply_fn(values, opt_state, grads, grad_norm=None):
             if split is not None and grad_norm is None:
@@ -235,8 +277,8 @@ class Trainer:
             idx = [i for i, g in enumerate(tree_leaves(grads))
                    if g is not None]
             flat = tree_leaves(grads)
-            by_i = dict(zip(idx, _mean_over_ranks([flat[i] for i in idx],
-                                                  mesh)))
+            by_i = dict(zip(idx, sum_over_ranks([flat[i] for i in idx],
+                                                mesh)))
             it = iter(range(len(flat)))
             grads = tree_map(lambda g: by_i.get(next(it), g), grads)
             return apply_fn(values, opt_state, grads, grad_norm=grad_norm)
@@ -337,10 +379,12 @@ class Trainer:
         ``"model"`` mesh the model's leaves are cut to this rank's blocks
         first (``params`` must be ``model.params()``; the returned tree
         holds the blocks, and so does ``opt_state``)."""
-        if not self._split:
+        if not (self._split or self._counted):
             return self._run(generator, params)
         from repro_torch.dist import use_mesh_rules
-        with use_mesh_rules(self.mesh, self.rules):
+        # each rank holds its own rows of the batch
+        with use_mesh_rules(self.mesh, self.rules,
+                            local_batch=self._counted):
             return self._run(generator, params)
 
     def _run(self, generator, params):
@@ -453,7 +497,7 @@ class Trainer:
         for x in detached:
             x.requires_grad_(True)
         rows = None
-        if not elastic and self._world > 1:
+        if self._counted:
             rows = (mesh.data_index, self._world)
             if cfg.batch_size % self._world:
                 raise ValueError(
@@ -484,12 +528,14 @@ class Trainer:
                             if torch.is_floating_point(x):
                                 x.copy_(n)
                 del new, batch
-                if rows is not None:          # the ranks' mean metrics
-                    keys = list(mets)
-                    mets = dict(zip(keys, _mean_over_ranks(
+                if rows is not None:
+                    # the loss's metrics are this rank's shares: summed;
+                    # the optimizer's (grad_norm, lr) are every rank's
+                    keys = [k for k in mets if k not in OPT_STATS]
+                    mets = {**mets, **dict(zip(keys, sum_over_ranks(
                         [torch.as_tensor(mets[k], dtype=torch.float32,
                                          device=dev).reshape(())
-                         for k in keys], mesh)))
+                         for k in keys], mesh)))}
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 done_step = step + 1

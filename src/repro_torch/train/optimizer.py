@@ -37,6 +37,10 @@ class OptConfig:
     grad_compression: str = "none"
 
 
+# the stats apply_updates adds to a step's metrics
+OPT_STATS = ("grad_norm", "lr")
+
+
 def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 

@@ -1748,3 +1748,49 @@ def test_vocab_parallel_xent_on_the_card(dev, S, tmp_path):
     assert abs(float(got) - float(loss)) <= 1e-6 * abs(float(loss))
     assert float((gg - want.cpu()).abs().max()) <= \
         1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("L,d,S", [(39, 1, 2), (39, 1, 4), (50, 256, 2),
+                                   (1, 64, 4)])
+def test_row_block_bag_skips_foreign_slots(dev, L, d, S):
+    """The bag (L > 1) and gather (L = 1) on each of S row blocks of a
+    table, with the other blocks' slots foreign (FM's linear term at
+    L = 39, the two-tower pool at L = 50, a table gather): the forward
+    and backward bit-equal to their plain versions on CPU copies, each
+    block's gradient bit-equal to the same rows of the whole table's
+    backward (one dout), and the backward's order gives each row
+    exactly its own slots, every foreign one the sentinel V."""
+    g = torch.Generator(device=dev).manual_seed(L + d + S)
+    V, n = 4_096, 2_048
+    table = torch.randn((V, d), generator=g, device=dev)
+    ids = torch.randint(0, V, (n, L), generator=g, device=dev)
+    ids[: n // 2, 0] = 5                      # a long run on block 0
+    w = torch.rand((n, L), generator=g, device=dev)
+    dout = torch.randn((n, d), generator=g, device=dev)
+    whole = ec.embedding_bag_backward(ids, None if L == 1 else w, dout, V)
+    nb = V // S
+    for r in range(S):
+        lo = r * nb
+        loc = ids - lo
+        own = (loc >= 0) & (loc < nb)
+        blk = table[lo:lo + nb].clone().requires_grad_(True)
+        cblk = blk.detach().cpu().requires_grad_(True)
+        if L == 1:
+            out = eops.gather_block(blk, loc[:, 0], own[:, 0])
+            ref = eops.gather_block(cblk, loc[:, 0].cpu(), own[:, 0].cpu())
+        else:
+            out = eops.embedding_bag_block(blk, loc, own, w)
+            ref = eops.embedding_bag_block(cblk, loc.cpu(), own.cpu(),
+                                           w.cpu())
+        assert torch.equal(out.cpu().view(torch.int32),
+                           ref.view(torch.int32)), r
+        (gb,) = torch.autograd.grad(out, blk, dout)
+        (gc,) = torch.autograd.grad(ref, cblk, dout.cpu())
+        assert torch.equal(gb.cpu().view(torch.int32),
+                           gc.view(torch.int32)), r
+        assert torch.equal(gb.view(torch.int32),
+                           whole[lo:lo + nb].contiguous().view(torch.int32))
+        order = ec.sort_ids(torch.where(own, loc, nb).contiguous(), nb)
+        runs = (order.offs[1:] - order.offs[:-1]).long()
+        assert torch.equal(runs, torch.bincount(loc[own], minlength=nb))
+        assert int(order.offs[nb]) == int(own.sum())

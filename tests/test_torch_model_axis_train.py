@@ -28,10 +28,11 @@ Held (tolerances: the leaf rule of tests/test_torch_recsys_train.py):
     stay whole) at (1, 2), (1, 4) and (2, 2): the loss within 1e-5
     relative, every gathered gradient leaf within 1e-5 of its largest
     entry or 1e-6 of the gradient's largest, of ``jax.grad`` of the
-    reference's single-device ``train_loss`` (at (2, 2) the mean over
-    the two data halves, the port's data-group mean);
+    reference's single-device ``train_loss`` on the whole batch (at
+    (2, 2) too: each data rank's terms over the whole batch's counts,
+    the ranks' gradients summed, ``train/loop.counted_loss``);
   * three Trainer steps: losses within 1e-5 relative of the reference's
-    three adamw steps; the clip norm of the first within 1e-6 relative
+    three adamw steps on the whole batch; the clip norm of the first within 1e-6 relative
     of the reference's ``global_norm``; bit-identical run to run at
     (1, 2);
   * checkpoints at (1, 2): whole leaves under the reference's keys, read
@@ -39,10 +40,9 @@ Held (tolerances: the leaf rule of tests/test_torch_recsys_train.py):
     (1, 2) bit-equal to the uninterrupted run, at (1, 1) within 1e-5;
   * ``rank_of`` / NDCG@10 / HR@10 on column blocks equal to the whole
     scores' (ties included);
-  * the train CLI at ``--model-axis 2`` on gloo processes: its losses
-    within 1e-5 relative of the single-device CLI's (``--devices 4``:
-    within 1e-3, the two data halves' means weighing their positions
-    apart).
+  * the train CLI at ``--model-axis 2`` and ``--devices 4 --model-axis
+    2`` on gloo processes: its losses within 1e-5 relative of the
+    single-device CLI's.
 """
 import os
 import re
@@ -179,19 +179,21 @@ def _whole(tree, specs, mesh):
 
 def _one_step(mesh, case, values, batch):
     """(loss, {path: whole gradient}): this rank's data rows through the
-    split model, the data group's mean, the blocks gathered."""
+    split model over the whole batch's counts, the data group's sum,
+    the blocks gathered."""
     D = mesh.shape["data"]
     tm = _t_model(*case, values=values)
     specs = bridge.keep_local_blocks(tm, mesh)
     p = tm.params()
-    with T_dist.use_mesh_rules(mesh):
-        loss, _ = tm.train_loss(p, _tb(_rows(batch, mesh.data_index, D)))
+    with T_dist.use_mesh_rules(mesh, local_batch=True):
+        loss, _ = T_loop.counted_loss(tm, mesh)(
+            p, _tb(_rows(batch, mesh.data_index, D)))
         floats = [x for _, x in _paths(p) if torch.is_floating_point(x)]
         got = iter(torch.autograd.grad(loss, floats))
     grads = {q: next(got) for q, x in _paths(p)
              if torch.is_floating_point(x)}
-    loss, *flat = T_loop._mean_over_ranks([loss.detach()]
-                                          + list(grads.values()), mesh)
+    loss, *flat = T_loop.sum_over_ranks([loss.detach()]
+                                        + list(grads.values()), mesh)
     grads = dict(zip(grads, flat))
     sp = dict(_paths(specs))
     return float(loss), {"/".join(map(str, q)): T_dist.gather_block(
@@ -358,18 +360,18 @@ def ref_cache():
     return {}
 
 
-def _ref_step(cache, case, values, batch, D):
-    """The reference's loss and gradient (the mean over ``D`` data
-    halves, as the port's data group averages them)."""
-    key = (case, id(batch), D)
+def _ref_step(cache, case, values, batch):
+    """The reference's loss and gradient of its one step over the whole
+    batch."""
+    key = (case, id(batch))
     if key not in cache:
-        cache[key] = _ref_step_uncached(case, values, batch, D)
+        cache[key] = _ref_step_uncached(case, values, batch)
     return cache[key]
 
 
-def _ref_three(cache, arch, values, batches, D):
+def _ref_three(cache, arch, values, batches):
     """The reference's three adamw steps: (losses, clip norms)."""
-    key = ("three", arch, D)
+    key = ("three", arch)
     if key in cache:
         return cache[key]
     case = (arch, "jpq", "full_ce", N_ITEMS)
@@ -379,7 +381,7 @@ def _ref_three(cache, arch, values, batches, D):
     want, norms = [], []
     for s in range(STEPS):
         loss, g = _ref_step_uncached(case, jax.tree.map(np.asarray, v),
-                                     batches[s], D)
+                                     batches[s])
         g = _unflat_like(v, g)
         norms.append(float(J_opt.global_norm(g)))
         v, st, _ = J_opt.apply_updates(cfg, st, v, g)
@@ -388,12 +390,9 @@ def _ref_three(cache, arch, values, batches, D):
     return want, norms
 
 
-def _ref_step_uncached(case, values, batch, D):
-    parts = [_j_loss_grads(case, values, _rows(batch, d, D))
-             for d in range(D)]
-    loss = float(np.mean([p[0] for p in parts]))
-    flat = [_j_flat(p[1]) for p in parts]
-    return loss, {k: np.mean([f[k] for f in flat], 0) for k in flat[0]}
+def _ref_step_uncached(case, values, batch):
+    loss, g = _j_loss_grads(case, values, batch)
+    return loss, _j_flat(g)
 
 
 def _rule(want, got):
@@ -411,8 +410,7 @@ def _rule(want, got):
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_one_step_matches_reference(runs, ref_cache, shape, case):
     values, batch = runs["inputs"]["one"][case]
-    want_loss, want = _ref_step(ref_cache, case, values, batch,
-                                SHAPES[shape][0])
+    want_loss, want = _ref_step(ref_cache, case, values, batch)
     loss, got = runs[shape][case]
     assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
     _rule(want, got)
@@ -481,11 +479,10 @@ def test_vocab_parallel_xent_matches_reference(runs, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_three_trainer_steps_match_reference(runs, ref_cache, shape, arch):
     """Three adamw steps of the Trainer on the mesh: the losses of the
-    reference's three steps (jax.grad + apply_updates, the data halves'
-    mean at (2, 2)), and the first step's clip norm."""
+    reference's three steps on the whole batch (jax.grad +
+    apply_updates), and the first step's clip norm."""
     values, batches = runs["inputs"]["three"][arch]
-    want, norms = _ref_three(ref_cache, arch, values, batches,
-                             SHAPES[shape][0])
+    want, norms = _ref_three(ref_cache, arch, values, batches)
     losses, gnorms, _ = runs[shape][("three", arch)]
     assert np.allclose(losses, want, rtol=1e-5, atol=0)
     assert abs(gnorms[0] - norms[0]) <= 1e-6 * norms[0]
@@ -574,7 +571,5 @@ def test_cli_model_axis_matches_single_device(capfd, flags):
     assert f"mesh: {{'data': {D}, 'model': 2}} (gloo" in out
     assert "eval NDCG@10" in out and "done at step 4" in out
     assert len(got) == 3                       # rank 0's last rows
-    # at (2, 2) the loss is the mean of the two halves' means, which
-    # weighs their positions apart from the whole batch's mean
-    assert np.allclose(got, want[-3:], rtol=1e-5 if D == 1 else 1e-3,
-                       atol=0)
+    # at (2, 2) too: the whole batch's loss, the ranks' shares summed
+    assert np.allclose(got, want[-3:], rtol=1e-5, atol=0)

@@ -392,9 +392,10 @@ class TestServeCli:
         assert (res["skip"] is not None) == ("--prune" in flags)
         assert "two-tower-retrieval-jpq: batch=8" in capsys.readouterr().out
 
-    # --mesh is ported for the two-tower models (tests/test_torch_sharded
-    # .py); a CTR arch on a "model" mesh is not
-    @pytest.mark.parametrize("flags", [["--mesh", "2", "--arch", "fm"]])
+    # --mesh is ported for every recsys arch (tests/test_torch_sharded.py,
+    # tests/test_torch_ctr_model_axis.py); an LM arch (item 10) is not
+    @pytest.mark.parametrize("flags", [["--mesh", "2", "--arch",
+                                        "qwen3-14b"]])
     def test_unported_flags_raise(self, flags):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             T_serve.main(["--device", "cpu", *flags])

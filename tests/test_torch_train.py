@@ -251,7 +251,7 @@ def test_trainer_unported_options_raise(knob):
     reference's error, word for word (logical-axis rules, which the
     Trainer now takes, change nothing there); what still waits, the
     elastic exchange on a mesh with a ``model`` axis > 1, raises
-    NotImplementedError naming item 9c-ii."""
+    NotImplementedError naming item 9c-iii."""
     import types
 
     from repro.train import loop as J_loop
@@ -272,7 +272,7 @@ def test_trainer_unported_options_raise(knob):
         assert str(got.value) == str(want.value)
     else:
         with pytest.raises(NotImplementedError,
-                           match="not yet ported.*item 9c-ii"):
+                           match="not yet ported.*item 9c-iii"):
             T_loop.Trainer(None, T_opt.OptConfig(),
                            T_loop.TrainConfig(**knob), data_fn=None,
                            mesh=model_mesh)
@@ -314,16 +314,19 @@ def test_cli_flags_and_defaults_match_the_reference():
 
 @pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"],
                                    ["--arch", "fm", "--mesh", "2",
-                                    "--model-axis", "2"],
-                                   ["--arch", "dien", "--model-axis", "2"],
+                                    "--model-axis", "2",
+                                    "--grad-compression", "int8"],
+                                   ["--arch", "dien", "--model-axis", "2",
+                                    "--grad-accum-shards", "4"],
                                    ["--grad-compression", "bf16",
                                     "--model-axis", "2"]])
 def test_cli_unported_flags_raise(flags):
     """What the CLI still refuses: the LM and MACE bundles (item 10), and
-    on a ``model`` axis the CTR archs and the elastic exchange (item
-    9c-ii).  ``--mesh``, the TrainSpec flags and a sequential arch's
+    on a ``model`` axis the elastic exchange (item 9c-iii), with any
+    arch.  ``--mesh``, the TrainSpec flags and every arch's
     ``--model-axis`` train (tests/test_torch_elastic.py,
-    tests/test_torch_model_axis_train.py)."""
+    tests/test_torch_model_axis_train.py,
+    tests/test_torch_ctr_model_axis.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported|only"):
         T_cli.main(["--device", "cpu", "--steps", "1", "--n-items", "50",
                     *flags])
