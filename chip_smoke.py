@@ -296,13 +296,41 @@ Phase 29 runs after phase 28:
      bit-equal to their plain versions, timed beside bound, plain and
      ``F.embedding_bag``, with the longest run the backward sees on a
      block and on one card (the kernels JSON's ``model_axis_ctr``).
+Phases 30-31 run after phase 29:
+ 30. main path, the elastic exchange on a ``(D, S)`` mesh, ranks
+     time-sharing the one card (gloo staged), the model replicated over
+     ``"model"`` as the reference's ``shard_map`` runs it: phase 26's
+     world-1 peaks printed first (a batch is cut only where the ranks'
+     peaks would pass 75 GB together); SASRec int8, V = 4, 3 steps at
+     (1, 1) on this process, then (b) int8 + fsdp, overlap
+     ``backward``, at (2, 2) and (d) a SIGTERM on rank 3 of (2, 2) at
+     step 2, then (a) int8 at (1, 2), (d) resumed there and (c)
+     two-tower-retrieval-jpq int8 at phase 26's batch: every rank's
+     values, moments and error state after each step bit-equal (sha1)
+     to the same step at (1, 1); each rank's peak, the kernels launched
+     on every rank, the median step beside phase 26's, the data group's
+     collectives a step exactly as counted; then rows 3, 3b, 4, 4b at
+     the SASRec round's shape and 5b at the two-tower round's against
+     their plain versions;
+ 31. main path, the request server under ``--mesh S`` (S = 2, 4, ranks
+     sharing the card): phase 25's model and settings, (a) pruned with
+     a non-blocking hot swap before request 200, (c) ``--no-prune``,
+     again at 100/s where S ranks cannot keep up at 500/s; every
+     response bit-equal to the request served alone unsharded, none
+     dropped or duplicated, every rank on rank 0's batches and
+     versions; p50 / p95 / p99 beside phase 25's, a batch's broadcast
+     and its serve's collectives; then both top-k kernels at the
+     shards' shapes at B = 8 (the kernels JSON's ``server_mesh_shape``).
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
-phase 29's ``{"ctr_model_axis": ...}`` and the per-kernel
-numbers (eight kernels; the two top-k kernels also carry phase 25's
-``server_shape``, rows 3-5 phase 26's ``elastic_launches`` and
-``elastic_round_max_abs_err``), the
+phase 29's ``{"ctr_model_axis": ...}``, phase 30's
+``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}`` and the
+per-kernel numbers (eight kernels; the two top-k kernels also carry
+phase 25's ``server_shape`` and phase 31's ``server_mesh_shape``, rows
+3-5 phase 26's ``elastic_launches`` and ``elastic_round_max_abs_err``
+and phase 30's ``elastic_mesh_launches_per_rank`` and
+``elastic_mesh_round_max_abs_err``), the
 nvidia-smi line, and the result line ``{"ok":
 true, "device": {...}}`` last.  Imports nothing of
 JAX or of the JAX package.
@@ -1364,6 +1392,17 @@ ENG_TT = ("two-tower-retrieval", "two-tower-retrieval-jpq")
 ENG_TT_B, ENG_TT_STEPS = 65_536, 2
 
 
+def tt_engine_batch(np, cfg, s, rows=ENG_TT_B):
+    """Step ``s``'s two-tower training batch of phases 26 and 30 (a
+    function of the seed and step alone): ``rows`` histories of the
+    model's ``hist_len`` ids over the catalogue, positives, zero logq."""
+    r = np.random.default_rng((0, s))
+    return {"user_hist": r.integers(0, cfg.n_items + 1,
+                                    (rows, cfg.hist_len)),
+            "pos_item": r.integers(1, cfg.n_items + 1, (rows,)),
+            "logq": np.zeros(rows, np.float32)}
+
+
 def _timed_trainer(Trainer, torch):
     """A Trainer whose elastic step records CUDA events around each
     stage call (the scheduler calls the stages through the step's
@@ -1760,15 +1799,8 @@ def engine_phases(torch, np, dev, smi, data, codes_np):
             free_card(torch, dev, f"the engine's {name} run")
             model = get_bundle(name).make_model(device=dev, seed=0)
             params = model.params()
-            n_items, H = model.cfg.n_items, model.cfg.hist_len
-
-            def one(s):
-                r = np.random.default_rng((0, s))
-                return {"user_hist": r.integers(0, n_items + 1,
-                                                (ENG_TT_B, H)),
-                        "pos_item": r.integers(1, n_items + 1, (ENG_TT_B,)),
-                        "logq": np.zeros(ENG_TT_B, np.float32)}
-            bs = [one(s) for s in range(ENG_TT_STEPS)]
+            bs = [tt_engine_batch(np, model.cfg, s)
+                  for s in range(ENG_TT_STEPS)]
             for c in counters:
                 c.reset_launches()
             gc.collect()
@@ -3388,8 +3420,9 @@ def ctr_train_phases(torch, np, dev, smi, data):
 MESH_SHARDS = (2, 4)
 
 
-def shard_kernel_rows(torch, dev, smi, template):
-    """The three kernels of the mesh path at its shard shapes, on the
+def shard_kernel_rows(torch, dev, smi, template, Bq=B):
+    """The three kernels of the mesh path at its shard shapes, ``Bq``
+    queries, on the
     last rank's block (the largest offset) of the full-width catalogue,
     each against its plain version and timed: ``jpq_topk`` over the
     block's code rows; ``jpq_topk_pruned``'s two launches (the first
@@ -3398,8 +3431,9 @@ def shard_kernel_rows(torch, dev, smi, template):
     ``mesh_prune_block_n`` (7,816); ``embedding_bag`` over the block's
     rows of the 1,000,448 x 256 table with the ids rebased and those
     outside clipped with weight 0 (``ms`` the launch alone, as phase 10
-    times it; ``checked_ms`` the wrapper with its id check).  Returns
-    {kernel: {S: row}}."""
+    times it; ``checked_ms`` the wrapper with its id check), unless
+    ``template`` is None (the request server's path, phase 31, has no
+    bag).  Returns {kernel: {S: row}}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import cuda as ec
@@ -3411,12 +3445,14 @@ def shard_kernel_rows(torch, dev, smi, template):
     gen = torch.Generator(device=dev).manual_seed(27)
     codes = torch.randint(0, BC, (N, M), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
-    P = ops.canonicalise_lut(torch.randn((B, M, BC), generator=gen,
+    P = ops.canonicalise_lut(torch.randn((Bq, M, BC), generator=gen,
                                          device=dev)).contiguous()
     perm = torch.randperm(N, generator=gen, device=dev)
-    table = torch.randn((N, 256), generator=gen, device=dev)
-    ids = torch.as_tensor(template["user_hist"], device=dev)
-    rows = {"jpq_topk": {}, "jpq_topk_pruned": {}, "embedding_bag": {}}
+    rows = {"jpq_topk": {}, "jpq_topk_pruned": {}}
+    if template is not None:
+        table = torch.randn((N, 256), generator=gen, device=dev)
+        ids = torch.as_tensor(template["user_hist"], device=dev)
+        rows["embedding_bag"] = {}
     for S in MESH_SHARDS:
         L, s = N // S, S - 1
         block = codes[s * L:(s + 1) * L]
@@ -3424,7 +3460,7 @@ def shard_kernel_rows(torch, dev, smi, template):
         plain = ops.jpq_topk_scan(P, block, k, block_n=ops.scan_block_n(L))
         check(bits_equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1]),
               f"jpq_topk != plain on a {S}-way shard")
-        b_ms, b_by, _ = bound_of(*topk_work(B, L, k))
+        b_ms, b_by, _ = bound_of(*topk_work(Bq, L, k))
         rows["jpq_topk"][S] = {
             "rows": L, "max_abs_err": float((kern[0] - plain[0]).abs().max()),
             "ms": cuda_ms(lambda: kc.jpq_topk(P, block, k), 20),
@@ -3443,9 +3479,9 @@ def shard_kernel_rows(torch, dev, smi, template):
             return (st.codes[a * bn:b * bn], st.ids[a * bn:b * bn],
                     st.present[a:b])
 
-        cold = (torch.full((B,), -float("inf"), device=dev),
-                torch.full((B, k), -float("inf"), device=dev),
-                torch.zeros((B, k), dtype=torch.int32, device=dev))
+        cold = (torch.full((Bq,), -float("inf"), device=dev),
+                torch.full((Bq, k), -float("inf"), device=dev),
+                torch.zeros((Bq, k), dtype=torch.int32, device=dev))
         kw = dict(k=k, block_n=bn, tie_break_ids=True)
 
         def two(fn, sub=sub, cold=cold, kw=kw, nt=nt):
@@ -3461,7 +3497,7 @@ def shard_kernel_rows(torch, dev, smi, template):
               and torch.equal(ks2.min(0).values, ps2),
               f"jpq_topk_pruned != plain on a {S}-way shard at block_n {bn}")
         skip = torch.cat([ks1, ks2], 1)
-        bytes_, adds, lookups, items = pruned_work(torch, mine, skip, B, k)
+        bytes_, adds, lookups, items = pruned_work(torch, mine, skip, Bq, k)
         b_ms, b_by, _ = bound_of(bytes_, adds, lookups)
         rows["jpq_topk_pruned"][S] = {
             "rows": L, "block_n": bn, "tiles": nt, "swept_items": items,
@@ -3470,31 +3506,33 @@ def shard_kernel_rows(torch, dev, smi, template):
             "plain_ms": cuda_ms(lambda: two(ops.jpq_topk_scan_pruned), 2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-        tab = table[s * L:(s + 1) * L]
-        loc = ids - s * L
-        ok = (loc >= 0) & (loc < L)
-        w = ((ids > 0) & ok).float()
-        loc = torch.where(ok, loc, 0)    # embedding_bag_block's foreign ids
-        kern = ec.embedding_bag(tab, loc, w)
-        plain = eref.embedding_bag_ref(tab, loc, w)
-        check(bits_equal(kern, plain),
-              f"embedding_bag != plain on a {S}-way shard")
-        n, H = loc.shape
-        distinct = torch.unique(loc).numel()
-        b_ms, b_by = bound(distinct * 256 * 4 + loc.numel() * 8 + n * H * 4
-                           + n * 256 * 4,
-                           {"fp32 FMAs": (n * H * 256, FADD_PER_S)})
-        rows["embedding_bag"][S] = {
-            "rows": L, "bags": n, "distinct_rows": distinct,
-            "ids_in_shard": int(ok.sum()),
-            "max_abs_err": float((kern - plain).abs().max()),
-            "ms": cuda_ms(lambda: ec.launch(tab, loc, w), 50),
-            "checked_ms": cuda_ms(lambda: ec.embedding_bag(tab, loc, w), 50),
-            "plain_ms": cuda_ms(lambda: eref.embedding_bag_ref(tab, loc, w),
-                                10),
-            "library_ms": cuda_ms(lambda: F.embedding_bag(
-                loc, tab, mode="sum", per_sample_weights=w), 50),
-            "bound_ms": b_ms, "bound_by": b_by}
+        if template is not None:
+            tab = table[s * L:(s + 1) * L]
+            loc = ids - s * L
+            ok = (loc >= 0) & (loc < L)
+            w = ((ids > 0) & ok).float()
+            loc = torch.where(ok, loc, 0)    # the block's foreign ids
+            kern = ec.embedding_bag(tab, loc, w)
+            plain = eref.embedding_bag_ref(tab, loc, w)
+            check(bits_equal(kern, plain),
+                  f"embedding_bag != plain on a {S}-way shard")
+            n, H = loc.shape
+            distinct = torch.unique(loc).numel()
+            b_ms, b_by = bound(distinct * 256 * 4 + loc.numel() * 8
+                               + n * H * 4 + n * 256 * 4,
+                               {"fp32 FMAs": (n * H * 256, FADD_PER_S)})
+            rows["embedding_bag"][S] = {
+                "rows": L, "bags": n, "distinct_rows": distinct,
+                "ids_in_shard": int(ok.sum()),
+                "max_abs_err": float((kern - plain).abs().max()),
+                "ms": cuda_ms(lambda: ec.launch(tab, loc, w), 50),
+                "checked_ms": cuda_ms(
+                    lambda: ec.embedding_bag(tab, loc, w), 50),
+                "plain_ms": cuda_ms(
+                    lambda: eref.embedding_bag_ref(tab, loc, w), 10),
+                "library_ms": cuda_ms(lambda: F.embedding_bag(
+                    loc, tab, mode="sum", per_sample_weights=w), 50),
+                "bound_ms": b_ms, "bound_by": b_by}
         for name in rows:
             r = rows[name][S]
             print(f"   S={S} {name} on {r['rows']} rows: {r['ms']:.4f} ms "
@@ -3505,8 +3543,8 @@ def shard_kernel_rows(torch, dev, smi, template):
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
                   + ("" if r.get("library_ms") is None else
                      f", {r['library_ms']:.4f} ms F.embedding_bag")
-                  + f"; bit-equal to plain, on {smi}")
-    del codes, P, perm, table, st, mine
+                  + f"; B={Bq}, bit-equal to plain, on {smi}")
+    del codes, P, perm, st, mine
     torch.cuda.empty_cache()
     return rows
 
@@ -4629,6 +4667,698 @@ def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 30
+# the elastic exchange on a (D, S) mesh: the model replicated over
+# "model" (as the reference's shard_map runs it), the exchange over the
+# "data" group, ranks time-sharing the one card over gloo staged through
+# host memory
+
+EM_V, EM_STEPS, EM_STOP_AT = 4, 3, 1
+EM_BUDGET_GB = 75.0               # the ranks' peaks together, one card
+# what a rank holds beyond its peak allocation: the caching allocator's
+# unused blocks (on an H100 80GB HBM3, four SASRec ranks at B = 16 ran
+# out of memory with 12.20 GiB allocated and 2.96 GiB reserved besides
+# on a rank) and its CUDA context
+EM_SLACK, EM_CONTEXT_GB = 1.2, 0.6
+EM_TT = "two-tower-retrieval-jpq"
+EM_SEQ_KERNELS = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+                  "jpq_lookup_bwd")
+
+
+def state_digest(torch, trees):
+    """sha1 of the dtype, shape and bytes of every tensor leaf of
+    ``trees``, in order: equal digests, equal bits."""
+    import hashlib
+
+    from repro_torch.nn.module import tree_leaves
+    h = hashlib.sha1()
+    for x in tree_leaves(list(trees)):
+        h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+        if x.numel():
+            h.update(x.detach().contiguous().reshape(-1).view(
+                torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def elastic_step_bytes(values, D, fsdp, n_meta):
+    """(bytes, calls) the data group's collectives return to one rank in
+    an int8 elastic step at V = EM_V over D data ranks (none at D = 1):
+    each round's gather of the ranks' meta (``n_meta`` fp32: the leaves'
+    scales, the loss, the aux metrics) and of the replicated leaves'
+    payloads (16-byte aligned), and with fsdp its all-to-all of the
+    owned rows' payloads; with fsdp also the parameters' gather at the
+    start (the row-sharded leaves, fp32) and the norm's segment gather
+    (L fp32 a sharded leaf)."""
+    from repro_torch.dist import compression
+    from repro_torch.nn.module import tree_leaves
+    if D == 1:
+        return 0, 0
+    leaves = tree_leaves(values)
+    flags = [fsdp and compression.fsdp_leaf_sharded(x, EM_V)
+             for x in leaves]
+    lay = compression._Layout(leaves, flags, D, "int8")
+    L = EM_V // D
+    total = L * D * (4 * n_meta + lay.g_bytes + lay.c_bytes)
+    calls = L * (2 + (1 if lay.c_bytes else 0))
+    if any(flags):
+        total += sum(x.numel() * x.element_size()
+                     for x, f in zip(leaves, flags) if f)
+        total += D * sum(lay.sharded) * L * 4
+        calls += 2
+    return total, calls
+
+
+def _digest_trainer(Trainer, torch):
+    """A Trainer whose elastic step also records, after each step, the
+    digest of the whole state (values and moments gathered from fsdp's
+    slices, the error rows over the data group), and the step alone:
+    its host ms (synchronised) and the mesh's comm delta; and the fp32
+    entries of a round's meta (``n_meta``: the exchanged leaves' scales,
+    the loss, the aux metrics, as ``quantise_pack`` is handed them)."""
+    from repro_torch.dist import compression
+
+    class Digest(Trainer):
+        def _build_dp_step(self, shapes):
+            step = super()._build_dp_step(shapes)
+            mesh, fsdp = self.mesh, self._fsdp
+            self.digests, self.inner = [], []
+            pack = step.quantise_pack
+
+            def counted_pack(lay, grads, err_r, new_err_r, loss, aux):
+                self.n_meta = len(grads) + 1 + len(aux)
+                return pack(lay, grads, err_r, new_err_r, loss, aux)
+            step.quantise_pack = counted_pack
+
+            def whole(t):
+                return step.gather(t) if fsdp else t
+
+            def stepped(values, opt, err, batch, rng):
+                torch.cuda.synchronize(mesh.device)
+                c0, t0 = dict(mesh.comm), time.perf_counter()
+                nv, no, ne, mets = step(values, opt, err, batch, rng)
+                torch.cuda.synchronize(mesh.device)
+                row = {k: mesh.comm[k] - c0[k] for k in c0}
+                row["ms"] = (time.perf_counter() - t0) * 1e3
+                self.inner.append(row)
+                self.digests.append(state_digest(torch, [
+                    whole(nv), whole(no["m"]), whole(no["v"]),
+                    compression.gather_rows(ne, mesh)]))
+                return nv, no, ne, mets
+            stepped.shard, stepped.gather = step.shard, step.gather
+            return stepped
+    return Digest
+
+
+def elastic_run(mesh, job, codes_np):
+    """One run of phase 30 on ``mesh`` (every rank calls it alike):
+    ``job["arch"]``, "sasrec" (phase 7's full-width model on
+    ``job["batches"]``) or ``EM_TT`` (phase 26's batches,
+    ``job["rows"]`` a step), trained ``job["steps"]`` steps, int8 at V = EM_V with
+    ``job["fsdp"]`` and ``job["overlap"]``; ``job["ckpt"]`` its
+    checkpoint directory, ``job["sigterm"]`` = (rank, step) a SIGTERM
+    to that rank as it reads that step's batch.  Returns the per-step
+    digests, the steps' own ms and collectives, their expected bytes
+    and calls, the peak GB, the launches, the losses and where it
+    stopped."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    dev = mesh.device
+    if job["arch"] == "sasrec":
+        model = full_width_model(codes_np, dev)
+
+        def batch_of(s):
+            return job["batches"][s]
+    else:
+        model = get_bundle(EM_TT).make_model(device=dev, seed=0)
+
+        def batch_of(s):
+            return tt_engine_batch(np, model.cfg, s, job["rows"])
+
+    def data_fn(s):
+        if job.get("sigterm") == (mesh.rank, s):
+            os.kill(os.getpid(), signal.SIGTERM)
+        return batch_of(s)
+
+    for c in (ec, sc, lc):
+        c.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = _digest_trainer(Trainer, torch)(
+        model, OptConfig(lr=3e-3), TrainConfig(
+            steps=job["steps"], batch_size=TRAIN_B, log_every=1,
+            eval_every=0, ckpt_dir=job.get("ckpt"), ckpt_every=0,
+            grad_compression="int8", grad_accum_shards=EM_V,
+            fsdp=job["fsdp"], overlap=job["overlap"]),
+        data_fn=data_fn, mesh=mesh)
+    params, hist = tr.run(params=model.params())
+    torch.cuda.synchronize(dev)
+    rows = [h for h in hist if "loss" in h]
+    exp_bytes, exp_calls = elastic_step_bytes(
+        params, mesh.shape["data"], job["fsdp"], tr.n_meta)
+    out = {"digests": tr.digests, "inner": tr.inner,
+           "expected_bytes": exp_bytes, "expected_calls": exp_calls,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": {k: v for c in (ec, sc, lc)
+                        for k, v in c.launches.items()},
+           "losses": [h["loss"] for h in rows],
+           "first_step": rows[0]["step"], "done_step": tr.done_step,
+           "preempted": tr._preempted,
+           "payload_bytes": rows[0]["payload_bytes"]}
+    del tr, params, model, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_mesh_rank(mesh, codes_np, jobs, out_dir):
+    """One rank of phase 30 (module-level: spawn pickles it): each job
+    through ``elastic_run``; writes ``out_dir/rank<r>.pt``."""
+    import torch
+
+    from repro_torch import fp32_matmuls
+    fp32_matmuls()
+    res = {"rank": mesh.rank, "transport": mesh.transport}
+    for job in jobs:
+        res[job["name"]] = elastic_run(mesh, job, codes_np)
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def elastic_mesh_phases(torch, np, dev, smi, data, codes_np, engine):
+    """Phase 30: the elastic exchange on a ``(D, S)`` mesh, ranks
+    time-sharing the one card (gloo staged), the model replicated over
+    ``"model"`` as the reference's ``shard_map`` runs it.  The (1, 1)
+    runs first on this process (NCCL, world 1), then (2, 2) on four
+    ranks: (b) SASRec int8 + fsdp, overlap ``backward``, and (d) SASRec
+    int8 SIGTERM'd on rank 3 as it reads step 1's batch (every rank
+    stops after it; rank 0 saves at step 2); then (1, 2) on two ranks:
+    (a) SASRec int8, overlap ``none``; (d) resumed from (2, 2)'s
+    checkpoint; (c) two-tower-retrieval-jpq int8 at phase 26's batch.
+    Every rank's values, moments and error state after each step
+    bit-equal (sha1 digests) to the same step at (1, 1); each rank
+    launched its path's kernels; its peak, the ranks' sum against the
+    card; the data group's collectives a step exactly as counted
+    (``elastic_step_bytes``); then the kernels at the rounds' shapes.
+    ``engine``: phase 26's summary (its world-1 peaks and steps).
+    Returns {"runs", "kernels_at_round_shape", "launches"}."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = phase(f"main path: the elastic exchange on a (D, S) mesh, the "
+               f"model replicated over 'model', ranks sharing the one card"
+               f" (train --model-axis S --grad-compression int8 "
+               f"--grad-accum-shards {EM_V} --share-card)")
+    free_card(torch, dev, "the elastic mesh phase")
+    seq26 = engine["seq"]["int8/none"]
+    tt26 = engine["two_tower"][EM_TT]
+    def need(peak, n):
+        return n * (peak * EM_SLACK + EM_CONTEXT_GB)
+    print(f"   phase 26's world-1 peaks: SASRec int8 "
+          f"{seq26['peak_gb']:.2f} GB, {EM_TT} int8 {tt26['peak_gb']:.2f} "
+          f"GB; every rank holds the whole model, its moments and a "
+          f"round's logits, so with the allocator's slack (x{EM_SLACK}) "
+          f"and a context each ({EM_CONTEXT_GB} GB) 4 SASRec ranks need "
+          f"{need(seq26['peak_gb'], 4):.2f} GB and 2 two-tower ranks "
+          f"{need(tt26['peak_gb'], 2):.2f} GB (budget {EM_BUDGET_GB} GB)")
+    cuts = {}
+
+    def cut(what, rows, peak, n):
+        """The batch rows that fit n ranks (a multiple of V; the peak
+        taken to scale with the rows)."""
+        if need(peak, n) <= EM_BUDGET_GB:
+            return rows
+        got = max(EM_V, int(rows * EM_BUDGET_GB / need(peak, n))
+                  // EM_V * EM_V)
+        cuts[what] = (f"B cut from {rows} to {got}: {n} ranks x "
+                      f"({peak:.2f} GB x {EM_SLACK} + {EM_CONTEXT_GB}) = "
+                      f"{need(peak, n):.2f} GB > {EM_BUDGET_GB} GB")
+        return got
+    seq_b = cut("sasrec", TRAIN_B, seq26["peak_gb"], 4)
+    tt_rows = cut(EM_TT, ENG_TT_B, tt26["peak_gb"], 2)
+    for what, why in cuts.items():
+        print(f"   {what} on four ranks: {why}")
+    full = [data.train_batch(s, TRAIN_B) for s in range(EM_STEPS)]
+    small = full if seq_b == TRAIN_B else [data.train_batch(s, seq_b)
+                                           for s in range(EM_STEPS)]
+    root = os.path.join(HERE, "build", "chip_smoke_elastic_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ck = os.path.join(root, "ck")
+    # (a) on two ranks takes the whole batch; (b) and (d) run on four
+    spec = {"a": dict(arch="sasrec", fsdp=False, overlap="none",
+                      batches=full),
+            "b": dict(arch="sasrec", fsdp=True, overlap="backward",
+                      batches=small, cut=cuts.get("sasrec")),
+            "c": dict(arch=EM_TT, fsdp=False, overlap="dispatch",
+                      rows=tt_rows, cut=cuts.get(EM_TT)),
+            "d": dict(arch="sasrec", fsdp=False, overlap="none",
+                      batches=small, cut=cuts.get("sasrec"))}
+    ref = {}
+    mesh = mesh_mod.make_host_mesh(1, device=dev)
+    try:
+        for name, job in spec.items():
+            if name == "d" and small is full:
+                ref["d"] = ref["a"]
+                continue
+            ref[name] = elastic_run(mesh, dict(job, name=name,
+                                               steps=EM_STEPS), codes_np)
+            check(all(np.isfinite(ref[name]["losses"])),
+                  f"(1, 1) {name}: losses {ref[name]['losses']}")
+    finally:
+        mesh.close()
+    free_card(torch, dev, "the elastic mesh ranks")
+    ranks = {}
+    plan = (("2x2", 4, [dict(spec["b"], name="b", steps=EM_STEPS),
+                        dict(spec["d"], name="d_stop", steps=EM_STEPS,
+                             ckpt=ck, sigterm=(3, EM_STOP_AT))]),
+            ("1x2", 2, [dict(spec["a"], name="a", steps=EM_STEPS),
+                        dict(spec["d"], name="d_resume", steps=EM_STEPS,
+                             ckpt=ck),
+                        dict(spec["c"], name="c", steps=EM_STEPS)]))
+    for shape, n, jobs in plan:
+        out_dir = tempfile.mkdtemp(prefix=f"ranks-{shape}-", dir=root)
+        t1 = time.perf_counter()
+        mesh_mod.spawn(elastic_mesh_rank, n,
+                       (codes_np, jobs, out_dir), device=dev,
+                       model=2, share_card=True, timeout=900)
+        ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                   weights_only=False) for r in range(n)]
+        print(f"   {shape}: {n} ranks, {time.perf_counter() - t1:.1f} s "
+              f"(spawn, build, runs)")
+    shutil.rmtree(root, ignore_errors=True)
+    runs, launches = {}, {}
+    for shape, rs in ranks.items():
+        for name in [k for k in rs[0] if k not in ("rank", "transport")]:
+            base = "d" if name.startswith("d_") else name
+            want = ref[base]["digests"]
+            for r, res in enumerate(rs):
+                x = res[name]
+                check(res["transport"] == "gloo-staged",
+                      f"rank {r}: transport {res['transport']}")
+                if name == "d_stop":
+                    check(x["preempted"] and x["done_step"] == EM_STOP_AT + 1
+                          and x["digests"] == want[:EM_STOP_AT + 1],
+                          f"(2, 2) d_stop rank {r}: preempted "
+                          f"{x['preempted']} at {x['done_step']}, or its "
+                          f"steps != (1, 1)'s")
+                elif name == "d_resume":
+                    check(x["first_step"] == EM_STOP_AT + 1
+                          and x["digests"] == want[EM_STOP_AT + 1:],
+                          f"(1, 2) d_resume rank {r}: from step "
+                          f"{x['first_step']}, != the uninterrupted (1, 1)")
+                else:
+                    check(x["digests"] == want,
+                          f"{shape} {name} rank {r}: a step's state != the "
+                          f"same step at (1, 1)")
+                kerns = ("embedding_bag_backward",) if base == "c" \
+                    else EM_SEQ_KERNELS
+                for k in kerns:
+                    check(x["launches"][k] > 0,
+                          f"{shape} {name}: rank {r} never launched {k}")
+                for i, st in enumerate(x["inner"]):
+                    check(st["bytes"] == x["expected_bytes"]
+                          and st["calls"] == x["expected_calls"],
+                          f"{shape} {name} rank {r} step {i}: the data "
+                          f"group returned {st['bytes']} bytes in "
+                          f"{st['calls']} calls, counted "
+                          f"{x['expected_bytes']} in {x['expected_calls']}")
+            peaks = [res[name]["peak_gb"] for res in rs]
+            check(sum(peaks) <= EM_BUDGET_GB,
+                  f"{shape} {name}: the ranks' peaks {peaks} exceed "
+                  f"{EM_BUDGET_GB} GB together")
+            x0 = rs[0][name]
+            w26 = tt26 if base == "c" else (
+                engine["seq"]["int8+fsdp/dispatch"] if base == "b"
+                else seq26)
+            row = {"mesh": shape, "arch": spec[base]["arch"],
+                   "fsdp": spec[base]["fsdp"],
+                   "overlap": spec[base]["overlap"],
+                   "step_ms": float(np.median([s["ms"] for s in x0["inner"]])),
+                   "steps_ms": [s["ms"] for s in x0["inner"]],
+                   "phase26_step_ms": w26["step_ms"],
+                   "peak_gb_by_rank": peaks,
+                   "phase26_peak_gb": w26["peak_gb"],
+                   "comm_ms": float(np.median([s["seconds"] * 1e3
+                                               for s in x0["inner"]])),
+                   "comm_bytes": x0["inner"][0]["bytes"],
+                   "comm_calls": x0["inner"][0]["calls"],
+                   "payload_bytes": x0["payload_bytes"],
+                   "payload_x_V": x0["payload_bytes"] * EM_V,
+                   "losses": x0["losses"], "digests_equal_1x1": True,
+                   "launches_by_rank": [res[name]["launches"] for res in rs],
+                   "batch": (spec[base]["rows"] if base == "c" else
+                             len(spec[base]["batches"][0]["seq"])),
+                   "batch_cut": spec[base].get("cut")}
+            runs[f"{shape}:{name}"] = row
+            for k, v in x0["launches"].items():
+                launches.setdefault(k, {})[f"{shape}:{name}"] = [
+                    res[name]["launches"][k] for res in rs]
+            print(f"   {shape} {name} ({row['arch']}, B={row['batch']}, "
+                  f"int8{' + fsdp' if row['fsdp'] else ''}, overlap "
+                  f"{row['overlap']}): step {row['step_ms']:.1f} ms (median "
+                  f"of {len(row['steps_ms'])}; phase 26's world-1 step "
+                  f"{row['phase26_step_ms']:.1f}), peak GB by rank "
+                  + ", ".join(f"{p:.2f}" for p in peaks)
+                  + f" (world 1: {row['phase26_peak_gb']:.2f}); the data "
+                  f"group's collectives {row['comm_ms']:.2f} ms, "
+                  f"{row['comm_bytes']} bytes in {row['comm_calls']} calls "
+                  f"a step (counted; payload {row['payload_bytes']} B a "
+                  f"shard, x V = {row['payload_x_V']}); every rank's state "
+                  f"after each step bit-equal to (1, 1)"
+                  + (f"; {row['batch_cut']}" if row["batch_cut"] else "")
+                  + f"; on {smi}")
+    print(f"   (d) SIGTERM on rank 3 of (2, 2) as it read step "
+          f"{EM_STOP_AT}'s batch: every rank stopped at step "
+          f"{EM_STOP_AT + 1} and rank 0 saved there; resumed on (1, 2), "
+          f"bit-equal to the uninterrupted (1, 1) run")
+    done(t0)
+
+    t0 = phase("the elastic rounds' kernels at the rounds' shapes on the "
+               "card: rows 3, 3b, 4, 4b (SASRec) and 5b (two-tower-jpq)")
+    free_card(torch, dev, "the elastic mesh rounds' kernels")
+    model = full_width_model(codes_np, dev)
+    params = model.params()
+    seq = torch.as_tensor(small[0]["seq"][:seq_b // EM_V], device=dev)
+    rnd, ins = slice_kernel_errs(torch, dev, model, params, seq,
+                                 f"elastic mesh round T={seq.numel()}")
+    errs = {k: rnd[k + "_err"] for k in EM_SEQ_KERNELS}
+    del model, params, seq, ins
+    free_card(torch, dev, "the two-tower round's kernels")
+    model = get_bundle(EM_TT).make_model(device=dev, seed=0)
+    errs.update(tt_round_errs(torch, dev, EM_TT, model.params(),
+                              tt_engine_batch(np, model.cfg, 0, tt_rows),
+                              tt_rows // EM_V))
+    del model
+    print(f"   round T={rnd['T']}: jpq_scores forward and jpq_lookup "
+          f"forward bit-equal to plain; backwards max |err| vs float64 "
+          f"{errs['jpq_scores_bwd']:.3e} / {errs['jpq_lookup_bwd']:.3e}; "
+          f"the two-tower round's bag backward "
+          f"{errs['embedding_bag_backward']:.3e}; "
+          f"row 5 (the bag forward) is not on this path: the -jpq tables' "
+          f"gathers run forward as table[ids]; on {smi}")
+    done(t0)
+    return {"runs": runs, "kernels_at_round_shape": {
+        "T": rnd["T"], "two_tower_rows": tt_rows // EM_V,
+        "max_abs_err": errs}, "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 31
+# the request server under --mesh S: rank 0 runs the server and
+# broadcasts each batch and each publish, the other ranks follow; S
+# ranks time-sharing the one card over gloo staged through host memory
+
+SRVM_SHARDS = (2, 4)
+SRVM_RUNS = (("a", []), ("c", ["--no-prune"]))
+SRVM_SLOW_RATE = 100
+
+
+def server_mesh_rank(mesh, runs, out_dir):
+    """One rank of phase 31 (module-level: spawn pickles it): phase 25's
+    full-width two-tower-retrieval-jpq from seed 0, the hot swap's probe
+    launches counted alone, this rank's rows kept; then each run through
+    ``launch/server.serve_requests`` under the mesh at 500/s, and again
+    at ``SRVM_SLOW_RATE``/s where rank 0 found it could not keep up
+    (its wall beyond 1.25x the last arrival; the decision broadcast).
+    Rank 0 zeroes the launch counters in ``on_ready`` (the others as
+    they start to follow), publishes a popularity-permuted catalogue
+    without blocking before request ``SRV_SWAP_AT`` in run (a), and
+    records each batch (request ids, version), the collectives of each
+    broadcast and of each batch's serve, and every response.  Writes
+    ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import bridge, fp32_matmuls, serve
+    from repro_torch.configs import get_bundle
+    from repro_torch.core.assign import popularity_permutation
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import server as server_mod
+    fp32_matmuls()
+    dev, S = mesh.device, mesh.world_size
+    model = get_bundle("two-tower-retrieval-jpq").make_model(device=dev,
+                                                             seed=0)
+    codes = model.params()["item_emb"]["codes"]
+    b = int(model.emb.cfg.b)
+    hists = serve.request_stream(SRV_REQUESTS, n_items=model.cfg.n_items,
+                                 max_len=model.cfg.hist_len, seed=0)
+    perm = popularity_permutation(serve_mod._template_popularity(
+        {"user_hist": np.concatenate(hists)}, codes.shape[0]))
+    kc.reset_launches()
+    serve.CatalogueRegistry(prune=True).publish(codes, b, perm=perm)
+    res = {"rank": mesh.rank, "transport": mesh.transport,
+           "probe": dict(kc.launches)}
+    del codes
+    bridge.keep_local_rows(model, mesh)
+    real_follow = serve.server.follow
+
+    def counted_follow(*a, **kw):
+        kc.reset_launches()
+        return real_follow(*a, **kw)
+    serve.server.follow = counted_follow
+    arrivals = serve.poisson_arrivals(500.0, SRV_REQUESTS, seed=0)
+    for name, flags in runs:
+        for rate in (500, SRVM_SLOW_RATE):
+            if rate != 500:
+                slow = torch.tensor([int(res[f"{name}@500"]["slow"])
+                                     if mesh.rank == 0 else 0], device=dev)
+                if not int(mesh.broadcast(slow, 0)[0]):
+                    break
+            args = server_mod.build_parser().parse_args(
+                ["--requests", str(SRV_REQUESTS), "--rate", str(rate),
+                 "--max-batch", "8", "--max-delay-ms", "5", "--top-k",
+                 str(SRV_K), "--seed", "0", "--device", "cuda", "--mesh",
+                 str(S), "--share-card", *flags])
+            seen = {"order": [], "served": [], "serve_comm": [],
+                    "bcast": [], "server": None}
+
+            def on_ready(server, name=name, seen=seen):
+                submit, serve_batch = server.submit, server.pool.serve
+                bcast = server.mesh.broadcast
+
+                def timed_bcast(x, src=0, axis=None):
+                    c0 = dict(mesh.comm)
+                    out = bcast(x, src, axis)
+                    seen["bcast"].append(
+                        (int(x["kind"]), {k: mesh.comm[k] - c0[k]
+                                          for k in c0}))
+                    return out
+
+                def timed_serve(batch, version, *floor):
+                    c0 = dict(mesh.comm)
+                    out = serve_batch(batch, version, *floor)
+                    seen["serve_comm"].append({k: mesh.comm[k] - c0[k]
+                                               for k in c0})
+                    seen["served"].append(
+                        ([r.rid for r in batch.requests], version.version))
+                    return out
+
+                def swap_submit(hist):
+                    if name == "a" and len(seen["order"]) == SRV_SWAP_AT:
+                        live = server.registry.live()
+                        server.registry.publish(live.codes, b, perm=perm,
+                                                block=False)
+                    rid = submit(hist)
+                    seen["order"].append(rid)
+                    return rid
+
+                server.submit, server.pool.serve = swap_submit, timed_serve
+                server.mesh.broadcast = timed_bcast
+                seen["server"] = server
+                kc.reset_launches()
+
+            snap, wall = server_mod.serve_requests(
+                model, model.params(), args, mesh=mesh, on_ready=on_ready)
+            row = {"launches": dict(kc.launches), "wall_s": wall}
+            if mesh.rank == 0:
+                server = seen["server"]
+                del mesh.broadcast                 # the class's again
+                row.update(
+                    snapshot=snap, order=seen["order"],
+                    served=seen["served"], serve_comm=seen["serve_comm"],
+                    bcast=seen["bcast"], slow=bool(
+                        rate == 500 and wall > 1.25 * float(arrivals[-1])),
+                    results={rid: (r.values.view(np.int32).copy(),
+                                   r.ids.copy(), r.version)
+                             for rid, r in server.results.items()})
+            else:
+                row["followed"] = snap
+            res[f"{name}@{rate}"] = row
+            del seen
+    serve.server.follow = real_follow
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def server_mesh_phases(torch, np, dev, smi, server):
+    """Phase 31: ``launch/server.py --mesh S --share-card`` (the CLI's
+    per-rank body, ``serve_requests`` under the mesh) at S = 2 and 4,
+    phase 25's full-width two-tower-retrieval-jpq and settings (400
+    Poisson requests at 500/s, max batch 8, 5 ms): (a) the pruned
+    default with a non-blocking hot swap to a popularity-permuted
+    catalogue before request 200, (c) ``--no-prune``, each again at
+    100/s where S ranks cannot keep up at 500/s.  Every response
+    bit-equal (values and ids) to the request served alone through the
+    unsharded path (row 0 of an all-pad [8, L] batch); none dropped or
+    duplicated; every other rank served rank 0's batches on rank 0's
+    versions; the snapshot valid, its config ``...+mesh{S}``; each
+    rank launched its path's kernel (the swap's probe taken off).  Then
+    both top-k kernels at the shards' shapes at B = 8
+    (``shard_kernel_rows``).  ``server``: phase 25's summary.  Returns
+    {"runs", "shard_kernels", "launches"}."""
+    import shutil
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.configs import get_bundle
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = phase(f"main path: the request server under --mesh S, S = "
+               f"{SRVM_SHARDS}, ranks sharing the one card (server --mesh "
+               f"S --share-card), two-tower-retrieval-jpq at full width, "
+               f"{SRV_REQUESTS} requests")
+    free_card(torch, dev, "the mesh server phase")
+    root = os.path.join(HERE, "build", "chip_smoke_server_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ranks = {}
+    for S in SRVM_SHARDS:
+        out_dir = tempfile.mkdtemp(prefix=f"ranks-{S}-", dir=root)
+        t1 = time.perf_counter()
+        mesh_mod.spawn(server_mesh_rank, S, (SRVM_RUNS, out_dir),
+                       device=dev, model=S, share_card=True, timeout=600)
+        ranks[S] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                               weights_only=False) for r in range(S)]
+        print(f"   S={S}: {S} ranks, {time.perf_counter() - t1:.1f} s "
+              f"(spawn, build, runs)")
+    shutil.rmtree(root, ignore_errors=True)
+    # the unsharded reference: each request served alone
+    model = get_bundle("two-tower-retrieval-jpq").make_model(device=dev,
+                                                             seed=0)
+    params = model.params()
+    hist_len, mb = model.cfg.hist_len, 8
+    buckets = sorted({max(1, hist_len // 2), hist_len})
+    hists = serve.request_stream(SRV_REQUESTS, n_items=model.cfg.n_items,
+                                 max_len=hist_len, seed=0)
+    alone = []
+    for h in hists:
+        L = next((x for x in buckets if h.size <= x), buckets[-1])
+        xb = np.zeros((mb, L), np.int32)
+        xb[0, :min(h.size, L)] = h[-L:]
+        with torch.inference_mode():
+            v, i = model.retrieve(params, {"user_hist": xb}, top_k=SRV_K)
+        alone.append((v[0].cpu().numpy().view(np.int32),
+                      i[0].cpu().numpy()))
+    del model, params
+    runs, launches = {}, {"jpq_topk": {}, "jpq_topk_pruned": {}}
+    for S, rs in ranks.items():
+        r0 = rs[0]
+        for key in [k for k in r0 if "@" in k]:
+            name, rate = key.split("@")
+            kern = "jpq_topk" if name == "c" else "jpq_topk_pruned"
+            x = r0[key]
+            snap = x["snapshot"]
+            check(serve.validate_snapshot(snap) == [],
+                  f"mesh server S={S} {key}: snapshot invalid")
+            check(snap["requests_completed"] == snap["requests_submitted"]
+                  == SRV_REQUESTS and snap["requests_dropped"] == 0
+                  and snap["requests_duplicated"] == 0,
+                  f"mesh server S={S} {key}: completed "
+                  f"{snap['requests_completed']}, dropped "
+                  f"{snap['requests_dropped']}, duplicated "
+                  f"{snap['requests_duplicated']}")
+            check(snap["config"].endswith(f"+mesh{S}"),
+                  f"mesh server S={S} {key}: config {snap['config']}")
+            check(x["order"] == list(range(SRV_REQUESTS)),
+                  f"mesh server S={S} {key}: request ids out of order")
+            for rid, (vals, ids, _) in x["results"].items():
+                check(np.array_equal(vals, alone[rid][0])
+                      and np.array_equal(ids, alone[rid][1]),
+                      f"mesh server S={S} {key}: request {rid} != the "
+                      f"request served alone unsharded")
+            log = [(v, tuple(rids)) for rids, v in x["served"]]
+            for r in range(1, S):
+                check(list(rs[r][key]["followed"]) == log,
+                      f"mesh server S={S} {key}: rank {r} served other "
+                      f"batches or versions than rank 0")
+            versions = sorted({v for v, _ in log})
+            if name == "a":
+                check(versions == [1, 2] and snap["catalogue_swaps"] == 1,
+                      f"mesh server S={S} {key}: versions {versions}, "
+                      f"swaps {snap['catalogue_swaps']}")
+            per_rank = []
+            for r, rr in enumerate(rs):
+                got = dict(rr[key]["launches"])
+                if name == "a":          # the swap's probe taken off
+                    got = {k: v - rr["probe"][k] for k, v in got.items()}
+                check(got[kern] > 0, f"mesh server S={S} {key}: rank {r} "
+                      f"never launched {kern}")
+                per_rank.append(got[kern])
+            launches[kern][f"{S}:{key}"] = per_rank
+            bc = [c for kind, c in x["bcast"] if kind == serve.server.BATCH]
+            lat = snap["latency_ms"]
+            row = {"S": S, "rate": int(rate), "config": snap["config"],
+                   "latency_ms": lat, "wall_s": x["wall_s"],
+                   "batches": snap["batches"],
+                   "batch_occupancy": snap["batch_occupancy"],
+                   "queue_depth": snap["queue_depth"],
+                   "versions": versions, "slow": x["slow"],
+                   "phase25_latency_ms": server[name]["latency_ms"],
+                   "broadcast_ms": float(np.median([c["seconds"] * 1e3
+                                                    for c in bc])),
+                   "broadcast_bytes": int(np.median([c["bytes"]
+                                                     for c in bc])),
+                   "broadcast_calls": int(np.median([c["calls"]
+                                                     for c in bc])),
+                   "merge_ms": float(np.median([c["seconds"] * 1e3 for c
+                                                in x["serve_comm"]])),
+                   "merge_bytes": int(np.median([c["bytes"] for c
+                                                 in x["serve_comm"]])),
+                   "merge_calls": int(np.median([c["calls"] for c
+                                                 in x["serve_comm"]])),
+                   "launches_by_rank": per_rank,
+                   "bit_equal_alone": True}
+            runs[f"{S}:{key}"] = row
+            p25 = server[name]["latency_ms"]
+            print(f"   S={S} ({name}) {snap['config']} at {rate}/s: p50="
+                  f"{lat['p50']:.3f} p95={lat['p95']:.3f} p99="
+                  f"{lat['p99']:.3f} ms (phase 25, one process: "
+                  f"{p25['p50']:.3f} / {p25['p95']:.3f} / {p25['p99']:.3f}),"
+                  f" wall {x['wall_s']:.3f} s"
+                  + (" (behind the arrivals: run again at "
+                     f"{SRVM_SLOW_RATE}/s)" if x["slow"] else "")
+                  + f", {snap['batches']} batches, occupancy "
+                  f"{snap['batch_occupancy']:.3f}, queue depth mean "
+                  f"{snap['queue_depth']['mean']:.2f}; a batch's broadcast "
+                  f"{row['broadcast_ms']:.3f} ms, {row['broadcast_bytes']} "
+                  f"bytes in {row['broadcast_calls']} calls, its serve's "
+                  f"collectives {row['merge_ms']:.3f} ms, "
+                  f"{row['merge_bytes']} bytes in {row['merge_calls']} "
+                  f"calls (medians); {kern} launches by rank {per_rank}; "
+                  f"versions {versions}; every response bit-equal to the "
+                  f"request served alone unsharded, every rank on rank 0's "
+                  f"batches and versions; on {smi}")
+    done(t0)
+
+    t0 = phase("the mesh server's top-k kernels at the shards' shapes, "
+               "B = 8 (CUDA events)")
+    free_card(torch, dev, "the mesh server's shard-shape kernels")
+    shard = shard_kernel_rows(torch, dev, smi, None, Bq=8)
+    done(t0)
+    return {"runs": runs, "shard_kernels": shard, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4998,11 +5728,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp = model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs)
-    del codes_np
     gc.collect()
     torch.cuda.empty_cache()
     ctr_tp = ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train)
-    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    em = elastic_mesh_phases(torch, np, dev, smi, data, codes_np, engine)
+    del codes_np, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    srvm = server_mesh_phases(torch, np, dev, smi, server)
+    for entry in kernels:                 # phase 31's shard shapes
+        if entry["name"] in srvm["shard_kernels"]:
+            entry["server_mesh_shape"] = srvm["shard_kernels"][entry["name"]]
+            entry["server_mesh_launches_per_rank"] = srvm["launches"][
+                entry["name"]]
+    for entry in kernels:                 # phase 30's launches and errs
+        name = entry["name"]
+        if name in em["kernels_at_round_shape"]["max_abs_err"]:
+            entry["elastic_mesh_round_max_abs_err"] = em[
+                "kernels_at_round_shape"]["max_abs_err"][name]
+        if name in em["launches"]:
+            entry["elastic_mesh_launches_per_rank"] = em["launches"][name]
     for entry in kernels:                 # phase 29's shard shapes
         if entry["name"] in ctr_tp["shard_kernels"]:
             entry["model_axis_ctr_shape"] = ctr_tp["shard_kernels"][
@@ -5044,6 +5791,8 @@ def main() -> int:
     print(json.dumps({"ctr_model_axis": {"train": ctr_tp["runs"],
                                          "serve": ctr_tp["serve"]},
                       "card": smi}))
+    print(json.dumps({"elastic_mesh": em["runs"], "card": smi}))
+    print(json.dumps({"server_mesh": srvm["runs"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

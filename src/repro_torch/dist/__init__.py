@@ -14,8 +14,10 @@ whole on every rank.  The sequential recommenders split the catalogue's
 rows (codes, full table, QR tables), the attention heads and the MLP's
 width; the CTR and two-tower models their tables' rows and their MLPs'
 widths; the model code reads the blocks' shapes and brackets each split
-region with the autograd-aware collectives below.  What is left is
-``NEXT_SLICE``.
+region with the autograd-aware collectives below.  The elastic
+exchange (``compression``) replicates the model over ``"model"``
+instead, as the reference's ``shard_map`` does, and exchanges over the
+``"data"`` group.
 
 On the ``"data"`` axis the Trainer gives each rank its own rows, and a
 loss is the whole batch's: each term's local sum over its count in the
@@ -91,11 +93,6 @@ __all__ = ["resolve_axes", "use_mesh_rules", "constrain",
            "gather_from_data", "data_rank",
            "use_loss_counts", "loss_count", "DEFAULT_RULES",
            "CATALOGUE_AXES"]
-
-NEXT_SLICE = ("not yet ported to repro_torch: the elastic exchange on a "
-              "model > 1 mesh (ROADMAP queue 1, item 9c-iii) and the "
-              "request server under a mesh (item 9d); every recsys model "
-              "trains on a (data, model) mesh (items 9c and 9c-ii)")
 
 # logical axes that name catalogue rows: the leaves the port row-shards
 CATALOGUE_AXES = ("items", "table")

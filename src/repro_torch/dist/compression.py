@@ -19,8 +19,10 @@ deterministic across world sizes** ``D`` dividing ``V``:
      forward and backward on the same rows, drawing dropout from
      ``rng(v)``;
   2. the only cross-process operations are ``all_gather`` and
-     ``all_to_all_single`` of ``uint8`` views of the payloads' bytes:
-     exact data movement, whatever the backend does with a dtype;
+     ``all_to_all_single`` of ``uint8`` views of the payloads' bytes
+     over the ``"data"`` group (``HostMesh.all_gather_bytes`` /
+     ``all_to_all_bytes``, on the mesh's transport): exact data
+     movement, whatever the backend does with a dtype;
   3. ``combine`` reduces one contiguous ``[V, ...]`` stack in virtual
      order (replicated leaves), or an unrolled fixed-order sum over the
      ``V`` contributions of each owned row (fsdp leaves): its arithmetic
@@ -29,6 +31,13 @@ deterministic across world sizes** ``D`` dividing ``V``:
 The error state is ``[V, ...]`` fp32 a float leaf; a rank holds its
 ``L`` rows (``shard_rows`` / ``gather_rows``), so a checkpoint of the
 gathered rows restores on any world size dividing ``V``.
+
+On a ``(D, S)`` mesh the model is replicated over ``"model"``, as the
+reference's ``shard_map`` (every mesh axis manual, the values
+replicated, the batch rows split over the data axes only) runs it: D,
+the rank's index ``d`` and every exchange are the ``"data"`` group's,
+so the S model ranks of a data column compute the same rounds, bit for
+bit, and the step is the ``(D, 1)`` step's.
 
 Stages and the ``overlap`` modes
 --------------------------------
@@ -48,7 +57,11 @@ work handles:
     ``quantise_pack(r)``, before waiting on round ``r-1`` (two rounds'
     uncompressed gradients live).
 
-So every mode is bitwise identical to every other.  ``step.last_schedule``
+So every mode is bitwise identical to every other.  On the
+``gloo-staged`` transport (ranks sharing a card) a round's payloads are
+copied to host memory when it is issued and the results to the card at
+its wait, so the modes overlap less there and stay bit-identical.
+``step.last_schedule``
 records the ``(fb / issue / drain / consume, round)`` order of the last
 call, event for event the reference's.
 
@@ -76,7 +89,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.dist import rules as _rules
 from repro_torch.nn.module import tree_leaves
@@ -215,48 +227,31 @@ class _Pending:
             w.wait()
 
 
-def _all_gather_bytes(buf, mesh, async_op: bool):
-    """``buf`` (1-D ``uint8``) of every rank -> ``[D, nbytes]`` in rank
-    order, and the work handle."""
-    out = torch.empty((mesh.world_size, buf.numel()), dtype=torch.uint8,
-                      device=buf.device)
-    work = dist.all_gather(list(out.unbind(0)), buf, group=mesh.group,
-                           async_op=async_op)
-    return out, work
-
-
-def _all_to_all_bytes(buf, mesh, async_op: bool):
-    """``buf [D, C]`` (``uint8``; row d for rank d) -> ``[D, C]`` whose
-    row s came from rank s, and the work handle."""
-    out = torch.empty_like(buf)
-    work = dist.all_to_all_single(out.view(-1), buf.view(-1),
-                                  group=mesh.group, async_op=async_op)
-    return out, work
-
-
 def _bytes(t):
     return t.contiguous().view(-1).view(torch.uint8)
 
 
 def shard_rows(tree, mesh, n_shards: int):
     """This rank's rows ``[v0, v0 + L)`` of a ``[V, ...]`` tree (the
-    error state), as copies; ``v0 = rank * L``."""
+    error state), as copies; ``v0 = d * L`` for its data index d (the
+    model ranks of a data column hold the same rows)."""
     D = dp_shard_count(mesh)
     L = n_shards // D
-    r = mesh.rank
+    r = mesh.data_index
     return tree_map(lambda x: x[r * L:(r + 1) * L].clone(), tree)
 
 
 def gather_rows(tree, mesh):
-    """Every rank's ``[L, ...]`` rows of a tree, as ``[V, ...]`` in
-    virtual order (all ranks get the whole)."""
+    """Every data rank's ``[L, ...]`` rows of a tree, as ``[V, ...]``
+    in virtual order (all ranks get the whole)."""
+    D = dp_shard_count(mesh)
+
     def _one(x):
-        if mesh.world_size == 1:
+        if D == 1:
             return x
         if not x.numel():
-            return x.new_zeros((mesh.world_size * x.shape[0],)
-                               + tuple(x.shape[1:]))
-        out, _ = _all_gather_bytes(_bytes(x), mesh, False)
+            return x.new_zeros((D * x.shape[0],) + tuple(x.shape[1:]))
+        out, _ = mesh.all_gather_bytes(_bytes(x), "data")
         return out.view(x.dtype).reshape((-1,) + tuple(x.shape[1:]))
     return tree_map(_one, tree)
 
@@ -350,7 +345,9 @@ def make_elastic_dp_step(loss_fn, mesh, method: str = "none", *,
             f"accum_shards={V} must be a multiple of the mesh's "
             f"data-parallel degree {D}")
     L = V // D
-    rank = mesh.rank
+    # the index on "data": the model ranks of a data column run the same
+    # rounds on the same rows and exchange over their column's group
+    rank = mesh.data_index
     flags_full = ([fsdp_leaf_sharded(x, V) for x in tree_leaves(shapes)]
                   if fsdp and shapes is not None else None)
 
@@ -384,7 +381,7 @@ def make_elastic_dp_step(loss_fn, mesh, method: str = "none", *,
             return tree
         sharded = [i for i, f in enumerate(flags) if f]
         parts = [_bytes(leaves[i].detach()) for i in sharded]
-        out, _ = _all_gather_bytes(torch.cat(parts), mesh, False)
+        out, _ = mesh.all_gather_bytes(torch.cat(parts), "data")
         full, off = {}, 0
         for i, part in zip(sharded, parts):
             x, nb = leaves[i], part.numel()
@@ -436,10 +433,11 @@ def make_elastic_dp_step(loss_fn, mesh, method: str = "none", *,
                           torch.zeros(len(grads), device=dev),
                           loss.reshape(1)]
                          + [a.reshape(1) for a in aux.values()])
-        meta_all, w0 = _all_gather_bytes(_bytes(meta), mesh, True)
-        pays, w1 = _all_gather_bytes(gbuf, mesh, True)
+        meta_all, w0 = mesh.all_gather_bytes(_bytes(meta), "data",
+                                             async_op=True)
+        pays, w1 = mesh.all_gather_bytes(gbuf, "data", async_op=True)
         scat, w2 = ((None, None) if sbuf is None else
-                    _all_to_all_bytes(sbuf, mesh, True))
+                    mesh.all_to_all_bytes(sbuf, "data", async_op=True))
         return (_Pending([w0, w1, w2]), pays, scat,
                 meta_all.view(torch.float32).view(D, -1))
 
@@ -488,8 +486,8 @@ def make_elastic_dp_step(loss_fn, mesh, method: str = "none", *,
             del deq
             grads[i] = g
         if segs:
-            seg_all, _ = _all_gather_bytes(_bytes(torch.cat(segs)), mesh,
-                                           False)
+            seg_all, _ = mesh.all_gather_bytes(_bytes(torch.cat(segs)),
+                                               "data")
             seg_all = seg_all.view(torch.float32).view(D, len(segs), L)
             sq_terms = [t if isinstance(t, torch.Tensor) else
                         torch.sum(seg_all[:, t, :].reshape(V).clone())

@@ -15,9 +15,16 @@ The transport is the caller's choice, never a fallback:
   * ``"nccl"``        CUDA tensors, each rank on a card of its own;
   * ``"gloo-staged"`` CUDA tensors of ranks that share one card
     (``spawn(..., share_card=True)``): NCCL refuses two ranks on one
-    device, so ``HostMesh.all_gather`` / ``all_reduce`` copy the
-    payload to host memory, run gloo there and copy the result back.
+    device, so every collective of ``HostMesh`` copies the payload to
+    host memory, runs gloo there and copies the result back.
 A tensor on the wrong side of its transport raises.
+
+Every collective of the port goes through ``HostMesh``: ``all_gather``
+and ``all_reduce`` (the model code's), ``broadcast`` (a tensor, or a
+small dict of tensors, from one rank: the request server's batches),
+and ``all_gather_bytes`` / ``all_to_all_bytes`` (exact byte movement
+over one axis, synchronous or issued with a handle that ``wait``s: the
+elastic exchange's payloads).  ``comm`` counts them all.
 
 The group is initialised from a ``FileStore`` in a temporary directory,
 so nothing needs a network.  ``make_host_mesh`` makes a world of one in
@@ -28,6 +35,7 @@ starts (``launch/train.py --devices N`` on the CPU, ``launch/serve.py
 from __future__ import annotations
 
 import gc
+import json
 import math
 import os
 import shutil
@@ -49,9 +57,10 @@ class HostMesh:
     ``rank`` is this process's rank in the group (``d * model + m``;
     its index on the data axis when ``model == 1``), ``groups`` the
     sub-group of each axis through this rank (``None`` for an axis of
-    size 1).  ``comm`` counts the collectives ``all_gather`` and
-    ``all_reduce`` ran: calls, the bytes of their results on this rank,
-    and host seconds (staging included; for NCCL, the enqueue)."""
+    size 1).  ``comm`` counts the collectives it ran: calls, the bytes
+    of their results on this rank, and host seconds (staging included;
+    for NCCL, the enqueue; for an issued collective, its issue and its
+    ``wait``)."""
 
     def __init__(self, data: int, model: int = 1, *, rank: int = 0,
                  group=None, device="cpu", owned_dir: Optional[str] = None,
@@ -91,15 +100,18 @@ class HostMesh:
             return self.group, n
         return self.groups[axes[0]], n
 
-    def _collective(self, x, fn):
-        """Run ``fn`` on ``x`` over this mesh's transport: in place on
-        the tensor for gloo and NCCL, on a host copy for gloo-staged."""
+    def _check_side(self, x) -> None:
         want_cuda = self.transport != "gloo"
         if x.is_cuda != want_cuda:
             raise ValueError(
                 f"a {x.device.type} tensor on the {self.transport} "
                 f"transport (gloo: CPU tensors; nccl and gloo-staged: "
                 f"CUDA tensors)")
+
+    def _collective(self, x, fn):
+        """Run ``fn`` on ``x`` over this mesh's transport: in place on
+        the tensor for gloo and NCCL, on a host copy for gloo-staged."""
+        self._check_side(x)
         if self.transport == "gloo-staged":
             torch.cuda.synchronize(x.device)   # time the exchange alone
         t0 = time.perf_counter()
@@ -111,6 +123,124 @@ class HostMesh:
         self.comm["bytes"] += out.numel() * out.element_size()
         self.comm["seconds"] += time.perf_counter() - t0
         return out
+
+    def _issue(self, x, out_shape, fn, async_op: bool):
+        """Issue ``fn(src, out)`` (a ``torch.distributed`` call with
+        ``async_op=True`` that writes ``out``, shaped ``out_shape``)
+        on ``x``; returns (the result, its handle).  On gloo-staged the
+        handle's ``wait`` copies the host result to the card.  A
+        synchronous call waits before it returns."""
+        self._check_side(x)
+        staged = self.transport == "gloo-staged"
+        if staged:
+            torch.cuda.synchronize(x.device)   # time the exchange alone
+        t0 = time.perf_counter()
+        src = x.contiguous()
+        if staged:
+            src = src.cpu()
+        out = torch.empty(out_shape, dtype=x.dtype, device=src.device)
+        work = fn(src, out)
+        result = (torch.empty(out_shape, dtype=x.dtype, device=x.device)
+                  if staged else out)
+        self.comm["calls"] += 1
+        self.comm["bytes"] += out.numel() * out.element_size()
+        self.comm["seconds"] += time.perf_counter() - t0
+        handle = _Work(self, work, (result, out) if staged else None)
+        if not async_op:
+            handle.wait()
+        return result, handle
+
+    def all_gather_bytes(self, buf, axis: str = "data", *,
+                         async_op: bool = False):
+        """``buf`` (1-D ``uint8``) of every rank of ``axis`` -> ``[n,
+        nbytes]`` in ascending axis index, and its handle (``wait``
+        before reading the result): exact data movement whatever the
+        backend does with a dtype.  An axis of one returns ``buf[None]``
+        and runs nothing."""
+        group, n = self._group_of((axis,))
+        if n == 1:
+            return buf[None], _DONE
+
+        def fn(src, out):
+            return dist.all_gather(list(out.unbind(0)), src, group=group,
+                                   async_op=True)
+        return self._issue(buf, (n, buf.numel()), fn, async_op)
+
+    def all_to_all_bytes(self, buf, axis: str = "data", *,
+                         async_op: bool = False):
+        """``buf [n, C]`` (``uint8``; row j for the rank of axis index
+        j) -> ``[n, C]`` whose row s came from the rank of index s, and
+        its handle.  An axis of one returns ``buf``."""
+        group, n = self._group_of((axis,))
+        if n == 1:
+            return buf, _DONE
+
+        def fn(src, out):
+            return dist.all_to_all_single(out.view(-1), src.view(-1),
+                                          group=group, async_op=True)
+        return self._issue(buf, tuple(buf.shape), fn, async_op)
+
+    def broadcast(self, x, src: int = 0, axis: Optional[str] = None):
+        """Rank ``src``'s ``x`` (``src`` its index on ``axis``, or its
+        rank in the world when ``axis`` is None) on every rank of the
+        group.  ``x`` is a tensor, which the other ranks pass shaped and
+        typed as the sender's, or a dict of tensors, which the other
+        ranks pass as None: its keys, dtypes and shapes travel first
+        (one ``int64 [2]`` broadcast of the sizes, then one ``uint8``
+        broadcast of the header and the payload).  Returns a new tensor
+        (or dict) on every rank."""
+        group, n = self._group_of(AXES if axis is None else (axis,))
+        if n == 1:
+            return x
+        root = self._global_rank(src, axis)
+        if not isinstance(x, dict) and x is not None:
+            return self._broadcast_tensor(x, root, group)
+        dev = self.device
+        if self.rank == root:
+            keys = list(x)
+            tensors = [x[k].contiguous() for k in keys]
+            head = json.dumps([[k, str(t.dtype).removeprefix("torch."),
+                                list(t.shape)]
+                               for k, t in zip(keys, tensors)]).encode()
+            body = [t.view(-1).view(torch.uint8) for t in tensors]
+            buf = torch.cat([torch.frombuffer(bytearray(head),
+                                              dtype=torch.uint8).to(dev)]
+                            + [b.to(dev) for b in body])
+            sizes = torch.tensor([len(head), buf.numel()],
+                                 dtype=torch.int64, device=dev)
+        else:
+            sizes = torch.zeros(2, dtype=torch.int64, device=dev)
+        sizes = self._broadcast_tensor(sizes, root, group)
+        n_head, n_buf = (int(v) for v in sizes.cpu())
+        if self.rank != root:
+            buf = torch.empty(n_buf, dtype=torch.uint8, device=dev)
+        buf = self._broadcast_tensor(buf, root, group)
+        head = json.loads(bytes(buf[:n_head].cpu().numpy()))
+        out, off = {}, n_head
+        for key, dtype, shape in head:
+            dt = getattr(torch, dtype)
+            nb = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+            # a copy: the slice's offset need not be aligned for ``dt``
+            out[key] = buf[off:off + nb].clone().view(dt).view(shape)
+            off += nb
+        return out
+
+    def _broadcast_tensor(self, x, root: int, group):
+        def fn(t):
+            t = t.clone()
+            dist.broadcast(t, root, group=group)
+            return t
+        return self._collective(x, fn)
+
+    def _global_rank(self, index: int, axis: Optional[str]) -> int:
+        """The world rank of the rank at ``index`` on ``axis`` through
+        this rank (``index`` itself when ``axis`` is None)."""
+        M = self.shape["model"]
+        if axis is None:
+            return int(index)
+        if axis == "model":
+            return self.data_index * M + int(index)
+        return int(index) * M + self.model_index
 
     def all_gather(self, x, axis: str, dim: int = 0):
         """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in
@@ -152,6 +282,37 @@ class HostMesh:
     def __repr__(self):
         return (f"HostMesh(shape={self.shape}, rank={self.rank}, "
                 f"device={self.device}, transport={self.transport})")
+
+
+class _Work:
+    """The handle of a collective ``HostMesh`` issued: ``wait`` (once;
+    later calls return at once) waits for it and, on gloo-staged,
+    copies its host result to the card, adding the time to the mesh's
+    ``comm``."""
+
+    def __init__(self, mesh, work, staged=None):
+        self._mesh, self._work, self._staged = mesh, work, staged
+
+    def wait(self) -> None:
+        if self._work is None:
+            return
+        t0 = time.perf_counter()
+        self._work.wait()
+        if self._staged is not None:
+            result, host = self._staged
+            result.copy_(host)
+        self._work = self._staged = None
+        self._mesh.comm["seconds"] += time.perf_counter() - t0
+
+
+class _Done:
+    """The handle of a collective that ran nothing."""
+
+    def wait(self) -> None:
+        return None
+
+
+_DONE = _Done()
 
 
 def backend_for(device) -> str:

@@ -22,28 +22,38 @@ model through it.  ``--smoke`` is the CI contract: after the run it
 asserts p99 under ``--p99-budget-ms``, zero dropped/duplicated requests,
 and a schema-valid metrics snapshot, exiting non-zero on any violation.
 Every (bucket, replica) dispatch is warmed on dummy batches first (the
-kernels' build and first launches are not serve latency).  ``--mesh`` >
-1 is not yet ported and raises (ROADMAP queue 1, item 9d).
+kernels' build and first launches are not serve latency).
+
+``--mesh S`` serves from a catalogue row-sharded S ways, as the
+reference's ``--mesh S`` does on S host devices: S processes
+(``launch.mesh.spawn``), each a rank of a ``(1, S)`` mesh that builds
+the model from the seed, keeps its rows (``bridge.keep_local_rows``),
+publishes the one global pruning state (``shards=S``) and warms its
+dispatches.  Rank 0 runs the server (queue, clock, load, metrics;
+the snapshot's config ends ``+mesh{S}``), broadcasting each batch and
+each publish; the other ranks follow (``serve.server.follow``).  On
+CUDA each rank takes a card of its own (NCCL), or with
+``--share-card`` every rank shares the one card (gloo staged through
+host memory); on the CPU the ranks are gloo processes.
+
+    PYTHONPATH=src python -m repro_torch.launch.server --device cpu \
+        --mesh 2 --smoke
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.launch.serve import _template_popularity
-
-
-def _check_ported(args) -> None:
-    if args.mesh > 1:
-        raise NotImplementedError(
-            "--mesh > 1: the request server over a model-sharded catalogue "
-            "is not yet ported (ROADMAP.md queue 1, item 9d: S processes, "
-            "rank 0 broadcasting each batch); launch/serve.py --mesh S "
-            "serves batches from one")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,8 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="merge replica warm floors every N batches "
                          "(0 = never)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="model-shard the catalogue S ways (not yet "
-                         "ported: S > 1 raises, ROADMAP item 9d)")
+                    help="model-shard the catalogue S ways over S ranks "
+                         "(0 = no mesh)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --mesh on CUDA: every rank on the one card, "
+                         "collectives over gloo staged through host "
+                         "memory (else a card each, NCCL)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the full metrics snapshot as JSON")
@@ -83,26 +97,44 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serve_requests(model, params, args, *, on_ready=None):
+def serve_requests(model, params, args, *, on_ready=None, mesh=None,
+                   clock=None):
     """Serve ``args.requests`` single-user requests, Poisson arrivals at
-    ``args.rate`` on the real clock, through a ``RetrievalServer`` over
+    ``args.rate`` on the real clock (or on ``clock``, a
+    ``serve.VirtualClock``), through a ``RetrievalServer`` over
     ``model`` (a JPQ retrieval model) on the device its parameters live
     on.  The registry publishes the model's codes (popularity-permuted
     under ``--perm``), every (bucket, replica) dispatch is warmed, then
     ``on_ready(server)`` is called, if given, just before the timed run.
-    Returns (the metrics snapshot, the run's wall seconds)."""
+    Returns (the metrics snapshot, the run's wall seconds).
+
+    With ``mesh`` (a ``(1, S)`` ``HostMesh``; every rank calls this
+    alike, ``model`` holding its rows of the catalogue) rank 0 serves
+    and returns as above, and every other rank follows it
+    (``serve.server.follow``) and returns (its log: the version and
+    request ids of each batch it served, its wall seconds)."""
+    from repro_torch.dist import use_mesh_rules
+
+    ctx = contextlib.nullcontext() if mesh is None else use_mesh_rules(mesh)
+    with ctx:
+        return _serve_requests(model, params, args, on_ready, mesh, clock)
+
+
+def _serve_requests(model, params, args, on_ready, mesh, clock):
     from repro_torch.core import engine as engine_mod
+    from repro_torch.core import sharded
     from repro_torch.core.assign import popularity_permutation
     from repro_torch.core.serve import ThresholdState
     from repro_torch.serve import (Batch, CatalogueRegistry, Replica,
                                    ReplicaPool, Request, RetrievalServer,
                                    ServerMetrics, poisson_arrivals,
                                    request_stream, run_open_loop)
+    from repro_torch.serve.server import follow
 
-    _check_ported(args)
     emb = model.emb
-    codes = params["item_emb"]["codes"]
     n_items = int(model.cfg.n_items)
+    # the whole catalogue's codes (on a mesh, every rank's rows gathered)
+    codes = sharded.whole(params["item_emb"]["codes"], emb.cfg.n_items)
     hist_len = int(getattr(model.cfg, "hist_len",
                            getattr(model.cfg, "max_len", 16)))
     reserved = (0,)
@@ -148,24 +180,77 @@ def serve_requests(model, params, args, *, on_ready=None):
             rep.serve(dummy, live)
     pool.reset_warm()
 
+    if mesh is not None and mesh.rank != 0:
+        t0 = time.perf_counter()
+        log = follow(mesh, pool, registry)
+        wall = time.perf_counter() - t0
+        registry.wait()
+        return log, wall
+    kw = {} if clock is None else {"clock": clock}
     server = RetrievalServer(
         pool, registry, max_batch=args.max_batch,
         max_delay=args.max_delay_ms / 1e3, buckets=buckets,
-        metrics=ServerMetrics(config=_config_name(args, spec)))
+        metrics=ServerMetrics(config=_config_name(args, spec)), mesh=mesh,
+        **kw)
     arrivals = poisson_arrivals(args.rate, args.requests, seed=args.seed)
     if on_ready is not None:
         on_ready(server)
     t0 = time.perf_counter()
-    run_open_loop(server, hists, arrivals)
-    server.drain()
+    try:
+        run_open_loop(server, hists, arrivals, clock=clock)
+        server.drain()
+    finally:
+        server.close()
     wall = time.perf_counter() - t0
     registry.wait()
     return server.metrics.snapshot(), wall
 
 
+def _mesh_rank(mesh, args, out_dir):
+    """One rank of ``--mesh S``: the arch's smoke model from the seed,
+    this rank's rows kept, ``serve_requests`` under the mesh; rank 0
+    saves the snapshot and wall seconds as ``out_dir/snapshot.json``."""
+    from repro_torch import bridge, fp32_matmuls
+    from repro_torch.configs import get_bundle
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)            # S processes share the cores
+    fp32_matmuls()
+    model, _ = get_bundle(args.arch).make_smoke(device=mesh.device)
+    bridge.keep_local_rows(model, mesh)
+    snap, wall = serve_requests(model, model.params(), args, mesh=mesh)
+    if mesh.rank == 0:
+        with open(os.path.join(out_dir, "snapshot.json"), "w") as f:
+            json.dump({"snapshot": snap, "wall": wall}, f)
+
+
+def serve_mesh(args):
+    """``--mesh S``: spawn the S ranks; returns rank 0's (snapshot, wall
+    seconds).  The kernels are built here, before the ranks start."""
+    from repro_torch import resolve_device
+    from repro_torch.launch import mesh as mesh_mod
+    S = int(args.mesh)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        if not args.share_card and torch.cuda.device_count() < S:
+            raise ValueError(
+                f"--mesh {S} needs {S} cards, this machine has "
+                f"{torch.cuda.device_count()}: pass --share-card to run "
+                f"the {S} ranks on one card")
+        from repro_torch.kernels import build
+        build.build()
+    out = tempfile.mkdtemp(prefix="repro_torch_server-")
+    try:
+        mesh_mod.spawn(_mesh_rank, S, (args, out), device=dev, model=S,
+                       share_card=args.share_card)
+        with open(os.path.join(out, "snapshot.json")) as f:
+            got = json.load(f)
+        return got["snapshot"], got["wall"]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     from repro_torch import fp32_matmuls, resolve_device
     from repro_torch.configs import get_bundle
     from repro_torch.serve import validate_snapshot
@@ -178,7 +263,14 @@ def main(argv=None):
     if emb is None or emb.cfg.kind != "jpq" or "item_emb" not in params:
         sys.exit(f"{args.arch}: request-level serving needs a JPQ "
                  f"item embedding")
-    snap, wall = serve_requests(model, params, args)
+    if args.mesh > 1:
+        del model, params
+        snap, wall = serve_mesh(args)
+    elif args.share_card:
+        raise ValueError("--share-card shares one card between the ranks "
+                         "of --mesh S > 1")
+    else:
+        snap, wall = serve_requests(model, params, args)
     errs = validate_snapshot(snap)
     if args.json:
         print(json.dumps(snap, indent=1, sort_keys=True))

@@ -43,9 +43,13 @@ MLPs' widths split over ``"model"`` (the Trainer's tensor parallelism,
 each model's ``placement``), the batch over ``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
 a card, or with ``--share-card`` all on one card, their collectives
 staged through host memory (``gloo-staged``: NCCL refuses two ranks on
-one device).  Rank 0 prints the history and its eval NDCG@10.  Not yet
-ported, and raising: the LM and MACE bundles (item 10); the elastic
-exchange with ``--model-axis`` > 1 (item 9c-iii).
+one device).  Rank 0 prints the history and its eval NDCG@10.  With
+an elastic spec the model is replicated over ``"model"`` instead, as
+the reference's ``shard_map`` runs it: every rank holds the whole
+model, the S ranks of a data column run the same rounds, and the
+exchange runs over the ``"data"`` group, so the run is the ``(D, 1)``
+run's, bit for bit.  Not yet ported, and raising: the LM and MACE
+bundles (item 10).
 """
 from __future__ import annotations
 
@@ -230,7 +234,6 @@ def mesh_dims(args):
 def main(argv=None):
     """Train; returns rank 0's history (None when ranks were spawned)."""
     from repro_torch import resolve_device
-    from repro_torch.dist import NEXT_SLICE
     from repro_torch.launch import mesh as mesh_mod
     args = build_parser().parse_args(argv)
     spec = spec_from_args(args)
@@ -238,9 +241,6 @@ def main(argv=None):
         args.devices = args.mesh
     D, S = mesh_dims(args)
     args.devices = D * S
-    if S > 1 and spec.elastic:
-        raise NotImplementedError(f"--model-axis > 1 with the elastic "
-                                  f"exchange: {NEXT_SLICE}")
     dev = resolve_device(args.device)
     transport = mesh_mod.transport_for(dev, args.share_card)
     if dev.type == "cuda" and not args.share_card \

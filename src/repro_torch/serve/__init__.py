@@ -8,7 +8,8 @@ warm-threshold EMAs (``replica``), a catalogue registry with validated
 versioned hot-swap of prebuilt pruning state, built on a stream of its
 own on the card (``registry``), JSON observability (``metrics``), and an
 open-loop Poisson load generator (``loadgen``).
-``server.RetrievalServer`` composes them; ``repro_torch.launch.server``
+``server.RetrievalServer`` composes them (under a mesh on rank 0, the
+other ranks running ``server.follow``); ``repro_torch.launch.server``
 is the CLI.  The names are the JAX package's ``repro.serve``'s.
 
 Every response is bit-exact against the same request served alone

@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -74,6 +74,31 @@ class Batch:
             h = r.hist[-self.bucket_len:]          # keep the recent tail
             out[i, :h.size] = h
         return out
+
+    def to_message(self, version: int, floor) -> Dict[str, np.ndarray]:
+        """The batch, the catalogue version it is served on and its
+        ``[max_batch]`` warm floor as a flat dict of arrays (what rank
+        0 of a mesh server broadcasts): ``hist`` the padded histories,
+        ``rids`` the request ids, ``meta`` (bucket length, max batch,
+        version), ``floor``."""
+        return {"hist": self.padded_hist(),
+                "rids": np.asarray([r.rid for r in self.requests],
+                                   np.int64),
+                "meta": np.asarray([self.bucket_len, self.max_batch,
+                                    version], np.int64),
+                "floor": np.asarray(floor, np.float32)}
+
+    @classmethod
+    def from_message(cls, msg) -> Tuple["Batch", int, np.ndarray]:
+        """(batch, version, floor) of a ``to_message`` dict: request i
+        holds row i of the padded histories, so the batch pads to the
+        same ``[max_batch, bucket_len]`` rows."""
+        bucket_len, max_batch, version = (int(x) for x in msg["meta"])
+        hist = np.asarray(msg["hist"], np.int32)
+        reqs = [Request(int(rid), hist[i])
+                for i, rid in enumerate(np.asarray(msg["rids"]))]
+        return (cls(reqs, bucket_len, max_batch), version,
+                np.asarray(msg["floor"], np.float32))
 
 
 class MicroBatchQueue:

@@ -110,10 +110,18 @@ class CatalogueRegistry:
     """Holds the live catalogue version and the prebuilt-state cache.
 
     ``block_n`` overrides the tile size; ``shards`` > 1 tiles each of
-    the S row blocks exactly (``engine.resolve_prune_block_n``), though
-    the request server under a mesh is not ported (ROADMAP queue 1,
-    item 9d: ``launch/server.py --mesh`` raises).  ``prune=False``
-    publishes versions without pruning state (the plain fused path).
+    the S row blocks exactly (``engine.resolve_prune_block_n``): one
+    global state from the whole codes, which every rank of a mesh
+    server holds and serves its rows of (``launch/server.py --mesh``).
+    ``prune=False`` publishes versions without pruning state (the plain
+    fused path).
+
+    ``listeners`` are called with ``(version, codes, b, perm)`` at each
+    publish, in version order (under the lock that numbers them): rank
+    0 of a mesh server mirrors its publishes to the other ranks from
+    there.  ``get(version)`` waits for a version's build and returns
+    it, live or not: a rank of a mesh server serves each batch on the
+    version rank 0 served it on.
     """
 
     def __init__(self, *, shards: int = 0, block_n: Optional[int] = None,
@@ -126,6 +134,9 @@ class CatalogueRegistry:
         self.probe_k = int(probe_k)
         self.probe_seed = int(probe_seed)
         self._lock = threading.Lock()
+        self._built_cv = threading.Condition(self._lock)
+        self._built: Dict[int, CatalogueVersion] = {}
+        self.listeners: List = []
         self._live: Optional[CatalogueVersion] = None
         self._next_version = 1
         self._states: Dict[Tuple[str, int, int, str], object] = {}
@@ -149,10 +160,12 @@ class CatalogueRegistry:
         its version number.  ``block=False`` runs build/validate on a
         worker thread (``wait()`` joins); the live version keeps
         serving until the swap."""
+        codes = torch.as_tensor(codes)
         with self._lock:
             version = self._next_version
             self._next_version += 1
-        codes = torch.as_tensor(codes)
+            for fn in self.listeners:
+                fn(version, codes, int(b), perm)
         after = torch.cuda.current_stream(codes.device) if codes.is_cuda \
             else None
         if block:
@@ -165,6 +178,16 @@ class CatalogueRegistry:
             self._threads.append(t)
             t.start()
         return version
+
+    def get(self, version: int) -> CatalogueVersion:
+        """Catalogue ``version`` once its build has finished (waiting
+        for it); re-raises a build's error."""
+        with self._built_cv:
+            while version not in self._built:
+                if self._errors:
+                    raise self._errors[-1]
+                self._built_cv.wait()
+            return self._built[version]
 
     def wait(self) -> None:
         """Join outstanding off-thread builds; re-raise their errors."""
@@ -179,7 +202,9 @@ class CatalogueRegistry:
         try:
             self._build_and_swap(version, codes, b, perm, after)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
-            self._errors.append(e)
+            with self._built_cv:
+                self._errors.append(e)
+                self._built_cv.notify_all()
 
     def _resolve_block_n(self, N: int):
         from repro_torch.core import engine as _engine
@@ -236,9 +261,11 @@ class CatalogueRegistry:
             perm=None if perm is None else _host(perm),
             built_s=time.perf_counter() - t0, validated=validated,
             build_stream=None if stream is None else stream.cuda_stream)
-        with self._lock:
+        with self._built_cv:
             if state is not None:
                 self._states[key] = state
+            self._built[version] = entry
+            self._built_cv.notify_all()
             # versions race only through block=False publishes; never
             # let a slow old build clobber a newer live catalogue
             if self._live is None or version > self._live.version:

@@ -126,17 +126,27 @@ class Replica:
         return self.cache.evict(keep_versions)
 
     # ----------------------------------------------------------- serve
-    def serve(self, batch: Batch,
-              version: CatalogueVersion) -> Tuple[List[Result], dict]:
+    def floor_for(self, batch: Batch) -> np.ndarray:
+        """The ``[max_batch]`` warm floor this replica would serve
+        ``batch`` with: its EMA's for the real rows (−inf while cold or
+        without a warm state), −inf for the dummy rows."""
+        floor = (self.warm.floor(batch.max_batch) if self.warm is not None
+                 else np.full((batch.max_batch,), -np.inf, np.float32))
+        floor[batch.n_real:] = -np.inf             # dummy rows: cold
+        return floor
+
+    def serve(self, batch: Batch, version: CatalogueVersion,
+              floor=None) -> Tuple[List[Result], dict]:
         """Serve one padded batch; returns per-request results (real
-        rows only) and a host-side summary dict for metrics."""
+        rows only) and a host-side summary dict for metrics.  ``floor``
+        (default: ``floor_for(batch)``) is the warm floor to serve with:
+        the ranks of a mesh server all take rank 0's."""
         dev = self.model.device
         hist = torch.as_tensor(batch.padded_hist(), device=dev)
         n_real = batch.n_real
-        floor = (self.warm.floor(batch.max_batch) if self.warm is not None
-                 else np.full((batch.max_batch,), -np.inf, np.float32))
+        if floor is None:
+            floor = self.floor_for(batch)
         warmed = np.isfinite(floor[:n_real])
-        floor[n_real:] = -np.inf                   # dummy rows: cold
         floor = torch.as_tensor(floor, device=dev)
         pruned = version.state is not None
         with torch.inference_mode():
@@ -194,11 +204,16 @@ class ReplicaPool:
         self._since_merge = 0
         self.merge_count = 0
 
-    def serve(self, batch: Batch,
-              version: CatalogueVersion) -> Tuple[List[Result], dict]:
+    @property
+    def next_replica(self) -> Replica:
+        """The replica the next ``serve`` goes to."""
+        return self.replicas[self._next]
+
+    def serve(self, batch: Batch, version: CatalogueVersion,
+              floor=None) -> Tuple[List[Result], dict]:
         rep = self.replicas[self._next]
         self._next = (self._next + 1) % len(self.replicas)
-        out = rep.serve(batch, version)
+        out = rep.serve(batch, version, floor)
         self._since_merge += 1
         if self.merge_every and self._since_merge >= self.merge_every:
             self.merge_warm()

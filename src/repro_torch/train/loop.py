@@ -42,9 +42,16 @@ elastic path, ``err``; rank 0 writes them.  On a ``"model"`` mesh every
 split leaf and its moments are gathered first, so a checkpoint holds
 whole leaves under the reference's keys, and a restore cuts each
 rank's blocks: a run saved at ``(1, 2)`` resumes at ``(1, 1)`` or
-``(1, 2)``.  Not yet ported, and raising (``dist.NEXT_SLICE``): the
-elastic exchange on a ``model > 1`` mesh.  A model without a
-``placement`` does not train on one.
+``(1, 2)``.  A model without a ``placement`` does not train on one.
+
+The elastic step on a ``(D, S)`` mesh replicates the model over
+``"model"``, as the reference's ``shard_map`` does: the Trainer installs
+no ambient mesh and cuts no blocks, so every rank holds whole leaves
+(no ``placement`` needed), the S ranks of a data column run the same
+rounds on the same rows, and the exchange runs over the ``"data"``
+group.  Its state is the ``(D, 1)`` step's, bit for bit, on every rank
+of the column; rank 0 writes the checkpoints, and a run saved at ``(D,
+S)`` resumes on any ``(D', S')`` with D' dividing ``V``.
 """
 from __future__ import annotations
 
@@ -219,13 +226,11 @@ class Trainer:
         self._accum = spec.resolve_accum(mesh) if self._use_dp else None
         self._world = 1 if mesh is None else spec_mod.dp_degree(mesh)
         self._rank = 0 if mesh is None else mesh.rank
-        self._split = mesh is not None and mesh.shape.get("model", 1) > 1
+        # the elastic step replicates the model over "model", as the
+        # reference's shard_map does: no ambient mesh, whole leaves
+        self._split = (mesh is not None and mesh.shape.get("model", 1) > 1
+                       and not spec.elastic)
         if self._split:
-            from repro_torch.dist import NEXT_SLICE
-            if spec.elastic:
-                raise NotImplementedError(
-                    f"the elastic exchange on a mesh with model = "
-                    f"{mesh.shape['model']}: {NEXT_SLICE}")
             if not hasattr(model, "placement"):
                 raise ValueError(
                     f"{type(model).__name__} has no placement, so it "

@@ -41,7 +41,11 @@ The layout facade at the bottom (``dp_degree``, ``zeros_error_state``,
 ``error_state_shapes``, ``state_shardings``, ``payload_metrics``) is the
 policy-level surface over ``repro_torch.dist.compression``; placement
 specs are tuples of mesh axis names (``("data",)`` row-sharded, ``()``
-replicated).
+replicated).  On a ``(D, S)`` mesh the data-parallel degree is D alone
+(the model is replicated over ``"model"``): V divides by D, not D·S,
+the error state is ``[V, ...]`` of whole leaves, and the layout stamp
+holds no mesh shape, so a checkpoint written at ``(D, S)`` restores on
+any ``(D', S')`` whose D' divides V.
 """
 from __future__ import annotations
 

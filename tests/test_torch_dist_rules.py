@@ -5,8 +5,8 @@ through both packages on the same axes, shapes and mesh sizes, the
 port's placement tuples compared with the reference's ``PartitionSpec``
 taken as a tuple; then ``data_mesh_axes``, ``dp_partition_spec``,
 ``data_shard_count``, the ambient-mesh context, and ``constrain``
-(identity off a mesh and on the data axis; a width axis of a
-``model > 1`` mesh raises, naming the next slice).
+(identity off a mesh and on the data axis; on a width axis of a
+``model > 1`` mesh, this rank's block, a view).
 """
 import types
 

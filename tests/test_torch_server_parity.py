@@ -273,7 +273,8 @@ def test_cli_flags_resolve_alike(flags):
     from repro_torch.core import engine as T_engine
     ja = J_cli.build_parser().parse_args(flags)
     ta = T_cli.build_parser().parse_args(flags)
-    assert {k: v for k, v in vars(ta).items() if k != "device"} == vars(ja)
+    assert {k: v for k, v in vars(ta).items()
+            if k not in ("device", "share_card")} == vars(ja)
     js = J_engine.spec_from_args(ja, kind="jpq", k=ja.top_k)
     ts = T_engine.spec_from_args(ta, kind="jpq", k=ta.top_k)
     # the port's spec has no Pallas ``backend`` field: the tensors'
@@ -295,8 +296,12 @@ def test_cli_smoke_on_cpu(capsys):
 
 
 def test_cli_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        T_cli.main(["--device", "cpu", "--mesh", "2"])
+    """``--mesh 2`` serves (item 9d), labelled as the reference labels
+    it; tests/test_torch_server_mesh.py holds its responses."""
+    snap = T_cli.main(["--device", "cpu", "--mesh", "2", "--requests", "20"])
+    assert snap["config"] == "queue+prune+mesh2"
+    assert T.validate_snapshot(snap) == [] == J.validate_snapshot(snap)
+    assert snap["requests_completed"] == 20
 
 
 def test_cli_without_a_card_raises(monkeypatch):

@@ -837,22 +837,25 @@ def test_collectives_refuse_a_sizes_only_mesh_and_the_wrong_side():
 def test_training_and_the_request_server_on_a_model_mesh_raise():
     """Training on a "model" axis is ported for every recsys model
     (items 9c and 9c-ii); a model without a placement does not train
-    there, the elastic exchange there is item 9c-iii, the request server
-    under a mesh item 9d."""
+    there (the one refusal left).  The elastic exchange there replicates
+    the model over "model" (item 9c-iii: no placement needed, no blocks
+    cut), and the request server serves under a mesh (item 9d)."""
     from repro_torch.launch import server as T_server
     from repro_torch.train.loop import TrainConfig, Trainer
     from repro_torch.train.optimizer import OptConfig
     with pytest.raises(ValueError, match="has no placement"):
         Trainer(object(), OptConfig(), TrainConfig(), data_fn=None,
                 mesh=M.HostMesh(1, 2))
-    with pytest.raises(NotImplementedError, match="item 9c-iii"):
-        Trainer(object(), OptConfig(), TrainConfig(grad_compression="int8"),
-                data_fn=None, mesh=M.HostMesh(1, 2))
+    tr = Trainer(object(), OptConfig(), TrainConfig(grad_compression="int8"),
+                 data_fn=None, mesh=M.HostMesh(1, 2))
+    assert not tr._split and tr._accum == 1 and tr._world == 1
     with T_R.use_mesh_rules(M.HostMesh(2, 2)):      # a block, no raise
         assert T_dist.constrain(torch.zeros(4, 4),
                                 ("batch", "mlp")).shape == (4, 2)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        T_server.main(["--device", "cpu", "--mesh", "2"])
+    snap = T_server.main(["--device", "cpu", "--mesh", "2",
+                          "--requests", "20"])
+    assert snap["config"] == "queue+prune+mesh2"
+    assert snap["requests_completed"] == 20
 
 
 # ------------------------------------------------------ the serve CLI

@@ -249,9 +249,9 @@ def test_trainer_eval_and_early_stop():
 def test_trainer_unported_options_raise(knob):
     """The elastic knobs are ported: without a mesh the port raises the
     reference's error, word for word (logical-axis rules, which the
-    Trainer now takes, change nothing there); what still waits, the
-    elastic exchange on a mesh with a ``model`` axis > 1, raises
-    NotImplementedError naming item 9c-iii."""
+    Trainer now takes, change nothing there); on a mesh with a
+    ``model`` axis > 1 an elastic spec replicates the model over it
+    (item 9c-iii): no blocks, V resolved over the data axis alone."""
     import types
 
     from repro.train import loop as J_loop
@@ -271,11 +271,11 @@ def test_trainer_unported_options_raise(knob):
                            mesh=model_mesh)
         assert str(got.value) == str(want.value)
     else:
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*item 9c-iii"):
-            T_loop.Trainer(None, T_opt.OptConfig(),
-                           T_loop.TrainConfig(**knob), data_fn=None,
-                           mesh=model_mesh)
+        tr = T_loop.Trainer(None, T_opt.OptConfig(),
+                            T_loop.TrainConfig(**knob), data_fn=None,
+                            mesh=model_mesh)
+        assert tr.spec.elastic and not tr._split and tr._world == 1
+        assert tr._accum == knob.get("grad_accum_shards", 1)
     with pytest.raises(ValueError) as got:
         T_loop.Trainer(None, T_opt.OptConfig(), T_loop.TrainConfig(**knob),
                        data_fn=None, rules={"embed": ("model",)})
@@ -320,16 +320,23 @@ def test_cli_flags_and_defaults_match_the_reference():
                                     "--grad-accum-shards", "4"],
                                    ["--grad-compression", "bf16",
                                     "--model-axis", "2"]])
-def test_cli_unported_flags_raise(flags):
-    """What the CLI still refuses: the LM and MACE bundles (item 10), and
-    on a ``model`` axis the elastic exchange (item 9c-iii), with any
-    arch.  ``--mesh``, the TrainSpec flags and every arch's
-    ``--model-axis`` train (tests/test_torch_elastic.py,
-    tests/test_torch_model_axis_train.py,
-    tests/test_torch_ctr_model_axis.py)."""
-    with pytest.raises(NotImplementedError, match="not yet ported|only"):
-        T_cli.main(["--device", "cpu", "--steps", "1", "--n-items", "50",
-                    *flags])
+def test_cli_unported_flags_raise(flags, capfd):
+    """What the CLI still refuses: the LM and MACE bundles (item 10).
+    The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
+    any arch, on two gloo ranks; ``--mesh``, the TrainSpec flags and
+    every arch's ``--model-axis`` train too
+    (tests/test_torch_elastic.py, tests/test_torch_model_axis_train.py,
+    tests/test_torch_ctr_model_axis.py,
+    tests/test_torch_elastic_model_axis.py)."""
+    argv = ["--device", "cpu", "--steps", "1", "--n-items", "50",
+            "--batch-size", "8", "--eval-every", "0", *flags]
+    if "qwen3-14b" in flags:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            T_cli.main(argv)
+        return
+    assert T_cli.main(argv) is None                 # spawned ranks
+    out = capfd.readouterr().out
+    assert "done at step 1 on cpu, mesh {'data': 1, 'model': 2}" in out
 
 
 def test_full_width_config_sizes():
