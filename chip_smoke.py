@@ -321,12 +321,42 @@ Phases 30-31 run after phase 29:
      versions; p50 / p95 / p99 beside phase 25's, a batch's broadcast
      and its serve's collectives; then both top-k kernels at the
      shards' shapes at B = 8 (the kernels JSON's ``server_mesh_shape``).
+Phases 32-34 run last, the LM family (``models/lm.py``) at every
+published width (d_model, heads, n_kv, head_dim, d_ff, experts, top_k,
+vocab, window, rope_theta), depth and batch cut to one card:
+ 32. serving, bf16, ``no_grad``: each of mixtral-8x7b (4 layers),
+     olmoe-1b-7b (16), stablelm-1.6b (24), qwen3-14b (8), stablelm-12b
+     (8) runs ``prefill`` at S = 32,768, B = 1, and 64 ``decode_step``s
+     against a random bf16 cache of 32,768 positions (B = 128, 4, 2,
+     16, 8), ms, tokens/s and peak GB each; mixtral then decodes
+     long_500k's last 8 positions from a ring cache at 524,280 whose
+     bytes equal a 4,096-position cache's.  Check, the reference's
+     test_decode_matches_full_forward at full width in fp32: mixtral at
+     2 layers, S = 4,608 (across its 4,096-slot ring), and qwen3-14b at
+     2 layers, S = 1,024, every position's decode logits within 2e-3 of
+     the full forward's, mixtral at capacity_factor E / top_k (nothing
+     drops; the drops at the configured 1.25 counted beside it);
+ 33. training through ``Trainer`` and adamw, bf16: (a) stablelm-1.6b at
+     its 24 layers, full table, B = 2, S = 4,096, 3 steps (step 0 near
+     ln V, the token gather's bag backward every step, then held at the
+     step's shape); (b) the same with a RecJPQ vocabulary (m 8, b 256,
+     ``use_kernel=True``): jpq_scores and jpq_lookup, forward and
+     backward, every step, then each held against its plain version at
+     T = 8,192, N = 100,352 and timed, and ``ops.jpq_scores`` bit-equal
+     to ``ref.jpq_scores_ref``; (c) olmoe-1b-7b at 2 layers, B = 1, S =
+     4,096, 2 steps twice: bit-identical run to run, the bag backward
+     19 times a step (the token gather, each layer's dispatch and 8
+     combine gathers), then held at the dispatch gather's shape;
+ 34. ``launch/train.py --arch A --steps 2`` for each LM arch, the smoke
+     config on the card.
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
 phase 29's ``{"ctr_model_axis": ...}``, phase 30's
-``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}`` and the
-per-kernel numbers (eight kernels; the two top-k kernels also carry
+``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}``,
+phases 32-34's ``{"lm": ...}`` and the per-kernel numbers (eight
+kernels; rows 3-5b also carry phases 33's ``lm_shape`` and
+``lm_launches``; the two top-k kernels also carry
 phase 25's ``server_shape`` and phase 31's ``server_mesh_shape``, rows
 3-5 phase 26's ``elastic_launches`` and ``elastic_round_max_abs_err``
 and phase 30's ``elastic_mesh_launches_per_rank`` and
@@ -5359,6 +5389,520 @@ def server_mesh_phases(torch, np, dev, smi, server):
     return {"runs": runs, "shard_kernels": shard, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 32
+# the LM family at every published width, depth and batch cut to one
+# card: (arch, layers, prefill B, decode B).  The decode batch is the
+# largest power of two (at most decode_32k's 128) whose bf16 cache of
+# 32,768 positions a layer takes at most 20 GB; mixtral's ring holds its
+# 4,096-position window.
+LM_SERVE = (("mixtral-8x7b", 4, 1, 128), ("olmoe-1b-7b", 16, 1, 4),
+            ("stablelm-1.6b", 24, 1, 2), ("qwen3-14b", 8, 1, 16),
+            ("stablelm-12b", 8, 1, 8))
+LM_DECODE_STEPS, LM_LONG_STEPS, LM_WARM_S = 64, 8, 4096
+# decode against the full forward at full width, fp32 (arch, layers, S):
+# mixtral's S crosses its 4,096-slot ring and is a multiple of q_chunk
+LM_CHECKS = (("mixtral-8x7b", 2, 4608), ("qwen3-14b", 2, 1024))
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 3
+LM_KERNELS = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
+              "jpq_lookup_bwd", "embedding_bag_backward")
+
+
+def lm_model(arch, dev, **changes):
+    """The published config of ``arch`` with ``changes`` (a cut depth),
+    random fp32 weights from seed 0, on ``dev``."""
+    from repro_torch.configs import get_bundle
+    return get_bundle(arch).make_model(device=dev, seed=0, **changes)
+
+
+def cache_bytes(caches):
+    return sum(t.numel() * t.element_size() for t in caches.values())
+
+
+def _timed(torch, fn):
+    """(fn's result, ms by the host clock between two synchronises)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def lm_decode_run(torch, model, params, caches, toks, start):
+    """Decode ``toks`` [B, n] from position ``start`` (written into every
+    layer's ``pos``): one warm-up step, then n - 1 timed ones.  Returns
+    (the last logits, ms a timed step)."""
+    caches["pos"].fill_(start)
+    model.decode_step(params, toks[:, :1], caches)
+    n = toks.shape[1] - 1
+
+    def steps():
+        lg = None
+        for s in range(n):
+            lg, _ = model.decode_step(params, toks[:, 1 + s:2 + s], caches)
+        return lg
+    lg, ms = _timed(torch, steps)
+    return lg, ms / n
+
+
+def lm_serve_phases(torch, np, dev, smi):
+    """Phase 32: each LM at every published width (layers and batch cut,
+    ``LM_SERVE``), bf16, under ``no_grad``: ``prefill`` at prefill_32k's
+    S = 32,768 (after a warm-up at S = 4,096) and 64 ``decode_step``s
+    (after one warm-up step) against a bf16 cache of decode_32k's
+    32,768 positions, random, ending at position 32,767; ms, tokens/s
+    and peak GB of each.  Mixtral then decodes long_500k's last 8
+    positions from a ring cache at 524,280, whose bytes equal those of
+    a 4,096-position cache.  Then ``lm_decode_check``.  Returns the
+    summary."""
+    from repro_torch.configs.lm_common import (DECODE_32K, LONG_500K,
+                                               PREFILL_32K)
+    t0 = phase("phase 32: LM serving at full width (bf16): prefill "
+               "S=32,768, 64 decode steps at a 32,768-position cache, "
+               "mixtral's long_500k ring")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    S_pre, S_dec = PREFILL_32K[1], DECODE_32K[1]
+    rows = {}
+    for arch, depth, Bp, Bd in LM_SERVE:
+        model = lm_model(arch, dev, n_layers=depth)
+        cfg, params = model.cfg, model.params()
+        V = cfg.vocab
+        row = {"layers": depth, "prefill_B": Bp, "decode_B": Bd,
+               "weights_gb": sum(t.numel() * 4 for t in model.parameters())
+               / 1e9}
+        with torch.no_grad():
+            toks = torch.randint(0, V, (Bp, S_pre), generator=gen,
+                                 device=dev)
+            model.prefill(params, toks[:, :LM_WARM_S])
+            torch.cuda.reset_peak_memory_stats(dev)
+            lg, ms = _timed(torch, lambda: model.prefill(params, toks))
+            check(tuple(lg.shape) == (Bp, 1, V)
+                  and bool(torch.isfinite(lg).all()),
+                  f"{arch} prefill logits malformed")
+            row.update(prefill_ms=ms, prefill_tokens_per_s=Bp * S_pre / ms
+                       * 1e3, prefill_peak_gb=torch.cuda.max_memory_allocated(
+                           dev) / 1e9)
+            del toks, lg
+            caches = model.init_caches(Bd, S_dec)
+            for k in ("k", "v"):
+                caches[k].normal_(generator=gen)
+            toks = torch.randint(0, V, (Bd, 1 + LM_DECODE_STEPS),
+                                 generator=gen, device=dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            lg, ms = lm_decode_run(torch, model, params, caches, toks,
+                                   S_dec - LM_DECODE_STEPS - 1)
+            check(caches["pos"].tolist() == [S_dec] * cfg.n_layers
+                  and bool(torch.isfinite(lg).all())
+                  and tuple(lg.shape) == (Bd, 1, V),
+                  f"{arch} decode malformed")
+            row.update(cache_slots=caches["k"].shape[2],
+                       cache_gb=cache_bytes(caches) / 1e9,
+                       decode_ms_per_step=ms,
+                       decode_tokens_per_s=Bd / ms * 1e3,
+                       decode_peak_gb=torch.cuda.max_memory_allocated(dev)
+                       / 1e9)
+            # the card's busy time a step (torch.profiler), three more
+            # steps (their slots wrap the ring past 32,767)
+            busy, top = device_profile(torch, lambda s: model.decode_step(
+                params, toks[:, s:s + 1], caches), range(3), top_n=4)
+            check(busy > 0, f"the profiler traced no device time for "
+                  f"{arch}'s decode")
+            row.update(decode_device_ms_per_step=busy,
+                       decode_idle_share=max(0.0, 1 - busy / ms),
+                       decode_device_top=top)
+            del caches, toks, lg
+            if cfg.window is not None:         # long_500k: the ring cache
+                S_long, B_long = LONG_500K[1], LONG_500K[2]
+                caches = model.init_caches(B_long, S_long)
+                small = cache_bytes(model.init_caches(B_long, cfg.window))
+                check(cache_bytes(caches) == small,
+                      f"{arch} long_500k cache {cache_bytes(caches)} B != "
+                      f"{small} B at {cfg.window} positions")
+                for k in ("k", "v"):
+                    caches[k].normal_(generator=gen)
+                toks = torch.randint(0, V, (B_long, 1 + LM_LONG_STEPS),
+                                     generator=gen, device=dev)
+                lg, ms = lm_decode_run(torch, model, params, caches, toks,
+                                       S_long - LM_LONG_STEPS - 1)
+                check(caches["pos"].tolist() == [S_long] * cfg.n_layers
+                      and bool(torch.isfinite(lg).all())
+                      and cache_bytes(caches) == small,
+                      f"{arch} long_500k decode malformed")
+                row["long_500k"] = {"B": B_long, "last_pos": S_long - 1,
+                                    "cache_bytes": small,
+                                    "decode_ms_per_step": ms}
+                del caches, toks, lg
+        rows[arch] = row
+        long = row.get("long_500k")
+        print(f"   {arch} ({depth} layers, {row['weights_gb']:.2f} GB fp32 "
+              f"weights): prefill B={Bp} S={S_pre} {row['prefill_ms']:.1f} "
+              f"ms ({row['prefill_tokens_per_s']:.0f} tokens/s, peak "
+              f"{row['prefill_peak_gb']:.2f} GB); decode B={Bd} over "
+              f"{row['cache_slots']} slots ({row['cache_gb']:.2f} GB "
+              f"cache) {row['decode_ms_per_step']:.2f} ms a step "
+              f"({row['decode_tokens_per_s']:.0f} tokens/s, peak "
+              f"{row['decode_peak_gb']:.2f} GB; the card busy "
+              f"{row['decode_device_ms_per_step']:.2f} ms of it, idle "
+              f"{row['decode_idle_share']:.0%}: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in
+                          row["decode_device_top"]) + ")"
+              + ("" if long is None else
+                 f"; long_500k to position {long['last_pos']}: "
+                 f"{long['decode_ms_per_step']:.2f} ms a step, cache "
+                 f"{long['cache_bytes']} B as at {cfg.window} positions")
+              + f" on {smi}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    done(t0)
+    checks = {arch: lm_decode_check(torch, np, dev, smi, arch, depth, S)
+              for arch, depth, S in LM_CHECKS}
+    return {"serve": rows, "decode_check": checks}
+
+
+def lm_decode_check(torch, np, dev, smi, arch, depth, S):
+    """The reference's test_decode_matches_full_forward at full width:
+    ``arch`` at ``depth`` layers in fp32 (``compute_dtype`` float32, fp32
+    logits), B = 1: the logits of ``decode_step`` at every position of S
+    tokens within 2e-3 + 2e-3 |full| of the full forward's.  A MoE runs
+    it at capacity_factor E / top_k, where nothing drops: the forward
+    sizes capacity from S tokens and decode from 1.  The drops the
+    forward makes at the configured factor are counted beside it."""
+    from repro_torch.nn import moe as moe_mod
+    t0 = phase(f"phase 32 check: {arch} ({depth} layers, fp32) decode "
+               f"against the full forward at S={S}")
+    from repro_torch.configs import get_bundle
+    moe = get_bundle(arch).config.moe
+    changes = {"n_layers": depth, "compute_dtype": "float32",
+               "logits_bf16": False}
+    if moe is not None:
+        changes["moe"] = dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k)
+    model = lm_model(arch, dev, **changes)
+    cfg = model.cfg
+    params = model.params()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev)
+    out = {"layers": depth, "S": S}
+    with torch.no_grad():
+        (h, _), fwd_ms = _timed(torch, lambda: model.hidden_states(params,
+                                                                   toks))
+        full = model.logits(params, h)[0]
+        del h
+        caches = model.init_caches(1, S, dtype=torch.float32)
+        dec = torch.empty_like(full)
+
+        def run():
+            for t in range(S):
+                dec[t] = model.decode_step(params, toks[:, t:t + 1],
+                                           caches)[0][0, 0]
+        _, dec_ms = _timed(torch, run)
+        err = (dec - full).abs()
+        ok = bool((err <= 2e-3 + 2e-3 * full.abs()).all())
+        out.update(max_abs_err=float(err.max()), forward_ms=fwd_ms,
+                   decode_ms_per_step=dec_ms / S,
+                   cache_slots=caches["k"].shape[2])
+        check(ok, f"{arch} decode logits outside 2e-3 of the full forward "
+              f"(max |err| {out['max_abs_err']:.3e})")
+        del dec, full, caches, err
+        if moe is not None:
+            drops = []
+            route = moe_mod.route
+
+            def counting(idx, E, C):
+                inv, slot_of = route(idx, E, C)
+                drops.append(int((slot_of == E * C).sum()))
+                return inv, slot_of
+            # the same weights at the configured capacity factor
+            model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=moe.capacity_factor))
+            moe_mod.route = counting
+            try:
+                model.hidden_states(params, toks)
+            finally:
+                moe_mod.route = route
+                model.cfg = cfg
+            out.update(capacity_factor=cfg.moe.capacity_factor,
+                       drops_at_configured=drops,
+                       configured_capacity_factor=moe.capacity_factor,
+                       assignments_a_layer=S * cfg.moe.top_k)
+    print(f"   {arch}: decode at every one of {S} positions within "
+          f"2e-3 of the full forward (max |err| {out['max_abs_err']:.3e}); "
+          f"forward {fwd_ms:.1f} ms, decode {out['decode_ms_per_step']:.2f}"
+          f" ms a step over {out['cache_slots']} slots"
+          + ("" if moe is None else
+             f"; capacity_factor {out['capacity_factor']:g} (no drop "
+             f"possible); at {moe.capacity_factor} the forward drops "
+             f"{out['drops_at_configured']} of {S * cfg.moe.top_k} "
+             f"assignments"
+             f" a layer")
+          + f" on {smi}")
+    del model, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    done(t0)
+    return out
+
+
+# ---------------------------------------------------------------- phase 33
+def lm_train_run(torch, np, model, toks, steps, *, lr=3e-4):
+    """Train ``model`` through ``Trainer`` and adamw on the fixed batch
+    ``toks`` (targets: the tokens shifted by one), ``steps`` steps, the
+    launch counters of the four jpq kernels and the bag kernels zeroed
+    just before.  Returns (history losses, ms a step after the first,
+    peak GB, launches, the trained params)."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    tr = Trainer(model, OptConfig(lr=lr),
+                 TrainConfig(steps=steps, batch_size=toks.shape[0],
+                             log_every=1, eval_every=0),
+                 data_fn=lambda s: batch)
+    for mod in (ec, lc, sc):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats(toks.device)
+    params, hist = tr.run(params=model.params())
+    launches = {**ec.launches, **lc.launches, **sc.launches}
+    rows = [h for h in hist if "loss" in h]
+    return ([h["loss"] for h in rows],
+            float(np.median([h["sec"] for h in rows[1:]])) * 1e3,
+            torch.cuda.max_memory_allocated(toks.device) / 1e9, launches,
+            params)
+
+
+def lm_step_profile(torch, model, params, toks):
+    """The card's busy time of one forward and backward of ``model`` on
+    ``toks`` (torch.profiler) and its top device items by time."""
+    from repro_torch.nn.module import tree_leaves
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    floats = [x for x in tree_leaves(params) if x.is_floating_point()]
+
+    def step(_):
+        loss, _ = model.train_loss(params, batch)
+        torch.autograd.grad(loss, floats)
+    busy, top = device_profile(torch, step, range(1), top_n=6)
+    check(busy > 0, "the profiler traced no device time for the LM step")
+    print(f"   one forward + backward: the card busy {busy:.1f} ms: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in top))
+    return {"busy_ms": busy, "top": top}
+
+
+def lm_jpq_kernels(torch, dev, smi, model, params, toks):
+    """The four jpq kernels at the RecJPQ vocabulary's step shape (T =
+    B x S positions over N = vocab rows, dk = d / 8): jpq_scores on the
+    LUT of the trained model's hidden states and its backward on a random
+    [T, N] dS, jpq_lookup and its backward on the tokens and a random
+    dout, each held against its plain version as phase 8 holds them,
+    then kernel, plain version and bound (CUDA events); and the public
+    ``ops.jpq_scores`` against ``ref.jpq_scores_ref`` (bit-equal).
+    Returns {kernel: row}."""
+    from repro_torch.core import jpq as jpq_mod
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_lookup import ref as lref
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_scores import ops as sops
+    from repro_torch.kernels.jpq_scores import ref as sref
+    gen = torch.Generator(device=dev).manual_seed(34)
+    emb = params["tok_emb"]
+    codes, cent = emb["codes"], emb["centroids"].detach()
+    N, T = codes.shape[0], toks.numel()
+    dk = cent.shape[-1]
+    what = f"LM vocab T={T} N={N}"
+    with torch.no_grad():
+        h = model.hidden_states(params, toks)[0].reshape(T, -1)
+        P = jpq_mod.partial_scores(emb, h).reshape(T, M, BC).contiguous()
+        before = sc.launches["jpq_scores"]
+        got = sops.jpq_scores(h, cent, codes)
+        check(sc.launches["jpq_scores"] == before + 1,
+              "ops.jpq_scores did not launch the jpq_scores kernel")
+        check(bits_equal(got, sref.jpq_scores_ref(h, cent, codes)),
+              f"ops.jpq_scores != ref.jpq_scores_ref ({what})")
+        del got
+    torch.cuda.empty_cache()
+    ids = toks.reshape(-1)
+    dS = torch.randn((T, N), generator=gen, device=dev)
+    dout = torch.randn((T, M, dk), generator=gen, device=dev)
+    err = {"jpq_scores": scores_fwd_err(P, codes, what)}
+    err["jpq_scores_bwd"] = scores_bwd_err(dS, codes, BC, what)[0]
+    err["jpq_lookup"], err["jpq_lookup_bwd"] = lookup_errs(
+        ids, codes, cent, dout, what)
+    fns = {"jpq_scores": (lambda: sc.jpq_scores(P, codes),
+                          lambda: sref.jpq_scores_lut_ref(P, codes)),
+           "jpq_scores_bwd": (lambda: sc.jpq_scores_bwd(dS, codes, BC),
+                              lambda: sref.jpq_scores_lut_bwd_ref(dS, codes,
+                                                                  BC)),
+           "jpq_lookup": (lambda: lc.jpq_lookup(ids, codes, cent),
+                          lambda: lref.jpq_lookup_ref(ids, codes, cent)),
+           "jpq_lookup_bwd": (lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC),
+                              lambda: lref.jpq_lookup_bwd_ref(ids, codes,
+                                                              dout, BC))}
+    work = train_kernel_work(T, N, BC, dk)
+    rows = {}
+    for name, (kern, plain) in fns.items():
+        b_ms, b_by = bound(*work[name])
+        rows[name] = {"T": T, "N": N, "dk": dk, "max_abs_err": err[name],
+                      "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 2),
+                      "bound_ms": b_ms, "bound_by": b_by}
+        print(f"   {name} at T={T} N={N} dk={dk}: {rows[name]['ms']:.4f} ms "
+              f"kernel, {rows[name]['plain_ms']:.4f} ms plain, bound "
+              f"{b_ms:.4f} ms ({b_by}), max |err| {err[name]:.3e} on {smi}")
+    del P, dS, dout, h
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_train_phases(torch, np, dev, smi):
+    """Phase 33: training at full width through ``Trainer`` and adamw,
+    bf16.  (a) stablelm-1.6b at its 24 layers, full table, train_4k's
+    S = 4,096 at B = 2, 3 steps: step 0's loss near ln(vocab), every
+    loss finite, the token gather's backward (the bag backward) launched
+    every step and held against its plain version at the step's shape
+    (``bag_bwd_row``).  (b) the same with a RecJPQ vocabulary (m 8, b
+    256, ``use_kernel=True``; the softmax tied): jpq_scores forward and
+    backward and both jpq_lookup kernels launched every step, then held
+    at the step's shape (``lm_jpq_kernels``).  (c) olmoe-1b-7b at 2
+    layers, B = 1, S = 4,096, 2 steps, twice from the same weights: the
+    losses and every parameter bit-identical run to run, the MoE's
+    gathers' backward launched; the bag backward at the dispatch
+    gather's shape.  Returns the summary and the kernels' rows."""
+    from repro_torch.core import EmbeddingConfig
+    from repro_torch.nn import moe as moe_mod
+    t0 = phase(f"phase 33: LM training at full width (bf16): stablelm-1.6b "
+               f"24 layers B={LM_TRAIN_B} S={LM_TRAIN_S}, full table and "
+               f"RecJPQ vocab; olmoe-1b-7b 2 layers, run twice")
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    gen = torch.Generator(device=dev).manual_seed(35)
+    out, kernels = {}, {}
+    for run, emb in (("a", None),
+                     ("b", EmbeddingConfig(0, 0, kind="jpq", m=8, b=256,
+                                           use_kernel=True))):
+        model = lm_model("stablelm-1.6b", dev, embedding=emb)
+        V = model.cfg.vocab
+        toks = torch.randint(0, V, (LM_TRAIN_B, LM_TRAIN_S + 1),
+                             generator=gen, device=dev)
+        losses, step_ms, peak, launches, params = lm_train_run(
+            torch, np, model, toks, LM_TRAIN_STEPS)
+        check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+              f"({run}) losses not finite: {losses}")
+        check(abs(losses[0] - np.log(V)) < 1.0,
+              f"({run}) step 0's loss {losses[0]} is not near ln({V}) = "
+              f"{np.log(V):.3f}")
+        want = (("embedding_bag_backward",) if run == "a" else
+                ("jpq_scores", "jpq_lookup", "jpq_lookup_bwd"))
+        for name in want:
+            check(launches[name] == LM_TRAIN_STEPS,
+                  f"({run}) {name} launched {launches[name]} times in "
+                  f"{LM_TRAIN_STEPS} steps")
+        if run == "b":
+            check(launches["jpq_scores_bwd"] >= LM_TRAIN_STEPS,
+                  f"(b) jpq_scores_bwd launched {launches['jpq_scores_bwd']}"
+                  f" times")
+        out[run] = {"losses": losses, "median_step_ms": step_ms,
+                    "peak_gb": peak, "launches": launches,
+                    "params_b": sum(t.numel() for t in model.parameters())
+                    / 1e9}
+        print(f"   ({run}) {'full table' if run == 'a' else 'RecJPQ vocab'}"
+              f": losses {' '.join(f'{v:.4f}' for v in losses)} (ln V = "
+              f"{np.log(V):.4f}); step {step_ms:.1f} ms, peak {peak:.2f} "
+              f"GB, launches {launches} on {smi}")
+        if run == "a":
+            out[run]["step_device"] = lm_step_profile(torch, model, params,
+                                                      toks)
+            ids = toks[:, :-1].reshape(-1, 1).contiguous()
+            dout = torch.randn((ids.shape[0], model.cfg.d_model),
+                               generator=gen, device=dev)
+            row = bag_bwd_row(torch, ids, None, dout, V, 10,
+                              "LM token gather (stablelm-1.6b)", smi,
+                              clock_hz, gather=True)
+            kernels["embedding_bag_backward"] = {"token_gather": row}
+            del ids, dout
+        else:
+            kernels.update(lm_jpq_kernels(
+                torch, dev, smi, model, params, toks[:, :-1]))
+        del model, params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) MoE, run twice
+    runs, toks = [], None
+    for _ in range(2):
+        model = lm_model("olmoe-1b-7b", dev, n_layers=2)
+        if toks is None:
+            toks = torch.randint(0, model.cfg.vocab, (1, LM_TRAIN_S + 1),
+                                 generator=gen, device=dev)
+        losses, step_ms, peak, launches, params = lm_train_run(
+            torch, np, model, toks, 2)
+        runs.append((losses, state_digest(torch, [params]), step_ms, peak,
+                     launches))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l1, d1, ms1, pk1, n1), (l2, d2, ms2, _, _) = runs
+    check(all(np.isfinite(l1)), f"(c) losses not finite: {l1}")
+    check(l1 == l2 and d1 == d2, f"(c) the MoE runs differ: losses {l1} vs "
+          f"{l2}, parameters {d1} vs {d2}")
+    # a step: the token gather, and per layer the dispatch gather and
+    # top_k combine gathers
+    per_step = 1 + 2 * (1 + 8)
+    check(n1["embedding_bag_backward"] == 2 * per_step,
+          f"(c) the bag backward launched {n1['embedding_bag_backward']} "
+          f"times in 2 steps, not {2 * per_step}")
+    out["c"] = {"losses": l1, "step_ms": [ms1, ms2], "peak_gb": pk1,
+                "launches": n1, "digest": d1, "bit_identical": True}
+    print(f"   (c) olmoe-1b-7b 2 layers: losses {l1} twice, parameters "
+          f"bit-identical ({d1[:12]}); step {ms1:.1f} / {ms2:.1f} ms, peak "
+          f"{pk1:.2f} GB, launches {n1} on {smi}")
+    # the dispatch gather's backward at its shape: inv over E*C slots
+    # (unfilled slots all name the pad row: one long run)
+    from repro_torch.configs.olmoe_1b_7b import FULL as OLMOE
+    x = torch.randn((LM_TRAIN_S, OLMOE.d_model), generator=gen, device=dev)
+    router = 0.02 * torch.randn((OLMOE.d_model, OLMOE.moe.n_experts),
+                                generator=gen, device=dev)
+    _, idx = moe_mod.top_k(torch.softmax(x @ router, -1), OLMOE.moe.top_k)
+    C = moe_mod.capacity(OLMOE.moe, LM_TRAIN_S)
+    inv, _ = moe_mod.route(idx, OLMOE.moe.n_experts, C)
+    ids = inv.reshape(-1, 1).contiguous()
+    dout = torch.randn((ids.shape[0], OLMOE.d_model), generator=gen,
+                       device=dev)
+    kernels["embedding_bag_backward"]["moe_dispatch"] = bag_bwd_row(
+        torch, ids, None, dout, LM_TRAIN_S + 1, 10,
+        "olmoe dispatch gather", smi, clock_hz, gather=True)
+    del x, router, idx, inv, ids, dout, toks
+    torch.cuda.empty_cache()
+    done(t0)
+    return out, kernels
+
+
+# ---------------------------------------------------------------- phase 34
+def lm_cli_phase(torch, np, dev, smi):
+    """Phase 34: ``launch/train.py --arch A --steps 2`` for each LM arch
+    on the card, as the reference's CLI runs them (the smoke config, its
+    fixed batch): finite losses, and the bag backward launched (the token
+    gather; the MoE's gathers)."""
+    from repro_torch.configs.registry import LM_ARCHS
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.launch import train as train_cli
+    t0 = phase("phase 34: launch/train.py --arch A --steps 2 for each LM "
+               "arch on the card")
+    rows = {}
+    for arch in LM_ARCHS:
+        ec.reset_launches()
+        hist = train_cli.main(["--arch", arch, "--steps", "2"])
+        losses = [h["loss"] for h in hist if "loss" in h]
+        n = ec.launches["embedding_bag_backward"]
+        check(len(losses) == 2 and all(np.isfinite(losses)) and n > 0,
+              f"{arch}: losses {losses}, bag backward launches {n}")
+        rows[arch] = {"losses": losses, "bag_backward_launches": n}
+        print(f"   {arch}: losses {losses}, bag backward launched {n} times")
+    done(t0)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5738,6 +6282,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     srvm = server_mesh_phases(torch, np, dev, smi, server)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_serve_phases(torch, np, dev, smi)
+    lm["train"], lm_kernels = lm_train_phases(torch, np, dev, smi)
+    lm["cli"] = lm_cli_phase(torch, np, dev, smi)
+    for entry in kernels:                 # phases 32-34: the LM's shapes
+        if entry["name"] in lm_kernels:
+            entry["lm_shape"] = lm_kernels[entry["name"]]
+            entry["lm_launches"] = {
+                run: r["launches"].get(entry["name"], 0)
+                for run, r in lm["train"].items()}
     for entry in kernels:                 # phase 31's shard shapes
         if entry["name"] in srvm["shard_kernels"]:
             entry["server_mesh_shape"] = srvm["shard_kernels"][entry["name"]]
@@ -5793,6 +6348,7 @@ def main() -> int:
                       "card": smi}))
     print(json.dumps({"elastic_mesh": em["runs"], "card": smi}))
     print(json.dumps({"server_mesh": srvm["runs"], "card": smi}))
+    print(json.dumps({"lm": lm, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,13 @@ centroids arrive bit-identical.  The sequential models' trees carry over
 two-tower model, FM (``emb``, the ``[V]`` ``linear``, the scalar
 ``bias``), DLRM (``bot``/``top`` MLPs) and DIEN (``gru1``/``augru``
 ``wx``/``wh``/``b``, the ``att``/``fc``/``aux`` MLPs, ``tgt_proj``).
+The LM's tree carries over too (``models/lm.py``): ``tok_emb`` (a
+``table``, or RecJPQ ``codes``/``centroids``), ``blocks`` as ``[L, ...]``
+stacks or a list of layers, each with ``ln1``, ``ln2``,
+``attn.{wq,wk,wv,wo[,q_norm,k_norm]}`` and ``mlp.{wi_gate,wi_up,wo}``
+or ``moe.{router,wi_gate,wi_up,wo}``, then ``ln_f`` and ``lm_head``;
+``load_caches`` carries its KV caches (``k``, ``v``, ``pos``), so a
+stream decoded by the reference goes on in the port from any position.
 
 On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
 catalogue leaf to this rank's rows (``dist.local_rows``), which the
@@ -72,6 +79,14 @@ def _copy_tree(dst, src, path: str):
             _copy_tree(d, s, f"{path}/{i}")
         return
     arr = np.asarray(src)
+    if dst.dtype == torch.bfloat16:       # numpy has no bf16: its raw bits
+        if arr.dtype.name != "bfloat16" or arr.shape != tuple(dst.shape):
+            raise ValueError(f"{path}: {arr.dtype}{tuple(arr.shape)} != "
+                             f"bfloat16{tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(
+                np.array(arr.view(np.uint16), copy=True)).view(torch.bfloat16))
+        return
     want = torch.empty((), dtype=dst.dtype).numpy().dtype
     if tuple(arr.shape) != tuple(dst.shape) or arr.dtype != want:
         raise ValueError(f"{path}: {arr.dtype}{tuple(arr.shape)} != "
@@ -84,9 +99,20 @@ def load_values(model, values) -> None:
     """Copy a reference values tree into ``model`` (in place)."""
     _copy_tree(model.params(), values, "")
     params = model.params()
-    emb = params.get("item_emb", params.get("emb", {}))
+    emb = next((params[k] for k in ("item_emb", "emb", "tok_emb")
+                if k in params), {})
     if "codes" in emb and int(emb["codes"].max()) >= model.emb.cfg.b:
         raise ValueError(f"codes must be < b={model.emb.cfg.b}")
+
+
+def load_caches(caches, src) -> dict:
+    """Copy the reference's KV caches (``TransformerLM.init_caches``'
+    tree after any number of decode steps: ``k``, ``v`` [L, B, C, Hkv,
+    Dh] in their dtype, bf16 included, and ``pos`` [L] int32) into the
+    port's ``init_caches`` tree of the same shapes, in place; returns
+    it."""
+    _copy_tree(caches, src, "caches")
+    return caches
 
 
 def keep_local_rows(model, mesh=None) -> dict:

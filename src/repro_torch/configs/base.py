@@ -10,12 +10,14 @@ from typing import Any, Callable
 class ArchBundle:
     """``make_model(device, seed)`` builds the full-width model;
     ``make_smoke(device, seed)`` a small one plus a request template
-    (a dict of numpy arrays), as ``(model, batch)``."""
+    (a dict of numpy arrays), as ``(model, batch)``.  ``config``: an LM
+    bundle's published ``LMConfig``."""
     name: str
-    family: str                          # recsys (more with later slices)
+    family: str                          # recsys | lm
     make_model: Callable[..., Any]
     make_smoke: Callable[..., tuple]
     description: str = ""
+    config: Any = None
 
 
 def dp_train_step_builder(model, mesh, method: str = None,

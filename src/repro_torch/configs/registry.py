@@ -1,9 +1,31 @@
-"""--arch registry of the port (the archs ported so far)."""
+"""--arch registry of the port: the five LM archs (family ``"lm"``) and
+the eight recsys bundles (the CTR and two-tower archs, full and
+``-jpq``).  ``mace`` is the reference's one arch still to port: it
+raises, naming ROADMAP queue 1, item 10b."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 _LOADERS: Dict[str, Callable] = {}
+UNPORTED = {"mace": "ROADMAP queue 1, item 10b (MACE: models/mace.py, "
+                    "models/equivariant.py, data/graphs.py, "
+                    "configs/mace_arch.py)"}
+
+
+def _lm(module: str):
+    def load():
+        import importlib
+        return importlib.import_module(
+            f"repro_torch.configs.{module}").bundle()
+    return load
+
+
+_LM_MODULES = {"mixtral-8x7b": "mixtral_8x7b", "olmoe-1b-7b": "olmoe_1b_7b",
+               "stablelm-12b": "stablelm_12b", "qwen3-14b": "qwen3_14b",
+               "stablelm-1.6b": "stablelm_1_6b"}
+LM_ARCHS = tuple(_LM_MODULES)
+for _name, _mod in _LM_MODULES.items():
+    _LOADERS[_name] = _lm(_mod)
 
 
 def _recsys(fn_name: str, kind: str):
@@ -25,6 +47,9 @@ def list_archs():
 
 
 def get_bundle(name: str):
+    if name in UNPORTED:
+        raise NotImplementedError(f"arch {name!r} is not yet ported to "
+                                  f"repro_torch: {UNPORTED[name]}")
     if name not in _LOADERS:
         raise KeyError(f"unknown arch {name!r}; ported so far: "
                        f"{list_archs()}")

@@ -19,8 +19,9 @@ combiner's normalisation stays outside the Function.
 from the same backward kernel (``TableGather``: L = 1, unit weights, a
 negative id counting from the end as indexing reads it).  Its forward
 is PyTorch's indexing, the same bits; the reference computes the gather
-outside any Pallas kernel.  The tables of ``core/full`` and the
-centroids of ``core/jpq`` (``use_kernel=False``) train through it.
+outside any Pallas kernel.  The tables of ``core/full``, the centroids
+of ``core/jpq`` (``use_kernel=False``) and the MoE's dispatch and
+combine (``nn/moe.py``) train through it.
 
 ``embedding_bag_block`` and ``gather_block`` are the two on a row block
 of a table (a rank's rows on a ``"model"`` mesh, ``core/sharded``):
@@ -68,12 +69,15 @@ class EmbeddingBag(torch.autograd.Function):
 
 class TableGather(torch.autograd.Function):
     """table [V, d], ids int64 (any shape) -> table[ids]; the gradient
-    flows to ``table`` alone."""
+    flows to ``table`` alone.  A table in another float dtype than fp32
+    (a bf16 activation gathered by the MoE dispatch) has its gradient
+    summed in fp32 and rounded once to the table's dtype."""
 
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.V = table.shape[0]
+        ctx.dtype = table.dtype
         return table[ids]
 
     @staticmethod
@@ -83,7 +87,7 @@ class TableGather(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         impl = _cuda.gather_backward if dout.is_cuda \
             else _ref.gather_backward_ref
-        return impl(ids, dout, ctx.V), None
+        return impl(ids, dout.float(), ctx.V).to(ctx.dtype), None
 
 
 class BlockBag(torch.autograd.Function):

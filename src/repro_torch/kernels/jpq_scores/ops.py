@@ -1,7 +1,9 @@
 """Public wrappers for jpq_scores: full-catalogue scores through the codes,
 differentiable in the LUT.
 
-Chosen by where the LUT lies:
+``jpq_scores(h, centroids, codes)`` is the reference's public entry: the
+LUT from the query vectors, then the same kernels.  Chosen by where the
+LUT lies:
   a CUDA tensor - the hand-written Hopper kernels (``csrc/jpq_scores.cu``),
                   forward and a deterministic backward
   a CPU tensor  - their plain PyTorch versions (``ref``)
@@ -47,3 +49,13 @@ class JPQScores(torch.autograd.Function):
         (codes,) = ctx.saved_tensors
         return jpq_scores_lut_bwd(dS, codes, ctx.b), None
 
+
+def jpq_scores(h, centroids, codes):
+    """h [..., d], centroids [m, b, dk], codes [N, m] -> [..., N] fp32, the
+    reference's public ``jpq_scores``: the fp32 LUT (``ref.lut_ref``),
+    then ``JPQScores`` (the card kernel on CUDA tensors, its plain
+    version on CPU ones, chosen by the device alone; differentiable in
+    ``h`` and the centroids).  On one device it equals
+    ``ref.jpq_scores_ref`` bit for bit."""
+    out = JPQScores.apply(_ref.lut_ref(h, centroids).contiguous(), codes)
+    return out.reshape(*h.shape[:-1], codes.shape[0])

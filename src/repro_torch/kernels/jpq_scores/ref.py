@@ -1,5 +1,6 @@
 """Plain oracles for jpq_scores: the gather-sum over the codes, forward
-and backward, in any float dtype.
+and backward, in any float dtype, and ``jpq_scores_ref`` from the query
+vectors (the reference's namesake).
 
 The forward sums in split order j = 0..m-1, so on a shared LUT it is
 bit-equal to the reference's ``jpq_scores_lut_ref`` and
@@ -31,3 +32,19 @@ def jpq_scores_lut_bwd_ref(dS, codes, b: int):
         dP[:, j, :].index_add_(1, codes[:, j], dS)
     return dP
 
+
+
+def lut_ref(h, centroids):
+    """h [..., d], centroids [m, b, dk] -> the fp32 LUT [T, m, b] of the
+    T = prod(lead) queries, ``P[t, j, c] = <h_j, centroids[j, c]>``."""
+    m, b, dk = centroids.shape
+    return torch.einsum("bmk,mck->bmc", h.reshape(-1, m, dk).float(),
+                        centroids.float())
+
+
+def jpq_scores_ref(h, centroids, codes):
+    """h [..., d], centroids [m, b, dk], codes [N, m] -> [..., N] fp32:
+    ``lut_ref``, then the gather-sum in split order (the reference's
+    ``jpq_scores_ref``)."""
+    s = jpq_scores_lut_ref(lut_ref(h, centroids), codes)
+    return s.reshape(*h.shape[:-1], codes.shape[0])

@@ -287,12 +287,16 @@ def _retrieval(model, params, template, args, sync):
 
 
 def _check_arch(arch: str) -> None:
-    from repro_torch.configs import list_archs
-    if arch not in list_archs():
+    from repro_torch.configs import get_bundle, list_archs
+    from repro_torch.configs.registry import LM_ARCHS
+    if arch in LM_ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch: it serves "
-            f"{list_archs()}; the LM and MACE bundles are ROADMAP queue "
-            f"1, item 10")
+            f"arch {arch!r} is an LM: serving it through this CLI is not "
+            f"yet ported, nor is it in the reference's CLI (its "
+            f"TransformerLM has no serve); the port serves an LM through "
+            f"TransformerLM.prefill / decode_step")
+    if arch not in list_archs():
+        get_bundle(arch)          # raises: MACE naming its item, or unknown
 
 
 def smoke_model(arch: str, device):

@@ -1,7 +1,8 @@
 """Training entrypoint: a sequential recommender on the synthetic
-sequence pipeline, with a RecJPQ (or full) item table, or a CTR arch of
-the registry (two-tower, FM, DLRM-RM2, DIEN; full or ``-jpq``) on its
-reduced smoke config.
+sequence pipeline, with a RecJPQ (or full) item table, or an arch of
+the registry on its reduced smoke config: a CTR arch (two-tower, FM,
+DLRM-RM2, DIEN; full or ``-jpq``) or an LM (mixtral-8x7b, olmoe-1b-7b,
+stablelm-12b, qwen3-14b, stablelm-1.6b).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 300 [--device cpu] [--devices 2] \
@@ -22,7 +23,9 @@ the step reached and exits; ``--microbatches`` accumulates gradients
 over equal batch slices.  A CTR arch trains, as the reference's CLI
 trains it, its bundle's ``make_smoke`` model on the fixed template
 batch, with no eval; its pooled lookups train through the embedding_bag
-kernels on the card.
+kernels on the card.  An LM arch trains so too, on one device: its
+token gather and the MoE's dispatch and combine gathers take their
+gradients from the embedding_bag backward kernel.
 
 The TrainSpec flag cluster (``train.spec.add_train_spec_args``:
 ``--grad-compression`` / ``--grad-accum-shards`` / ``--fsdp`` /
@@ -48,8 +51,9 @@ an elastic spec the model is replicated over ``"model"`` instead, as
 the reference's ``shard_map`` runs it: every rank holds the whole
 model, the S ranks of a data column run the same rounds, and the
 exchange runs over the ``"data"`` group, so the run is the ``(D, 1)``
-run's, bit for bit.  Not yet ported, and raising: the LM and MACE
-bundles (item 10).
+run's, bit for bit.  Not yet ported, and raising: an LM on more than
+one rank (ROADMAP queue 1, item 10c; the reference's own LM fails on a
+mesh) and MACE (item 10b).
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ import signal
 
 import torch
 
+from repro_torch.configs.registry import LM_ARCHS
 from repro_torch.train.spec import add_train_spec_args, spec_from_args
 
 SEQ_ARCHS = ("sasrec", "bert4rec", "gru4rec")
@@ -117,11 +122,7 @@ def build(args):
     from repro_torch.configs import get_bundle, list_archs
 
     if args.arch not in SEQ_ARCHS and args.arch not in list_archs():
-        raise NotImplementedError(
-            f"arch {args.arch!r} is not yet ported to repro_torch: it trains "
-            f"the sequential archs {SEQ_ARCHS} and the registry's "
-            f"{list_archs()}; the LM and MACE bundles are ROADMAP queue 1, "
-            f"item 10")
+        get_bundle(args.arch)     # raises: MACE naming its item, or unknown
     dev = resolve_device(args.device)
     fp32_matmuls()
     train_cfg = TrainConfig(
@@ -241,6 +242,11 @@ def main(argv=None):
         args.devices = args.mesh
     D, S = mesh_dims(args)
     args.devices = D * S
+    if args.arch in LM_ARCHS and args.devices > 1:
+        raise NotImplementedError(
+            f"an LM ({args.arch}) on a mesh of {args.devices} ranks is not "
+            f"yet ported to repro_torch: ROADMAP queue 1, item 10c (the "
+            f"reference's own LM fails there on jax 0.9.0, queue 3)")
     dev = resolve_device(args.device)
     transport = mesh_mod.transport_for(dev, args.share_card)
     if dev.type == "cuda" and not args.share_card \

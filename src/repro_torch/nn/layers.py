@@ -1,5 +1,5 @@
-"""Linear layers, MLP towers, LayerNorm and the GELU FFN, functional
-over tensor dicts.
+"""Linear layers, MLP towers, LayerNorm, RMSNorm, RoPE, the GELU FFN and
+the SwiGLU FFN, functional over tensor dicts.
 
 Weights keep the reference layout ``w [d_in, d_out]`` (``y = x @ w + b``),
 so parameters bridge across without transposes.
@@ -181,3 +181,85 @@ def dense_mlp(p, x, act=gelu, *, d_ff=None):
     h = act(linear(p["wi"], _dist.copy_to_model(x)))
     y = _dist.reduce_from_model(h @ p["wo"]["w"].to(h.dtype))
     return y + p["wo"]["b"].to(y.dtype)
+
+
+def rmsnorm_init(d: int, *, dtype=torch.float32, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    """Normalised by the root mean square in fp32 (eps 1e-6), scaled,
+    cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    ms = torch.square(x).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps) * p["scale"]).to(dt)
+
+
+def make_norm(kind: str, d: int, *, device="cuda"):
+    """(init tree, apply function) of a ``"layernorm"`` or ``"rmsnorm"``."""
+    if kind == "layernorm":
+        return layernorm_init(d, device=device), layernorm
+    if kind == "rmsnorm":
+        return rmsnorm_init(d, device=device), rmsnorm
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------- RoPE
+
+_FREQS: dict = {}
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``1 / theta ** (arange(half) / half)`` [half] fp32, the
+    reference's bits: the exponent in fp32, the power rounded once from
+    float64 to fp32 (as XLA's fp32 ``pow`` rounds it; torch's fp32
+    ``pow`` is an ulp off for some entries), the reciprocal in fp32.  At
+    position 524,287 one ulp of a frequency moves its angle by up to
+    0.06 rad.  Made on the CPU once a (head_dim, theta, device)."""
+    key = (int(head_dim), float(theta), str(torch.device(device)))
+    if key not in _FREQS:
+        half = head_dim // 2
+        e = torch.arange(half, dtype=torch.float32) / half
+        _FREQS[key] = (1.0 / (float(theta) ** e.double()).float()).to(device)
+    return _FREQS[key]
+
+
+def rope_angles(positions, head_dim: int, theta: float = 10000.0):
+    """positions [*, S] int -> (sin, cos) [*, S, head_dim/2] fp32."""
+    freq = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, sin, cos):
+    """x [..., S, H, D] rotated by half-split pairs (i, i + D/2), not
+    interleaved; sin/cos [..., S, D/2].  In fp32 where sin is, cast back
+    to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ gated MLP
+
+def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                   dtype=torch.float32, device="cuda"):
+    """SwiGLU (LLaMA / Mixtral / Qwen-style) FFN, drawn in the
+    reference's order: ``wi_gate``, ``wi_up``, ``wo``."""
+    def w(shape):
+        return lecun_normal(gen, shape, dtype=dtype, device=device)
+    return {"wi_gate": w((d_model, d_ff)), "wi_up": w((d_model, d_ff)),
+            "wo": w((d_ff, d_model))}
+
+
+def gated_mlp(p, x, act=torch.nn.functional.silu):
+    """``(act(x @ wi_gate) * (x @ wi_up)) @ wo``, weights cast to ``x``'s
+    dtype."""
+    dt = x.dtype
+    g = act(x @ p["wi_gate"].to(dt))
+    u = x @ p["wi_up"].to(dt)
+    return (g * u) @ p["wo"].to(dt)

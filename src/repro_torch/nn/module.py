@@ -117,3 +117,54 @@ def param_bytes(tree) -> int:
     """Bytes of every tensor in a ``params()`` tree: elements times
     element size (the reference's ``nn.param_bytes``)."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def stack_params(trees: list):
+    """Per-layer trees of tensors (dicts, lists) -> one tree whose leaves
+    are ``[L, ...]`` stacks: the reference's ``nn.stack_params``, which
+    the scanned LM stores its blocks as."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_params([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [stack_params([t[i] for t in trees])
+                for i in range(len(first))]
+    return torch.stack(list(trees))
+
+
+def unstack_params(tree) -> list:
+    """A tree of ``[L, ...]`` stacks -> the L per-layer trees, each leaf
+    a view of its layer (``torch.unbind``: the gradients of the L views
+    reach the stack in one ``stack``, where slicing the stack layer by
+    layer would add an ``[L, ...]`` zero tensor a layer).  Where the
+    reference slices the stack inside ``scan``, the port takes layer i
+    as ``unstack_params(blocks)[i]``."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_params(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack_params(v) for v in tree]
+        return [[p[i] for p in parts] for i in range(len(parts[0]))]
+    return list(torch.unbind(tree, 0))
+
+
+def hold(tree):
+    """A tree of tensors held as modules: a list as a ``ModuleList``, a
+    dict as ``Tensors`` of its tensors with its subtrees as child
+    modules."""
+    if isinstance(tree, list):
+        return torch.nn.ModuleList(hold(v) for v in tree)
+    mod = Tensors({k: v for k, v in tree.items()
+                   if isinstance(v, torch.Tensor)})
+    for k, v in tree.items():
+        if not isinstance(v, torch.Tensor):
+            mod.add_module(k, hold(v))
+    return mod
+
+
+def live(mod):
+    """The tree ``hold`` made, of the live parameters and buffers."""
+    if isinstance(mod, torch.nn.ModuleList):
+        return [live(m) for m in mod]
+    return {**mod.live(), **{k: live(m) for k, m in mod.named_children()}}

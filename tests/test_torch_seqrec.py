@@ -98,12 +98,18 @@ def test_attention_causal_and_padding():
 
 
 def test_attention_options_not_ported_raise():
+    """Nothing of the attention raises since the LM slice ported every
+    option and the KV cache (held against the reference in
+    tests/test_torch_lm_layers.py): the RoPE config that raised here
+    draws its weights, and the cache decodes a token."""
     cfg = T_attn.AttnConfig(d_model=8, n_heads=2, n_kv=2, head_dim=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T_attn.attention_init(torch.Generator(), cfg, device="cpu")
-    for fn in (T_attn.init_cache, T_attn.decode_step):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn(cfg, 2, 8)
+    p = T_attn.attention_init(torch.Generator(), cfg, device="cpu")
+    assert {k: tuple(v.shape) for k, v in p.items()} == {
+        "wq": (8, 2, 4), "wk": (8, 2, 4), "wv": (8, 2, 4), "wo": (2, 4, 8)}
+    cache = T_attn.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    out, cache = T_attn.decode_step(p, cfg, torch.randn(2, 1, 8), cache)
+    assert out.shape == (2, 1, 8) and int(cache["pos"]) == 1
+    assert bool(torch.isfinite(out).all())
 
 
 def _pair(use_kernel, kind="jpq", seed=0):

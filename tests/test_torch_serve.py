@@ -393,7 +393,9 @@ class TestServeCli:
         assert "two-tower-retrieval-jpq: batch=8" in capsys.readouterr().out
 
     # --mesh is ported for every recsys arch (tests/test_torch_sharded.py,
-    # tests/test_torch_ctr_model_axis.py); an LM arch (item 10) is not
+    # tests/test_torch_ctr_model_axis.py); an LM arch is not (it serves
+    # through TransformerLM.prefill / decode_step; the reference's CLI
+    # has no LM path either)
     @pytest.mark.parametrize("flags", [["--mesh", "2", "--arch",
                                         "qwen3-14b"]])
     def test_unported_flags_raise(self, flags):

@@ -312,7 +312,7 @@ def test_cli_flags_and_defaults_match_the_reference():
     assert t == j
 
 
-@pytest.mark.parametrize("flags", [["--arch", "qwen3-14b"],
+@pytest.mark.parametrize("flags", [["--arch", "qwen3-14b", "--devices", "2"],
                                    ["--arch", "fm", "--mesh", "2",
                                     "--model-axis", "2",
                                     "--grad-compression", "int8"],
@@ -321,8 +321,9 @@ def test_cli_flags_and_defaults_match_the_reference():
                                    ["--grad-compression", "bf16",
                                     "--model-axis", "2"]])
 def test_cli_unported_flags_raise(flags, capfd):
-    """What the CLI still refuses: the LM and MACE bundles (item 10).
-    The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
+    """What the CLI still refuses: an LM on more than one rank (item
+    10c; the LMs train on one device, tests/test_torch_lm_train.py) and
+    MACE (item 10b, tests/test_torch_recsys_train.py).  The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
     any arch, on two gloo ranks; ``--mesh``, the TrainSpec flags and
     every arch's ``--model-axis`` train too
     (tests/test_torch_elastic.py, tests/test_torch_model_axis_train.py,
