@@ -349,14 +349,42 @@ vocab, window, rope_theta), depth and batch cut to one card:
      combine gathers), then held at the dispatch gather's shape;
  34. ``launch/train.py --arch A --steps 2`` for each LM arch, the smoke
      config on the card.
+Phases 35-36 run after them, MACE (``models/mace.py``) at its published
+width (2 layers, C = 128, l_max 2, correlation 3, 8 RBFs, fp32, random
+weights from seed 0) on three of ``configs/mace_arch``'s shapes, each
+batch built once on the host and padded as ``SHAPES`` pads it:
+molecule (128 molecules, 4,096 nodes, 8,192 edges, energy head),
+full_graph_sm (Cora-sized, 3,072 / 10,752) and minibatch_lg (1,024 seeds
+sampled with fanouts (15, 10) from a Reddit-sized graph, 169,984 /
+168,960); ogb_products does not fit on one card (item 10e):
+ 35. serving: ``MACE.serve`` 20 times a shape, median ms, peak GB, the
+     card's busy share (``torch.profiler``) and the bag backward's
+     launches a call (14 sums over receivers, and the sum over graphs);
+     molecule's energies within 1e-4 of the largest against the same
+     model on the CPU (plain versions), and under a random proper
+     rotation and a shift of the positions; ``ops.segment_sum`` with the
+     batch's order bit-equal to its plain version on CPU copies at each
+     shape's ``[E, C·(2l+1)]``, l = 0, 1, 2; then ``launch/serve.py
+     --arch mace`` for 5 requests;
+ 36. training through ``Trainer`` and adamw: 4 steps a shape, median
+     step ms, peak GB, losses, the bag backward's launches a step (the
+     15 sums and the 4 sender gathers' backward), one profiled step's
+     busy share and top device items; minibatch_lg run twice from the
+     same seed, the digest of every parameter and moment after every
+     step equal; the segment sum and the gather backward timed at
+     minibatch_lg's ``[E, 640]`` (``bag_bwd_row``: kernels, whole call,
+     sort, plain, ``index_add_``, the library's backward, bounds); then
+     ``launch/train.py --arch mace --steps 2`` and the example
+     ``train_mace_molecule`` at 5 steps.
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
 phase 29's ``{"ctr_model_axis": ...}``, phase 30's
 ``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}``,
-phases 32-34's ``{"lm": ...}`` and the per-kernel numbers (eight
-kernels; rows 3-5b also carry phases 33's ``lm_shape`` and
-``lm_launches``; the two top-k kernels also carry
+phases 32-34's ``{"lm": ...}``, phases 35-36's ``{"mace": ...}`` and
+the per-kernel numbers (eight kernels; rows 3-5b also carry phases
+33's ``lm_shape`` and ``lm_launches``, the bag backward phase 36's
+``mace_shape``; the two top-k kernels also carry
 phase 25's ``server_shape`` and phase 31's ``server_mesh_shape``, rows
 3-5 phase 26's ``elastic_launches`` and ``elastic_round_max_abs_err``
 and phase 30's ``elastic_mesh_launches_per_rank`` and
@@ -2673,7 +2701,8 @@ def plain_bag():
     kernels = ec.embedding_bag, ec.embedding_bag_backward, ec.gather_backward
     ec.embedding_bag = eref.embedding_bag_ref
     ec.embedding_bag_backward = eref.embedding_bag_backward_ref
-    ec.gather_backward = eref.gather_backward_ref
+    ec.gather_backward = (lambda ids, dout, V, order=None:
+                          eref.gather_backward_ref(ids, dout, V))
     try:
         yield
     finally:
@@ -5903,6 +5932,313 @@ def lm_cli_phase(torch, np, dev, smi):
     return rows
 
 
+# ---------------------------------------------------------------- phase 35
+# MACE at its published width on one card: the shapes it runs
+# (ogb_products needs a mesh, item 10e), the serve calls and training
+# steps a shape, and the tolerance of its energies against the CPU and
+# under a rotation or a shift (fp32, of the largest energy)
+MACE_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+MACE_SERVE_CALLS, MACE_STEPS = 20, 4
+MACE_TOL = 1e-4
+
+
+def mace_model(shape, dev):
+    """``configs/mace_arch``'s published config of ``shape``, random fp32
+    weights from seed 0, on ``dev``."""
+    from repro_torch.configs import get_bundle
+    return get_bundle("mace").make_model(device=dev, seed=0, shape=shape)
+
+
+def mace_launches(cfg):
+    """(the bag backward's launches in one forward, in one backward) of a
+    ``MACEConfig``: a sum over receivers a path whose l1 the layer holds
+    (layer 1 holds l = 0 alone), the energy head's sum over graphs; a
+    sender gather's backward an l1 a layer."""
+    from repro_torch.models.equivariant import product_paths
+    paths = product_paths(cfg.lmax)
+    sums = sum(1 for p in paths if p[0] == 0) \
+        + (cfg.n_layers - 1) * len(paths) + (cfg.head == "energy")
+    return sums, 1 + (cfg.n_layers - 1) * (cfg.lmax + 1)
+
+
+def mace_on_cpu(torch, model, shape, batch):
+    """``model``'s serve on the CPU (the plain versions), from its
+    weights."""
+    from repro_torch import bridge
+    from repro_torch.train.optimizer import tree_map
+    cpu = mace_model(shape, "cpu")
+    bridge.load_values(cpu, tree_map(lambda t: t.detach().cpu().numpy(),
+                                     model.params()))
+    with torch.inference_mode():
+        return cpu.serve(cpu.params(), batch)
+
+
+def mace_serve_phases(torch, np, dev, smi, batches):
+    """Phase 35: ``MACE.serve`` at full width on each shape (see the
+    module docstring).  Returns {shape: row, "cli": ...}."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.launch import serve as serve_mod
+    t0 = phase("phase 35: MACE serving at full width (C = 128): "
+               + ", ".join(MACE_SHAPES))
+    gen = torch.Generator(device=dev).manual_seed(35)
+    out = {}
+    for shape in MACE_SHAPES:
+        model = mace_model(shape, dev)
+        params, cfg = model.params(), model.cfg
+        host = {k: v for k, v in batches[shape].items() if k != "labels"}
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        N, E = host["positions"].shape[0], host["senders"].shape[0]
+        sums, _ = mace_launches(cfg)
+
+        def call(_=None, batch=batch):
+            return model.serve(params, batch)
+
+        with torch.inference_mode():
+            got = call()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ec.reset_launches()
+            lat = []
+            for _ in range(MACE_SERVE_CALLS):
+                t = time.perf_counter()
+                got = call()
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+            launches = ec.launches["embedding_bag_backward"]
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            busy, top = device_profile(torch, call, range(3), top_n=4)
+        check(busy > 0, f"the profiler traced no device time ({shape})")
+        check(launches == sums * MACE_SERVE_CALLS,
+              f"{shape}: the bag backward launched {launches} times in "
+              f"{MACE_SERVE_CALLS} calls, not {sums} a call")
+        want = ((cfg.n_graphs,) if cfg.head == "energy"
+                else (N, cfg.n_classes))
+        check(tuple(got.shape) == want and bool(torch.isfinite(got).all()),
+              f"{shape}: output {tuple(got.shape)} (want {want}) or not "
+              f"finite")
+        ms = float(np.median(lat))
+        row = {"nodes": N, "edges": E, "d_feat": cfg.d_feat,
+               "head": cfg.head, "median_ms": ms,
+               "p99_ms": float(np.percentile(lat, 99)), "peak_gb": peak,
+               "busy_ms": busy, "busy_share": busy / ms, "top": top,
+               "sums_per_call": sums}
+        # the segment sum with the batch's order at [E, C(2l+1)], against
+        # its plain version on CPU copies, bit for bit
+        recv = batch["receivers"]
+        order = eops.segment_order(recv, N)
+        for l in range(cfg.lmax + 1):
+            data = torch.randn((E, cfg.channels * (2 * l + 1)),
+                               generator=gen, device=dev)
+            kern = eops.segment_sum(data, recv, N, order)
+            plain = eref.embedding_bag_backward_ref(
+                recv.cpu().long()[:, None], None, data.cpu(), N)
+            check(bits_equal(kern.cpu(), plain),
+                  f"{shape}: segment_sum != plain at [{E}, "
+                  f"{data.shape[1]}]")
+        del order, data, kern, plain
+        extra = ""
+        if shape == "molecule":
+            # the card against the CPU, and invariance under a proper
+            # rotation and a shift of the positions
+            scale = float(got.abs().max())
+            cpu_err = float((got.cpu() - mace_on_cpu(torch, model, shape,
+                                                     host)).abs().max())
+            rng = np.random.default_rng(35)
+            Q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            if np.linalg.det(Q) < 0:
+                Q[:, 0] *= -1
+            pos = host["positions"]
+            with torch.inference_mode():
+                rot = model.serve(params, dict(batch, positions=torch.as_tensor(
+                    pos @ Q.T.astype(np.float32), device=dev)))
+                shift = model.serve(params, dict(batch, positions=torch.as_tensor(
+                    pos + np.array([5.0, -2.0, 1.0], np.float32), device=dev)))
+            rot_err = float((rot - got).abs().max())
+            shift_err = float((shift - got).abs().max())
+            for what, err in (("the CPU", cpu_err), ("a rotation", rot_err),
+                              ("a shift", shift_err)):
+                check(err <= MACE_TOL * scale,
+                      f"molecule energies against {what}: max |err| {err} "
+                      f"> {MACE_TOL} x {scale}")
+            row.update(largest_energy=scale, cpu_max_abs_err=cpu_err,
+                       rotation_max_abs_err=rot_err,
+                       shift_max_abs_err=shift_err)
+            extra = (f"; energies vs the CPU {cpu_err:.2e}, rotated "
+                     f"{rot_err:.2e}, shifted {shift_err:.2e} (largest "
+                     f"{scale:.3f})")
+        out[shape] = row
+        print(f"   {shape} (N={N}, E={E}, F={cfg.d_feat}): serve median "
+              f"{ms:.2f} ms (p99 {row['p99_ms']:.2f}), peak {peak:.2f} GB, "
+              f"busy {busy:.2f} ms ({100 * busy / ms:.0f}%; "
+              + "; ".join(f"{k} {v:.2f}" for k, v in top)
+              + f"), bag backward {sums} a call; segment_sum bit-equal "
+              f"to plain at l = 0..{cfg.lmax}{extra} on {smi}")
+        del model, params, batch, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    ec.reset_launches()
+    res = serve_mod.main(["--arch", "mace", "--requests", "5"])
+    n = ec.launches["embedding_bag_backward"]
+    check(res["path"] == "serve" and n == 15 * 6,
+          f"serve CLI: path {res['path']}, bag backward launches {n}, not "
+          f"15 in each of 6 calls")
+    out["cli"] = {"p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+                  "launches": n}
+    done(t0)
+    return out
+
+
+# ---------------------------------------------------------------- phase 36
+def _digest_steps(Trainer, torch):
+    """A Trainer whose plain step records the digest of the parameters
+    and both moments after each step."""
+    class Digest(Trainer):
+        def _build_step(self):
+            step = super()._build_step()
+            self.digests = []
+
+            def stepped(values, opt, batch, rng=None):
+                nv, no, mets = step(values, opt, batch, rng)
+                self.digests.append(state_digest(torch, [nv, no["m"],
+                                                         no["v"]]))
+                return nv, no, mets
+            return stepped
+    return Digest
+
+
+def mace_train_run(torch, np, model, batch, steps):
+    """``steps`` Trainer steps (adamw, lr 1e-3) of ``model`` on the fixed
+    device ``batch``, the bag kernels' counters and the peak reset just
+    before.  Returns (losses, median ms a step after the first, peak GB,
+    bag backward launches, digests after each step)."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    tr = _digest_steps(Trainer, torch)(
+        model, OptConfig(lr=1e-3),
+        TrainConfig(steps=steps, log_every=1, eval_every=0),
+        data_fn=lambda s: batch)
+    ec.reset_launches()
+    torch.cuda.reset_peak_memory_stats(model.device)
+    _, hist = tr.run(params=model.params())
+    rows = [h for h in hist if "loss" in h]
+    return ([h["loss"] for h in rows],
+            float(np.median([h["sec"] for h in rows[1:]])) * 1e3,
+            torch.cuda.max_memory_allocated(model.device) / 1e9,
+            ec.launches["embedding_bag_backward"], tr.digests)
+
+
+def mace_train_phases(torch, np, dev, smi, batches):
+    """Phase 36: training at full width (see the module docstring).
+    Returns (summary, the bag backward's rows at minibatch_lg)."""
+    from repro_torch.configs.mace_arch import model_cfg
+    from repro_torch.examples import train_mace_molecule
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn.module import tree_leaves
+    t0 = phase(f"phase 36: MACE training at full width (C = 128), "
+               f"{MACE_STEPS} adamw steps a shape; minibatch_lg twice")
+    out = {}
+    for shape in MACE_SHAPES:
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches[shape].items()}
+        runs = []
+        for _ in range(2 if shape == "minibatch_lg" else 1):
+            model = mace_model(shape, dev)
+            runs.append(mace_train_run(torch, np, model, batch, MACE_STEPS))
+            if len(runs) == 1:
+                params = model.params()
+                floats = tree_leaves(params)
+
+                def step(_):
+                    loss, _ = model.train_loss(params, batch)
+                    torch.autograd.grad(loss, floats, allow_unused=True)
+                busy, top = device_profile(torch, step, range(1), top_n=5)
+                check(busy > 0, f"the profiler traced no device time "
+                      f"({shape} step)")
+                del params, floats
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        losses, ms, peak, launches, digests = runs[0]
+        sums, gathers = mace_launches(model_cfg(shape))
+        check(len(losses) == MACE_STEPS and all(np.isfinite(losses)),
+              f"{shape}: losses {losses}")
+        check(launches == MACE_STEPS * (sums + gathers),
+              f"{shape}: the bag backward launched {launches} times in "
+              f"{MACE_STEPS} steps, not {sums} + {gathers} a step")
+        row = {"losses": losses, "median_step_ms": ms, "peak_gb": peak,
+               "busy_ms": busy, "busy_share": busy / ms, "top": top,
+               "launches_per_step": {"segment_sum": sums,
+                                     "gather_backward": gathers}}
+        if len(runs) == 2:
+            l2, ms2, _, _, d2 = runs[1]
+            check(losses == l2 and digests == d2 and len(digests)
+                  == MACE_STEPS,
+                  f"{shape}: the two runs differ: losses {losses} vs {l2}")
+            row.update(bit_identical=True, step_ms_run2=ms2,
+                       digest=digests[-1])
+        out[shape] = row
+        print(f"   {shape}: losses {' '.join(f'{v:.4f}' for v in losses)}; "
+              f"step {ms:.1f} ms, peak {peak:.2f} GB, one step busy "
+              f"{busy:.1f} ms ({100 * busy / ms:.0f}%; "
+              + "; ".join(f"{k} {v:.2f}" for k, v in top)
+              + f"); bag backward {sums} + {gathers} a step"
+              + (f"; run twice, every parameter and moment bit-identical "
+                 f"after every step ({digests[-1][:12]}; step "
+                 f"{row['step_ms_run2']:.1f} ms)" if len(runs) == 2 else "")
+              + f" on {smi}")
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the two kernels' calls at minibatch_lg's [E, C x 5]
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    host = batches["minibatch_lg"]
+    N = host["positions"].shape[0]
+    recv = torch.as_tensor(host["receivers"], device=dev).long()
+    send = torch.as_tensor(host["senders"], device=dev).long()
+    gen = torch.Generator(device=dev).manual_seed(36)
+    dout = torch.randn((recv.shape[0], 128 * 5), generator=gen, device=dev)
+    kernels = {
+        "segment_sum": bag_bwd_row(
+            torch, recv[:, None].contiguous(), None, dout, N, 10,
+            "MACE sum over receivers (minibatch_lg, l = 2)", smi, clock_hz),
+        "gather_backward": bag_bwd_row(
+            torch, send[:, None].contiguous(), None, dout, N, 10,
+            "MACE sender gather's backward (minibatch_lg, l = 2)", smi,
+            clock_hz, gather=True),
+        "launches_per_step": out["minibatch_lg"]["launches_per_step"]}
+    del recv, send, dout
+    torch.cuda.empty_cache()
+
+    ec.reset_launches()
+    hist = train_cli.main(["--arch", "mace", "--steps", "2"])
+    losses = [h["loss"] for h in hist if "loss" in h]
+    n = ec.launches["embedding_bag_backward"]
+    check(len(losses) == 2 and all(np.isfinite(losses)) and n == 2 * 19,
+          f"train CLI: losses {losses}, bag backward launches {n}")
+    ec.reset_launches()
+    ex = train_mace_molecule.main(["--steps", "5"])
+    n_ex = ec.launches["embedding_bag_backward"]
+    # 5 steps of 19, then the invariance check's two serve calls of 15
+    check(all(np.isfinite(ex["losses"])) and ex["rotation_rel_err"] < 1e-3
+          and n_ex == 5 * 19 + 2 * 15, f"example: {ex}, launches {n_ex}")
+    out["cli"] = {"losses": losses, "launches": n}
+    out["example"] = {**ex, "launches": n_ex}
+    print(f"   launch/train.py --arch mace --steps 2: losses {losses}, bag "
+          f"backward {n}; the example: losses {ex['losses'][0]:.4f} -> "
+          f"{ex['losses'][-1]:.4f}, rotation rel err "
+          f"{ex['rotation_rel_err']:.2e}, bag backward {n_ex}")
+    done(t0)
+    return out, kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6287,6 +6623,20 @@ def main() -> int:
     lm = lm_serve_phases(torch, np, dev, smi)
     lm["train"], lm_kernels = lm_train_phases(torch, np, dev, smi)
     lm["cli"] = lm_cli_phase(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = phase("MACE's batches on the host: " + ", ".join(MACE_SHAPES))
+    from repro_torch.configs import mace_arch
+    batches = {shape: mace_arch.make_batch(shape, seed=0)
+               for shape in MACE_SHAPES}
+    done(t0)
+    mace = {"serve": mace_serve_phases(torch, np, dev, smi, batches)}
+    mace["train"], mace_kernels = mace_train_phases(torch, np, dev, smi,
+                                                    batches)
+    del batches
+    for entry in kernels:                 # phase 36's shapes
+        if entry["name"] == "embedding_bag_backward":
+            entry["mace_shape"] = mace_kernels
     for entry in kernels:                 # phases 32-34: the LM's shapes
         if entry["name"] in lm_kernels:
             entry["lm_shape"] = lm_kernels[entry["name"]]
@@ -6349,6 +6699,7 @@ def main() -> int:
     print(json.dumps({"elastic_mesh": em["runs"], "card": smi}))
     print(json.dumps({"server_mesh": srvm["runs"], "card": smi}))
     print(json.dumps({"lm": lm, "card": smi}))
+    print(json.dumps({"mace": mace, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

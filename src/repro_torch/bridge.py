@@ -24,6 +24,10 @@ stacks or a list of layers, each with ``ln1``, ``ln2``,
 or ``moe.{router,wi_gate,wi_up,wo}``, then ``ln_f`` and ``lm_head``;
 ``load_caches`` carries its KV caches (``k``, ``v``, ``pos``), so a
 stream decoded by the reference goes on in the port from any position.
+MACE's tree carries over too (``models/mace.py``): ``embed`` (``w``,
+``b``), ``layers`` as a list, each with ``radial.p<l1><l2><l3>.w`` a
+path, ``mix_a``, ``msg`` and ``res`` ``.l<l>`` an irrep order and
+``prod_w.o<order>_p<l1><l2><l3>``, then the ``readout`` MLP.
 
 On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
 catalogue leaf to this rank's rows (``dist.local_rows``), which the

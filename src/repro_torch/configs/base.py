@@ -11,9 +11,10 @@ class ArchBundle:
     """``make_model(device, seed)`` builds the full-width model;
     ``make_smoke(device, seed)`` a small one plus a request template
     (a dict of numpy arrays), as ``(model, batch)``.  ``config``: an LM
-    bundle's published ``LMConfig``."""
+    bundle's published ``LMConfig``; MACE's at its ``molecule`` shape
+    (``configs/mace_arch.model_cfg`` gives each shape's)."""
     name: str
-    family: str                          # recsys | lm
+    family: str                          # recsys | lm | gnn
     make_model: Callable[..., Any]
     make_smoke: Callable[..., tuple]
     description: str = ""

@@ -1,15 +1,12 @@
-"""--arch registry of the port: the five LM archs (family ``"lm"``) and
+"""--arch registry of the port: the five LM archs (family ``"lm"``),
 the eight recsys bundles (the CTR and two-tower archs, full and
-``-jpq``).  ``mace`` is the reference's one arch still to port: it
-raises, naming ROADMAP queue 1, item 10b."""
+``-jpq``) and ``mace`` (family ``"gnn"``): every arch of the
+reference's registry."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 _LOADERS: Dict[str, Callable] = {}
-UNPORTED = {"mace": "ROADMAP queue 1, item 10b (MACE: models/mace.py, "
-                    "models/equivariant.py, data/graphs.py, "
-                    "configs/mace_arch.py)"}
 
 
 def _lm(module: str):
@@ -42,14 +39,19 @@ for _base, _fn in [("two-tower-retrieval", "two_tower_bundle"),
     _LOADERS[_base + "-jpq"] = _recsys(_fn, "jpq")
 
 
+def _mace():
+    from repro_torch.configs import mace_arch
+    return mace_arch.bundle()
+
+
+_LOADERS["mace"] = _mace
+
+
 def list_archs():
     return sorted(_LOADERS)
 
 
 def get_bundle(name: str):
-    if name in UNPORTED:
-        raise NotImplementedError(f"arch {name!r} is not yet ported to "
-                                  f"repro_torch: {UNPORTED[name]}")
     if name not in _LOADERS:
         raise KeyError(f"unknown arch {name!r}; ported so far: "
                        f"{list_archs()}")

@@ -26,7 +26,8 @@ long-run kernel only where a run is long, and adds one to
 ``launches["embedding_bag_backward"]``; ``embedding_bag_backward``
 raises on the flag before any kernel runs.  ``gather_backward`` is the
 gradient of a plain gather ``table[ids]``: the same kernels at L = 1
-with unit weights, a negative id counting from the end.
+with unit weights, a negative id counting from the end; with an order
+made beforehand it reads nothing back to the host.
 ``block_backward`` is the backward on a rank's row block, whose
 foreign slots carry the id V and are skipped.
 """
@@ -270,12 +271,17 @@ def block_backward(ids, weights, dout, V: int):
     return launch_backward(ids, weights, dout, V)[0]
 
 
-def gather_backward(ids, dout, V: int):
+def gather_backward(ids, dout, V: int, order=None):
     """The gradient of ``table[ids]`` for a [V, d] table: ids (any shape;
     a negative id counts from the end), dout [*ids.shape, d] -> dtable
-    [V, d], the backward kernels at L = 1 with unit weights."""
+    [V, d], the backward kernels at L = 1 with unit weights.  ``order``:
+    ``sort_ids(ids, V)`` made beforehand and checked by the caller (a
+    batch's order, shared by several calls on the same ids), else made
+    and checked here."""
     flat = ids.reshape(-1, 1)
+    flat = flat if flat.is_contiguous() else flat.contiguous()
     d = dout.shape[-1]
-    return embedding_bag_backward(
-        flat if flat.is_contiguous() else flat.contiguous(), None,
-        dout.reshape(-1, d).contiguous(), V, wrap=True)
+    dout = dout.reshape(-1, d).contiguous()
+    if order is None:
+        return embedding_bag_backward(flat, None, dout, V, wrap=True)
+    return launch_backward(flat, None, dout, V, order, wrap=True)[0]

@@ -20,8 +20,17 @@ from the same backward kernel (``TableGather``: L = 1, unit weights, a
 negative id counting from the end as indexing reads it).  Its forward
 is PyTorch's indexing, the same bits; the reference computes the gather
 outside any Pallas kernel.  The tables of ``core/full``, the centroids
-of ``core/jpq`` (``use_kernel=False``) and the MoE's dispatch and
-combine (``nn/moe.py``) train through it.
+of ``core/jpq`` (``use_kernel=False``), the MoE's dispatch and combine
+(``nn/moe.py``) and MACE's edge gathers (``models/mace.py``) train
+through it.
+
+``segment_sum`` is ``jax.ops.segment_sum`` for ids in range: the same
+backward kernels at L = 1 with unit weights compute it forward (its
+backward is the gather ``dout[ids]``), MACE's sums over receivers and
+over graphs.  ``segment_order`` makes the kernels' index preparation
+once for a batch's ids, for every ``segment_sum`` and ``gather`` on
+them, so the sort and its host synchronisation run once a batch and not
+once a call.
 
 ``embedding_bag_block`` and ``gather_block`` are the two on a row block
 of a table (a rank's rows on a ``"model"`` mesh, ``core/sharded``):
@@ -68,26 +77,61 @@ class EmbeddingBag(torch.autograd.Function):
 
 
 class TableGather(torch.autograd.Function):
-    """table [V, d], ids int64 (any shape) -> table[ids]; the gradient
-    flows to ``table`` alone.  A table in another float dtype than fp32
-    (a bf16 activation gathered by the MoE dispatch) has its gradient
-    summed in fp32 and rounded once to the table's dtype."""
+    """table [V, d], ids int64 (any shape), order (``segment_order`` of
+    the ids, or None) -> table[ids]; the gradient flows to ``table``
+    alone.  A table in another float dtype than fp32 (a bf16 activation
+    gathered by the MoE dispatch) has its gradient summed in fp32 and
+    rounded once to the table's dtype."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, order):
         ctx.save_for_backward(ids)
         ctx.V = table.shape[0]
         ctx.dtype = table.dtype
+        ctx.order = order
         return table[ids]
 
     @staticmethod
     def backward(ctx, dout):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (ids,) = ctx.saved_tensors
-        impl = _cuda.gather_backward if dout.is_cuda \
-            else _ref.gather_backward_ref
-        return impl(ids, dout.float(), ctx.V).to(ctx.dtype), None
+        if dout.is_cuda:
+            grad = _cuda.gather_backward(ids, dout.float(), ctx.V, ctx.order)
+        else:
+            grad = _ref.gather_backward_ref(ids, dout.float(), ctx.V)
+        return grad.to(ctx.dtype), None, None
+
+
+def _segment_sum(data, ids, n, order):
+    """data [E, d] f32, ids [E] -> [n, d]: the backward kernels at L = 1
+    with unit weights on the card (``order`` made here when None), the
+    plain ``index_add_`` in ascending position on the CPU."""
+    ids = ids.reshape(-1, 1)
+    if not data.is_cuda:
+        return _ref.embedding_bag_backward_ref(ids, None, data, n)
+    ids = ids if ids.is_contiguous() else ids.contiguous()
+    if order is None:
+        return _cuda.embedding_bag_backward(ids, None, data, n)
+    return _cuda.launch_backward(ids, None, data, n, order)[0]
+
+
+class SegmentSum(torch.autograd.Function):
+    """data [E, d], ids [E], n, order -> [n, d] with ``out[v] = sum_{e:
+    ids[e] = v} data[e]``; the gradient flows to ``data`` alone, as
+    ``dout[ids]``."""
+
+    @staticmethod
+    def forward(ctx, data, ids, n, order):
+        ctx.save_for_backward(ids)
+        return _segment_sum(data, ids, n, order)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (ids,) = ctx.saved_tensors
+        return dout[ids.long()], None, None, None
 
 
 class BlockBag(torch.autograd.Function):
@@ -184,16 +228,55 @@ def gather_block(table, ids, own):
                                                       device=table.device))
 
 
-def gather(table, ids):
+def gather(table, ids, order=None):
     """``table[ids]`` for a [V, d] table and integer ids of any shape;
-    where the table takes a gradient, through ``TableGather``."""
+    where the table takes a gradient, through ``TableGather``.
+    ``order``: ``segment_order(ids, V)``, shared by every call on these
+    ids (else the backward sorts them itself)."""
     ids = ids.long()
     if table.requires_grad and torch.is_grad_enabled():
         if table.dim() != 2:
             raise ValueError(f"gather takes a [V, d] table, got "
                              f"{tuple(table.shape)}")
-        return TableGather.apply(table, ids)
+        return TableGather.apply(table, ids, order)
     return table[ids]
+
+
+def segment_order(ids, n: int):
+    """The order the backward kernels walk for ids [E] over n rows, made
+    once for a batch and handed to every ``segment_sum`` and ``gather``
+    on the same ids: ``cuda.sort_ids`` on the card (one host
+    synchronisation; an id outside [0, n) raises), None on the CPU,
+    where the plain versions need none."""
+    if not ids.is_cuda:
+        return None
+    order = _cuda.sort_ids(ids if ids.is_contiguous() else ids.contiguous(),
+                           n)
+    if order.n_bad:
+        raise IndexError(f"segment ids outside [0, {n})")
+    return order
+
+
+def segment_sum(data, ids, n: int, order=None):
+    """``jax.ops.segment_sum(data, ids, n)`` for ids in [0, n): data [E,
+    ...] -> [n, ...], each row +0.0 plus its terms in ascending position
+    (deterministic: no float atomics).  On the card the embedding_bag
+    backward kernels at L = 1 with unit weights, on the CPU their plain
+    version; differentiable in ``data`` (``SegmentSum``, whose backward
+    is the gather ``dout[ids]``).  ``order``: ``segment_order(ids, n)``
+    (else sorted here, one host synchronisation a call)."""
+    E = data.shape[0]
+    if ids.shape != (E,):
+        raise ValueError(f"ids {tuple(ids.shape)} != ({E},)")
+    if order is not None and (order.V != n or order.perm.shape != (E,)):
+        raise ValueError("order must be segment_order(ids, n)")
+    flat = data.reshape(E, -1)
+    flat = flat if flat.is_contiguous() else flat.contiguous()
+    if data.requires_grad and torch.is_grad_enabled():
+        out = SegmentSum.apply(flat, ids, n, order)
+    else:
+        out = _segment_sum(flat, ids, n, order)
+    return out.reshape((n,) + tuple(data.shape[1:]))
 
 
 def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):

@@ -8,7 +8,12 @@
 Builds the arch's smoke model, then drives fresh-id request batches
 through it and reports latency percentiles: a retrieval arch (one with
 ``bind_engine``/``retrieve``) through its bound retrieval engine, any
-other (FM, DLRM-RM2, DIEN) through ``model.serve`` (``path=serve``).
+other (FM, DLRM-RM2, DIEN, MACE) through ``model.serve``
+(``path=serve``).  MACE's requests are the reference's: every field,
+node or edge, takes ``--batch-size`` rows, its indices re-drawn over
+the template's range, so a batch smaller than the template's 32 nodes
+names nodes it does not hold and raises (the reference reads such a
+sender as NaN and drops such a receiver's message).
 Runs on ``--device cuda`` (the default; the kernels) or ``--device cpu``
 (their plain versions).  ``--fused/--no-fused``, ``--prune``, ``--perm``,
 ``--warm [decay]``, ``--head semantic`` (constrained beam decoding over
@@ -16,7 +21,8 @@ the codes, ``path=semantic[@W]``) and ``--beams W`` are the reference's
 retrieval flags; ``--ckpt-dir`` restores the parameters from the latest
 checkpoint there before serving.
 
-``--mesh S`` serves any arch from a catalogue row-sharded S ways, as
+``--mesh S`` serves any arch but MACE (ROADMAP item 10e) from a
+catalogue row-sharded S ways, as
 the reference's ``--mesh S`` does on S host devices: ``serve_mesh``
 spawns S ranks as a ``(1, S)`` mesh (``launch.mesh.spawn``).  Each rank
 builds the model from the seed, keeps its rows of every catalogue leaf
@@ -286,9 +292,14 @@ def _retrieval(model, params, template, args, sync):
     return dispatch, account, finish
 
 
-def _check_arch(arch: str) -> None:
+def _check_arch(arch: str, mesh: bool = False) -> None:
     from repro_torch.configs import get_bundle, list_archs
     from repro_torch.configs.registry import LM_ARCHS
+    if mesh and arch == "mace":
+        raise NotImplementedError(
+            "MACE under --mesh is not yet ported to repro_torch: ROADMAP "
+            "queue 1, item 10e (the reference's own --mesh run of MACE "
+            "fails on jax 0.9.0, queue 3)")
     if arch in LM_ARCHS:
         raise NotImplementedError(
             f"arch {arch!r} is an LM: serving it through this CLI is not "
@@ -296,7 +307,7 @@ def _check_arch(arch: str) -> None:
             f"TransformerLM has no serve); the port serves an LM through "
             f"TransformerLM.prefill / decode_step")
     if arch not in list_archs():
-        get_bundle(arch)          # raises: MACE naming its item, or unknown
+        get_bundle(arch)          # raises: unknown
 
 
 def smoke_model(arch: str, device):
@@ -353,7 +364,7 @@ def serve_mesh(args, *, make=None, keep_outputs: bool = False,
     from repro_torch import resolve_device
     from repro_torch.launch import mesh as mesh_mod
     if make is None:
-        _check_arch(args.arch)
+        _check_arch(args.arch, mesh=True)
     S = int(args.mesh)
     dev = resolve_device(args.device)
     if dev.type == "cuda":

@@ -1,8 +1,8 @@
 """Training entrypoint: a sequential recommender on the synthetic
 sequence pipeline, with a RecJPQ (or full) item table, or an arch of
 the registry on its reduced smoke config: a CTR arch (two-tower, FM,
-DLRM-RM2, DIEN; full or ``-jpq``) or an LM (mixtral-8x7b, olmoe-1b-7b,
-stablelm-12b, qwen3-14b, stablelm-1.6b).
+DLRM-RM2, DIEN; full or ``-jpq``), an LM (mixtral-8x7b, olmoe-1b-7b,
+stablelm-12b, qwen3-14b, stablelm-1.6b) or MACE.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 300 [--device cpu] [--devices 2] \
@@ -25,7 +25,9 @@ trains it, its bundle's ``make_smoke`` model on the fixed template
 batch, with no eval; its pooled lookups train through the embedding_bag
 kernels on the card.  An LM arch trains so too, on one device: its
 token gather and the MoE's dispatch and combine gathers take their
-gradients from the embedding_bag backward kernel.
+gradients from the embedding_bag backward kernel.  So does MACE, on one
+device: its sums over receivers and graphs run through the same
+kernels forward, and its sender gathers take their gradients from them.
 
 The TrainSpec flag cluster (``train.spec.add_train_spec_args``:
 ``--grad-compression`` / ``--grad-accum-shards`` / ``--fsdp`` /
@@ -53,7 +55,8 @@ model, the S ranks of a data column run the same rounds, and the
 exchange runs over the ``"data"`` group, so the run is the ``(D, 1)``
 run's, bit for bit.  Not yet ported, and raising: an LM on more than
 one rank (ROADMAP queue 1, item 10c; the reference's own LM fails on a
-mesh) and MACE (item 10b).
+mesh) and MACE on more than one rank (item 10e; the reference's own
+MACE fails on a mesh too).
 """
 from __future__ import annotations
 
@@ -247,6 +250,11 @@ def main(argv=None):
             f"an LM ({args.arch}) on a mesh of {args.devices} ranks is not "
             f"yet ported to repro_torch: ROADMAP queue 1, item 10c (the "
             f"reference's own LM fails there on jax 0.9.0, queue 3)")
+    if args.arch == "mace" and args.devices > 1:
+        raise NotImplementedError(
+            f"MACE on a mesh of {args.devices} ranks is not yet ported to "
+            f"repro_torch: ROADMAP queue 1, item 10e (the reference's own "
+            f"MACE fails there on jax 0.9.0, queue 3)")
     dev = resolve_device(args.device)
     transport = mesh_mod.transport_for(dev, args.share_card)
     if dev.type == "cuda" and not args.share_card \

@@ -363,7 +363,8 @@ def accumulate_grads(loss_fn, n: int, values, batch, rng=None,
     sequence into fp32 accumulators, slice i drawing from ``rng(i)``
     (``rng(None)`` when n == 1; no generator when ``rng`` is None); the
     metrics are the slices' mean.  The body of the plain and microbatch
-    steps."""
+    steps.  With n == 1 the batch is taken whole, so its fields may have
+    different leading sizes (a graph's nodes and edges)."""
     import torch
 
     from repro_torch.nn.module import tree_leaves
@@ -372,13 +373,14 @@ def accumulate_grads(loss_fn, n: int, values, batch, rng=None,
         floats = [x for x in tree_leaves(values)
                   if torch.is_floating_point(x)]
     rows = {int(v.shape[0]) for v in batch.values()}
-    if len(rows) != 1 or next(iter(rows)) % n:
+    if n > 1 and (len(rows) != 1 or next(iter(rows)) % n):
         raise ValueError(f"microbatches={n} must divide the batch into "
                          f"equal slices; batch rows {sorted(rows)}")
     size = next(iter(rows)) // n
     acc, slices = None, []
     for i in range(n):
-        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        mb = batch if n == 1 else {k: v[i * size:(i + 1) * size]
+                                   for k, v in batch.items()}
         args = (values, mb)
         if rng is not None:
             args += (rng(i if n > 1 else None),)

@@ -55,7 +55,9 @@ def test_port_files_found():
                 ("serve", "replica.py"), ("serve", "server.py"),
                 ("train", "spec.py"), ("dist", "__init__.py"),
                 ("dist", "rules.py"), ("dist", "compression.py"),
-                ("launch", "mesh.py")):
+                ("launch", "mesh.py"), ("models", "mace.py"),
+                ("models", "equivariant.py"), ("data", "graphs.py"),
+                ("configs", "mace_arch.py")):
         assert os.path.join(PORT, *mod) in files
 
 

@@ -300,5 +300,4 @@ def test_full_and_smoke_configs_equal_the_reference():
     from repro_torch.configs import lm_common as T_common
     for shape in ("TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K"):
         assert getattr(J_common, shape) == getattr(T_common, shape)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        T_bundle("mace")
+    assert T_bundle("mace").family == "gnn"

@@ -270,14 +270,15 @@ def test_cli_microbatches_and_checkpoints_for_a_ctr_arch(tmp_path):
 
 
 def test_cli_refuses_an_unported_arch():
-    """Every arch of the reference's registry is ported but MACE, which
-    raises naming its ROADMAP item (10b)."""
+    """Every arch of the reference's registry is ported (MACE since item
+    10b, tests/test_torch_mace.py), so the CLI refuses only a name
+    neither registry knows."""
     from repro_torch.launch import train as T_train
     unported = [a for a in J_registry.list_archs() if a not in list_archs()]
-    assert unported == ["mace"]
+    assert unported == []
     args = T_train.build_parser().parse_args(["--device", "cpu", "--arch",
-                                              unported[0]])
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+                                              "no-such-arch"])
+    with pytest.raises(KeyError, match="unknown arch"):
         T_train.build(args)
 
 

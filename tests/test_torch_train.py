@@ -323,7 +323,8 @@ def test_cli_flags_and_defaults_match_the_reference():
 def test_cli_unported_flags_raise(flags, capfd):
     """What the CLI still refuses: an LM on more than one rank (item
     10c; the LMs train on one device, tests/test_torch_lm_train.py) and
-    MACE (item 10b, tests/test_torch_recsys_train.py).  The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
+    MACE on more than one rank (item 10e; MACE trains on one device,
+    tests/test_torch_mace.py).  The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
     any arch, on two gloo ranks; ``--mesh``, the TrainSpec flags and
     every arch's ``--model-axis`` train too
     (tests/test_torch_elastic.py, tests/test_torch_model_axis_train.py,
