@@ -325,8 +325,8 @@ Phases 32-34 run last, the LM family (``models/lm.py``) at every
 published width (d_model, heads, n_kv, head_dim, d_ff, experts, top_k,
 vocab, window, rope_theta), depth and batch cut to one card:
  32. serving, bf16, ``no_grad``: each of mixtral-8x7b (4 layers),
-     olmoe-1b-7b (16), stablelm-1.6b (24), qwen3-14b (8), stablelm-12b
-     (8) runs ``prefill`` at S = 32,768, B = 1, and 64 ``decode_step``s
+     olmoe-1b-7b (8 of 16), stablelm-1.6b (8 of 24; both cut in PR 30
+     for phases 37-38's time), qwen3-14b (8), stablelm-12b (8) runs ``prefill`` at S = 32,768, B = 1, and 64 ``decode_step``s
      against a random bf16 cache of 32,768 positions (B = 128, 4, 2,
      16, 8), ms, tokens/s and peak GB each; mixtral then decodes
      long_500k's last 8 positions from a ring cache at 524,280 whose
@@ -337,7 +337,8 @@ vocab, window, rope_theta), depth and batch cut to one card:
      the full forward's, mixtral at capacity_factor E / top_k (nothing
      drops; the drops at the configured 1.25 counted beside it);
  33. training through ``Trainer`` and adamw, bf16: (a) stablelm-1.6b at
-     its 24 layers, full table, B = 2, S = 4,096, 3 steps (step 0 near
+     4 of its 24 layers (cut in PR 30 for phases 37-38's time), full
+     table, B = 2, S = 4,096, 3 steps (step 0 near
      ln V, the token gather's bag backward every step, then held at the
      step's shape); (b) the same with a RecJPQ vocabulary (m 8, b 256,
      ``use_kernel=True``): jpq_scores and jpq_lookup, forward and
@@ -376,15 +377,56 @@ sampled with fanouts (15, 10) from a Reddit-sized graph, 169,984 /
      sort, plain, ``index_add_``, the library's backward, bounds); then
      ``launch/train.py --arch mace --steps 2`` and the example
      ``train_mace_molecule`` at 5 steps.
+Phases 37-38 run last, the LMs on a ``(data, model)`` mesh at full
+width (random weights from seed 0, depth cut), the ranks time-sharing
+the one card (``launch.mesh.spawn`` with ``share_card``: gloo staged
+through host memory), each against one card on the same weights and
+tokens:
+ 37. training through ``Trainer`` and adamw, bf16: (a) stablelm-1.6b at
+     2 layers, full table, (1, 2), B = 2, S = 4,096, 3 steps: losses
+     finite, steps 0 and 1 within 1e-4 and 3e-4 relative of one card's
+     ``Trainer`` on the same weights and batch, the token gather's
+     backward (the bag backward, on the rank's vocabulary block) every
+     step on each rank; (b) the same with a RecJPQ vocabulary (m 8, b
+     256, ``use_kernel=True``): jpq_scores forward and backward and both
+     jpq_lookup kernels every step on each rank; (c) olmoe-1b-7b at 2
+     layers, (2, 2), B = 2 (1 a data rank), 2 steps, run twice: every
+     rank's losses and blocks bit-identical run to run, the bag
+     backward 19 times a step on each rank; (d) stablelm-1.6b at 2
+     layers in fp32 (logits too, TF32 off) at (1, 2), 2 steps: both
+     within 1e-5 relative of one card's; (e) olmoe-1b-7b at 2 layers,
+     (1, 2), B = 2 (one routing group, as on one card), 2 steps: steps
+     0 and 1 within 1e-4 and 3e-4 of one card's, the bag backward 19
+     times a step; each rank's peak (the whole model's init included)
+     with the allocator's slack and a context each, beside what the
+     card held before the ranks started, within 75 GB; the collectives
+     a step; then the four jpq
+     kernels at a rank's T = 8,192, N = 50,176 against their plain
+     versions (forwards bit-equal, backwards within the fp32 sum
+     bound), the token gather's backward on a rank's 50,176-row block
+     and the dispatch gather's at a rank's 32 experts' slots, bit-equal
+     to their plain versions, timed beside their bounds;
+ 38. serving at (1, 2): ``prefill`` of 4,096 tokens and 16
+     ``decode_step``s (B = 2, after a random cache of 4,096 positions)
+     of stablelm-1.6b and olmoe-1b-7b (2 layers each), in fp32
+     (logits and caches too) and in bf16: fp32's logits within 1e-4 of
+     the largest |logit| of one card's, each rank's cache block (its kv
+     heads) within 1e-4 of the same heads of one card's; bf16's, whose
+     own rounding is coarser than that (one card's bf16 against its
+     fp32), no further from one card's fp32 outputs than twice one
+     card's bf16 are; prefill ms and decode ms a step beside one
+     card's.
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
 phase 29's ``{"ctr_model_axis": ...}``, phase 30's
 ``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}``,
-phases 32-34's ``{"lm": ...}``, phases 35-36's ``{"mace": ...}`` and
+phases 32-34's ``{"lm": ...}``, phases 35-36's ``{"mace": ...}``,
+phases 37-38's ``{"lm_mesh": ...}`` and
 the per-kernel numbers (eight kernels; rows 3-5b also carry phases
-33's ``lm_shape`` and ``lm_launches``, the bag backward phase 36's
-``mace_shape``; the two top-k kernels also carry
+33's ``lm_shape`` and ``lm_launches`` and phase 37's ``lm_mesh_shape``
+(a rank's shape, its launches a rank and run), the bag backward phase
+36's ``mace_shape``; the two top-k kernels also carry
 phase 25's ``server_shape`` and phase 31's ``server_mesh_shape``, rows
 3-5 phase 26's ``elastic_launches`` and ``elastic_round_max_abs_err``
 and phase 30's ``elastic_mesh_launches_per_rank`` and
@@ -448,7 +490,7 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3,
+def device_profile(torch, fn, reqs, attempts=6, pad_s=0.05, top_n=3,
                    names=None):
     """Run ``fn`` on each request under ``torch.profiler`` and return
     (device-busy ms per request: the summed durations of the kernels
@@ -461,7 +503,9 @@ def device_profile(torch, fn, reqs, attempts=3, pad_s=0.05, top_n=3,
     more than a millisecond of short kernels can come back empty.  Each
     session therefore waits ``pad_s`` of idle host time on both sides
     of the requests (no device work, so the busy time is unchanged),
-    and a session that still traced nothing is run again.  ``names``: a
+    and a session that still traced nothing is run again (on an H100
+    80GB HBM3 about a third of first sessions, and once all three of
+    three, traced nothing).  ``names``: a
     dict to fill with every device item's full name and ms a request."""
     from torch.profiler import ProfilerActivity, profile
     reqs = list(reqs)
@@ -5423,15 +5467,19 @@ def server_mesh_phases(torch, np, dev, smi, server):
 # card: (arch, layers, prefill B, decode B).  The decode batch is the
 # largest power of two (at most decode_32k's 128) whose bf16 cache of
 # 32,768 positions a layer takes at most 20 GB; mixtral's ring holds its
-# 4,096-position window.
-LM_SERVE = (("mixtral-8x7b", 4, 1, 128), ("olmoe-1b-7b", 16, 1, 4),
-            ("stablelm-1.6b", 24, 1, 2), ("qwen3-14b", 8, 1, 16),
+# 4,096-position window.  olmoe-1b-7b (of 16) and stablelm-1.6b (of 24)
+# cut to 8 layers in PR 30 for phases 37-38's time.
+LM_SERVE = (("mixtral-8x7b", 4, 1, 128), ("olmoe-1b-7b", 8, 1, 4),
+            ("stablelm-1.6b", 8, 1, 2), ("qwen3-14b", 8, 1, 16),
             ("stablelm-12b", 8, 1, 8))
 LM_DECODE_STEPS, LM_LONG_STEPS, LM_WARM_S = 64, 8, 4096
 # decode against the full forward at full width, fp32 (arch, layers, S):
 # mixtral's S crosses its 4,096-slot ring and is a multiple of q_chunk
 LM_CHECKS = (("mixtral-8x7b", 2, 4608), ("qwen3-14b", 2, 1024))
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 3
+# phase 33's stablelm-1.6b depth: 4 of 24, cut so that phases 37-38 fit
+# the script's time
+LM_TRAIN_LAYERS = 4
 LM_KERNELS = ("jpq_scores", "jpq_scores_bwd", "jpq_lookup",
               "jpq_lookup_bwd", "embedding_bag_backward")
 
@@ -5718,7 +5766,7 @@ def lm_step_profile(torch, model, params, toks):
     return {"busy_ms": busy, "top": top}
 
 
-def lm_jpq_kernels(torch, dev, smi, model, params, toks):
+def lm_jpq_kernels(torch, dev, smi, model, params, toks, rows=None):
     """The four jpq kernels at the RecJPQ vocabulary's step shape (T =
     B x S positions over N = vocab rows, dk = d / 8): jpq_scores on the
     LUT of the trained model's hidden states and its backward on a random
@@ -5726,7 +5774,10 @@ def lm_jpq_kernels(torch, dev, smi, model, params, toks):
     dout, each held against its plain version as phase 8 holds them,
     then kernel, plain version and bound (CUDA events); and the public
     ``ops.jpq_scores`` against ``ref.jpq_scores_ref`` (bit-equal).
-    Returns {kernel: row}."""
+    ``rows``: a rank's shape on a ``"model"`` mesh (phase 37), the
+    scores over the first ``rows`` code rows (rank 0's block) and the
+    lookup over the tokens' code rows as the rank gathers them (ids 0..T
+    - 1).  Returns {kernel: row}."""
     from repro_torch.core import jpq as jpq_mod
     from repro_torch.kernels.jpq_lookup import cuda as lc
     from repro_torch.kernels.jpq_lookup import ref as lref
@@ -5736,6 +5787,11 @@ def lm_jpq_kernels(torch, dev, smi, model, params, toks):
     gen = torch.Generator(device=dev).manual_seed(34)
     emb = params["tok_emb"]
     codes, cent = emb["codes"], emb["centroids"].detach()
+    ids, lcodes = toks.reshape(-1), codes
+    if rows is not None:
+        lcodes = codes[ids.long()].contiguous()
+        ids = torch.arange(ids.numel(), device=dev)
+        codes = codes[:rows]
     N, T = codes.shape[0], toks.numel()
     dk = cent.shape[-1]
     what = f"LM vocab T={T} N={N}"
@@ -5750,41 +5806,42 @@ def lm_jpq_kernels(torch, dev, smi, model, params, toks):
               f"ops.jpq_scores != ref.jpq_scores_ref ({what})")
         del got
     torch.cuda.empty_cache()
-    ids = toks.reshape(-1)
     dS = torch.randn((T, N), generator=gen, device=dev)
     dout = torch.randn((T, M, dk), generator=gen, device=dev)
     err = {"jpq_scores": scores_fwd_err(P, codes, what)}
     err["jpq_scores_bwd"] = scores_bwd_err(dS, codes, BC, what)[0]
     err["jpq_lookup"], err["jpq_lookup_bwd"] = lookup_errs(
-        ids, codes, cent, dout, what)
+        ids, lcodes, cent, dout, what)
     fns = {"jpq_scores": (lambda: sc.jpq_scores(P, codes),
                           lambda: sref.jpq_scores_lut_ref(P, codes)),
            "jpq_scores_bwd": (lambda: sc.jpq_scores_bwd(dS, codes, BC),
                               lambda: sref.jpq_scores_lut_bwd_ref(dS, codes,
                                                                   BC)),
-           "jpq_lookup": (lambda: lc.jpq_lookup(ids, codes, cent),
-                          lambda: lref.jpq_lookup_ref(ids, codes, cent)),
-           "jpq_lookup_bwd": (lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC),
-                              lambda: lref.jpq_lookup_bwd_ref(ids, codes,
+           "jpq_lookup": (lambda: lc.jpq_lookup(ids, lcodes, cent),
+                          lambda: lref.jpq_lookup_ref(ids, lcodes, cent)),
+           "jpq_lookup_bwd": (lambda: lc.jpq_lookup_bwd(ids, lcodes, dout,
+                                                        BC),
+                              lambda: lref.jpq_lookup_bwd_ref(ids, lcodes,
                                                               dout, BC))}
     work = train_kernel_work(T, N, BC, dk)
-    rows = {}
+    out = {}
     for name, (kern, plain) in fns.items():
         b_ms, b_by = bound(*work[name])
-        rows[name] = {"T": T, "N": N, "dk": dk, "max_abs_err": err[name],
-                      "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 2),
-                      "bound_ms": b_ms, "bound_by": b_by}
-        print(f"   {name} at T={T} N={N} dk={dk}: {rows[name]['ms']:.4f} ms "
-              f"kernel, {rows[name]['plain_ms']:.4f} ms plain, bound "
+        out[name] = {"T": T, "N": N, "dk": dk, "max_abs_err": err[name],
+                     "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 2),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        print(f"   {name} at T={T} N={N} dk={dk}: {out[name]['ms']:.4f} ms "
+              f"kernel, {out[name]['plain_ms']:.4f} ms plain, bound "
               f"{b_ms:.4f} ms ({b_by}), max |err| {err[name]:.3e} on {smi}")
-    del P, dS, dout, h
+    del P, dS, dout, h, lcodes
     torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def lm_train_phases(torch, np, dev, smi):
     """Phase 33: training at full width through ``Trainer`` and adamw,
-    bf16.  (a) stablelm-1.6b at its 24 layers, full table, train_4k's
+    bf16.  (a) stablelm-1.6b at ``LM_TRAIN_LAYERS`` of its 24 layers,
+    full table, train_4k's
     S = 4,096 at B = 2, 3 steps: step 0's loss near ln(vocab), every
     loss finite, the token gather's backward (the bag backward) launched
     every step and held against its plain version at the step's shape
@@ -5799,7 +5856,8 @@ def lm_train_phases(torch, np, dev, smi):
     from repro_torch.core import EmbeddingConfig
     from repro_torch.nn import moe as moe_mod
     t0 = phase(f"phase 33: LM training at full width (bf16): stablelm-1.6b "
-               f"24 layers B={LM_TRAIN_B} S={LM_TRAIN_S}, full table and "
+               f"{LM_TRAIN_LAYERS} layers B={LM_TRAIN_B} S={LM_TRAIN_S}, "
+               f"full table and "
                f"RecJPQ vocab; olmoe-1b-7b 2 layers, run twice")
     clock_hz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -5810,7 +5868,8 @@ def lm_train_phases(torch, np, dev, smi):
     for run, emb in (("a", None),
                      ("b", EmbeddingConfig(0, 0, kind="jpq", m=8, b=256,
                                            use_kernel=True))):
-        model = lm_model("stablelm-1.6b", dev, embedding=emb)
+        model = lm_model("stablelm-1.6b", dev, embedding=emb,
+                         n_layers=LM_TRAIN_LAYERS)
         V = model.cfg.vocab
         toks = torch.randint(0, V, (LM_TRAIN_B, LM_TRAIN_S + 1),
                              generator=gen, device=dev)
@@ -6239,6 +6298,573 @@ def mace_train_phases(torch, np, dev, smi, batches):
     return out, kernels
 
 
+# ---------------------------------------------------------------- phase 37
+# the LMs on a (data, model) mesh at full width, the ranks time-sharing
+# the one card (gloo staged through host memory, as ``launch/train.py
+# --model-axis S --share-card`` runs them).  Every block's activations
+# cross the ranks several times a step (two forward sums, two again under
+# remat, two backward), so the depth is cut, never the width.  Jobs:
+# (name, arch, layers, batch rows, steps); (b) a RecJPQ vocabulary, (d)
+# fp32 throughout (logits too), (e) the MoE on the model group alone (one
+# routing group, as one card routes it), (c) run twice on four ranks.
+LM_MESH_S, LM_MESH_DECODE, LM_MESH_DECODE_B = 4096, 16, 2
+LM_MESH_TRAIN = (
+    dict(kind="train", name="a", arch="stablelm-1.6b", layers=2, batch=2,
+         steps=3),
+    dict(kind="train", name="b", arch="stablelm-1.6b", layers=2, batch=2,
+         steps=3, jpq=True),
+    dict(kind="train", name="d", arch="stablelm-1.6b", layers=2, batch=2,
+         steps=2, changes={"compute_dtype": "float32",
+                           "logits_bf16": False}),
+    dict(kind="train", name="e", arch="olmoe-1b-7b", layers=2, batch=2,
+         steps=2))
+LM_MESH_MOE = dict(kind="train", name="c", arch="olmoe-1b-7b", layers=2,
+                   batch=2, steps=2, runs=2)
+# phase 38: prefill and decode at (1, 2), bf16 (the full configs) and
+# fp32 throughout (logits and caches too)
+LM_MESH_SERVE = tuple(
+    dict(kind="serve", name=f"serve-{arch}-{dt}", arch=arch, layers=n,
+         dtype=dt, changes={} if dt == "bf16" else {
+             "compute_dtype": "float32", "logits_bf16": False})
+    for arch, n in (("stablelm-1.6b", 2), ("olmoe-1b-7b", 2))
+    for dt in ("bf16", "fp32"))
+# relative gaps of the (1, 2) jobs' losses from one card's Trainer on
+# the same weights and batch: (step 0, step 1, after one adamw step on
+# the mesh's summed gradients), about 10x the largest measured on an
+# H100 80GB HBM3 (bf16 step 0 1.10e-5, step 1 2.96e-5; fp32 0).  A wrong
+# forward moves step 0 by about 1e-3 at random init (ln_f normalises).
+# fp32 serving: of the largest (measured 3.3e-6).  bf16 serving is held to bf16's own error: its distance from
+# one card's fp32 outputs within LM_MESH_BF16 times one card's bf16's
+LM_MESH_TOL = {"a": (1e-4, 3e-4), "b": (1e-4, 3e-4), "d": (1e-5, 1e-5),
+               "e": (1e-4, 3e-4), "serve": 1e-4}
+LM_MESH_REF_STEPS = 2          # one card's Trainer steps a (1, 2) job
+LM_MESH_BF16 = 2.0
+LM_SERVE_OUTS = ("prefill", "decode", "cache")
+
+
+def lm_mesh_model(job, dev):
+    """The published config of a phase 37-38 job at its cut depth,
+    random fp32 weights from seed 0 (the same bits in every process on
+    the card)."""
+    from repro_torch.core import EmbeddingConfig
+    changes = dict(job.get("changes", {}))
+    if job.get("jpq"):
+        changes["embedding"] = EmbeddingConfig(0, 0, kind="jpq", m=M, b=BC,
+                                               use_kernel=True)
+    return lm_model(job["arch"], dev, n_layers=job["layers"], **changes)
+
+
+def lm_mesh_tokens(torch, dev, V, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, V, shape, generator=gen, device=dev)
+
+
+def lm_mesh_batch(torch, dev, job, V):
+    """A training job's fixed batch: B x S tokens, the targets shifted
+    by one."""
+    toks = lm_mesh_tokens(torch, dev, V, (job["batch"], LM_MESH_S + 1), 37)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def lm_mesh_train(torch, mesh, job, dev=None, steps=None):
+    """A phase 37 job on this rank, ``runs`` times: the model from seed 0
+    (the peak counter zeroed before it is built, so the whole model's
+    init counts) trained through ``Trainer`` on ``mesh`` (None: one card,
+    ``dev``) for ``steps`` (default the job's) steps of the fixed batch,
+    the launch counters and ``HostMesh.comm`` read around the run.
+    Returns a summary a run: losses, step ms, peak GB, launches, the
+    collectives, and the digest of this rank's blocks."""
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.optimizer import OptConfig
+    dev = mesh.device if mesh is not None else dev
+    steps = steps or job["steps"]
+    out = []
+    for _ in range(job.get("runs", 1)):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm_mesh_model(job, dev)
+        batch = lm_mesh_batch(torch, dev, job, model.cfg.vocab)
+        tr = Trainer(model, OptConfig(lr=3e-4), TrainConfig(
+            steps=steps, batch_size=job["batch"], log_every=1,
+            eval_every=0), data_fn=lambda s, b=batch: b, mesh=mesh)
+        for mod in (ec, lc, sc):
+            mod.reset_launches()
+        comm0 = {} if mesh is None else dict(mesh.comm)
+        params, hist = tr.run(params=model.params())
+        torch.cuda.synchronize(dev)
+        rows = [h for h in hist if "loss" in h]
+        out.append({
+            "losses": [h["loss"] for h in rows],
+            "step_ms": [h["sec"] * 1e3 for h in rows],
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": {**ec.launches, **lc.launches, **sc.launches},
+            "comm": {k: mesh.comm[k] - comm0[k] for k in comm0},
+            "digest": state_digest(torch, [params])})
+        del tr, params, model, batch, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_run(torch, model, params, dev, mesh=None):
+    """Phase 38's serving of ``model`` under ``no_grad``, on ``mesh``'s
+    ranks (None: one card): ``prefill`` of 4,096 tokens at B = 1 (after
+    a warm-up of 512), then 16 ``decode_step``s at B = 2 after a random
+    cache of 4,096 positions in the compute dtype (seed 39, drawn whole;
+    a rank keeps the block of kv heads its ``init_caches`` holds).
+    Returns (prefill's logits, each step's logits, the cache slots the
+    steps wrote, prefill ms, ms a decode step after the first)."""
+    from repro_torch import dist
+    V, S, n = model.cfg.vocab, LM_MESH_S, LM_MESH_DECODE
+    toks = lm_mesh_tokens(torch, dev, V, (1, S), 38)
+    dec = lm_mesh_tokens(torch, dev, V, (LM_MESH_DECODE_B, n), 40)
+    ctx = (contextlib.nullcontext() if mesh is None else
+           dist.use_mesh_rules(mesh))
+    with ctx, torch.no_grad():
+        model.prefill(params, toks[:, :512])
+        pre, pre_ms = _timed(torch, lambda: model.prefill(params, toks))
+        caches = model.init_caches(LM_MESH_DECODE_B, S + n,
+                                   dtype=model.dtype)
+        L, B, _, hkv, dh = caches["k"].shape
+        H = model.cfg.n_kv
+        lo = 0 if hkv == H else mesh.model_index * hkv
+        gen = torch.Generator(device=dev).manual_seed(39)
+        for name in ("k", "v"):
+            whole = torch.randn((L, B, S, H, dh), generator=gen,
+                                device=dev).to(model.dtype)
+            caches[name][:, :, :S].copy_(whole[..., lo:lo + hkv, :])
+            del whole
+        caches["pos"].fill_(S)
+        steps = [model.decode_step(params, dec[:, :1], caches)[0]]
+
+        def rest():
+            for i in range(1, n):
+                steps.append(model.decode_step(params, dec[:, i:i + 1],
+                                               caches)[0])
+        _, ms = _timed(torch, rest)
+        new = {k: caches[k][:, :, S:].clone() for k in ("k", "v")}
+    del caches
+    return pre, steps, new, pre_ms, ms / (n - 1)
+
+
+def lm_serve_err(torch, outs, ref, kv=None):
+    """{output: |err| over the largest |ref|} of ``lm_serve_run``'s
+    outputs (prefill, the decode steps, the cache slots written) against
+    a saved ``ref``; ``kv``: the (first, count) of the kv heads held."""
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(
+            b.float().abs().max())
+    pre, steps, new = outs
+    lo, n = kv or (0, new["k"].shape[3])
+    return {"prefill": rel(pre, ref["prefill"]),
+            "decode": max(rel(a, b) for a, b in zip(steps, ref["steps"])),
+            "cache": max(rel(new[k], ref[k][..., lo:lo + n, :])
+                         for k in ("k", "v"))}
+
+
+def lm_mesh_serve(torch, mesh, job, ref_dir):
+    """A phase 38 job on this rank: the model cut to its blocks, served
+    as ``lm_serve_run`` serves it, each output against one card's in the
+    same dtype (and a bf16 job's also against one card's fp32 outputs),
+    as ``lm_serve_err`` measures them."""
+    from repro_torch import bridge
+    dev = mesh.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = lm_mesh_model(job, dev)
+    bridge.keep_local_blocks(model, mesh)
+    comm0 = dict(mesh.comm)
+    pre, steps, new, pre_ms, step_ms = lm_serve_run(
+        torch, model, model.params(), dev, mesh)
+    hkv = new["k"].shape[3]
+    kv = (0 if hkv == model.cfg.n_kv else mesh.model_index * hkv, hkv)
+    out = {"kv_heads_held": hkv, "prefill_ms": pre_ms,
+           "decode_step_ms": step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "comm": {k: mesh.comm[k] - comm0[k] for k in comm0}}
+    for dt in dict.fromkeys((job["dtype"], "fp32")):
+        ref = torch.load(os.path.join(
+            ref_dir, f"serve-{job['arch']}-{dt}.pt"), map_location=dev)
+        out["err" if dt == job["dtype"] else "err_fp32"] = lm_serve_err(
+            torch, (pre, steps, new), ref, kv)
+        del ref
+    del model, pre, steps, new
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(mesh, jobs, ref_dir, out_dir):
+    """One rank of phases 37-38 (module-level: spawn pickles it): each
+    job in turn, a barrier after each; writes ``out_dir/rank<r>.pt``."""
+    import torch
+
+    from repro_torch import fp32_matmuls
+    fp32_matmuls()
+    res = {"rank": mesh.rank, "transport": mesh.transport}
+    for job in jobs:
+        if job["kind"] == "train":
+            res[job["name"]] = lm_mesh_train(torch, mesh, job)
+        else:
+            res[job["name"]] = lm_mesh_serve(torch, mesh, job, ref_dir)
+        mesh.all_reduce(torch.zeros(1, device=mesh.device),
+                        ("data", "model"))
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def live_cuda_tensors(torch):
+    """[(bytes, shape, dtype)] of the CUDA tensors this process still
+    reaches, one a storage, the largest first."""
+    seen = {}
+    for o in gc.get_objects():
+        try:
+            if not (torch.is_tensor(o) and o.is_cuda):
+                continue
+            st = o.untyped_storage()
+            seen.setdefault(st.data_ptr(), (st.nbytes(), tuple(o.shape),
+                                            str(o.dtype)))
+        except (ReferenceError, RuntimeError):
+            continue
+    return sorted(seen.values(), reverse=True)
+
+
+def lm_block_gather_row(torch, dev, smi, ids, V, S, d):
+    """The token gather's backward on the last rank's block of a
+    ``V``-row vocabulary split ``S`` ways (phase 37 (a)'s shape): ids
+    [T] at this block's rows or the sentinel, ``cuda.block_backward``
+    bit-identical across two calls, bit-equal to its plain version on
+    CPU copies and to the same rows of the whole table's gather
+    backward; then kernel, plain version, ``F.embedding``'s backward and
+    bound (CUDA events).  Returns the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ref as eref
+    gen = torch.Generator(device=dev).manual_seed(41)
+    nb = V // S
+    lo = (S - 1) * nb
+    flat = ids.reshape(-1)
+    T = flat.numel()
+    loc = flat - lo
+    own = (loc >= 0) & (loc < nb)
+    marked = torch.where(own, loc, nb).reshape(-1, 1).contiguous()
+    dout = torch.randn((T, d), generator=gen, device=dev)
+    what = f"LM token gather, vocab block {nb} of {V}"
+    g = ec.block_backward(marked, None, dout, nb)
+    check(bits_equal(g, ec.block_backward(marked, None, dout, nb)),
+          f"the block backward differs between calls ({what})")
+    check(bits_equal(g.cpu(), eref.block_backward_ref(
+        marked.cpu(), None, dout.cpu(), nb)),
+          f"the block backward != plain on the CPU ({what})")
+    check(bits_equal(g, ec.gather_backward(flat, dout, V)[lo:].contiguous()),
+          f"the block backward != the whole table's rows ({what})")
+    safe = torch.where(own, loc, 0)
+    leaf = torch.randn((nb, d), generator=gen, device=dev,
+                       requires_grad=True)
+    # ids read, this block's rows of dout read (foreign slots are
+    # skipped), the block's gradient written
+    n_own = int(own.sum())
+    b_ms, b_by = bound(T * 8 + n_own * d * 4 + nb * d * 4,
+                       {"fp32 adds": (n_own * d, FADD_PER_S)})
+    row = {"V": nb, "d": d, "slots": T, "own_slots": n_own,
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: ec.block_backward(marked, None, dout, nb),
+                         10),
+           "plain_ms": cuda_ms(lambda: eref.block_backward_ref(
+               marked, None, dout, nb), 3),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(
+               F.embedding(safe, leaf), leaf, dout), 10),
+           "library": "F.embedding's backward", "bound_ms": b_ms,
+           "bound_by": b_by}
+    print(f"   {what} (d={d}, {T} slots, {row['own_slots']} own): "
+          f"{row['ms']:.4f} ms kernel, {row['plain_ms']:.4f} ms plain, "
+          f"{row['library_ms']:.4f} ms {row['library']}, bound "
+          f"{b_ms:.4f} ms ({b_by}); bit-equal to plain and to the whole "
+          f"rows, on {smi}")
+    del g, dout, marked, loc, own, safe, leaf
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_mesh_phases(torch, np, dev, smi):
+    """Phases 37-38: the LMs on a ``(data, model)`` mesh at full width,
+    ranks time-sharing the one card (``launch.mesh.spawn`` with
+    ``share_card``).  First one card's ``Trainer`` losses (2 steps) of
+    the (1, 2) training jobs and its serving outputs in bf16 and fp32
+    (saved under ``build/chip_smoke_lm_mesh``, removed after); then (1,
+    2) runs (a) stablelm-1.6b at 2 layers, full table, B = 2, S = 4,096,
+    3 steps, (b) the same with a RecJPQ vocabulary, (d) 2 layers in
+    fp32, 2 steps, (e) olmoe-1b-7b at 2 layers, 2 steps, and phase 38's
+    prefill and decode of stablelm-1.6b and olmoe-1b-7b (2 layers each),
+    bf16 and fp32; then (2, 2) runs (c) olmoe-1b-7b at 2 layers, B = 2,
+    2 steps, twice.  Checks: losses finite, steps 0 and 1 within
+    ``LM_MESH_TOL`` of one card's, the kernels launched on every rank
+    every step, (c) bit-identical run to run on every rank, fp32 serving
+    within 1e-4 of one card's and bf16 serving within ``LM_MESH_BF16``
+    times one card's bf16 error, the ranks' need (``EM_SLACK``,
+    ``EM_CONTEXT_GB``) and the card's use before them within
+    ``EM_BUDGET_GB``.  Then the kernels at a rank's shapes: the four jpq
+    kernels at T = 8,192, N = 50,176 (``lm_jpq_kernels``), the token
+    gather's block backward (``lm_block_gather_row``) and the dispatch
+    gather of a rank's 32 experts (``bag_bwd_row``).  Returns the
+    summary, with ``kernels``: {kernel: row} and ``launches``: {kernel:
+    {run: [a rank's launches]}}."""
+    import shutil
+
+    from repro_torch.configs.olmoe_1b_7b import FULL as OLMOE
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.nn import moe as moe_mod
+    t0 = phase("phases 37-38: the LMs on a (data, model) mesh at full "
+               "width, ranks sharing the one card: training (1, 2) and "
+               "(2, 2), prefill and decode at (1, 2)")
+    free_card(torch, dev, "the LM mesh phases")
+    root = os.path.join(HERE, "build", "chip_smoke_lm_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    one, one_run, serve_one = {}, {}, {}
+    for job in LM_MESH_TRAIN:
+        run = lm_mesh_train(torch, None, job, dev,
+                            min(job["steps"], LM_MESH_REF_STEPS))[0]
+        one[job["name"]] = run["losses"]
+        one_run[job["name"]] = {k: run[k] for k in ("losses", "step_ms",
+                                                    "peak_gb")}
+        free_card(torch, dev, "the next one-card run")
+    for job in LM_MESH_SERVE:
+        model = lm_mesh_model(job, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pre, steps, new, pre_ms, step_ms = lm_serve_run(
+            torch, model, model.params(), dev)
+        torch.save({"prefill": pre.cpu(), "steps": [x.cpu() for x in steps],
+                    **{k: v.cpu() for k, v in new.items()}},
+                   os.path.join(root, job["name"] + ".pt"))
+        serve_one[job["name"]] = {
+            "prefill_ms": pre_ms, "decode_step_ms": step_ms,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del model, pre, steps, new
+        free_card(torch, dev, "the next one-card serve")
+    for job in LM_MESH_SERVE:         # one card's own bf16 error
+        if job["dtype"] == "bf16":
+            refs = [torch.load(os.path.join(root, f"serve-{job['arch']}-{dt}"
+                                            ".pt")) for dt in ("bf16", "fp32")]
+            serve_one[job["name"]]["bf16_err_fp32"] = lm_serve_err(
+                torch, (refs[0]["prefill"], refs[0]["steps"],
+                        {k: refs[0][k] for k in ("k", "v")}), refs[1])
+            del refs
+    print("   one card's Trainer: losses " + ", ".join(
+        f"({k}) {[round(x, 6) for x in v]}" for k, v in one.items())
+        + "; serving " + ", ".join(
+        f"{k}: prefill {v['prefill_ms']:.1f} ms, decode "
+        f"{v['decode_step_ms']:.2f} ms a step" for k, v in serve_one.items())
+        + f" on {smi}")
+
+    ranks, walls, before = {}, {}, {}
+    for shape, n, jobs in (("1x2", 2, LM_MESH_TRAIN + LM_MESH_SERVE),
+                           ("2x2", 4, (LM_MESH_MOE,))):
+        out_dir = os.path.join(root, shape)
+        os.makedirs(out_dir)
+        # what this process and the card hold before the ranks start.
+        # The cuBLAS workspaces live in the caching allocator: one made
+        # while a large block was free pins that block's whole segment
+        # (a 12.80 GB segment holding 32 MiB, on an H100 80GB HBM3)
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        before[shape] = {
+            "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9,
+            "card_used_gb": float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split()[0]) * 2**20 / 1e9,
+            "live_tensors": live_cuda_tensors(torch)[:8],
+            # (segment bytes, bytes allocated in it) of the segments that
+            # empty_cache cannot release
+            "held_segments": sorted(
+                ((s["total_size"], s["allocated_size"])
+                 for s in torch.cuda.memory_snapshot()
+                 if s["allocated_size"] > 0), reverse=True)[:8]}
+        print(f"   {shape}: before the ranks this process holds "
+              f"{before[shape]['allocated_gb']:.2f} GB allocated, "
+              f"{before[shape]['reserved_gb']:.2f} reserved; the card "
+              f"{before[shape]['card_used_gb']:.2f} GB used (nvidia-smi); "
+              f"the largest live tensors {before[shape]['live_tensors']}, "
+              f"the largest held segments {before[shape]['held_segments']}")
+        t1 = time.perf_counter()
+        mesh_mod.spawn(lm_mesh_rank, n, (list(jobs), root, out_dir),
+                       device=dev, model=2, share_card=True, timeout=900)
+        walls[shape] = time.perf_counter() - t1
+        ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                                   weights_only=False) for r in range(n)]
+        print(f"   {shape}: {n} ranks, {walls[shape]:.1f} s (spawn, build, "
+              f"run)")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def need(peaks):
+        return sum(p * EM_SLACK + EM_CONTEXT_GB for p in peaks)
+
+    runs, launches = {}, {}
+    per_layer = 1 + OLMOE.moe.top_k          # the dispatch and k combines
+    for job in LM_MESH_TRAIN + (LM_MESH_MOE,):
+        name = job["name"]
+        shape = "2x2" if name == "c" else "1x2"
+        per = [r[name] for r in ranks[shape]]
+        steps = job["steps"]
+        for r, rr in enumerate(per):
+            for x in rr:
+                check(len(x["losses"]) == steps
+                      and all(np.isfinite(x["losses"])),
+                      f"({name}) rank {r}: losses {x['losses']}")
+            x = rr[0]
+            n_bag = x["launches"]["embedding_bag_backward"]
+            if job["arch"] == "olmoe-1b-7b":
+                want = steps * (1 + job["layers"] * per_layer)
+                check(n_bag == want, f"({name}) rank {r}: the bag backward "
+                      f"launched {n_bag} times, not {want}")
+            elif name == "b":
+                for k in ("jpq_scores", "jpq_lookup", "jpq_lookup_bwd"):
+                    check(x["launches"][k] == steps,
+                          f"(b) rank {r}: {k} launched {x['launches'][k]} "
+                          f"times in {steps} steps")
+                check(x["launches"]["jpq_scores_bwd"] >= steps,
+                      f"(b) rank {r}: jpq_scores_bwd launched "
+                      f"{x['launches']['jpq_scores_bwd']} times")
+            else:
+                check(n_bag == steps, f"({name}) rank {r}: the bag backward "
+                      f"launched {n_bag} times in {steps} steps")
+            if name == "c":
+                check(rr[0]["losses"] == rr[1]["losses"]
+                      and rr[0]["digest"] == rr[1]["digest"],
+                      f"(c) rank {r} differs run to run: {rr[0]['losses']} "
+                      f"vs {rr[1]['losses']}, {rr[0]['digest']} vs "
+                      f"{rr[1]['digest']}")
+            for i, ref in enumerate(one.get(name, ())):
+                gap = abs(x["losses"][i] - ref) / abs(ref)
+                check(gap <= LM_MESH_TOL[name][i],
+                      f"({name}) rank {r}: step {i} {x['losses'][i]} vs one "
+                      f"card's {ref} (relative gap {gap:.3e} > "
+                      f"{LM_MESH_TOL[name][i]})")
+        first = [rr[0] for rr in per]
+        for k in LM_KERNELS:
+            launches.setdefault(k, {})[name] = [x["launches"].get(k, 0)
+                                                 for x in first]
+        runs[name] = {
+            "arch": job["arch"], "layers": job["layers"],
+            "mesh": shape, "batch": job["batch"], "S": LM_MESH_S,
+            "losses": first[0]["losses"],
+            "one_card": one_run.get(name),
+            "loss_rel_gaps": ([[abs(a - b) / abs(b) for a, b in
+                                zip(x["losses"], one[name])] for x in first]
+                              if name in one else None),
+            "loss_limits": LM_MESH_TOL.get(name),
+            "step_ms": [x["step_ms"] for x in first],
+            "median_step_ms": [float(np.median(x["step_ms"][1:]))
+                               if len(x["step_ms"]) > 1 else None
+                               for x in first],
+            "peak_gb": [max(y["peak_gb"] for y in rr) for rr in per],
+            "comm": [x["comm"] for x in first],
+            "comm_per_step": [{k: v / steps for k, v in x["comm"].items()}
+                              for x in first],
+            "launches": [x["launches"] for x in first],
+            "bit_identical": True if name == "c" else None}
+        print(f"   ({name}) {job['arch']} {job['layers']} layers at {shape}: "
+              f"losses {first[0]['losses']}"
+              + ("" if name not in one else
+                 f" (one card's {one[name]}, gaps a rank and step "
+                 f"{[[f'{g:.2e}' for g in gs] for gs in runs[name]['loss_rel_gaps']]}"
+                 f" within {LM_MESH_TOL[name]})")
+              + f"; median step {runs[name]['median_step_ms']} ms, peaks "
+              f"{[f'{p:.2f}' for p in runs[name]['peak_gb']]} GB, "
+              f"collectives a step {runs[name]['comm_per_step'][0]} on rank "
+              f"0" + ("; bit-identical run to run on every rank"
+                      if name == "c" else "") + f", on {smi}")
+    serve = {}
+    for job in LM_MESH_SERVE:
+        name = job["name"]
+        per = [r[name] for r in ranks["1x2"]]
+        noise = serve_one[name].get("bf16_err_fp32")
+        for r, x in enumerate(per):
+            for k in LM_SERVE_OUTS:
+                if noise is None:
+                    check(x["err"][k] <= LM_MESH_TOL["serve"],
+                          f"{name} rank {r}: {k} {x['err'][k]:.3e} > "
+                          f"{LM_MESH_TOL['serve']} of the largest")
+                else:
+                    lim = LM_MESH_BF16 * noise[k]
+                    check(x["err_fp32"][k] <= lim,
+                          f"{name} rank {r}: {k} {x['err_fp32'][k]:.3e} "
+                          f"from one card's fp32, over {LM_MESH_BF16} x one "
+                          f"card's bf16's {noise[k]:.3e}")
+        serve[name] = {"one_card": serve_one[name], "ranks": per}
+        worst = {k: max(x["err"][k] for x in per) for k in LM_SERVE_OUTS}
+        print(f"   phase 38 {name} at (1, 2): prefill "
+              f"{[round(x['prefill_ms'], 1) for x in per]} ms (one card "
+              f"{serve_one[name]['prefill_ms']:.1f}), decode "
+              f"{[round(x['decode_step_ms'], 2) for x in per]} ms a step "
+              f"(one card {serve_one[name]['decode_step_ms']:.2f}); against "
+              f"one card's: {worst} of the largest"
+              + ("" if noise is None else
+                 f"; from one card's fp32 "
+                 f"{ {k: max(x['err_fp32'][k] for x in per) for k in noise} }"
+                 f" (one card's bf16: {noise})") + f", on {smi}")
+    peaks = {"1x2": [max([max(y["peak_gb"] for y in rk[j["name"]])
+                          for j in LM_MESH_TRAIN]
+                         + [rk[j["name"]]["peak_gb"] for j in LM_MESH_SERVE])
+                     for rk in ranks["1x2"]],
+             "2x2": runs["c"]["peak_gb"]}
+    for shape, pk in peaks.items():
+        # what the ranks need (each one's peak with the allocator's slack,
+        # and its context) beside what the card held before they started
+        total = need(pk) + before[shape]["card_used_gb"]
+        check(total <= EM_BUDGET_GB,
+              f"{shape}: the ranks' peaks {pk} need {need(pk):.1f} GB, with "
+              f"the card's {before[shape]['card_used_gb']:.2f} GB in use "
+              f"before them {total:.1f} GB > {EM_BUDGET_GB} GB")
+        print(f"   {shape}: the ranks' peaks {[f'{p:.2f}' for p in pk]} GB "
+              f"({sum(pk):.1f} together) need {need(pk):.1f} GB with the "
+              f"allocator's slack and the contexts, {total:.1f} of "
+              f"{EM_BUDGET_GB} GB with the card's use before them, on {smi}")
+
+    # the kernels at a rank's shapes
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    job = LM_MESH_TRAIN[1]
+    model = lm_mesh_model(job, dev)
+    V = model.cfg.vocab
+    batch = lm_mesh_batch(torch, dev, job, V)
+    kernels = lm_jpq_kernels(torch, dev, smi, model, model.params(),
+                             batch["tokens"], rows=V // 2)
+    d_lm = model.cfg.d_model
+    del model
+    free_card(torch, dev, "the bag backward at the ranks' shapes")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    d, E, k = OLMOE.d_model, OLMOE.moe.n_experts, OLMOE.moe.top_k
+    x = torch.randn((LM_MESH_S, d), generator=gen, device=dev)
+    router = 0.02 * torch.randn((d, E), generator=gen, device=dev)
+    _, idx = moe_mod.top_k(torch.softmax(x @ router, -1), k)
+    C = moe_mod.capacity(OLMOE.moe, LM_MESH_S)       # a data rank's tokens
+    inv, _ = moe_mod.route(idx, E, C)
+    ids = inv[:E // 2 * C].reshape(-1, 1).contiguous()
+    dout = torch.randn((ids.shape[0], d), generator=gen, device=dev)
+    kernels["embedding_bag_backward"] = {
+        "token_gather_block": lm_block_gather_row(
+            torch, dev, smi, batch["tokens"], V, 2, d_lm),
+        "moe_dispatch_rank": bag_bwd_row(
+            torch, ids, None, dout, LM_MESH_S + 1, 10,
+            f"olmoe dispatch gather, a rank's {E // 2} experts", smi,
+            clock_hz, gather=True)}
+    del x, router, idx, inv, ids, dout, batch
+    torch.cuda.empty_cache()
+    done(t0)
+    return {"runs": runs, "serve": serve, "peaks_gb": peaks,
+            "before_ranks": before, "walls_s": walls, "kernels": kernels,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6634,6 +7260,15 @@ def main() -> int:
     mace["train"], mace_kernels = mace_train_phases(torch, np, dev, smi,
                                                     batches)
     del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh = lm_mesh_phases(torch, np, dev, smi)
+    for entry in kernels:                 # phases 37-38: a rank's shapes
+        entry["lm_mesh_shape"] = None     # not on the LM mesh path
+        if entry["name"] in lm_mesh["kernels"]:
+            entry["lm_mesh_shape"] = {
+                **lm_mesh["kernels"][entry["name"]],
+                "launches_per_rank": lm_mesh["launches"][entry["name"]]}
     for entry in kernels:                 # phase 36's shapes
         if entry["name"] == "embedding_bag_backward":
             entry["mace_shape"] = mace_kernels
@@ -6700,6 +7335,9 @@ def main() -> int:
     print(json.dumps({"server_mesh": srvm["runs"], "card": smi}))
     print(json.dumps({"lm": lm, "card": smi}))
     print(json.dumps({"mace": mace, "card": smi}))
+    print(json.dumps({"lm_mesh": {k: lm_mesh[k] for k in (
+        "runs", "serve", "peaks_gb", "before_ranks", "walls_s")},
+        "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

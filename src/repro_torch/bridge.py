@@ -33,8 +33,11 @@ On a mesh with a ``"model"`` axis, ``keep_local_rows`` then cuts each
 catalogue leaf to this rank's rows (``dist.local_rows``), which the
 mesh branches of ``core/sharded.py`` serve from; ``keep_local_blocks``
 cuts every leaf a model's placement splits (the catalogue's rows, a
-sequential model's heads, the MLPs' widths), which training on
-``"model"`` runs from.
+sequential model's heads, the MLPs' widths; an LM's heads, experts and
+vocabulary, its stacked ``[L, ...]`` blocks on their second or later
+dimension), which training on ``"model"`` runs from.  ``load_values``
+of a whole reference tree into a model already cut copies each rank's
+blocks.
 """
 from __future__ import annotations
 
@@ -67,41 +70,59 @@ def _lists(node):
     return {k: _lists(v) for k, v in node.items()}
 
 
-def _copy_tree(dst, src, path: str):
+def _copy_tree(dst, src, path: str, specs=None, mesh=None):
+    """Copy ``src`` into ``dst`` leaf for leaf.  ``specs``: the placement
+    tree of ``dst`` on ``mesh``; a leaf that ``dst`` holds as this rank's
+    block takes the block of the whole value (``dist.local_block``)."""
     if isinstance(dst, dict):
         if not isinstance(src, dict) or set(src) != set(dst):
             got = sorted(src) if isinstance(src, dict) else type(src)
             raise ValueError(f"{path or '<root>'}: keys {got} != "
                              f"{sorted(dst)}")
         for k in dst:
-            _copy_tree(dst[k], src[k], f"{path}/{k}")
+            _copy_tree(dst[k], src[k], f"{path}/{k}",
+                       None if specs is None else specs[k], mesh)
         return
     if isinstance(dst, list):
         if not isinstance(src, (list, tuple)) or len(src) != len(dst):
             raise ValueError(f"{path}: expected a list of {len(dst)}")
         for i, (d, s) in enumerate(zip(dst, src)):
-            _copy_tree(d, s, f"{path}/{i}")
+            _copy_tree(d, s, f"{path}/{i}",
+                       None if specs is None else specs[i], mesh)
         return
     arr = np.asarray(src)
     if dst.dtype == torch.bfloat16:       # numpy has no bf16: its raw bits
-        if arr.dtype.name != "bfloat16" or arr.shape != tuple(dst.shape):
-            raise ValueError(f"{path}: {arr.dtype}{tuple(arr.shape)} != "
-                             f"bfloat16{tuple(dst.shape)}")
-        with torch.no_grad():
-            dst.copy_(torch.from_numpy(
-                np.array(arr.view(np.uint16), copy=True)).view(torch.bfloat16))
-        return
-    want = torch.empty((), dtype=dst.dtype).numpy().dtype
-    if tuple(arr.shape) != tuple(dst.shape) or arr.dtype != want:
-        raise ValueError(f"{path}: {arr.dtype}{tuple(arr.shape)} != "
-                         f"{want}{tuple(dst.shape)}")
+        want, ok = "bfloat16", arr.dtype.name == "bfloat16"
+        if ok:
+            arr = arr.view(np.uint16)
+    else:
+        want = torch.empty((), dtype=dst.dtype).numpy().dtype
+        ok = arr.dtype == want
+    if ok:
+        t = torch.from_numpy(np.array(arr, copy=True)).view(dst.dtype)
+        if specs is not None and t.shape != dst.shape:
+            from repro_torch import dist as _dist
+            t = _dist.local_block(t, specs, mesh, copy=False)
+    if not ok or t.shape != dst.shape:
+        raise ValueError(f"{path}: {np.asarray(src).dtype}"
+                         f"{tuple(arr.shape)} != {want}{tuple(dst.shape)}")
     with torch.no_grad():
-        dst.copy_(torch.from_numpy(np.array(arr, copy=True)))
+        dst.copy_(t)
 
 
-def load_values(model, values) -> None:
-    """Copy a reference values tree into ``model`` (in place)."""
-    _copy_tree(model.params(), values, "")
+def load_values(model, values, mesh=None) -> None:
+    """Copy a reference values tree into ``model`` (in place).  Where a
+    leaf of ``model`` holds this rank's block of the whole leaf
+    (``keep_local_blocks`` ran first), the block of the whole value is
+    copied into it (``mesh``: default the ambient one)."""
+    from repro_torch.dist import rules as _rules
+    mesh = _rules._CTX.mesh if mesh is None else mesh
+    held = model.params()
+    cut = mesh is not None and hasattr(model, "placement") and any(
+        tuple(x.shape) != tuple(_at(model.whole_shapes(), q))
+        for q, x in _paths(held))
+    _copy_tree(held, values, "", model.placement(mesh) if cut else None,
+               mesh)
     params = model.params()
     emb = next((params[k] for k in ("item_emb", "emb", "tok_emb")
                 if k in params), {})

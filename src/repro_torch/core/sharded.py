@@ -136,6 +136,65 @@ def take_rows(table, ids, *, rows=None):
     return _dist.reduce_from_model(_bag.gather_block(tab, loc, own), mesh)
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """Cross-entropy over a catalogue whose logits' columns are split
+    over ``"model"``: ``logits [T, n]`` this rank's columns ``[lo, lo +
+    n)``, ``labels [T]`` global ids -> ``ce [T]`` fp32, the same on every
+    rank.  Forward: this rank's max, then the global max (one MAX
+    all-reduce of ``[T]``); this rank's sum of ``exp(l - max)`` and the
+    label's logit where this rank owns it, zero elsewhere, summed over
+    the ranks together (one SUM all-reduce of ``[2, T]``).  Reductions
+    run in fp32 and the label's logit is read in the logits' dtype, as
+    the reference's LM loss reads bf16 logits (``logits_bf16``).
+    Backward: ``g (softmax - onehot)`` on this rank's columns, written
+    into one ``[T, n]`` buffer (bf16 logits: ``g softmax`` rounded to
+    bf16, then ``-g`` added at the label in bf16, the two terms of the
+    reference's gradient); the logits are saved, nothing else of ``[T,
+    n]`` is kept between the passes."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, mesh):
+        n = logits.shape[-1]
+        wide = logits.float()
+        gmax = _dist.max_over_model(wide.max(-1).values, mesh)
+        sumexp = torch.sub(wide, gmax[:, None]).exp_().sum(-1)
+        del wide
+        loc = labels.long() - lo
+        own = (loc >= 0) & (loc < n)
+        picked = torch.gather(logits, -1,
+                              loc.clamp(0, n - 1)[:, None])[:, 0].float()
+        picked = torch.where(own, picked, torch.zeros_like(picked))
+        both = mesh.all_reduce(torch.stack([sumexp, picked]), "model", "sum")
+        lse = torch.log(both[0]) + gmax
+        ctx.save_for_backward(logits, lse, loc, own)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, loc, own = ctx.saved_tensors
+        n = logits.shape[-1]
+        at = loc.clamp(0, n - 1)[:, None]
+        d = torch.sub(logits.float(), lse[:, None]).exp_()       # softmax
+        if logits.dtype == torch.float32:
+            d.scatter_add_(-1, at, -own.to(d.dtype)[:, None])
+            return d.mul_(g[:, None]), None, None, None
+        d = d.mul_(g[:, None]).to(logits.dtype)
+        pick = torch.where(own, -g, torch.zeros_like(g)).to(logits.dtype)
+        return d.scatter_add_(-1, at, pick[:, None]), None, None, None
+
+
+def vocab_parallel_xent(logits, labels, lo: int, mesh):
+    """The per-position cross-entropy ``lse - logits[label]`` over the
+    whole catalogue from this rank's column block ``logits [..., n]``
+    (columns ``[lo, lo + n)``, split over ``mesh``'s ``"model"`` axis;
+    fp32, or bf16 read as the reference's LM loss reads it) and the
+    global ``labels [...]``: ``[...]`` fp32, the same on every rank."""
+    n = logits.shape[-1]
+    ce = _VocabParallelXent.apply(logits.reshape(-1, n),
+                                  labels.reshape(-1), int(lo), mesh)
+    return ce.reshape(labels.shape)
+
+
 def whole(x, rows=None):
     """The whole catalogue operand: ``x`` when it holds all ``rows``
     rows, else every rank's block gathered over ``"model"`` (set-up

@@ -61,6 +61,11 @@ Public API
                                   forward, the gradient summed over
                                   "data" and cut to this rank's rows
                                   backward
+  sum_over_data(x)                the sum over "data" where the ranks
+                                  hold their own rows (no gradient)
+  bind_ambient(fn)                ``fn`` run under the ambient context
+                                  of now, on any thread (a checkpointed
+                                  region's recompute)
   data_rank()                     (this rank's index, D) on "data" when
                                   the ranks hold their own rows of the
                                   batch, else (0, 1)
@@ -90,12 +95,14 @@ __all__ = ["resolve_axes", "use_mesh_rules", "constrain",
            "model_size",
            "copy_to_model", "reduce_from_model", "gather_from_model",
            "scatter_to_model", "column_linear", "max_over_model",
-           "gather_from_data", "data_rank",
+           "gather_from_data", "sum_over_data", "bind_ambient",
+           "data_rank",
            "use_loss_counts", "loss_count", "DEFAULT_RULES",
            "CATALOGUE_AXES"]
 
 # logical axes that name catalogue rows: the leaves the port row-shards
-CATALOGUE_AXES = ("items", "table")
+# (an LM's vocabulary table is a catalogue too)
+CATALOGUE_AXES = ("items", "table", "vocab")
 
 
 def constrain(x, axes):
@@ -387,6 +394,34 @@ def gather_from_data(x):
     if data_rank()[1] <= 1:
         return x
     return _GatherFromData.apply(x, _CTX.mesh)
+
+
+def bind_ambient(fn):
+    """``fn`` bound to the ambient context installed now (mesh, rules,
+    the data split, the loss counts): each call installs it around
+    ``fn`` on whichever thread runs it.  The context is thread-local,
+    and autograd runs a CUDA backward on a thread of its own, so a
+    checkpointed region recomputed there (``torch.utils.checkpoint``)
+    needs its forward's context bound."""
+    state = (_CTX.mesh, _CTX.rules, _CTX.local_batch, _CTX.counts)
+
+    def run(*args, **kwargs):
+        prev = (_CTX.mesh, _CTX.rules, _CTX.local_batch, _CTX.counts)
+        (_CTX.mesh, _CTX.rules, _CTX.local_batch, _CTX.counts) = state
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            (_CTX.mesh, _CTX.rules, _CTX.local_batch, _CTX.counts) = prev
+    return run
+
+
+def sum_over_data(x):
+    """``x`` summed over ``"data"`` where the ranks hold their own rows
+    of the batch (``data_rank``), else ``x``; no gradient (whole-batch
+    statistics such as the MoE's top-k counts)."""
+    if data_rank()[1] <= 1:
+        return x
+    return _CTX.mesh.all_reduce(x.detach().contiguous(), "data", "sum")
 
 
 @contextlib.contextmanager

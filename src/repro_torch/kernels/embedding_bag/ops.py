@@ -33,7 +33,8 @@ them, so the sort and its host synchronisation run once a batch and not
 once a call.
 
 ``embedding_bag_block`` and ``gather_block`` are the two on a row block
-of a table (a rank's rows on a ``"model"`` mesh, ``core/sharded``):
+of a table (a rank's rows on a ``"model"`` mesh, ``core/sharded``; a
+rank's experts' slots in the MoE's combine, ``nn/moe.py``):
 each slot names a row of the block or, where ``own`` is False, another
 rank's row (a foreign slot).  A foreign slot adds nothing forward (its
 id is 0 and its weight 0; ``gather_block`` zeroes its row) and reaches
@@ -159,12 +160,16 @@ class BlockBag(torch.autograd.Function):
 class BlockGather(torch.autograd.Function):
     """``table[ids]`` of a row block, zero at the foreign slots: table
     [V, d], ids (0 at foreign slots), own (bool, ids' shape), marked
-    (V at foreign slots) -> [*ids.shape, d]."""
+    (V at foreign slots) -> [*ids.shape, d].  A table in another float
+    dtype than fp32 (the MoE's bf16 expert outputs) has its gradient
+    summed in fp32 and rounded once to the table's dtype, as
+    ``TableGather``'s."""
 
     @staticmethod
     def forward(ctx, table, ids, own, marked):
         ctx.save_for_backward(marked)
         ctx.V = table.shape[0]
+        ctx.dtype = table.dtype
         return table[ids].masked_fill_(~own[..., None], 0.0)
 
     @staticmethod
@@ -175,8 +180,9 @@ class BlockGather(torch.autograd.Function):
         d = dout.shape[-1]
         impl = _cuda.block_backward if dout.is_cuda \
             else _ref.block_backward_ref
-        return impl(marked.reshape(-1, 1), None,
-                    dout.reshape(-1, d).contiguous(), ctx.V), None, None, None
+        grad = impl(marked.reshape(-1, 1), None,
+                    dout.reshape(-1, d).float().contiguous(), ctx.V)
+        return grad.to(ctx.dtype), None, None, None
 
 
 def _block_ids(ids, own, V):

@@ -23,11 +23,12 @@ the step reached and exits; ``--microbatches`` accumulates gradients
 over equal batch slices.  A CTR arch trains, as the reference's CLI
 trains it, its bundle's ``make_smoke`` model on the fixed template
 batch, with no eval; its pooled lookups train through the embedding_bag
-kernels on the card.  An LM arch trains so too, on one device: its
-token gather and the MoE's dispatch and combine gathers take their
-gradients from the embedding_bag backward kernel.  So does MACE, on one
-device: its sums over receivers and graphs run through the same
-kernels forward, and its sender gathers take their gradients from them.
+kernels on the card.  An LM arch trains so too, on one device or a
+mesh: its token gather and the MoE's dispatch and combine gathers take
+their gradients from the embedding_bag backward kernel.  So does MACE,
+on one device: its sums over receivers and graphs run through the same
+kernels forward, and its sender gathers take their gradients from
+them.
 
 The TrainSpec flag cluster (``train.spec.add_train_spec_args``:
 ``--grad-compression`` / ``--grad-accum-shards`` / ``--fsdp`` /
@@ -45,7 +46,9 @@ run preempted on N ranks resumes bit-identically on any N' dividing
 ranks (``--devices`` D·S; S alone when ``--devices`` is left at 1): the
 catalogue's rows (a table that S divides), the attention heads and the
 MLPs' widths split over ``"model"`` (the Trainer's tensor parallelism,
-each model's ``placement``), the batch over ``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
+each model's ``placement``; an LM's heads and kv heads, its FFN's
+width, its MoE's experts and its vocabulary too), the batch over
+``"data"``.  On the CPU the ranks are gloo processes; on ``cuda`` one
 a card, or with ``--share-card`` all on one card, their collectives
 staged through host memory (``gloo-staged``: NCCL refuses two ranks on
 one device).  Rank 0 prints the history and its eval NDCG@10.  With
@@ -53,10 +56,9 @@ an elastic spec the model is replicated over ``"model"`` instead, as
 the reference's ``shard_map`` runs it: every rank holds the whole
 model, the S ranks of a data column run the same rounds, and the
 exchange runs over the ``"data"`` group, so the run is the ``(D, 1)``
-run's, bit for bit.  Not yet ported, and raising: an LM on more than
-one rank (ROADMAP queue 1, item 10c; the reference's own LM fails on a
-mesh) and MACE on more than one rank (item 10e; the reference's own
-MACE fails on a mesh too).
+run's, bit for bit.  Not yet ported, and raising: MACE on more than
+one rank (ROADMAP queue 1, item 10e; the reference's own MACE fails on
+a mesh).
 """
 from __future__ import annotations
 
@@ -66,7 +68,6 @@ import signal
 
 import torch
 
-from repro_torch.configs.registry import LM_ARCHS
 from repro_torch.train.spec import add_train_spec_args, spec_from_args
 
 SEQ_ARCHS = ("sasrec", "bert4rec", "gru4rec")
@@ -245,11 +246,6 @@ def main(argv=None):
         args.devices = args.mesh
     D, S = mesh_dims(args)
     args.devices = D * S
-    if args.arch in LM_ARCHS and args.devices > 1:
-        raise NotImplementedError(
-            f"an LM ({args.arch}) on a mesh of {args.devices} ranks is not "
-            f"yet ported to repro_torch: ROADMAP queue 1, item 10c (the "
-            f"reference's own LM fails there on jax 0.9.0, queue 3)")
     if args.arch == "mace" and args.devices > 1:
         raise NotImplementedError(
             f"MACE on a mesh of {args.devices} ranks is not yet ported to "

@@ -27,6 +27,22 @@ A RecJPQ vocabulary (``embedding.kind = "jpq"``, the repo's
 beyond-paper experiment) ties the softmax to the codes: with
 ``use_kernel=True`` the logits are the jpq_scores kernels' forward and
 backward and the lookup is the jpq_lookup kernels'.
+
+On a ``(data, model)`` mesh (``dist.use_mesh_rules``; the Trainer
+installs it and cuts the leaves with ``bridge.keep_local_blocks`` of
+``placement``: the reference's ``params_shardings`` less the RecJPQ
+centroids) each rank holds its blocks: the attention heads and kv heads
+(``nn/attention.py``), the dense FFN's width (``nn/layers.gated_mlp``),
+the MoE's experts or their width (``nn/moe.py``), the vocabulary's rows
+and ``lm_head``'s columns, a RecJPQ vocabulary's code rows.  The token
+lookup gathers across the ranks (``core/sharded.take_rows``), the
+training logits are this rank's column block and the loss the
+vocab-parallel cross-entropy (``core/sharded.vocab_parallel_xent``);
+``prefill`` and ``decode_step`` gather the logits whole, and
+``init_caches`` makes this rank's block of the kv heads.  The batch
+splits over ``"data"``: each term of the loss is this rank's sum over
+the whole batch's count (``loss_counts``), and the MoE's aux loss is
+built from whole-batch statistics (``nn/moe.aux_loss``).
 """
 from __future__ import annotations
 
@@ -36,11 +52,13 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dist as _dist
 from repro_torch.core import EmbeddingConfig, make_embedding
+from repro_torch.core.sharded import vocab_parallel_xent
 from repro_torch.nn import layers as L
 from repro_torch.nn.attention import (AttnConfig, attention, attention_init,
                                       decode_step as attn_decode, init_cache)
-from repro_torch.nn.module import Tensors, hold, live, unstack_params
+from repro_torch.nn.module import Placed, Tensors, hold, live, unstack_params
 from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 
 
@@ -105,7 +123,7 @@ class LMConfig:
         return n * (attn + ffn + 2 * d) + 2 * V * d + d
 
 
-class TransformerLM(torch.nn.Module):
+class TransformerLM(Placed, torch.nn.Module):
     """The LM's parameters, drawn from ``generator`` (on ``device``) in
     the reference's order: every block (``attn`` wq, wk, wv, wo; then
     ``moe`` router, wi_gate, wi_up, wo or ``mlp`` wi_gate, wi_up, wo;
@@ -192,7 +210,49 @@ class TransformerLM(torch.nn.Module):
                     gen, (cfg.d_model, cfg.vocab), device=dev))
             else:
                 self.lm_head = None
-        return self.params()
+        return self._record_shapes()
+
+    # ------------------------------------------------------- placement
+    def param_axes(self) -> dict:
+        """The logical axes of every leaf of ``params()``: the
+        reference's ``nn.axes_tree`` of its ``init_params`` (the full
+        table ``("vocab", "embed")``; stacked blocks with ``"layers"``
+        first, which no rule splits)."""
+        cfg = self.cfg
+        norm = ({"scale": ("embed",)} if cfg.norm == "rmsnorm" else
+                {"scale": ("embed",), "bias": ("embed",)})
+        attn = {"wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "kv_heads", "head_dim"),
+                "wv": ("embed", "kv_heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed")}
+        if cfg.qk_norm:
+            attn["q_norm"] = {"scale": ("head_dim",)}
+            attn["k_norm"] = {"scale": ("head_dim",)}
+        blk = {"ln1": norm, "attn": attn, "ln2": norm}
+        if cfg.moe is not None:
+            blk["moe"] = {"router": ("embed", "expert"),
+                          "wi_gate": ("expert", "embed", "mlp"),
+                          "wi_up": ("expert", "embed", "mlp"),
+                          "wo": ("expert", "mlp", "embed")}
+        else:
+            blk["mlp"] = {"wi_gate": ("embed", "mlp"),
+                          "wi_up": ("embed", "mlp"),
+                          "wo": ("mlp", "embed")}
+
+        def stacked(t):
+            if isinstance(t, dict):
+                return {k: stacked(v) for k, v in t.items()}
+            return ("layers",) + t
+        emb = self.emb.param_axes()
+        if self.emb.cfg.kind == "full":
+            emb = {"table": ("vocab", "embed")}
+        out = {"tok_emb": emb,
+               "blocks": (stacked(blk) if cfg.scan_layers else
+                          [blk for _ in range(cfg.n_layers)]),
+               "ln_f": norm}
+        if self.lm_head is not None:
+            out["lm_head"] = ("embed", "vocab")
+        return out
 
     def params(self) -> dict:
         p = {"tok_emb": self.tok_emb.live(), "blocks": live(self.blocks),
@@ -210,7 +270,7 @@ class TransformerLM(torch.nn.Module):
         """The block's FFN on hn [B, S, d] -> (y, aux fp32)."""
         cfg = self.cfg
         if cfg.moe is None:
-            return L.gated_mlp(blk["mlp"], hn), \
+            return L.gated_mlp(blk["mlp"], hn, d_ff=cfg.d_ff), \
                 torch.zeros((), dtype=torch.float32, device=hn.device)
         B, S, d = hn.shape
         y, aux = moe_apply(blk["moe"], cfg.moe, hn.reshape(B * S, d))
@@ -232,36 +292,70 @@ class TransformerLM(torch.nn.Module):
         x = self.emb.lookup(p["tok_emb"], tokens).to(self.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        # the recompute runs on autograd's thread: bind the mesh to it
+        block = _dist.bind_ambient(self._block) if remat else self._block
         for blk in self._layers(p):
             if remat:
-                x, a = checkpoint(self._block, blk, x, use_reentrant=False)
+                x, a = checkpoint(block, blk, x, use_reentrant=False)
             else:
                 x, a = self._block(blk, x)
             aux_total = aux_total + a
         return self._norm(p["ln_f"], x), aux_total
 
-    def logits(self, p, h):
-        """h [..., d] -> [..., vocab]: ``h @ lm_head`` (bf16 with
-        ``logits_bf16``, else fp32), or the RecJPQ vocabulary's tied
-        scores (``emb.logits``, fp32)."""
+    def logit_block(self, p, h):
+        """h [..., d] -> (logits, first column): ``h @ lm_head`` (bf16
+        with ``logits_bf16``, else fp32), or the RecJPQ vocabulary's tied
+        scores (``emb.logits``, fp32).  Where the ambient mesh splits
+        the vocabulary, this rank's column block (``h`` enters through
+        ``dist.copy_to_model``), else all of it (first column 0)."""
         if "lm_head" in p:
-            if self.cfg.logits_bf16:
-                return h.bfloat16() @ p["lm_head"].bfloat16()
-            return h.float() @ p["lm_head"]
-        return self.emb.logits(p["tok_emb"], h)
+            w = p["lm_head"]
+            if w.shape[1] != self.cfg.vocab:
+                h = _dist.copy_to_model(h)
+            out = (h.bfloat16() @ w.bfloat16() if self.cfg.logits_bf16
+                   else h.float() @ w)
+        else:
+            out = self.emb.logits(p["tok_emb"], h)
+        if out.shape[-1] == self.cfg.vocab:
+            return out, 0
+        return out, _dist.row_block(self.cfg.vocab)[0]
+
+    def logits(self, p, h):
+        """h [..., d] -> [..., vocab], gathered whole over ``"model"``
+        where the vocabulary is split (``logit_block``)."""
+        out, _ = self.logit_block(p, h)
+        if out.shape[-1] == self.cfg.vocab:
+            return out
+        return _dist.gather_from_model(out, -1)
 
     # ------------------------------------------------------------ loss
+    def loss_counts(self, batch) -> dict:
+        """The count in ``batch`` of the positions the cross-entropy is a
+        mean over: every token.  The Trainer sums it over the data group
+        (``dist.loss_count``)."""
+        return {"tokens": torch.tensor(
+            torch.as_tensor(batch["targets"]).numel())}
+
     def train_loss(self, p, batch, generator=None):
         """(loss, metrics): the mean next-token cross-entropy (lse in
         fp32, the target's logit read in the logits' dtype) plus the MoE
-        aux loss; metrics ``loss``, ``ce``, ``aux``."""
+        aux loss; metrics ``loss``, ``ce``, ``aux``.  On this rank's
+        column block of the logits, the vocab-parallel cross-entropy;
+        where the data group installed its counts, the sum over this
+        rank's tokens over the whole batch's."""
         del generator
         tokens, targets = batch["tokens"], batch["targets"]
         h, aux = self.hidden_states(p, tokens)
-        logits = self.logits(p, h)
-        lse = torch.logsumexp(logits.float(), -1)
-        picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-        ce = torch.mean(lse - picked.float())
+        logits, lo = self.logit_block(p, h)
+        if logits.shape[-1] == self.cfg.vocab:
+            lse = torch.logsumexp(logits.float(), -1)
+            picked = torch.gather(logits, -1,
+                                  targets[..., None].long())[..., 0]
+            tok = lse - picked.float()
+        else:
+            tok = vocab_parallel_xent(logits, targets, lo, _dist._CTX.mesh)
+        n = _dist.loss_count("tokens")
+        ce = torch.mean(tok) if n is None else torch.sum(tok) / n
         loss = ce + aux
         return loss, {"loss": loss.detach(), "ce": ce.detach(),
                       "aux": aux.detach()}
@@ -269,8 +363,14 @@ class TransformerLM(torch.nn.Module):
     # ----------------------------------------------------------- serve
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """Stacked per-layer KV caches: ``k``, ``v`` [L, batch, C, Hkv,
-        Dh], ``pos`` [L] int32 (``attention.init_cache`` a layer)."""
-        one = init_cache(self.acfg, batch, max_len, dtype=dtype,
+        Dh], ``pos`` [L] int32 (``attention.init_cache`` a layer); Hkv
+        the kv heads ``wk`` holds (this rank's block of them on a
+        ``"model"`` mesh that splits them, as the reference's
+        ``_cache_axes`` place the cache)."""
+        wk = (self.blocks.attn.wk if self.cfg.scan_layers
+              else self.blocks[0].attn.wk)
+        acfg = dataclasses.replace(self.acfg, n_kv=wk.shape[-2])
+        one = init_cache(acfg, batch, max_len, dtype=dtype,
                          device=self.device)
         n = self.cfg.n_layers
         return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,

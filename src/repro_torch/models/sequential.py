@@ -48,6 +48,7 @@ from repro_torch import dist as _dist
 from repro_torch.core import EmbeddingConfig, make_embedding
 from repro_torch.core import engine as _engine
 from repro_torch.core import semantic as _semantic
+from repro_torch.core.sharded import vocab_parallel_xent
 from repro_torch.nn import layers as L
 from repro_torch.nn.attention import AttnConfig, attention, attention_init
 from repro_torch.nn.module import Placed, Tensors
@@ -436,53 +437,6 @@ def _xent(logits, labels):
     lse = torch.logsumexp(logits, -1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - picked
-
-
-class _VocabParallelXent(torch.autograd.Function):
-    """Cross-entropy over a catalogue whose logits' columns are split
-    over ``"model"``: ``logits [T, n]`` this rank's columns ``[lo, lo +
-    n)``, ``labels [T]`` global ids -> ``ce [T]``, the same on every
-    rank.  Forward: this rank's max, then the global max (one MAX
-    all-reduce of ``[T]``); this rank's sum of ``exp(l - max)`` and the
-    label's logit where this rank owns it, zero elsewhere, summed over
-    the ranks together (one SUM all-reduce of ``[2, T]``).  Backward:
-    ``g (softmax - onehot)`` on this rank's columns, written into one
-    ``[T, n]`` buffer; the logits are saved, nothing else of ``[T, n]``
-    is kept between the passes."""
-
-    @staticmethod
-    def forward(ctx, logits, labels, lo, mesh):
-        n = logits.shape[-1]
-        gmax = _dist.max_over_model(logits.max(-1).values, mesh)
-        sumexp = torch.sub(logits, gmax[:, None]).exp_().sum(-1)
-        loc = labels.long() - lo
-        own = (loc >= 0) & (loc < n)
-        picked = torch.gather(logits, -1, loc.clamp(0, n - 1)[:, None])[:, 0]
-        picked = torch.where(own, picked, torch.zeros_like(picked))
-        both = mesh.all_reduce(torch.stack([sumexp, picked]), "model", "sum")
-        lse = torch.log(both[0]) + gmax
-        ctx.save_for_backward(logits, lse, loc, own)
-        return lse - both[1]
-
-    @staticmethod
-    def backward(ctx, g):
-        logits, lse, loc, own = ctx.saved_tensors
-        n = logits.shape[-1]
-        d = torch.sub(logits, lse[:, None]).exp_()            # softmax
-        d.scatter_add_(-1, loc.clamp(0, n - 1)[:, None],
-                       -own.to(d.dtype)[:, None])
-        return d.mul_(g[:, None]), None, None, None
-
-
-def vocab_parallel_xent(logits, labels, lo: int, mesh):
-    """``_xent`` over the whole catalogue from this rank's column block
-    ``logits [..., n]`` (columns ``[lo, lo + n)``, split over
-    ``mesh``'s ``"model"`` axis) and the global ``labels [...]``: the
-    per-position cross-entropy ``[...]``, the same on every rank."""
-    n = logits.shape[-1]
-    ce = _VocabParallelXent.apply(logits.reshape(-1, n),
-                                  labels.reshape(-1), int(lo), mesh)
-    return ce.reshape(labels.shape)
 
 
 # --------------------------------------------------- bert4rec masking

@@ -118,20 +118,24 @@ def _sdpa(q, k, v, bias):
 
 def attention(p, cfg: AttnConfig, x, *, positions=None, pad_mask=None):
     """Full-sequence attention (training / prefill), x [B, S, d].  When
-    ``wq/wk/wv/wo`` hold a block of the heads (a ``"model"`` mesh, the
-    reference's ``heads`` axis), this rank runs its heads: ``x`` enters
-    through ``dist.copy_to_model`` and the heads' partial outputs after
-    ``wo`` are summed by ``dist.reduce_from_model``.  With ``q_chunk``,
-    ``S > q_chunk``, ``S % q_chunk == 0``, no pad mask and positions of
-    batch 1, the queries run in blocks of ``q_chunk`` against all S
-    keys, as the reference's ``lax.map`` runs them."""
+    ``wq`` / ``wo`` hold a block of the heads (a ``"model"`` mesh, the
+    reference's ``heads`` axis), this rank runs its heads
+    (``_split_heads``): ``x`` enters through ``dist.copy_to_model`` and
+    the heads' partial outputs after ``wo`` are summed by
+    ``dist.reduce_from_model``.  With ``q_chunk``, ``S > q_chunk``,
+    ``S % q_chunk == 0``, no pad mask and positions of batch 1, the
+    queries run in blocks of ``q_chunk`` against all S keys, as the
+    reference's ``lax.map`` runs them."""
     split = p["wq"].shape[1] != cfg.n_heads
     if split:
         x = _dist.copy_to_model(_ambient(x))
+        p = _split_heads(p, cfg)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    if split:
+        k, v = _kv_of_heads(k, v, cfg, q.shape[2])
     qc = cfg.q_chunk
     if qc and S > qc and S % qc == 0 and pad_mask is None \
             and positions.shape[0] == 1:
@@ -153,6 +157,46 @@ def _ambient(x):
                          "but no ambient mesh splits them "
                          "(dist.use_mesh_rules)")
     return x
+
+
+def _split_heads(p, cfg: AttnConfig):
+    """The leaves of a rank that holds a block of the heads, with those
+    it holds whole but uses only in part entering the split region
+    through ``dist.copy_to_model`` (their gradients from the ranks'
+    heads summed): the qk-norm scales, and ``wk`` / ``wv`` where
+    ``n_kv`` does not divide over ``"model"`` (the reference's
+    divisibility fallback keeps them whole)."""
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = {k: _dist.copy_to_model(t) for k, t in p[name].items()}
+    if p["wk"].shape[1] == cfg.n_kv:
+        p["wk"] = _dist.copy_to_model(p["wk"])
+        p["wv"] = _dist.copy_to_model(p["wv"])
+    return p
+
+
+def _kv_of_heads(k, v, cfg: AttnConfig, n: int):
+    """The keys and values this rank's ``n`` heads read, ``[B, S, Hkv',
+    Dh]`` such that local head i reads group ``i // (n / Hkv')``: ``k``
+    / ``v`` themselves where they hold this rank's block of the kv heads
+    (whole head h reads group h // G, and a rank's heads are G times its
+    groups); else, from all ``n_kv`` groups, the groups of heads ``[lo,
+    lo + n)`` (a slice where the block lines up with the groups, every
+    head's group otherwise)."""
+    if k.shape[2] != cfg.n_kv:
+        return k, v
+    G = cfg.n_heads // cfg.n_kv
+    lo = _dist.row_block(cfg.n_heads)[0]
+    if n % G == 0 and lo % G == 0:
+        sl = slice(lo // G, (lo + n) // G)
+    elif G % n == 0:
+        sl = slice(lo // G, lo // G + 1)
+    else:
+        idx = torch.div(torch.arange(lo, lo + n, device=k.device), G,
+                        rounding_mode="floor")
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, sl], v[:, :, sl]
 
 
 # ------------------------------------------------------------- decoding
@@ -178,7 +222,14 @@ def decode_step(p, cfg: AttnConfig, x, cache):
     ``cache["v"]`` and adds one to ``cache["pos"]`` in place (no
     autograd graph is kept there), and returns the same tensors, equal
     to the reference's new cache.  Slot ``s`` holds absolute position
-    ``pos - ((pos - s) mod C)``, valid where that is >= 0."""
+    ``pos - ((pos - s) mod C)``, valid where that is >= 0.  A rank that
+    holds a block of the heads (a ``"model"`` mesh) runs them as
+    ``attention`` does, its cache the block of the kv heads its ``wk``
+    holds (all of them where ``n_kv`` does not divide)."""
+    split = p["wq"].shape[1] != cfg.n_heads
+    if split:
+        x = _dist.copy_to_model(_ambient(x))
+        p = _split_heads(p, cfg)
     B = x.shape[0]
     ck, cv, pos = cache["k"], cache["v"], cache["pos"]
     C = ck.shape[1]
@@ -194,8 +245,11 @@ def decode_step(p, cfg: AttnConfig, x, cache):
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=ck.device)
     bias = torch.where(kv_pos >= 0, zero, neg)[None, None, :]
     bias = bias + _mask_bias(cfg, positions, kv_pos)   # [B, 1, C]
-    out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+    kk, vv = ck.to(q.dtype), cv.to(q.dtype)
+    if split:
+        kk, vv = _kv_of_heads(kk, vv, cfg, q.shape[2])
+    out = _sdpa(q, kk, vv, bias)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     with torch.no_grad():
         pos.add_(1)
-    return out, cache
+    return (_dist.reduce_from_model(out) if split else out), cache

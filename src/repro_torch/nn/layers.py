@@ -256,10 +256,23 @@ def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
             "wo": w((d_ff, d_model))}
 
 
-def gated_mlp(p, x, act=torch.nn.functional.silu):
+def gated_mlp(p, x, act=torch.nn.functional.silu, *, d_ff=None):
     """``(act(x @ wi_gate) * (x @ wi_up)) @ wo``, weights cast to ``x``'s
-    dtype."""
+    dtype.  With ``d_ff`` (the whole width) and a narrower ``wi_gate``,
+    the weights hold this rank's block of the ``mlp`` axis (a
+    ``"model"`` mesh): ``wi_gate`` / ``wi_up`` column blocks ``[d,
+    f/S]``, ``wo`` a row block ``[f/S, d]``; ``x`` enters through
+    ``dist.copy_to_model`` and the partial products leave through
+    ``dist.reduce_from_model``."""
     dt = x.dtype
+    split = d_ff is not None and p["wi_gate"].shape[1] != d_ff
+    if split:
+        if _dist.model_size() <= 1:
+            raise ValueError(f"wi_gate holds {p['wi_gate'].shape[1]} of "
+                             f"{d_ff} columns, but no ambient mesh splits "
+                             f"them (dist.use_mesh_rules)")
+        x = _dist.copy_to_model(x)
     g = act(x @ p["wi_gate"].to(dt))
     u = x @ p["wi_up"].to(dt)
-    return (g * u) @ p["wo"].to(dt)
+    y = (g * u) @ p["wo"].to(dt)
+    return _dist.reduce_from_model(y) if split else y

@@ -15,6 +15,10 @@ The expert FFN is three batched SwiGLU products over ``[G, E, C, ·]``.
 Top-k ties go to the smaller expert id, as ``lax.top_k`` gives them
 (``torch.topk`` promises no order among ties): the k largest of a stable
 descending sort.
+
+On a ``(data, model)`` mesh (``moe_apply``) a rank runs its block of
+the experts, or of their width, on routing computed whole on every
+rank; the aux loss is the whole batch's (``aux_loss``).
 """
 from __future__ import annotations
 
@@ -96,25 +100,75 @@ def route(idx, E: int, C: int):
     return inv[:E * C], slot_of.reshape(t, k)
 
 
-def _dispatch_group(x, idx, E: int, C: int):
-    """x [t, d], idx [t, k] -> (buf [E, C, d], slot_of [t, k])."""
+def _dispatch_group(x, idx, E: int, C: int, lo=None, n: int = 0):
+    """x [t, d], idx [t, k] -> (buf [E, C, d], slot_of [t, k]); with
+    ``lo``, the slots of experts ``[lo, lo + n)`` only (buf [n, C,
+    d])."""
     t, d = x.shape
     inv, slot_of = route(idx, E, C)
+    if lo is not None:
+        inv, E = inv[lo * C:(lo + n) * C], n
     xpad = torch.cat([x, x.new_zeros((1, d))], 0)
     buf = _bag.gather(xpad, inv)                               # [E*C, d]
     return buf.reshape(E, C, d), slot_of
 
 
-def _combine_group(o, slot_of, weights):
-    """o [E, C, d], slot_of [t, k], weights [t, k] -> y [t, d]: a static
-    k-loop of [t, d] gathers, added in order j = 0..k-1."""
+def _combine_group(o, slot_of, weights, lo=None):
+    """o [E', C, d] (experts ``[lo, lo + E')``), slot_of [t, k], weights
+    [t, k] -> y [t, d]: a static k-loop of [t, d] gathers, added in
+    order j = 0..k-1.  Holding all E experts, a dropped assignment reads
+    the zero row ``E·C``; holding a block of them, each gather names the
+    block's slots and sends every other slot (the other ranks' and the
+    drop slot) to the sentinel (``ops.gather_block``): its row is zero
+    and its gradient reaches no slot."""
     E, C, d = o.shape
-    flat_o = torch.cat([o.reshape(E * C, d), o.new_zeros((1, d))], 0)
+    flat_o = o.reshape(E * C, d)
     y = o.new_zeros((slot_of.shape[0], d))
+    if lo is None:
+        flat_o = torch.cat([flat_o, o.new_zeros((1, d))], 0)
+    else:
+        loc = slot_of.long() - lo * C
+        own = (loc >= 0) & (loc < E * C)
     for j in range(slot_of.shape[1]):
-        y = y + _bag.gather(flat_o, slot_of[:, j]) \
-            * weights[:, j:j + 1].to(o.dtype)
+        part = (_bag.gather(flat_o, slot_of[:, j]) if lo is None else
+                _bag.gather_block(flat_o, loc[:, j], own[:, j]))
+        y = y + part * weights[:, j:j + 1].to(o.dtype)
     return y
+
+
+def _groups() -> int:
+    """Dispatch groups by default: one where each rank already holds
+    only its own rows of the batch (the Trainer's data split: a rank's
+    tokens are its group), else the ambient mesh's data-shard count (1
+    off a mesh), the reference's ``dist.data_shard_count()``."""
+    return 1 if _dist.data_rank()[1] > 1 else _dist.data_shard_count()
+
+
+def aux_loss(probs, idx, E: int, weight: float):
+    """The Switch load-balancing term ``weight · E · sum(mean probs ·
+    mean top-k counts)`` over the whole batch.  Where each rank holds
+    its own rows (``dist.data_rank``), the counts and the token count
+    are summed over ``"data"`` (one all-reduce of ``[E + 1]`` int64,
+    no gradient) and this rank's term is ``weight · E · sum((its probs
+    summed / T) · counts / T)``: the ranks' terms sum to the whole
+    batch's, and so do their gradients.  The counts are whole numbers
+    summed exactly and divided once, as the reference's mean rounds
+    them."""
+    T = probs.shape[0]
+    tot = torch.zeros((E + 1,), dtype=torch.int64, device=probs.device)
+    tot.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(),
+                                                  dtype=torch.int64,
+                                                  device=probs.device))
+    tot[E] = T
+    if _dist.data_rank()[1] > 1:
+        tot = _dist.sum_over_data(tot)
+        n = tot[E].to(torch.float32)
+        me = torch.sum(probs, 0) / n
+    else:
+        n = float(T)
+        me = torch.mean(probs, 0)                              # [E]
+    ce = tot[:E].to(torch.float32) / n
+    return weight * E * torch.sum(me * ce)
 
 
 def moe_apply(p, cfg: MoEConfig, x, *, aux_loss_weight: float = 0.01,
@@ -122,40 +176,65 @@ def moe_apply(p, cfg: MoEConfig, x, *, aux_loss_weight: float = 0.01,
     """x [T, d] -> (y [T, d], aux_loss scalar fp32).
 
     ``groups``: dispatch groups (GShard-style); the tokens split into G
-    groups of T/G, each routed with its own capacity.  None takes the
-    ambient mesh's data-shard count (1 off a mesh); a G that does not
-    divide T falls back to 1.  The aux loss is the Switch load-balancing
-    term ``w · E · sum(mean probs · mean top-k counts)``."""
+    groups of T/G, each routed with its own capacity.  None takes
+    ``_groups()``: the ambient mesh's data-shard count (1 off a mesh),
+    or 1 where each rank holds only its own rows; a G that does not
+    divide T falls back to 1.  The aux loss is ``aux_loss`` over the
+    whole batch.
+
+    On a ``"model"`` mesh, as the reference's axes ``("expert", "embed",
+    "mlp")`` place them, the experts' weights hold this rank's block of
+    the experts (``[E/S, ...]``) or, where S does not divide E, of
+    their width (``[E, d, f/S]``, ``[E, f/S, d]``).  Every rank routes
+    all of its tokens on the whole router (a block of the router's
+    columns is gathered first, exactly): the ``[T, E]`` logits, the
+    top-k and the slots carry the same bits on every rank.  A rank
+    holding experts ``[lo, hi)`` gathers their slots only
+    (``inv[lo·C:hi·C]``) and combines them, the other slots sent to the
+    sentinel; holding a block of the width, it runs every expert on it.
+    ``x`` and the routing weights enter that region through
+    ``dist.copy_to_model`` and the partial ``y`` leaves it through
+    ``dist.reduce_from_model``."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
-    G = groups if groups is not None else _dist.data_shard_count()
+    G = groups if groups is not None else _groups()
     if T % G != 0:
         G = 1
     t_local = T // G
     C = capacity(cfg, t_local)
+    E_l = p["wi_gate"].shape[0]
+    split = E_l != E or p["wi_gate"].shape[2] != cfg.d_ff
+    router = p["router"]
+    if router.shape[1] != E:
+        router = _dist.gather_from_model(router, 1)
 
-    logits = x.float() @ p["router"]                           # [T, E]
+    logits = x.float() @ router                                # [T, E]
     probs = torch.softmax(logits, -1)
     weights, idx = top_k(probs, k)                             # [T, k]
     weights = weights / torch.sum(weights, -1, keepdim=True)
+    aux = aux_loss(probs, idx, E, aux_loss_weight)
 
-    me = torch.mean(probs, 0)                                  # [E]
-    # mean over tokens of the one-hot counts: whole numbers summed
-    # exactly, then one division, as the reference's mean rounds it
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)) / T
-    aux = aux_loss_weight * E * torch.sum(me * ce)
-
+    lo = None
+    if split:
+        if _dist.model_size() <= 1:
+            raise ValueError("the experts' weights hold a block, but no "
+                             "ambient mesh splits them "
+                             "(dist.use_mesh_rules)")
+        x = _dist.copy_to_model(x)
+        weights = _dist.copy_to_model(weights)
+        if E_l != E:
+            lo = _dist.row_block(E)[0]
     xg = x.reshape(G, t_local, d)
     idxg = idx.reshape(G, t_local, k)
     wg = weights.reshape(G, t_local, k)
-    parts = [_dispatch_group(xg[g], idxg[g], E, C) for g in range(G)]
-    h = torch.stack([b for b, _ in parts])                     # [G, E, C, d]
+    parts = [_dispatch_group(xg[g], idxg[g], E, C, lo, E_l)
+             for g in range(G)]
+    h = torch.stack([b for b, _ in parts])                     # [G, E', C, d]
 
     g_ = F.silu(torch.einsum("gecd,edf->gecf", h, p["wi_gate"].to(dt)))
     u = torch.einsum("gecd,edf->gecf", h, p["wi_up"].to(dt))
     o = torch.einsum("gecf,efd->gecd", g_ * u, p["wo"].to(dt))
-    y = torch.cat([_combine_group(o[g], parts[g][1], wg[g])
+    y = torch.cat([_combine_group(o[g], parts[g][1], wg[g], lo)
                    for g in range(G)], 0)
-    return y, aux
+    return (_dist.reduce_from_model(y) if split else y), aux

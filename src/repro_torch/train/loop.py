@@ -23,7 +23,7 @@ duplicate raises), and the step comes from the step-builder registry:
     moments are made from them), clips by the global norm with the
     split leaves' squares summed over ``"model"``, and the model's own
     collectives do the rest (``models/sequential.py``,
-    ``models/recsys.py``);
+    ``models/recsys.py``, ``models/lm.py``);
   * elastic (``grad_compression`` / ``grad_accum_shards`` / ``fsdp`` /
     ``overlap``): ``repro_torch.dist.compression``'s exchange over ``V``
     virtual shards with error feedback, bitwise across world sizes
@@ -118,14 +118,18 @@ def step_generator(seed: int, step: int, device,
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def sum_over_ranks(tensors, mesh):
+def sum_over_ranks(tensors, mesh, *, inplace: bool = False):
     """The sum of each tensor over the ``"data"`` group (one
-    ``all_reduce`` of their fp32 concatenation)."""
+    ``all_reduce`` of their fp32 concatenation).  ``inplace``: each sum
+    is written into its tensor, which must not share memory with another
+    (a model's gradients: no second copy of them is held)."""
     buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
     buf = mesh.all_reduce(buf, "data", "sum")
     out, off = [], 0
     for t in tensors:
         out.append(buf[off:off + t.numel()].view(t.shape).to(t.dtype))
+        if inplace:
+            out[-1] = t.copy_(out[-1])
         off += t.numel()
     return out
 
@@ -279,13 +283,14 @@ class Trainer:
             return loss_fn, apply_fn
 
         def apply_dp(values, opt_state, grads, grad_norm=None):
-            idx = [i for i, g in enumerate(tree_leaves(grads))
-                   if g is not None]
-            flat = tree_leaves(grads)
-            by_i = dict(zip(idx, sum_over_ranks([flat[i] for i in idx],
-                                                mesh)))
-            it = iter(range(len(flat)))
-            grads = tree_map(lambda g: by_i.get(next(it), g), grads)
+            flat = [g for g in tree_leaves(grads) if g is not None]
+            if len({g.untyped_storage().data_ptr() for g in flat}) \
+                    == len(flat):
+                sum_over_ranks(flat, mesh, inplace=True)
+            else:                 # aliased gradients: summed as copies
+                by_id = dict(zip(map(id, flat), sum_over_ranks(flat, mesh)))
+                grads = tree_map(lambda g: by_id.get(id(g), g), grads)
+            del flat
             return apply_fn(values, opt_state, grads, grad_norm=grad_norm)
         return loss_fn, apply_dp
 
@@ -384,17 +389,22 @@ class Trainer:
         ``"model"`` mesh the model's leaves are cut to this rank's blocks
         first (``params`` must be ``model.params()``; the returned tree
         holds the blocks, and so does ``opt_state``)."""
+        # the tree goes over in a box, so no frame of this call keeps the
+        # whole leaves alive once ``_run`` has cut them to their blocks
+        box = [params]
+        del params
         if not (self._split or self._counted):
-            return self._run(generator, params)
+            return self._run(generator, box)
         from repro_torch.dist import use_mesh_rules
         # each rank holds its own rows of the batch
         with use_mesh_rules(self.mesh, self.rules,
                             local_batch=self._counted):
-            return self._run(generator, params)
+            return self._run(generator, box)
 
-    def _run(self, generator, params):
+    def _run(self, generator, box):
         from repro_torch.dist import compression
         cfg, model, mesh = self.cfg, self.model, self.mesh
+        params = box.pop()
         self._step_times = []
         self._preempted = False
         hist_start = len(self.history)

@@ -104,7 +104,9 @@ def global_norm(grads, *, split=None, mesh=None) -> torch.Tensor:
 def apply_updates(cfg: OptConfig, state, values, grads, *, grad_norm=None):
     """Returns (new_values, new_state, stats).  ``weight_decay`` is
     decoupled for every kind: added to the update after the gradient or
-    moment term, scaled by the scheduled lr but not by the clip scale."""
+    moment term, scaled by the scheduled lr but not by the clip scale.
+    The moments are updated in place: ``new_state`` holds the tensors of
+    ``state``."""
     if cfg.kind not in ("adamw", "adam", "sgd"):
         raise ValueError(f"unknown optimizer kind {cfg.kind!r}")
     step = state["step"] + 1
@@ -129,8 +131,10 @@ def apply_updates(cfg: OptConfig, state, values, grads, *, grad_norm=None):
         if cfg.kind == "sgd":
             update = g
         else:
-            m = cfg.b1 * m + (1.0 - cfg.b1) * g
-            v = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
+            # in place: a second copy of the moments would be held
+            # otherwise; the same roundings as b1 * m + (1 - b1) * g
+            m = m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+            v = v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
             update = (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev))
                                           + cfg.eps)
         if cfg.weight_decay > 0:

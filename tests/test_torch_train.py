@@ -319,22 +319,31 @@ def test_cli_flags_and_defaults_match_the_reference():
                                    ["--arch", "dien", "--model-axis", "2",
                                     "--grad-accum-shards", "4"],
                                    ["--grad-compression", "bf16",
-                                    "--model-axis", "2"]])
+                                    "--model-axis", "2"],
+                                   ["--arch", "mace", "--devices", "2"]])
 def test_cli_unported_flags_raise(flags, capfd):
-    """What the CLI still refuses: an LM on more than one rank (item
-    10c; the LMs train on one device, tests/test_torch_lm_train.py) and
-    MACE on more than one rank (item 10e; MACE trains on one device,
-    tests/test_torch_mace.py).  The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
+    """What the CLI still refuses: MACE on more than one rank (item
+    10e; MACE trains on one device, tests/test_torch_mace.py).  An LM
+    trains on a mesh (item 10c): qwen3-14b on two data ranks, its loss
+    within 1e-5 relative of the single-device CLI's
+    (tests/test_torch_lm_mesh.py holds the LMs on every mesh shape).
+    The elastic exchange on a ``model`` axis (item 9c-iii) trains, with
     any arch, on two gloo ranks; ``--mesh``, the TrainSpec flags and
     every arch's ``--model-axis`` train too
     (tests/test_torch_elastic.py, tests/test_torch_model_axis_train.py,
     tests/test_torch_ctr_model_axis.py,
     tests/test_torch_elastic_model_axis.py)."""
-    argv = ["--device", "cpu", "--steps", "1", "--n-items", "50",
-            "--batch-size", "8", "--eval-every", "0", *flags]
-    if "qwen3-14b" in flags:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    common = ["--n-items", "50", "--batch-size", "8", "--eval-every", "0"]
+    argv = ["--device", "cpu", "--steps", "1", *common, *flags]
+    if "mace" in flags:
+        with pytest.raises(NotImplementedError, match="item 10e"):
             T_cli.main(argv)
+        return
+    if "qwen3-14b" in flags:
+        from test_torch_lm_train import cli_losses
+        want = cli_losses("qwen3-14b", [], capfd, steps=1)
+        got = cli_losses("qwen3-14b", [*common, *flags], capfd, steps=1)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
         return
     assert T_cli.main(argv) is None                 # spawned ranks
     out = capfd.readouterr().out
