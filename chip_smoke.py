@@ -236,12 +236,14 @@ Phase 26 runs after phase 25, phase 7's data and codebook:
      and a step, err bytes, the card; a ``{"engine": ...}`` line with
      each kernel's max |err| at the rounds' shapes.
 Phase 27 runs last:
- 27. main path, serving over a model-sharded catalogue:
-     ``launch/serve.serve_mesh`` (the ``--mesh S`` CLI's body) with
-     ``--share-card``: S = 2 and 4 ranks time-share the one card as a
-     (1, S) mesh, collectives over gloo staged through host memory (NCCL
-     refuses two ranks on one device), the kernels built here before
-     they start; each rank builds phase 4's full-width model from the
+ 27. main path, serving over a model-sharded catalogue: the ``--mesh
+     S`` CLI's per-rank body (``serve._mesh_rank``, what
+     ``launch/serve.serve_mesh`` spawns) with ``--share-card``, one task
+     a mesh on the rank pools (``RankPool``: the 2- and 4-rank processes
+     of phases 27-31 and 37-40, started here, once), running its cases in
+     turn: S = 2 and 4 ranks time-share the one card as a (1, S) mesh,
+     collectives over gloo staged through host memory (NCCL refuses two
+     ranks on one device), the kernels built before they start; each rank builds phase 4's full-width model from the
      seed and keeps its rows of the catalogue.  two-tower-retrieval-jpq
      ``--fused`` and ``--prune --perm --warm`` (the global state at
      block_n 7,816, total_tiles = nt_loc x S) at each S, 20 requests of
@@ -290,7 +292,10 @@ Phase 29 runs after phase 28:
      rank).  Then ``launch/serve.py --mesh S`` (the CLI's per-rank body,
      ``serve._mesh_rank``) at S = 2 and 4 for fm, fm-jpq, dlrm-rm2-jpq,
      dien and dien-jpq, 20 requests of B = 512, every rank's every
-     response bit-equal to the unsharded path; then the ``embedding_bag``
+     response bit-equal to the unsharded path (one pool task a world
+     size runs its training jobs, each mesh made from the running group, then
+     its serving); then the
+     ``embedding_bag``
      forward and backward at the shards' shapes (the two-tower pool on
      a (1, 2) block, FM's table gather and linear term at (1, 4)),
      bit-equal to their plain versions, timed beside bound, plain and
@@ -324,15 +329,16 @@ Phases 30-31 run after phase 29:
 Phases 32-34 run last, the LM family (``models/lm.py``) at every
 published width (d_model, heads, n_kv, head_dim, d_ff, experts, top_k,
 vocab, window, rope_theta), depth and batch cut to one card:
- 32. serving, bf16, ``no_grad``: each of mixtral-8x7b (4 layers),
-     olmoe-1b-7b (8 of 16), stablelm-1.6b (8 of 24; both cut in PR 30
-     for phases 37-38's time), qwen3-14b (8), stablelm-12b (8) runs ``prefill`` at S = 32,768, B = 1, and 64 ``decode_step``s
+ 32. serving, bf16, ``no_grad``: each of mixtral-8x7b (2 layers),
+     olmoe-1b-7b (4 of 16), stablelm-1.6b (4 of 24), qwen3-14b (4),
+     stablelm-12b (4; depths cut for the script's time)
+     runs ``prefill`` at S = 32,768, B = 1, and 64 ``decode_step``s
      against a random bf16 cache of 32,768 positions (B = 128, 4, 2,
      16, 8), ms, tokens/s and peak GB each; mixtral then decodes
      long_500k's last 8 positions from a ring cache at 524,280 whose
      bytes equal a 4,096-position cache's.  Check, the reference's
      test_decode_matches_full_forward at full width in fp32: mixtral at
-     2 layers, S = 4,608 (across its 4,096-slot ring), and qwen3-14b at
+     1 layer, S = 4,608 (across its 4,096-slot ring), and qwen3-14b at
      2 layers, S = 1,024, every position's decode logits within 2e-3 of
      the full forward's, mixtral at capacity_factor E / top_k (nothing
      drops; the drops at the configured 1.25 counted beside it);
@@ -357,7 +363,8 @@ batch built once on the host and padded as ``SHAPES`` pads it:
 molecule (128 molecules, 4,096 nodes, 8,192 edges, energy head),
 full_graph_sm (Cora-sized, 3,072 / 10,752) and minibatch_lg (1,024 seeds
 sampled with fanouts (15, 10) from a Reddit-sized graph, 169,984 /
-168,960); ogb_products does not fit on one card (item 10e):
+168,960), saved on the host for phases 39-40; ogb_products needs more
+cards than a run has:
  35. serving: ``MACE.serve`` 20 times a shape, median ms, peak GB, the
      card's busy share (``torch.profiler``) and the bag backward's
      launches a call (14 sums over receivers, and the sum over graphs);
@@ -377,11 +384,10 @@ sampled with fanouts (15, 10) from a Reddit-sized graph, 169,984 /
      sort, plain, ``index_add_``, the library's backward, bounds); then
      ``launch/train.py --arch mace --steps 2`` and the example
      ``train_mace_molecule`` at 5 steps.
-Phases 37-38 run last, the LMs on a ``(data, model)`` mesh at full
+Phases 37-38 run next, the LMs on a ``(data, model)`` mesh at full
 width (random weights from seed 0, depth cut), the ranks time-sharing
-the one card (``launch.mesh.spawn`` with ``share_card``: gloo staged
-through host memory), each against one card on the same weights and
-tokens:
+the one card (the rank pools: gloo staged through host memory), each
+against one card on the same weights and tokens:
  37. training through ``Trainer`` and adamw, bf16: (a) stablelm-1.6b at
      2 layers, full table, (1, 2), B = 2, S = 4,096, 3 steps: losses
      finite, steps 0 and 1 within 1e-4 and 3e-4 relative of one card's
@@ -416,17 +422,49 @@ tokens:
      fp32), no further from one card's fp32 outputs than twice one
      card's bf16 are; prefill ms and decode ms a step beside one
      card's.
+Phases 39-40 run last, MACE on a ``(data, model)`` mesh at full width
+(fp32, TF32 off, the phase 35 batches), the ranks time-sharing the card
+(gloo staged through host memory), each held against one card:
+ 39. training through ``Trainer`` and adamw (lr 1e-3), 3 steps a job, one
+     pool task a world size whose ranks run each of its meshes in turn (a
+     mesh made from the running group) and each mesh its shapes in turn:
+     four ranks (4, 1) minibatch_lg, then (2, 2) molecule twice (then
+     that pool ends); two ranks (2, 1) molecule, full_graph_sm and
+     minibatch_lg, then (1, 2) molecule and minibatch_lg (only the
+     readout split);
+     each rank's share (``MACE.local_batch``: its node and edge blocks,
+     the halo and the remote receivers exchanged over "data"); step 0
+     within 1e-5 and steps 1-2 within 1e-4 relative of phase 36's one
+     card on the same weights and graph, step 0's gradient summed over
+     "data" within 1e-5 of each leaf's largest, the bag backward every
+     step on every rank (a sum a path and the graph sum, a gather's
+     backward an l a layer), (2, 2) bit-identical run to run, the ranks'
+     need with the card's use before them (the waiting ranks' contexts
+     in it) within 75 GB; step ms beside
+     one card's, peaks, halo and owner-sum rows, the collectives a step;
+     then the segment sum and the gather backward at the last rank's
+     share of minibatch_lg at D = 2 and 4 against their plain versions
+     (bit-equal), timed beside their bounds;
+ 40. ``launch/serve.py --arch mace --mesh 2 --share-card`` at full
+     width, 5 requests of the shape's node count: molecule through the
+     CLI's body, ``launch/serve.serve_mesh`` (its checks, the kernels'
+     build, its spawn of 2 ranks), minibatch_lg through its ranks' body
+     (``serve._mesh_rank``) on the 2-rank pool, which then ends: every
+     rank's
+     outputs within 1e-5 of the largest of the unsharded ``serve_loop``
+     on the same requests, the bag backward every call.
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
 phase 29's ``{"ctr_model_axis": ...}``, phase 30's
 ``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}``,
 phases 32-34's ``{"lm": ...}``, phases 35-36's ``{"mace": ...}``,
-phases 37-38's ``{"lm_mesh": ...}`` and
-the per-kernel numbers (eight kernels; rows 3-5b also carry phases
+phases 37-38's ``{"lm_mesh": ...}``, phases 39-40's
+``{"mace_mesh": ...}`` and the per-kernel numbers (eight kernels; rows 3-5b also carry phases
 33's ``lm_shape`` and ``lm_launches`` and phase 37's ``lm_mesh_shape``
 (a rank's shape, its launches a rank and run), the bag backward phase
-36's ``mace_shape``; the two top-k kernels also carry
+36's ``mace_shape`` and phase 39's ``mace_mesh_shape`` and
+``mace_mesh_launches_per_rank_step``; the two top-k kernels also carry
 phase 25's ``server_shape`` and phase 31's ``server_mesh_shape``, rows
 3-5 phase 26's ``elastic_launches`` and ``elastic_round_max_abs_err``
 and phase 30's ``elastic_mesh_launches_per_rank`` and
@@ -1059,6 +1097,192 @@ def free_card(torch, dev, what):
     check(torch.cuda.memory_allocated(dev) < 2e9,
           f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB still "
           f"allocated before {what}")
+
+
+# ---------------------------------------------------------------- rank pools
+# Phases 27-31 and 37-40 hand their rank functions to one pool of rank
+# processes a world size (2 and 4), started at phase 27 and ended in
+# phases 39-40, where a spawn a run paid every rank's start (the
+# interpreter, torch, the card's context, the process group) again.
+POOLS: dict = {}
+
+
+def pool_worker(rank, n, store_path, device, task_dir):
+    """One rank of a ``RankPool`` (module-level: it is pickled): join
+    the pool's group (several ranks on one card: gloo staged), mark
+    ``ready.<rank>``, then run each ``task_dir/task<i>.pkl`` = (fn, args,
+    model) in turn as ``fn(mesh, *args)``, ``mesh`` a new ``HostMesh`` of
+    ``(n // model, model)`` over the group (the axis groups made once a
+    shape), from the state a new rank process starts in (the launch
+    counters zeroed, the global generators at their first seed, the peak
+    memory reset); after it the card is left empty and
+    ``done<i>.<rank>`` written, or ``error<i>.<rank>`` with the
+    traceback if it raised.  Task None: leave the group."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import semantic
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.launch import mesh as mesh_mod
+    dev = torch.device(device)
+    share = dev.type == "cuda"
+    mesh_mod.init_group(rank, n, store_path, dev, share)
+    torch.zeros(1, device=dev)                     # the card's context
+    open(os.path.join(task_dir, f"ready.{rank}"), "w").close()
+    seed, groups, i = torch.initial_seed(), {}, 0
+    while True:
+        i += 1
+        path = os.path.join(task_dir, f"task{i}.pkl")
+        while not os.path.exists(path):
+            time.sleep(0.01)
+        with open(path, "rb") as f:
+            task = pickle.load(f)
+        if task is None:
+            break
+        fn, args, model = task
+        if model not in groups:
+            groups[model] = mesh_mod.axis_groups(n // model, model, rank)
+        mesh = mesh_mod.HostMesh(
+            n // model, model, rank=rank, group=tdist.group.WORLD,
+            device=dev, transport=mesh_mod.transport_for(dev, share),
+            groups=groups[model])
+        for c in (ec, lc, sc, kc):
+            c.reset_launches()
+        torch.manual_seed(seed)
+        if share:
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            fn(mesh, *args)
+        except BaseException:
+            with open(os.path.join(task_dir, f"error{i}.{rank}"), "w") as f:
+                f.write(traceback.format_exc())
+            raise
+        del mesh, fn, args, task
+        gc.collect()
+        semantic.clear_index_cache()
+        if share:
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+        open(os.path.join(task_dir, f"done{i}.{rank}"), "w").close()
+    gc.collect()
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+class RankPool:
+    """``n`` rank processes on ``dev`` (a CUDA ``dev``: all on its card,
+    as ``launch.mesh.spawn`` with ``share_card`` runs them), started
+    once; ``run`` hands them one rank function after another, ``close``
+    ends them."""
+
+    def __init__(self, n, dev):
+        import tempfile
+
+        import torch.multiprocessing as mp
+        self.n, self.i = n, 0
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_pool{n}-")
+        self.ctx = mp.start_processes(
+            pool_worker, args=(n, os.path.join(self.dir, "store"), str(dev),
+                               self.dir),
+            nprocs=n, join=False, start_method="spawn")
+
+    def _wait(self, marks, timeout, what):
+        """Until every file of ``marks`` exists in the pool's directory;
+        raises if a rank wrote its task's error, a rank process ended, or
+        ``timeout`` seconds passed."""
+        deadline = time.monotonic() + timeout
+        while not all(os.path.exists(os.path.join(self.dir, m))
+                      for m in marks):
+            ended = [r for r, p in enumerate(self.ctx.processes)
+                     if not p.is_alive()]
+            errs = sorted(f for f in os.listdir(self.dir)
+                          if f.startswith(f"error{self.i}."))
+            if errs:
+                with open(os.path.join(self.dir, errs[0])) as f:
+                    raise RuntimeError(f"chip_smoke: {what} failed on rank "
+                                       f"{errs[0].split('.')[1]} of "
+                                       f"{self.n}:\n{f.read()}")
+            if ended:
+                raise RuntimeError(
+                    f"chip_smoke: rank processes {ended} of the {self.n}-"
+                    f"rank pool ended during {what} (exit codes "
+                    f"{[self.ctx.processes[r].exitcode for r in ended]})")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"chip_smoke: {what} on {self.n} ranks "
+                                   f"still running after {timeout} s")
+            time.sleep(0.02)
+
+    def ready(self, timeout=300):
+        self._wait([f"ready.{r}" for r in range(self.n)], timeout,
+                   "the pool's start")
+
+    def run(self, fn, args=(), *, model=1, timeout=900):
+        """``fn(mesh, *args)`` on every rank, ``mesh`` an ``(n // model,
+        model)`` mesh; returns when every rank has finished it."""
+        import pickle
+        self.ready()
+        self.i += 1
+        path = os.path.join(self.dir, f"task{self.i}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump((fn, tuple(args), model), f)
+        os.replace(path + ".tmp", path)
+        self._wait([f"done{self.i}.{r}" for r in range(self.n)], timeout,
+                   fn.__name__)
+
+    def close(self, timeout=60):
+        """Hand the ranks the end task and wait ``timeout`` seconds for
+        them to leave their group (0: not at all); kill whatever is
+        left."""
+        import pickle
+        import shutil
+        if self.ctx is None:
+            return
+        try:
+            if timeout and all(p.is_alive() for p in self.ctx.processes):
+                self.i += 1
+                path = os.path.join(self.dir, f"task{self.i}.pkl")
+                with open(path + ".tmp", "wb") as f:
+                    pickle.dump(None, f)
+                os.replace(path + ".tmp", path)
+                deadline = time.monotonic() + timeout
+                for p in self.ctx.processes:
+                    p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+            shutil.rmtree(self.dir, ignore_errors=True)
+            self.ctx = None
+
+
+def start_pools(dev, sizes):
+    """Start a pool of each size in ``sizes`` not running yet, all
+    together, and wait until every rank has joined its group."""
+    for n in sizes:
+        if n not in POOLS:
+            POOLS[n] = RankPool(n, dev)
+    for n in sizes:
+        POOLS[n].ready()
+
+
+def run_ranks(fn, n, args, dev, *, model, timeout):
+    """``fn(mesh, *args)`` on the ``n``-rank pool (started here if it is
+    not running), ``mesh`` an ``(n // model, model)`` mesh."""
+    start_pools(dev, (n,))
+    POOLS[n].run(fn, args, model=model, timeout=timeout)
+
+
+def close_pools(timeout=60):
+    """End every pool (``RankPool.close``)."""
+    while POOLS:
+        POOLS.popitem()[1].close(timeout)
 
 
 def seq_main_path(torch, np, dev, smi, data, codes_np, arch, steps, *,
@@ -3652,10 +3876,43 @@ def shard_kernel_rows(torch, dev, smi, template, Bq=B):
     return rows
 
 
+def _mesh_serve_argv(arch, flags, S=0):
+    """Phase 27's serve CLI arguments (``--mesh S --share-card`` where S
+    is given)."""
+    argv = ["--arch", arch, "--batch-size", str(B), "--requests",
+            str(REQUESTS), "--device", "cuda", *flags]
+    return argv + (["--mesh", str(S), "--share-card"] if S else [])
+
+
+def mesh_serve_rank(mesh, cases, out_dir):
+    """One rank of phase 27 (module-level: it is pickled): the ``--mesh
+    S`` CLI's per-rank body (``serve._mesh_rank``: build the full-width
+    model, keep this rank's catalogue rows, ``serve_loop`` under the
+    mesh) for each ``(arch, name, flags)`` case in turn, the results under
+    ``out_dir/<name>``; one pool task a mesh."""
+    import functools
+
+    import torch
+
+    from repro_torch.launch import serve as serve_mod
+    S = mesh.shape["model"]
+    for arch, name, flags in cases:
+        sub = os.path.join(out_dir, name)
+        os.makedirs(sub, exist_ok=True)
+        serve_mod._mesh_rank(
+            mesh, serve_mod.build_parser().parse_args(
+                _mesh_serve_argv(arch, flags, S)),
+            functools.partial(full_two_tower, arch), sub, True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def mesh_phases(torch, np, dev, smi):
-    """Phase 27: ``launch.serve.serve_mesh`` (the ``--mesh S`` CLI's
-    body) with ``--share-card``, S = 2 and 4 ranks on the one card, at
-    full width: two-tower-retrieval-jpq ``--fused`` and ``--prune --perm
+    """Phase 27: the ``--mesh S`` CLI's per-rank body (what
+    ``launch.serve.serve_mesh`` spawns) with ``--share-card``, S = 2 and
+    4 ranks on the one card, one pool task a mesh running its cases in
+    turn (the rank pools start here),
+    at full width: two-tower-retrieval-jpq ``--fused`` and ``--prune --perm
     --warm`` at each S, the full-table two-tower at S = 4; every rank's
     every response held against the unsharded path on the same request
     (RecJPQ: bit-equal; the full table: its pooled user tower sums over
@@ -3665,44 +3922,55 @@ def mesh_phases(torch, np, dev, smi):
     shards' shapes (``shard_kernel_rows``).  On one card the ranks
     time-share the device: the latencies are what S ranks cost on one
     card, not what S cards would give."""
-    import functools
+    import shutil
 
     from repro_torch.launch import serve as serve_mod
 
     t0 = phase("main path: serving over a model-sharded catalogue, S = 2 "
                "and 4 ranks on the one card (serve --mesh S --share-card)")
+    t1 = time.perf_counter()
+    start_pools(dev, MESH_SHARDS)
+    print(f"   the rank pools of {MESH_SHARDS} ranks (phases 27-31, "
+          f"37-38) started in {time.perf_counter() - t1:.1f} s")
     k = 10
-
-    def parse(arch, flags, S=0):
-        argv = ["--arch", arch, "--batch-size", str(B), "--requests",
-                str(REQUESTS), "--device", "cuda", *flags]
-        if S:
-            argv += ["--mesh", str(S), "--share-card"]
-        return serve_mod.build_parser().parse_args(argv)
-
-    runs = {}
-    launches = {"jpq_topk": {}, "jpq_topk_pruned": {}, "embedding_bag": {}}
-    for arch, cases in (
-            ("two-tower-retrieval-jpq",
-             [(S, name, flags) for S in MESH_SHARDS
-              for name, flags in (("fused", ["--fused"]),
-                                  ("pruned", ["--prune", "--perm",
-                                              "--warm"]))]),
-            ("two-tower-retrieval", [(4, "full", [])])):
-        make = functools.partial(full_two_tower, arch)
-        model, template = make(dev)
-        ref = serve_mod.serve_loop(model, model.params(), template,
-                                   parse(arch, ["--fused"]),
-                                   keep_outputs=True)
-        n_rows = model.emb.cfg.n_items
+    cases = {S: [("two-tower-retrieval-jpq", name, flags)
+                 for name, flags in (("fused", ["--fused"]),
+                                     ("pruned", ["--prune", "--perm",
+                                                 "--warm"]))]
+             for S in MESH_SHARDS}
+    cases[4].append(("two-tower-retrieval", "full", []))
+    refs, n_rows = {}, {}
+    for arch in ("two-tower-retrieval-jpq", "two-tower-retrieval"):
+        model, template = full_two_tower(arch, dev)
+        refs[arch] = serve_mod.serve_loop(
+            model, model.params(), template, serve_mod.build_parser()
+            .parse_args(_mesh_serve_argv(arch, ["--fused"])),
+            keep_outputs=True)
+        n_rows[arch] = model.emb.cfg.n_items
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        for S, name, flags in cases:
+    root = os.path.join(HERE, "build", "chip_smoke_mesh_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    results = {}
+    for S in MESH_SHARDS:
+        out_dir = os.path.join(root, f"S{S}")
+        run_ranks(mesh_serve_rank, S, (cases[S], out_dir), dev, model=S,
+                  timeout=600)
+        for arch, name, _ in cases[S]:
+            results[(S, name)] = [torch.load(os.path.join(
+                out_dir, name, f"rank{r}.pt"), weights_only=False)
+                for r in range(S)]
+    shutil.rmtree(root, ignore_errors=True)
+
+    runs = {}
+    launches = {"jpq_topk": {}, "jpq_topk_pruned": {}, "embedding_bag": {}}
+    for S in MESH_SHARDS:
+        for arch, name, _ in cases[S]:
+            ref = refs[arch]
             kern = {"fused": "jpq_topk", "pruned": "jpq_topk_pruned",
                     "full": "embedding_bag"}[name]
-            ranks = serve_mod.serve_mesh(parse(arch, flags, S), make=make,
-                                         keep_outputs=True, timeout=300)
+            ranks = results[(S, name)]
             worst = {"ids_differ": 0, "max_abs_dv": 0.0}
             for r, res in enumerate(ranks):
                 check(res["mesh"] == S and res["transport"] == "gloo-staged"
@@ -3711,7 +3979,7 @@ def mesh_phases(torch, np, dev, smi):
                       f"{arch} mesh={S} {name}: rank {r} never launched "
                       f"{kern}")
                 if name == "pruned":
-                    nt_loc = n_rows // S // 7816
+                    nt_loc = n_rows[arch] // S // 7816
                     check(res["total_tiles"] == [nt_loc * S]
                           * (REQUESTS + 1),
                           f"total_tiles {set(res['total_tiles'])} != "
@@ -3770,6 +4038,7 @@ def mesh_phases(torch, np, dev, smi):
 
     t0 = phase("the mesh path's kernels at the shards' shapes (CUDA events)")
     shard_rows = shard_kernel_rows(torch, dev, smi, template)
+    del template
     done(t0)
     return {"mesh_serve": runs, "shard_kernels": shard_rows,
             "launches": launches}
@@ -3823,7 +4092,7 @@ def leaf_rule(want, got):
 
 
 def tp_rank(mesh, codes_np, batches, jobs, out_dir):
-    """One rank of phase 28 (module-level: spawn pickles it).  Each job
+    """One rank of phase 28 (module-level: it is pickled).  Each job
     builds the full-width RecJPQ model of phase 7 (``full_width_model``)
     from seed 0, optionally takes one step's loss and gradient at the
     start (this rank's data rows over the whole batch's counts, the
@@ -4033,9 +4302,8 @@ def tp_shard_kernels(torch, dev, smi, codes_np, batches):
 
 def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
     """Phase 28: full-width RecJPQ training on a ``(data, model)`` mesh
-    of ranks time-sharing the one card (``launch.mesh.spawn`` with
-    ``share_card``, the ``--model-axis S --share-card`` CLI's transport)
-    through the Trainer's tensor parallelism.  (a) (1, 2), SASRec
+    of ranks time-sharing the one card (a ``RankPool``: the ``--model-axis
+    S --share-card`` CLI's transport) through the Trainer's tensor parallelism.  (a) (1, 2), SASRec
     ``full_ce``, 10 steps of phase 7's batches from phase 7's start:
     step 0's loss within 1e-5 relative of the (1, 1) step on the same
     batch and its gathered gradient within ``leaf_rule`` of that step's;
@@ -4106,13 +4374,12 @@ def model_axis_phases(torch, np, dev, smi, data, codes_np, seq_runs):
                                 steps=TP_STEPS["data"], grad0=True)])):
         out_dir = tempfile.mkdtemp(prefix=f"ranks-{shape}-", dir=root)
         t1 = time.perf_counter()
-        mesh_mod.spawn(tp_rank, n, (codes_np, batches, js, out_dir),
-                       device=dev, model=TP_SHARDS, share_card=True,
-                       timeout=900)
+        run_ranks(tp_rank, n, (codes_np, batches, js, out_dir), dev,
+                  model=TP_SHARDS, timeout=900)
         ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                                    weights_only=False) for r in range(n)]
         print(f"   {shape}: {n} ranks, {time.perf_counter() - t1:.1f} s "
-              f"(spawn, build, runs)")
+              f"(the runs, on the pool's ranks)")
     runs, launches = {}, {k: {} for k in TP_KERNELS}
     seq7 = seq_runs["sasrec"]
     for shape, rs in ranks.items():
@@ -4309,40 +4576,53 @@ def ctr_batches(np, data, arch, rows, n):
             for b in (clicks.batch(s, rows) for s in range(n))]
 
 
-def ctr_tp_rank(mesh, jobs, batch_dir, out_dir):
-    """One rank of phase 29's training (module-level: spawn pickles it).
-    Each job ``(run, arch, rows, microbatches, steps)`` builds the
-    arch's full-width model from seed 0 on the card and trains it
-    through ``Trainer`` on this rank's mesh (its placement's blocks
-    kept, the rows of the batch its data index gives it), on the host
-    batches saved under ``batch_dir``; the embedding_bag launch
-    counters, the peak memory and ``HostMesh.comm`` are read around the
-    run.  Writes ``out_dir/rank<r>.pt``."""
+def ctr_tp_rank(mesh, jobs, batch_dir, out_dir, serve_archs=()):
+    """One rank of phase 29 (module-level: it is pickled): one pool
+    task a world size.  Each job ``(run, arch,
+    (D, S), rows, microbatches, steps)`` builds the arch's full-width
+    model from seed 0 on the card and trains it through ``Trainer`` on
+    a ``(D, S)`` mesh of this world (``mesh``, or one made from the
+    running group; its placement's blocks kept, the rows of the batch
+    its data index gives it), on the host batches saved under
+    ``batch_dir``; the embedding_bag launch counters, the peak memory
+    and ``HostMesh.comm`` are read around the run.  Then the ``--mesh
+    S`` serving of ``serve_archs`` on the ``(1, world)`` mesh
+    (``ctr_serve_rank``, under ``out_dir/serve``).  Writes
+    ``out_dir/rank<r>.pt``."""
     import numpy as np
     import torch
 
     from repro_torch import fp32_matmuls
     from repro_torch.configs import get_bundle
     from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.train.loop import TrainConfig, Trainer
     from repro_torch.train.optimizer import OptConfig
     fp32_matmuls()
     dev = mesh.device
     res = {"rank": mesh.rank, "transport": mesh.transport}
-    for run, arch, rows, mb, steps in jobs:
+    on = {(mesh.shape["data"], mesh.shape["model"]): mesh}
+
+    def of(shape):
+        if shape not in on:
+            on[shape] = mesh_mod.make_host_mesh(
+                shape[0] * shape[1], shape[1], device=dev, share_card=True)
+        return on[shape]
+    for run, arch, shape, rows, mb, steps in jobs:
+        m = of(shape)
         with np.load(os.path.join(batch_dir, f"{arch}.npz")) as z:
             batches = [{k.split("/")[1]: z[k] for k in z.files
                         if k.startswith(f"{s}/")} for s in range(steps)]
         model = get_bundle(arch).make_model(device=dev, seed=0)
         tr = Trainer(model, OptConfig(lr=3e-3), TrainConfig(
             steps=steps, batch_size=rows, log_every=1, eval_every=0,
-            microbatches=mb), data_fn=lambda s: batches[s], mesh=mesh)
+            microbatches=mb), data_fn=lambda s: batches[s], mesh=m)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         ec.reset_launches()
-        comm0 = dict(mesh.comm)
+        comm0 = dict(m.comm)
         params, hist = tr.run(params=model.params())
         torch.cuda.synchronize(dev)
         hrows = [h for h in hist if "loss" in h]
@@ -4352,12 +4632,18 @@ def ctr_tp_rank(mesh, jobs, batch_dir, out_dir):
             "step_ms": [h["sec"] * 1e3 for h in hrows],
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "launches": dict(ec.launches),
-            "comm": {k: mesh.comm[k] - comm0[k] for k in comm0},
+            "comm": {k: m.comm[k] - comm0[k] for k in comm0},
             "split": {k: tuple(x.shape) for k, x in _flat(params).items()
                       if any(e == "model" for e in specs[k])}}
         del model, tr, params, hist, batches
+        # the next job in this process may need the card whole: a cuBLAS
+        # workspace made while a large block was free pins its segment
         gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()
+    if serve_archs:
+        ctr_serve_rank(of((1, mesh.world_size)), serve_archs,
+                       os.path.join(out_dir, "serve"))
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 
 
@@ -4366,7 +4652,7 @@ def ctr_serve_model(arch, device):
     whose ids lie in every field's range (``make_requests`` draws each
     integer field over the template's [min, max]): FM's below its
     smallest vocabulary, 10,000; DLRM's below 4,000; DIEN's histories
-    and targets over the catalogue.  Module-level: spawn pickles it."""
+    and targets over the catalogue.  Module-level: it is pickled."""
     import numpy as np
 
     from repro_torch.configs import get_bundle
@@ -4393,7 +4679,7 @@ def _ctr_serve_args(arch, S=0):
 
 
 def ctr_serve_rank(mesh, archs, out_dir):
-    """One rank of phase 29's serving (module-level: spawn pickles it):
+    """One rank of phase 29's serving (module-level: it is pickled):
     the ``--mesh S`` CLI's per-rank body (``serve._mesh_rank``: build,
     keep this rank's catalogue rows, ``serve_loop`` under the mesh) for
     each arch in turn, the results under ``out_dir/<arch>``."""
@@ -4580,9 +4866,8 @@ def ctr_shard_bag_rows(torch, dev, smi, tt_batch, fm_batch):
 
 def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
     """Phase 29: the CTR and two-tower models on a ``(data, model)`` mesh
-    of ranks time-sharing the one card (``launch.mesh.spawn`` with
-    ``share_card``, the ``--model-axis S --share-card`` CLI's
-    transport), then ``--mesh S`` serving of FM, DLRM-RM2 and DIEN, then
+    of ranks time-sharing the one card (a ``RankPool``: the
+    ``--model-axis S --share-card`` CLI's transport), then ``--mesh S`` serving of FM, DLRM-RM2 and DIEN, then
     the embedding_bag kernels at the shards' shapes.  ``ctr_train``:
     phase 24's summary by arch (its first loss, median step and peak),
     printed beside each run.  Returns {"runs", "serve", "shard_kernels",
@@ -4592,7 +4877,6 @@ def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
 
     from repro_torch.configs import get_bundle
     from repro_torch.configs.recsys_archs import DLRM_VOCABS
-    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import serve as serve_mod
 
     t0 = phase("main path: the CTR and two-tower models on a 'model' mesh "
@@ -4627,21 +4911,37 @@ def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
                 for k, v in bs[0].items()})[0]) for i in range(mb)]))
         del model, params, bs
         free_card(torch, dev, f"{key}'s ranks")
-    ranks = {}
-    for shape in ((1, 2), (1, 4), (2, 2)):
-        D, S = shape
-        jobs = [(run, arch, rows, mb, steps)
-                for run, arch, sh, rows, mb, steps in CTR_TP_RUNS
-                if sh == shape]
-        out_dir = tempfile.mkdtemp(prefix=f"ranks-{D}x{S}-", dir=root)
+    # the serving below runs in the same processes, after the training
+    # jobs of its world: its unsharded references first
+    ref = {}
+    for arch in CTR_MESH_ARCHS:
+        model, tmpl = ctr_serve_model(arch, dev)
+        ref[arch] = serve_mod.serve_loop(model, model.params(), tmpl,
+                                         _ctr_serve_args(arch),
+                                         keep_outputs=True)
+        del model
+        free_card(torch, dev, f"{arch}'s unsharded reference")
+    ranks, serve_dirs = {}, {}
+    worlds = {}                       # world size -> its jobs, in order
+    for run, arch, sh, rows, mb, steps in CTR_TP_RUNS:
+        worlds.setdefault(sh[0] * sh[1], []).append(
+            (run, arch, sh, rows, mb, steps))
+    for n, jobs in worlds.items():
+        out_dir = tempfile.mkdtemp(prefix=f"ranks-{n}-", dir=root)
         t1 = time.perf_counter()
-        mesh_mod.spawn(ctr_tp_rank, D * S, (jobs, root, out_dir), device=dev,
-                       model=S, share_card=True, timeout=900)
-        ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                                   weights_only=False)
-                        for r in range(D * S)]
-        print(f"   ({D}, {S}): {D * S} ranks, "
-              f"{time.perf_counter() - t1:.1f} s (spawn, build, runs)")
+        run_ranks(ctr_tp_rank, n, (jobs, root, out_dir, CTR_MESH_ARCHS
+                                   if n in MESH_SHARDS else ()),
+                  dev, model=jobs[0][2][1], timeout=900)
+        per = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                          weights_only=False) for r in range(n)]
+        for sh in dict.fromkeys(j[2] for j in jobs):
+            ranks[sh] = per
+        serve_dirs[n] = os.path.join(out_dir, "serve")
+        print(f"   {n} ranks (" + ", ".join(
+            f"({D}, {S})" for D, S in dict.fromkeys(j[2] for j in jobs))
+            + (f", then serving at (1, {n})" if n in MESH_SHARDS else "")
+            + f"): {time.perf_counter() - t1:.1f} s (the runs, on the "
+            f"pool's ranks)")
     runs = {}
     launches = {"embedding_bag": {}, "embedding_bag_backward": {}}
     for run, arch, shape, rows, mb, steps in CTR_TP_RUNS:
@@ -4704,23 +5004,11 @@ def ctr_model_axis_phases(torch, np, dev, smi, data, ctr_train):
                f"{', '.join(CTR_MESH_ARCHS)}, S = 2 and 4, {REQUESTS} "
                f"requests of B={B}, against the unsharded path")
     print("   dlrm-rm2 (full table) is left out: each rank builds the whole "
-          "57.1 GB table before keeping its rows")
-    ref = {}
-    for arch in CTR_MESH_ARCHS:
-        model, tmpl = ctr_serve_model(arch, dev)
-        ref[arch] = serve_mod.serve_loop(model, model.params(), tmpl,
-                                         _ctr_serve_args(arch),
-                                         keep_outputs=True)
-        del model
-        free_card(torch, dev, f"{arch}'s unsharded reference")
+          "57.1 GB table before keeping its rows; each S ran on the ranks of "
+          "the training above, after its jobs")
     serve = {}
     for S in MESH_SHARDS:
-        out_dir = tempfile.mkdtemp(prefix=f"serve-{S}-", dir=root)
-        t1 = time.perf_counter()
-        mesh_mod.spawn(ctr_serve_rank, S, (CTR_MESH_ARCHS, out_dir),
-                       device=dev, model=S, share_card=True, timeout=600)
-        print(f"   S={S}: {S} ranks, {time.perf_counter() - t1:.1f} s "
-              f"(spawn, build, serve)")
+        out_dir = serve_dirs[S]
         for arch in CTR_MESH_ARCHS:
             res = [torch.load(os.path.join(out_dir, arch, f"rank{r}.pt"),
                               weights_only=False) for r in range(S)]
@@ -4944,7 +5232,7 @@ def elastic_run(mesh, job, codes_np):
 
 
 def elastic_mesh_rank(mesh, codes_np, jobs, out_dir):
-    """One rank of phase 30 (module-level: spawn pickles it): each job
+    """One rank of phase 30 (module-level: it is pickled): each job
     through ``elastic_run``; writes ``out_dir/rank<r>.pt``."""
     import torch
 
@@ -5053,13 +5341,12 @@ def elastic_mesh_phases(torch, np, dev, smi, data, codes_np, engine):
     for shape, n, jobs in plan:
         out_dir = tempfile.mkdtemp(prefix=f"ranks-{shape}-", dir=root)
         t1 = time.perf_counter()
-        mesh_mod.spawn(elastic_mesh_rank, n,
-                       (codes_np, jobs, out_dir), device=dev,
-                       model=2, share_card=True, timeout=900)
+        run_ranks(elastic_mesh_rank, n, (codes_np, jobs, out_dir), dev,
+                  model=2, timeout=900)
         ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                                    weights_only=False) for r in range(n)]
         print(f"   {shape}: {n} ranks, {time.perf_counter() - t1:.1f} s "
-              f"(spawn, build, runs)")
+              f"(the runs, on the pool's ranks)")
     shutil.rmtree(root, ignore_errors=True)
     runs, launches = {}, {}
     for shape, rs in ranks.items():
@@ -5188,7 +5475,7 @@ SRVM_SLOW_RATE = 100
 
 
 def server_mesh_rank(mesh, runs, out_dir):
-    """One rank of phase 31 (module-level: spawn pickles it): phase 25's
+    """One rank of phase 31 (module-level: it is pickled): phase 25's
     full-width two-tower-retrieval-jpq from seed 0, the hot swap's probe
     launches counted alone, this rank's rows kept; then each run through
     ``launch/server.serve_requests`` under the mesh at 500/s, and again
@@ -5325,7 +5612,6 @@ def server_mesh_phases(torch, np, dev, smi, server):
 
     from repro_torch import serve
     from repro_torch.configs import get_bundle
-    from repro_torch.launch import mesh as mesh_mod
 
     t0 = phase(f"main path: the request server under --mesh S, S = "
                f"{SRVM_SHARDS}, ranks sharing the one card (server --mesh "
@@ -5339,12 +5625,12 @@ def server_mesh_phases(torch, np, dev, smi, server):
     for S in SRVM_SHARDS:
         out_dir = tempfile.mkdtemp(prefix=f"ranks-{S}-", dir=root)
         t1 = time.perf_counter()
-        mesh_mod.spawn(server_mesh_rank, S, (SRVM_RUNS, out_dir),
-                       device=dev, model=S, share_card=True, timeout=600)
+        run_ranks(server_mesh_rank, S, (SRVM_RUNS, out_dir), dev,
+                  model=S, timeout=600)
         ranks[S] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                                weights_only=False) for r in range(S)]
         print(f"   S={S}: {S} ranks, {time.perf_counter() - t1:.1f} s "
-              f"(spawn, build, runs)")
+              f"(the runs, on the pool's ranks)")
     shutil.rmtree(root, ignore_errors=True)
     # the unsharded reference: each request served alone
     model = get_bundle("two-tower-retrieval-jpq").make_model(device=dev,
@@ -5467,15 +5753,18 @@ def server_mesh_phases(torch, np, dev, smi, server):
 # card: (arch, layers, prefill B, decode B).  The decode batch is the
 # largest power of two (at most decode_32k's 128) whose bf16 cache of
 # 32,768 positions a layer takes at most 20 GB; mixtral's ring holds its
-# 4,096-position window.  olmoe-1b-7b (of 16) and stablelm-1.6b (of 24)
-# cut to 8 layers in PR 30 for phases 37-38's time.
-LM_SERVE = (("mixtral-8x7b", 4, 1, 128), ("olmoe-1b-7b", 8, 1, 4),
-            ("stablelm-1.6b", 8, 1, 2), ("qwen3-14b", 8, 1, 16),
-            ("stablelm-12b", 8, 1, 8))
+# 4,096-position window.  Depths cut for the script's time: mixtral 2 of
+# 32, the others 4 (olmoe-1b-7b of 16, stablelm-1.6b of 24, qwen3-14b and
+# stablelm-12b of 40).
+LM_SERVE = (("mixtral-8x7b", 2, 1, 128), ("olmoe-1b-7b", 4, 1, 4),
+            ("stablelm-1.6b", 4, 1, 2), ("qwen3-14b", 4, 1, 16),
+            ("stablelm-12b", 4, 1, 8))
 LM_DECODE_STEPS, LM_LONG_STEPS, LM_WARM_S = 64, 8, 4096
 # decode against the full forward at full width, fp32 (arch, layers, S):
-# mixtral's S crosses its 4,096-slot ring and is a multiple of q_chunk
-LM_CHECKS = (("mixtral-8x7b", 2, 4608), ("qwen3-14b", 2, 1024))
+# mixtral's S crosses its 4,096-slot ring and is a multiple of q_chunk;
+# its 4,608 decode steps run one layer for the script's time (qwen3-14b's
+# two hold the stacked caches' layer index)
+LM_CHECKS = (("mixtral-8x7b", 1, 4608), ("qwen3-14b", 2, 1024))
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 4096, 3
 # phase 33's stablelm-1.6b depth: 4 of 24, cut so that phases 37-38 fit
 # the script's time
@@ -5993,8 +6282,8 @@ def lm_cli_phase(torch, np, dev, smi):
 
 # ---------------------------------------------------------------- phase 35
 # MACE at its published width on one card: the shapes it runs
-# (ogb_products needs a mesh, item 10e), the serve calls and training
-# steps a shape, and the tolerance of its energies against the CPU and
+# (ogb_products needs more cards than a run has), the serve calls and
+# training steps a shape, and the tolerance of its energies against the CPU and
 # under a rotation or a shift (fp32, of the largest energy)
 MACE_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
 MACE_SERVE_CALLS, MACE_STEPS = 20, 4
@@ -6192,7 +6481,7 @@ def mace_train_run(torch, np, model, batch, steps):
 def mace_train_phases(torch, np, dev, smi, batches):
     """Phase 36: training at full width (see the module docstring).
     Returns (summary, the bag backward's rows at minibatch_lg)."""
-    from repro_torch.configs.mace_arch import model_cfg
+    from repro_torch.configs.mace_arch import SMOKE, model_cfg
     from repro_torch.examples import train_mace_molecule
     from repro_torch.kernels.embedding_bag import cuda as ec
     from repro_torch.launch import train as train_cli
@@ -6276,18 +6565,23 @@ def mace_train_phases(torch, np, dev, smi, batches):
     del recv, send, dout
     torch.cuda.empty_cache()
 
+    # the smoke config and the example's: 2 layers, lmax 2, the energy
+    # head, so the same launches a call and a step
+    sums, gathers = mace_launches(SMOKE)
     ec.reset_launches()
     hist = train_cli.main(["--arch", "mace", "--steps", "2"])
     losses = [h["loss"] for h in hist if "loss" in h]
     n = ec.launches["embedding_bag_backward"]
-    check(len(losses) == 2 and all(np.isfinite(losses)) and n == 2 * 19,
+    check(len(losses) == 2 and all(np.isfinite(losses))
+          and n == 2 * (sums + gathers),
           f"train CLI: losses {losses}, bag backward launches {n}")
     ec.reset_launches()
     ex = train_mace_molecule.main(["--steps", "5"])
     n_ex = ec.launches["embedding_bag_backward"]
-    # 5 steps of 19, then the invariance check's two serve calls of 15
+    # 5 steps, then the invariance check's two serve calls
     check(all(np.isfinite(ex["losses"])) and ex["rotation_rel_err"] < 1e-3
-          and n_ex == 5 * 19 + 2 * 15, f"example: {ex}, launches {n_ex}")
+          and n_ex == 5 * (sums + gathers) + 2 * sums,
+          f"example: {ex}, launches {n_ex}")
     out["cli"] = {"losses": losses, "launches": n}
     out["example"] = {**ex, "launches": n_ex}
     print(f"   launch/train.py --arch mace --steps 2: losses {losses}, bag "
@@ -6498,7 +6792,7 @@ def lm_mesh_serve(torch, mesh, job, ref_dir):
 
 
 def lm_mesh_rank(mesh, jobs, ref_dir, out_dir):
-    """One rank of phases 37-38 (module-level: spawn pickles it): each
+    """One rank of phases 37-38 (module-level: it is pickled): each
     job in turn, a barrier after each; writes ``out_dir/rank<r>.pt``."""
     import torch
 
@@ -6591,8 +6885,8 @@ def lm_block_gather_row(torch, dev, smi, ids, V, S, d):
 
 def lm_mesh_phases(torch, np, dev, smi):
     """Phases 37-38: the LMs on a ``(data, model)`` mesh at full width,
-    ranks time-sharing the one card (``launch.mesh.spawn`` with
-    ``share_card``).  First one card's ``Trainer`` losses (2 steps) of
+    ranks time-sharing the one card (a ``RankPool``, gloo staged).
+    First one card's ``Trainer`` losses (2 steps) of
     the (1, 2) training jobs and its serving outputs in bf16 and fp32
     (saved under ``build/chip_smoke_lm_mesh``, removed after); then (1,
     2) runs (a) stablelm-1.6b at 2 layers, full table, B = 2, S = 4,096,
@@ -6615,7 +6909,6 @@ def lm_mesh_phases(torch, np, dev, smi):
     import shutil
 
     from repro_torch.configs.olmoe_1b_7b import FULL as OLMOE
-    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.nn import moe as moe_mod
     t0 = phase("phases 37-38: the LMs on a (data, model) mesh at full "
                "width, ranks sharing the one card: training (1, 2) and "
@@ -6693,13 +6986,13 @@ def lm_mesh_phases(torch, np, dev, smi):
               f"the largest live tensors {before[shape]['live_tensors']}, "
               f"the largest held segments {before[shape]['held_segments']}")
         t1 = time.perf_counter()
-        mesh_mod.spawn(lm_mesh_rank, n, (list(jobs), root, out_dir),
-                       device=dev, model=2, share_card=True, timeout=900)
+        run_ranks(lm_mesh_rank, n, (list(jobs), root, out_dir), dev,
+                  model=2, timeout=900)
         walls[shape] = time.perf_counter() - t1
         ranks[shape] = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                                    weights_only=False) for r in range(n)]
-        print(f"   {shape}: {n} ranks, {walls[shape]:.1f} s (spawn, build, "
-              f"run)")
+        print(f"   {shape}: {n} ranks, {walls[shape]:.1f} s (the runs, on "
+              f"the pool's ranks)")
     shutil.rmtree(root, ignore_errors=True)
 
     def need(peaks):
@@ -6863,6 +7156,507 @@ def lm_mesh_phases(torch, np, dev, smi):
     return {"runs": runs, "serve": serve, "peaks_gb": peaks,
             "before_ranks": before, "walls_s": walls, "kernels": kernels,
             "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 39
+# MACE on a (data, model) mesh at full width, the ranks time-sharing the
+# card (gloo staged through host memory, as ``launch/train.py --arch mace
+# --devices N --model-axis S --share-card`` runs them): the graph's
+# nodes and edges split over "data" (``MACE.local_batch``: each rank's
+# share, its halo and its remote receivers exchanged), the readout over
+# "model".  One task a world size on its rank pool, whose ranks run
+# each of its meshes in turn, each mesh made from the running group, and
+# each mesh its shapes in turn; a shape named twice runs twice
+# (bit-identity).
+MACE_MESH_RUNS = ((2, 1, ("molecule", "full_graph_sm", "minibatch_lg")),
+                  (1, 2, ("molecule", "minibatch_lg")),
+                  (4, 1, ("minibatch_lg",)),
+                  (2, 2, ("molecule", "molecule")))
+MACE_MESH_STEPS = 3
+# relative gaps of a job's losses from one card's Trainer on the same
+# weights and graph (phase 36's runs, adamw lr 1e-3): step 0, and steps
+# 1-2 after adamw steps on the mesh's summed gradients (adam's first
+# update is the gradient's sign, so an entry near zero may flip)
+MACE_MESH_TOL = (1e-5, 1e-4)
+# step 0's gradient summed over "data" and gathered over "model": of
+# each leaf's largest entry, or 1e-6 of the whole gradient's largest
+# (tests/test_torch_mace.py's leaf rule); (1, 2) serving: of the largest
+# unsharded output
+MACE_MESH_GRAD, MACE_MESH_FLOOR = 1e-5, 1e-6
+MACE_MESH_SERVE = ("molecule", "minibatch_lg")
+MACE_MESH_REQUESTS = 5
+MACE_MESH_DIR = os.path.join(HERE, "build", "chip_smoke_mace_mesh")
+
+
+def mace_host_batch(np, shape, data_dir=MACE_MESH_DIR):
+    """A shape's host batch as phase 35 built it (saved under
+    ``data_dir``)."""
+    with np.load(os.path.join(data_dir, f"{shape}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def mace_grad_err(torch, got, want):
+    """The leaf rule's worst ratio: max over leaves of |got - want| over
+    max(the leaf's largest |want|, MACE_MESH_FLOOR / MACE_MESH_GRAD of
+    the whole gradient's largest); within MACE_MESH_GRAD when every leaf
+    is within its tolerance."""
+    big = max(float(w.abs().max()) for w in want if w.numel())
+    floor = MACE_MESH_FLOOR / MACE_MESH_GRAD * big
+    return max(float((g.cpu() - w).abs().max()) / max(
+        float(w.abs().max()), floor) for g, w in zip(got, want) if w.numel())
+
+
+def mace_mesh_job(torch, np, mesh, shape, batch, data_dir):
+    """One phase 39 job on this rank: step 0's gradient (this rank's
+    share over the whole batch's counts, summed over ``"data"``, the
+    readout's blocks gathered over ``"model"``) against one card's saved
+    under ``data_dir``; then ``MACE_MESH_STEPS`` adamw steps (lr 1e-3)
+    through ``Trainer`` on the host batch, each step building its share
+    (``MACE.local_batch``), the bag kernels' counter and
+    ``HostMesh.comm`` read around the run; the peak since the job's
+    start.  Returns its summary."""
+    from repro_torch import bridge, dist
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.train.loop import (TrainConfig, Trainer, _spec_leaves,
+                                        counted_loss, sum_over_ranks)
+    from repro_torch.train.optimizer import OptConfig
+    dev, D = mesh.device, mesh.shape["data"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = mace_model(shape, dev)
+    specs = _spec_leaves(bridge.keep_local_blocks(model, mesh))
+    p = model.params()
+    t0 = time.perf_counter()
+    b = (model.local_batch(batch, mesh) if D > 1 else
+         {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    torch.cuda.synchronize(dev)
+    share_ms = (time.perf_counter() - t0) * 1e3
+    ex = b.get("exchange")
+    with dist.use_mesh_rules(mesh, local_batch=D > 1):
+        fn = counted_loss(model, mesh) if D > 1 else model.train_loss
+        loss, _ = fn(p, b)
+    leaves = tree_leaves(p)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    got = sum_over_ranks([torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, got)], mesh)
+    got = [dist.gather_block(g, sp, mesh) for g, sp in zip(got, specs)]
+    grad_err = mace_grad_err(torch, got, torch.load(
+        os.path.join(data_dir, f"grads-{shape}.pt")))
+    del model, p, b, loss, got, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = mace_model(shape, dev)
+    if D == 1:                    # the whole graph: on the card once
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    tr = Trainer(model, OptConfig(lr=1e-3), TrainConfig(
+        steps=MACE_MESH_STEPS, log_every=1, eval_every=0),
+        data_fn=lambda s: batch, mesh=mesh)
+    ec.reset_launches()
+    comm0 = dict(mesh.comm)
+    params, hist = tr.run(params=model.params())
+    torch.cuda.synchronize(dev)
+    rows = [h for h in hist if "loss" in h]
+    out = {"shape": shape, "losses": [h["loss"] for h in rows],
+           "step_ms": [h["sec"] * 1e3 for h in rows],
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": dict(ec.launches),
+           "comm": {k: mesh.comm[k] - comm0[k] for k in comm0},
+           "digest": state_digest(torch, [params]), "grad_err": grad_err,
+           "share_ms": share_ms,
+           "share": None if ex is None else {
+               "own_rows": ex.n_own, "halo_rows": ex.n_halo,
+               "remote_rows": ex.n_remote, "halo_pad": ex.halo.pad,
+               "owner_pad": ex.owners.pad}}
+    del tr, params, model, hist, batch
+    # the next job on this rank may need the card's memory whole: a
+    # cuBLAS workspace made while a large block was free pins its segment
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mace_mesh_rank(mesh, meshes, data_dir, out_dir):
+    """One rank of phase 39 (module-level: it is pickled): each
+    ``(D, S, shapes)`` of ``meshes`` in turn on a mesh of that shape
+    (``mesh`` itself for the first, then one made from the running
+    group), each shape in turn with a barrier after it.  Writes
+    ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import fp32_matmuls
+    from repro_torch.launch import mesh as mesh_mod
+    fp32_matmuls()
+    res = {"rank": mesh.rank, "transport": mesh.transport, "meshes": {}}
+    on = {}
+    for D, S, shapes in meshes:
+        if (D, S) not in on:
+            on[(D, S)] = (mesh if (mesh.shape["data"], mesh.shape["model"])
+                          == (D, S) else mesh_mod.make_host_mesh(
+                              D * S, S, device=mesh.device,
+                              share_card=True))
+        m, jobs = on[(D, S)], []
+        for shape in shapes:
+            jobs.append(mace_mesh_job(torch, np, m, shape, mace_host_batch(
+                np, shape, data_dir), data_dir))
+            m.all_reduce(torch.zeros(1, device=m.device), ("data", "model"))
+        res["meshes"][(D, S)] = jobs
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def mace_serve_make(shape, data_dir, device):
+    """(model, template) of a phase 40 run (module-level: it is
+    pickled): ``shape``'s published config from seed 0 and its batch less the
+    labels."""
+    import numpy as np
+    template = mace_host_batch(np, shape, data_dir)
+    template.pop("labels")
+    return mace_model(shape, device), template
+
+
+def mace_serve_rank(mesh, argv, shape, data_dir, out_dir):
+    """One rank of phase 40's pooled serving (module-level: it is
+    pickled): the ``--mesh 2`` CLI's per-rank body
+    (``serve._mesh_rank``) on ``shape``'s batch, the result under
+    ``out_dir``."""
+    import functools
+
+    from repro_torch.launch import serve as serve_mod
+    serve_mod._mesh_rank(mesh, serve_mod.build_parser().parse_args(argv),
+                         functools.partial(mace_serve_make, shape, data_dir),
+                         out_dir, True)
+
+
+def mace_share_rows(torch, np, dev, smi, batch, D):
+    """The segment sum over receivers and the sender gather's backward
+    at the last rank's share of ``batch`` at D data ranks, ``[E/D,
+    C·5]`` (layer 2's l = 2 width): bit-identical twice, bit-equal to
+    the plain version on CPU copies and within the fp32 sum bound
+    (``bag_bwd_parity``); then by CUDA events the kernels on an order
+    made beforehand, the ``ops`` call (its sort in), the plain version,
+    ``zeros`` + ``index_add_``, ``F.embedding``'s backward, and the
+    bytes bound (dout and the ids read once, the sums written once).
+    Returns {kernel: row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.graphs import partition_graph
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    share = partition_graph(batch, D, D - 1, graph_labels=False)
+    ex = share["exchange"]
+    gen = torch.Generator(device=dev).manual_seed(39)
+    out = {}
+    for name, key, V, gather in (
+            ("segment_sum", "receivers", ex.n_own + ex.n_remote, False),
+            ("gather_backward", "senders", ex.n_own + ex.n_halo, True)):
+        ids = torch.as_tensor(share[key], device=dev).long()
+        n, d = ids.shape[0], 128 * 5
+        dout = torch.randn((n, d), generator=gen, device=dev)
+        ids2 = ids[:, None].contiguous()
+        what = f"MACE {name} at rank {D - 1}'s share of minibatch_lg, D = {D}"
+        row = bag_bwd_parity(torch, ids2, None, dout, V, what, gather=gather)
+        order = ec.sort_ids(ids2, V, wrap=gather)
+        if gather:
+            def whole():
+                return ec.gather_backward(ids, dout, V)
+        else:
+            def whole():
+                return eops.segment_sum(dout, ids, V)
+        leaf = torch.zeros((V, d), device=dev, requires_grad=True)
+        lib_out = F.embedding(ids, leaf)
+        b_ms, b_by = bound(n * d * 4 + n * 8 + V * d * 4,
+                           {"fp32 adds": (n * d, FADD_PER_S)})
+        row.update({
+            "V": V, "d": d, "ids": n, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: ec.launch_backward(ids2, None, dout, V,
+                                                     order=order), 10),
+            "whole_ms": cuda_ms(whole, 10),
+            "plain_ms": cuda_ms(lambda: eref.embedding_bag_backward_ref(
+                ids2, None, dout, V), 3),
+            "index_add_ms": cuda_ms(lambda: torch.zeros(
+                (V, d), device=dev).index_add_(0, ids, dout), 10),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib_out, leaf, dout, retain_graph=True), 10),
+            "library": "F.embedding backward", "bound_ms": b_ms,
+            "bound_by": b_by})
+        out[name] = row
+        print(f"   {what} (V={V}, d={d}, {n} ids): kernels {row['ms']:.4f} "
+              f"ms, ops call {row['whole_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, zeros + index_add_ "
+              f"{row['index_add_ms']:.4f} ms, F.embedding's backward "
+              f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"bit-identical twice, bit-equal to the CPU, on {smi}")
+        del ids, ids2, dout, order, leaf, lib_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def mace_mesh_phases(torch, np, dev, smi, one_card):
+    """Phases 39-40: MACE on a ``(data, model)`` mesh at full width
+    (fp32, TF32 off), ranks time-sharing the one card
+    (the rank pools), on the host batches
+    phase 35 built (saved under ``MACE_MESH_DIR``, removed after).
+    ``one_card``: phase 36's summary (its losses are the anchor).
+    Phase 39: one card's step-0 gradient a shape, saved; then one pool
+    task a world size (four ranks first, then their pool ends), whose
+    ranks run each of its meshes of
+    ``MACE_MESH_RUNS`` in turn, and each mesh its shapes
+    (``mace_mesh_job``).  Checks: every job's step-0 loss within
+    ``MACE_MESH_TOL[0]`` relative of one card's and steps 1-2 within
+    ``[1]``, its step-0 gradient by the leaf rule, the bag backward
+    launched on every rank every step (a sum a path and the graph sum,
+    a gather's backward an l a layer), the (2, 2) runs bit-identical, the ranks' need
+    (``EM_SLACK``, ``EM_CONTEXT_GB``) with the card's use before them
+    within ``EM_BUDGET_GB``.  Then the two kernels at the last rank's
+    share of minibatch_lg at D = 2 and 4 (``mace_share_rows``).  Phase
+    40: ``launch/serve.serve_mesh`` (the ``--mesh 2 --share-card``
+    CLI's body: its checks, the kernels' build, its spawn) on molecule,
+    its ranks' body (``serve._mesh_rank``) on the 2-rank pool on
+    minibatch_lg, ``MACE_MESH_REQUESTS`` requests of the
+    shape's node count, every rank's outputs within ``MACE_MESH_GRAD``
+    of the largest of the unsharded ``serve_loop`` on the same
+    requests.  Returns the summary, with ``kernels``: {D:
+    {kernel: row}} and ``launches``: {job: [a rank's launches a
+    step]}."""
+    import functools
+    import shutil
+
+    from repro_torch.configs.mace_arch import model_cfg
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.nn.module import tree_leaves
+    t0 = phase("phase 39: MACE on a (data, model) mesh at full width, "
+               "ranks sharing the one card: " + "; ".join(
+                   f"({D}, {S}) {', '.join(shapes)}"
+                   for D, S, shapes in MACE_MESH_RUNS))
+    free_card(torch, dev, "the MACE mesh phases")
+    root = os.path.join(HERE, "build", "chip_smoke_mace_mesh_runs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shapes = sorted({s for _, _, ss in MACE_MESH_RUNS for s in ss})
+    for shape in shapes:             # one card's step-0 gradient
+        model = mace_model(shape, dev)
+        p = model.params()
+        loss, _ = model.train_loss(p, mace_host_batch(np, shape))
+        leaves = tree_leaves(p)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.save([torch.zeros(x.shape) if g is None else g.cpu()
+                    for x, g in zip(leaves, got)],
+                   os.path.join(MACE_MESH_DIR, f"grads-{shape}.pt"))
+        del model, p, loss, leaves, got
+        free_card(torch, dev, "the next one-card gradient")
+
+    ranks, walls, before = {}, {}, {}
+    worlds = {}                       # world size -> its meshes, in order
+    for D, S, job_shapes in MACE_MESH_RUNS:
+        worlds.setdefault(D * S, []).append((D, S, job_shapes))
+    # the four ranks first, then their pool ends: the (1, 2) ranks need
+    # the card but for their own pool's processes and this one
+    for n, meshes in sorted(worlds.items(), reverse=True):
+        out_dir = os.path.join(root, f"world{n}")
+        os.makedirs(out_dir)
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        start_pools(dev, (n,))
+        # the card's use with the pool's ranks waiting: their contexts
+        # are in it
+        before[n] = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0]) * 2**20 / 1e9
+        t1 = time.perf_counter()
+        run_ranks(mace_mesh_rank, n, (meshes, MACE_MESH_DIR, out_dir), dev,
+                  model=meshes[0][1], timeout=600)
+        walls[n] = time.perf_counter() - t1
+        if n != min(worlds):
+            POOLS.pop(n).close()
+        per = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                          weights_only=False) for r in range(n)]
+        for D, S, _ in meshes:
+            ranks[f"({D}, {S})"] = [{"jobs": r["meshes"][(D, S)]}
+                                    for r in per]
+        print(f"   {n} ranks ({', '.join(f'({D}, {S})' for D, S, _ in meshes)}"
+              f"): {walls[n]:.1f} s (the runs, on the pool's ranks); the "
+              f"card held {before[n]:.2f} GB before them, their contexts "
+              f"included")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def need(peaks):
+        # the ranks' contexts are in the card's use before them
+        return sum(p * EM_SLACK for p in peaks)
+
+    runs, launches, peaks = {}, {}, {}
+    for D, S, job_shapes in MACE_MESH_RUNS:
+        mesh_name = f"({D}, {S})"
+        per = ranks[mesh_name]
+        for i, shape in enumerate(job_shapes):
+            name = f"{mesh_name} {shape}" + (" (again)" if shape in
+                                             job_shapes[:i] else "")
+            jobs = [r["jobs"][i] for r in per]
+            ref = one_card[shape]
+            sums, gathers = mace_launches(model_cfg(shape))
+            for r, x in enumerate(jobs):
+                check(len(x["losses"]) == MACE_MESH_STEPS
+                      and all(np.isfinite(x["losses"])),
+                      f"{name} rank {r}: losses {x['losses']}")
+                for s, (a, b) in enumerate(zip(x["losses"], ref["losses"])):
+                    gap = abs(a - b) / abs(b)
+                    lim = MACE_MESH_TOL[min(s, 1)]
+                    check(gap <= lim, f"{name} rank {r}: step {s} {a} vs "
+                          f"one card's {b} (relative gap {gap:.3e} > {lim})")
+                check(x["grad_err"] <= MACE_MESH_GRAD,
+                      f"{name} rank {r}: step 0's gradient {x['grad_err']:.3e}"
+                      f" of its leaves' largest, over {MACE_MESH_GRAD}")
+                n = x["launches"]["embedding_bag_backward"]
+                want = MACE_MESH_STEPS * (sums + gathers)
+                check(n == want, f"{name} rank {r}: the bag backward "
+                      f"launched {n} times, not {want}")
+            if shape in job_shapes[:i]:
+                first = [r["jobs"][job_shapes.index(shape)] for r in per]
+                check(all(a["losses"] == b["losses"]
+                          and a["digest"] == b["digest"]
+                          for a, b in zip(first, jobs)),
+                      f"{name}: a rank differs run to run")
+            launches[name] = [x["launches"]["embedding_bag_backward"]
+                              // MACE_MESH_STEPS for x in jobs]
+            runs[name] = {
+                "mesh": [D, S], "shape": shape, "losses": jobs[0]["losses"],
+                "one_card_losses": ref["losses"][:MACE_MESH_STEPS],
+                "loss_rel_gaps": [[abs(a - b) / abs(b) for a, b in
+                                   zip(x["losses"], ref["losses"])]
+                                  for x in jobs],
+                "grad_err": [x["grad_err"] for x in jobs],
+                "median_step_ms": [float(np.median(x["step_ms"][1:]))
+                                   for x in jobs],
+                "step_ms": [x["step_ms"] for x in jobs],
+                "one_card_step_ms": ref["median_step_ms"],
+                "one_card_peak_gb": ref["peak_gb"],
+                "peak_gb": [x["peak_gb"] for x in jobs],
+                "share_ms": [x["share_ms"] for x in jobs],
+                "share": [x["share"] for x in jobs],
+                "comm_per_step": [{k: v / MACE_MESH_STEPS
+                                   for k, v in x["comm"].items()}
+                                  for x in jobs],
+                "bit_identical": True if shape in job_shapes[:i] else None}
+            c = runs[name]["comm_per_step"]
+            print(f"   {name}: losses {[round(v, 6) for v in jobs[0]['losses']]}"
+                  f" (one card's {[round(v, 6) for v in runs[name]['one_card_losses']]},"
+                  f" largest gap {max(max(g) for g in runs[name]['loss_rel_gaps']):.2e});"
+                  f" step 0's gradient {max(runs[name]['grad_err']):.2e} of"
+                  f" the leaves' largest; median step "
+                  f"{[round(v, 1) for v in runs[name]['median_step_ms']]} ms "
+                  f"a rank (one card {ref['median_step_ms']:.1f}), peak "
+                  f"{[round(v, 2) for v in runs[name]['peak_gb']]} GB (one "
+                  f"card {ref['peak_gb']:.2f}); halo / owner-sum rows "
+                  f"{[(s['halo_rows'], s['remote_rows']) if s else None for s in runs[name]['share']]},"
+                  f" share build {[round(v, 1) for v in runs[name]['share_ms']]}"
+                  f" ms; collectives a step on rank 0: {c[0]['calls']:.0f} "
+                  f"calls, {c[0]['bytes'] / 1e6:.1f} MB, "
+                  f"{c[0]['seconds']:.3f} s; bag backward "
+                  f"{launches[name]} a rank and step"
+                  + ("; bit-identical to the first run" if
+                     runs[name]["bit_identical"] else "") + f", on {smi}")
+        peaks[mesh_name] = [max(j["peak_gb"] for j in r["jobs"]) for r in per]
+        total = need(peaks[mesh_name]) + before[D * S]
+        check(total <= EM_BUDGET_GB,
+              f"{mesh_name}: the ranks' peaks {peaks[mesh_name]} need "
+              f"{need(peaks[mesh_name]):.1f} GB, with the card's "
+              f"{before[D * S]:.2f} GB before them {total:.1f} > "
+              f"{EM_BUDGET_GB} GB")
+        print(f"   {mesh_name}: the ranks' peaks "
+              f"{[round(v, 2) for v in peaks[mesh_name]]} GB need "
+              f"{need(peaks[mesh_name]):.1f} GB with the allocator's slack, "
+              f"{total:.1f} of {EM_BUDGET_GB} GB with the card's use "
+              f"before them (the ranks' contexts included)")
+    kernels = {}
+    host = mace_host_batch(np, "minibatch_lg")
+    for D in (2, 4):
+        kernels[D] = mace_share_rows(torch, np, dev, smi, host, D)
+        kernels[D]["launches_per_rank_step"] = launches[
+            f"({D}, 1) minibatch_lg"]
+    del host
+    done(t0)
+
+    t0 = phase(f"phase 40: launch/serve.py --arch mace --mesh 2 "
+               f"--share-card at full width, {MACE_MESH_REQUESTS} "
+               f"requests on {MACE_MESH_SERVE[0]} (serve.serve_mesh) and "
+               + ", ".join(MACE_MESH_SERVE[1:])
+               + " (its ranks' body on the 2-rank pool)")
+    serve = {}
+    for shape in MACE_MESH_SERVE:
+        # one card's serve_loop on the requests the ranks will draw (the
+        # shape's node count a request), then the CLI's body on 2 ranks
+        make = functools.partial(mace_serve_make, shape, MACE_MESH_DIR)
+        model, template = make(dev)
+        N = int(template["positions"].shape[0])
+        argv = ["--arch", "mace", "--requests", str(MACE_MESH_REQUESTS),
+                "--batch-size", str(N), "--device", "cuda"]
+        one = serve_mod.serve_loop(model, model.params(), template,
+                                   serve_mod.build_parser().parse_args(argv),
+                                   keep_outputs=True)
+        del model, template
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        free_card(torch, dev, f"the {shape} serving ranks")
+        t1 = time.perf_counter()
+        argv += ["--mesh", "2", "--share-card"]
+        if shape == MACE_MESH_SERVE[0]:      # the CLI's body, its spawn
+            per = serve_mod.serve_mesh(serve_mod.build_parser().parse_args(
+                argv), make=make, keep_outputs=True, timeout=600)
+        else:                                # its ranks' body, pooled
+            out_dir = os.path.join(root, f"serve-{shape}")
+            os.makedirs(out_dir)
+            run_ranks(mace_serve_rank, 2, (argv, shape, MACE_MESH_DIR,
+                                           out_dir), dev, model=2,
+                      timeout=600)
+            per = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                              weights_only=False) for r in range(2)]
+        wall = time.perf_counter() - t1
+        sums, _ = mace_launches(model_cfg(shape))
+        scale = max(float(o.abs().max()) for o in one["outputs"])
+        errs = []
+        for r, res in enumerate(per):
+            check(res["mesh"] == 2 and res["rank"] == r
+                  and res["transport"] == "gloo-staged",
+                  f"serve --mesh 2 {shape} rank {r}: {res['transport']}")
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(res["outputs"], one["outputs"]))
+            errs.append(err / scale)
+            check(len(res["outputs"]) == MACE_MESH_REQUESTS
+                  and err <= MACE_MESH_GRAD * scale,
+                  f"serve --mesh 2 {shape} rank {r}: max |err| {err} > "
+                  f"{MACE_MESH_GRAD} x {scale}")
+            n = res["launches"]["embedding_bag_backward"]
+            check(n == sums * (MACE_MESH_REQUESTS + 1),
+                  f"serve --mesh 2 {shape} rank {r}: the bag backward "
+                  f"launched {n} times, not {sums} a call")
+        serve[shape] = {
+            "one_card": {"p50_ms": one["p50_ms"], "p99_ms": one["p99_ms"]},
+            "p50_ms": [x["p50_ms"] for x in per],
+            "p99_ms": [x["p99_ms"] for x in per],
+            "max_rel_err": errs,
+            "comm_ms": [float(np.mean(x["comm_ms"])) for x in per],
+            "comm_calls": [float(np.mean(x["comm_calls"])) for x in per],
+            "comm_bytes": [float(np.mean(x["comm_bytes"])) for x in per],
+            "launches": [x["launches"]["embedding_bag_backward"]
+                         for x in per], "wall_s": wall}
+        print(f"   {shape} (batch {N}, {wall:.1f} s with the ranks' "
+              f"{'spawn' if shape == MACE_MESH_SERVE[0] else 'task'}): p50 "
+              f"{[round(x, 2) for x in serve[shape]['p50_ms']]} ms a rank "
+              f"(one card {one['p50_ms']:.2f}); against one card's "
+              f"outputs {max(errs):.2e} of the largest ({scale:.3f}); "
+              f"collectives a request {serve[shape]['comm_calls'][0]:.0f} "
+              f"calls, {serve[shape]['comm_ms'][0]:.2f} ms; bag backward "
+              f"{serve[shape]['launches']} a rank, on {smi}")
+    shutil.rmtree(MACE_MESH_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    done(t0)
+    return {"runs": runs, "serve": serve, "peaks_gb": peaks,
+            "card_used_before_gb": before, "walls_s": walls,
+            "kernels": kernels, "launches": launches}
 
 
 def main() -> int:
@@ -7255,6 +8049,12 @@ def main() -> int:
     from repro_torch.configs import mace_arch
     batches = {shape: mace_arch.make_batch(shape, seed=0)
                for shape in MACE_SHAPES}
+    # kept on the host for phases 39-40, whose ranks read them
+    import shutil
+    shutil.rmtree(MACE_MESH_DIR, ignore_errors=True)
+    os.makedirs(MACE_MESH_DIR)
+    for shape, b in batches.items():
+        np.savez(os.path.join(MACE_MESH_DIR, f"{shape}.npz"), **b)
     done(t0)
     mace = {"serve": mace_serve_phases(torch, np, dev, smi, batches)}
     mace["train"], mace_kernels = mace_train_phases(torch, np, dev, smi,
@@ -7263,6 +8063,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh = lm_mesh_phases(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mace_mesh = mace_mesh_phases(torch, np, dev, smi, mace["train"])
+    close_pools()
+    for entry in kernels:                 # phase 39: a rank's share
+        if entry["name"] == "embedding_bag_backward":
+            entry["mace_mesh_shape"] = mace_mesh["kernels"]
+            entry["mace_mesh_launches_per_rank_step"] = mace_mesh[
+                "launches"]
     for entry in kernels:                 # phases 37-38: a rank's shapes
         entry["lm_mesh_shape"] = None     # not on the LM mesh path
         if entry["name"] in lm_mesh["kernels"]:
@@ -7338,6 +8147,9 @@ def main() -> int:
     print(json.dumps({"lm_mesh": {k: lm_mesh[k] for k in (
         "runs", "serve", "peaks_gb", "before_ranks", "walls_s")},
         "card": smi}))
+    print(json.dumps({"mace_mesh": {k: mace_mesh[k] for k in (
+        "runs", "serve", "peaks_gb", "card_used_before_gb", "walls_s")},
+        "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7346,4 +8158,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_pools(timeout=0)      # after a failure: kill the ranks
+    sys.exit(rc)

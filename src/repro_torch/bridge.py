@@ -163,6 +163,20 @@ def keep_local_rows(model, mesh=None) -> dict:
     return specs
 
 
+def keep_serving_blocks(model, mesh=None) -> dict:
+    """What a rank serving on a ``(1, S)`` mesh keeps of ``model``: its
+    rows of the catalogue where a leaf's first logical axis is one of
+    ``dist.CATALOGUE_AXES`` (``keep_local_rows``; every other leaf
+    whole), else, for a model without a catalogue, its placement's
+    blocks (``keep_local_blocks``: MACE's readout).  Returns the
+    placement specs of ``model.params()``."""
+    from repro_torch import dist as _dist
+    if any(ax and ax[0] in _dist.CATALOGUE_AXES
+           for _, ax in _paths(model.param_axes())):
+        return keep_local_rows(model, mesh)
+    return keep_local_blocks(model, mesh)
+
+
 def _replace(owner, name, old, new) -> None:
     """Hold ``new`` in place of the leaf ``old`` (a parameter or a
     buffer of ``owner``) where its shape differs."""

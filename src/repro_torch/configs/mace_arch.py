@@ -12,8 +12,9 @@ shape's padded batch on the host:
                  Reddit-sized graph (232,965 nodes, 41 classes) whose
                  edge count is cut to ``REDDIT_EDGES`` (every fanout
                  still fills)
-  ogb_products   2,449,029 nodes and 61,859,140 edges do not fit on one
-                 card: it waits for MACE on a mesh (ROADMAP item 10e)
+  ogb_products   2,449,029 nodes and 61,859,140 edges: raises, since no
+                 mesh of one card or four holds it at full width (its
+                 messages alone are 158.4 GB a path in fp32)
 RecJPQ is inapplicable here (no id-embedding table).
 """
 from __future__ import annotations
@@ -100,9 +101,14 @@ def make_batch(shape: str, seed: int = 0) -> dict:
     """``shape``'s padded batch as numpy arrays (``graph_specs``), made
     from ``seed`` on the host."""
     if shape == "ogb_products":
-        raise NotImplementedError("ogb_products does not fit on one card: "
-                                  "ROADMAP queue 1, item 10e (MACE on a "
-                                  "mesh)")
+        raise NotImplementedError(
+            "ogb_products needs more cards than a run has: padded to "
+            "2,449,408 nodes and 61,859,328 edges, one l = 2 message [E, "
+            "C, 5] is 158.4 GB in fp32 (9.9 GB in a 1/16 share, and a "
+            "training step holds several a path and layer), so no D that "
+            "one card or four hold runs it at full width; the reference "
+            "never executes it either (only its dry run's cells, which "
+            "the port leaves out)")
     n, e, f, head, ncls, ng = SHAPES[shape]
     if shape == "molecule":
         return pad_graph(molecule_batch(seed, batch=ng, n_nodes=30,

@@ -63,6 +63,14 @@ Public API
                                   backward
   sum_over_data(x)                the sum over "data" where the ranks
                                   hold their own rows (no gradient)
+  sum_partials_over_data(x)       the ranks' partial ``x`` summed over
+                                  "data", the gradient summed too
+  halo_rows(x, exchange)          a graph share's own rows, then its halo
+                                  rows fetched from their owners; the
+                                  halo's gradient added to the owners'
+  sum_to_owners(a, exchange)      a share's partial sums of its own and
+                                  remote rows -> its own rows, the other
+                                  ranks' partials added in rank order
   bind_ambient(fn)                ``fn`` run under the ambient context
                                   of now, on any thread (a checkpointed
                                   region's recompute)
@@ -95,7 +103,8 @@ __all__ = ["resolve_axes", "use_mesh_rules", "constrain",
            "model_size",
            "copy_to_model", "reduce_from_model", "gather_from_model",
            "scatter_to_model", "column_linear", "max_over_model",
-           "gather_from_data", "sum_over_data", "bind_ambient",
+           "gather_from_data", "sum_over_data", "sum_partials_over_data",
+           "halo_rows", "sum_to_owners", "bind_ambient",
            "data_rank",
            "use_loss_counts", "loss_count", "DEFAULT_RULES",
            "CATALOGUE_AXES"]
@@ -440,3 +449,116 @@ def loss_count(name: str):
     None outside it (a term is then its local mean, as on one device)."""
     counts = _CTX.counts
     return None if counts is None else counts[name]
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x.contiguous(), "data", "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), "data", "sum"), None
+
+
+def sum_partials_over_data(x):
+    """The data ranks' partial ``x`` summed over ``"data"``, where each
+    rank's loss reads the sum (a molecule's energy whose atoms two ranks
+    own): the gradient of the whole loss, which each rank holds for its
+    own term, is summed over ``"data"`` too.  ``x`` itself unless the
+    ranks hold their own rows (``data_rank``)."""
+    if data_rank()[1] <= 1:
+        return x
+    return _SumPartials.apply(x, _CTX.mesh)
+
+
+# ------------------------------------------------- a graph's shares
+# MACE on a mesh: each data rank holds its share of a graph
+# (``data.graphs.partition_graph``), and a layer moves rows between the
+# shares along the share's ``Exchange``: the halo (senders another rank
+# owns) before the gather, the remote receivers' partial sums after the
+# segment sum.  Each move is one ``HostMesh.all_to_all_bytes`` over
+# "data", every slot padded to the group's largest pair count.
+
+def _swap(src, route, mesh):
+    """``src``'s rows that ``route`` sends, through one all-to-all over
+    ``"data"``: ``[D * pad, W]`` as they arrive (row ``j * pad + k``: the
+    k-th row from data rank j)."""
+    D, pad, W = len(route.send), route.pad, src.shape[1]
+    if pad == 0:
+        return src.new_zeros((0, W))
+    buf = (src.index_select(0, route.send_slots) if src.shape[0]
+           else src.new_zeros((D * pad, W))).contiguous()
+    out, _ = mesh.all_to_all_bytes(buf.view(torch.uint8).view(D, -1),
+                                   "data")
+    return out.view(src.dtype).view(D * pad, W)
+
+
+def _land(dst, got, route):
+    """Add what arrived (``_swap``'s result) onto the destination rows of
+    ``route``, one data rank after another in rank order (each rank's
+    rows unique, so every sum has a fixed order)."""
+    for j, (rows, n) in enumerate(zip(route.recv, route.counts)):
+        if n:
+            dst.index_add_(0, rows, got[j * route.pad:j * route.pad + n])
+    return dst
+
+
+class _HaloRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, mesh):
+        ctx.ex, ctx.mesh = ex, mesh
+        got = _swap(x, ex.halo, mesh)
+        return torch.cat([x, got.index_select(0, ex.halo.recv_slots)])
+
+    @staticmethod
+    def backward(ctx, g):
+        ex = ctx.ex
+        own = g[:ex.n_own].clone(memory_format=torch.contiguous_format)
+        got = _swap(g[ex.n_own:].contiguous(), ex.halo_back, ctx.mesh)
+        return _land(own, got, ex.halo_back), None, None
+
+
+class _SumToOwners(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, ex, mesh):
+        ctx.ex, ctx.mesh = ex, mesh
+        own = a[:ex.n_own].clone(memory_format=torch.contiguous_format)
+        got = _swap(a[ex.n_own:].contiguous(), ex.owners, mesh)
+        return _land(own, got, ex.owners)
+
+    @staticmethod
+    def backward(ctx, g):
+        ex = ctx.ex
+        g = g.contiguous()
+        got = _swap(g, ex.owners_back, ctx.mesh)
+        return (torch.cat([g, got.index_select(0, ex.owners_back.recv_slots)]),
+                None, None)
+
+
+def _share_mesh():
+    mesh = _CTX.mesh
+    if mesh is None or data_rank()[1] <= 1:
+        raise ValueError("a graph share moves rows over the ambient mesh's "
+                         "'data' group, where the ranks hold their own "
+                         "rows (dist.use_mesh_rules(..., local_batch=True))")
+    return mesh
+
+
+def halo_rows(x, exchange):
+    """``x [n_own, W]`` (this rank's own rows) followed by its halo rows
+    ``[n_halo, W]``, fetched from the ranks that own them along
+    ``exchange.halo``; backward, each halo row's gradient goes back to
+    its owner and is added to the owner's gradient of that row after the
+    owner's own, in rank order."""
+    return _HaloRows.apply(x, exchange, _share_mesh())
+
+
+def sum_to_owners(a, exchange):
+    """``a [n_own + n_remote, W]``, this rank's partial sums of its own
+    and its remote receiver rows -> ``[n_own, W]``: the own rows, each
+    plus the partials of the same row from the other ranks, added after
+    its own in rank order (``exchange.owners``); backward, the owners'
+    gradient rows return to the ranks that made the partials."""
+    return _SumToOwners.apply(a, exchange, _share_mesh())

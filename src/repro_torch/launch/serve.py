@@ -21,12 +21,12 @@ the codes, ``path=semantic[@W]``) and ``--beams W`` are the reference's
 retrieval flags; ``--ckpt-dir`` restores the parameters from the latest
 checkpoint there before serving.
 
-``--mesh S`` serves any arch but MACE (ROADMAP item 10e) from a
-catalogue row-sharded S ways, as
+``--mesh S`` serves any arch from a catalogue row-sharded S ways, as
 the reference's ``--mesh S`` does on S host devices: ``serve_mesh``
 spawns S ranks as a ``(1, S)`` mesh (``launch.mesh.spawn``).  Each rank
 builds the model from the seed, keeps its rows of every catalogue leaf
-S divides (``bridge.keep_local_rows``: the two-tower item table or
+S divides (``bridge.keep_serving_blocks``, for a model with a
+catalogue ``keep_local_rows``: the two-tower item table or
 codes, FM's and DLRM's tables and FM's ``linear``; DIEN's 1,000,001
 rows divide by neither 2 nor 4 and stay whole, as in the reference),
 builds the one global ``PruneState`` with ``shards=S`` and draws the
@@ -34,7 +34,12 @@ same seeded request stream, so no batch crosses ranks; rank 0 prints
 the line, with ``mesh=S`` and the transport.  FM, DLRM-RM2 and DIEN
 serve through ``model.serve``, their fields' rows gathered exactly
 across the ranks (``core/sharded.take_rows``), so each response is the
-unsharded path's, bit for bit (a zero's sign aside).  On CUDA each rank takes a card of its own (NCCL), or with
+unsharded path's, bit for bit (a zero's sign aside).  MACE has no
+catalogue: each rank keeps its block of the readout, which is all the
+reference's placement splits over ``"model"`` (``keep_serving_blocks``
+without a catalogue axis is ``keep_local_blocks``), serves the whole
+graph and runs the readout
+tensor-parallel.  On CUDA each rank takes a card of its own (NCCL), or with
 ``--share-card`` every rank shares the one card and the collectives run
 over gloo, staged through host memory; on the CPU the ranks are gloo
 processes.
@@ -292,14 +297,9 @@ def _retrieval(model, params, template, args, sync):
     return dispatch, account, finish
 
 
-def _check_arch(arch: str, mesh: bool = False) -> None:
+def _check_arch(arch: str) -> None:
     from repro_torch.configs import get_bundle, list_archs
     from repro_torch.configs.registry import LM_ARCHS
-    if mesh and arch == "mace":
-        raise NotImplementedError(
-            "MACE under --mesh is not yet ported to repro_torch: ROADMAP "
-            "queue 1, item 10e (the reference's own --mesh run of MACE "
-            "fails on jax 0.9.0, queue 3)")
     if arch in LM_ARCHS:
         raise NotImplementedError(
             f"arch {arch!r} is an LM: serving it through this CLI is not "
@@ -329,8 +329,9 @@ def _restore(args, params) -> None:
 
 def _mesh_rank(mesh, args, make, out_dir, keep_outputs):
     """One rank of ``serve_mesh``: build the model, keep its rows of the
-    catalogue, run ``serve_loop`` under the mesh, save the result (with
-    this rank's kernel launches) as ``out_dir/rank<r>.pt``."""
+    catalogue (MACE: its block of the readout), run ``serve_loop`` under
+    the mesh, save the result (with this rank's kernel launches) as
+    ``out_dir/rank<r>.pt``."""
     from repro_torch import bridge, fp32_matmuls
     from repro_torch.dist import use_mesh_rules
     from repro_torch.kernels.embedding_bag import cuda as bag_cuda
@@ -340,7 +341,7 @@ def _mesh_rank(mesh, args, make, out_dir, keep_outputs):
     fp32_matmuls()
     model, template = make(mesh.device)
     _restore(args, model.params())
-    bridge.keep_local_rows(model, mesh)
+    bridge.keep_serving_blocks(model, mesh)
     topk_cuda.reset_launches()
     bag_cuda.reset_launches()
     with use_mesh_rules(mesh):
@@ -364,7 +365,7 @@ def serve_mesh(args, *, make=None, keep_outputs: bool = False,
     from repro_torch import resolve_device
     from repro_torch.launch import mesh as mesh_mod
     if make is None:
-        _check_arch(args.arch, mesh=True)
+        _check_arch(args.arch)
     S = int(args.mesh)
     dev = resolve_device(args.device)
     if dev.type == "cuda":

@@ -26,9 +26,9 @@ batch, with no eval; its pooled lookups train through the embedding_bag
 kernels on the card.  An LM arch trains so too, on one device or a
 mesh: its token gather and the MoE's dispatch and combine gathers take
 their gradients from the embedding_bag backward kernel.  So does MACE,
-on one device: its sums over receivers and graphs run through the same
-kernels forward, and its sender gathers take their gradients from
-them.
+on one device or a mesh: its sums over receivers and graphs run through
+the same kernels forward, and its sender gathers take their gradients
+from them.
 
 The TrainSpec flag cluster (``train.spec.add_train_spec_args``:
 ``--grad-compression`` / ``--grad-accum-shards`` / ``--fsdp`` /
@@ -56,9 +56,11 @@ an elastic spec the model is replicated over ``"model"`` instead, as
 the reference's ``shard_map`` runs it: every rank holds the whole
 model, the S ranks of a data column run the same rounds, and the
 exchange runs over the ``"data"`` group, so the run is the ``(D, 1)``
-run's, bit for bit.  Not yet ported, and raising: MACE on more than
-one rank (ROADMAP queue 1, item 10e; the reference's own MACE fails on
-a mesh).
+run's, bit for bit.  MACE's graph splits over ``"data"`` into shares
+(``data.graphs.partition_graph``: each rank's block of nodes and of
+edges, the halo and the remote receivers exchanged), and only its
+readout splits over ``"model"``; a graph has no rows to cut, so MACE
+takes no elastic spec and no ``--microbatches`` (``ValueError``).
 """
 from __future__ import annotations
 
@@ -126,7 +128,7 @@ def build(args):
     from repro_torch.configs import get_bundle, list_archs
 
     if args.arch not in SEQ_ARCHS and args.arch not in list_archs():
-        get_bundle(args.arch)     # raises: MACE naming its item, or unknown
+        get_bundle(args.arch)     # raises: unknown
     dev = resolve_device(args.device)
     fp32_matmuls()
     train_cfg = TrainConfig(
@@ -246,11 +248,6 @@ def main(argv=None):
         args.devices = args.mesh
     D, S = mesh_dims(args)
     args.devices = D * S
-    if args.arch == "mace" and args.devices > 1:
-        raise NotImplementedError(
-            f"MACE on a mesh of {args.devices} ranks is not yet ported to "
-            f"repro_torch: ROADMAP queue 1, item 10e (the reference's own "
-            f"MACE fails there on jax 0.9.0, queue 3)")
     dev = resolve_device(args.device)
     transport = mesh_mod.transport_for(dev, args.share_card)
     if dev.type == "cuda" and not args.share_card \

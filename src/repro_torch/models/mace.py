@@ -18,10 +18,23 @@ One order a batch for the senders, the receivers and the graph ids
 (``ops.segment_order``) serves every one of those calls, so a step
 sorts each once.  Each layer gathers ``h[l1]`` once for all its paths
 from l1 (the reference takes it a path; XLA computes it once).  A
-step's gradients are the same bits run to run.  The reference's
-``dist.constrain`` of A and of a layer's output to the ``"nodes"`` axis
-is left out: the port runs MACE on one device (a mesh is ROADMAP item
-10e).
+step's gradients are the same bits run to run.
+
+On a ``(data, model)`` mesh MACE is placed as the reference places it
+(``param_axes``: every weight whole but the readout, whose layer 0's
+columns and layer 1's rows split over ``"model"``; ``nn.layers.mlp``
+runs it tensor-parallel).  Over ``"data"`` each rank holds its share of
+the graph (``local_batch``: ``data.graphs.partition_graph``, the
+reference's ``"nodes"`` and ``"edges"`` blocks), which stands for the
+reference's ``dist.constrain`` of A and of a layer's output to
+``"nodes"``.  A layer on a share fetches the halo rows of ``h`` from
+their owners (``dist.halo_rows``) before its gathers, sums each
+path's messages into its own and remote receiver rows, and sends the
+remote rows' partial sums to their owners (``dist.sum_to_owners``);
+everything after A is node-local.  The energy head's per-graph sums
+are summed over ``"data"`` (a molecule may straddle two ranks), and
+each rank scores its block of the graphs.  Without a share the path
+and its bits are the one-device ones.
 
 Heads: 'energy' (molecule cells: per-graph scalar regression, the
 paper's native task) and 'node_class' (citation/products cells: node
@@ -44,12 +57,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import dist as _dist
+from repro_torch.data.graphs import partition_graph
 from repro_torch.kernels.embedding_bag import ops
 from repro_torch.models.equivariant import (bessel_rbf, cg_product,
                                             product_paths,
                                             spherical_harmonics)
 from repro_torch.nn import layers as L
-from repro_torch.nn.module import Tensors, hold, live
+from repro_torch.nn.module import Placed, Tensors, hold, live
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +91,9 @@ def _paths(lmax):
 
 
 class Edges(NamedTuple):
-    """A batch's edges as every layer reads them."""
+    """A batch's edges as every layer reads them.  On a share, ``send``
+    indexes its own ++ halo rows and ``recv`` its own ++ remote rows,
+    and ``exchange`` is its plan (None for a whole graph)."""
     send: torch.Tensor          # [E] int64
     recv: torch.Tensor          # [E] int64
     send_order: object          # ops.segment_order(send, N), None on CPU
@@ -84,9 +101,10 @@ class Edges(NamedTuple):
     rbf: torch.Tensor           # [E, n_rbf]
     sh: dict                    # {l: [E, 2l+1]}
     emask: torch.Tensor         # [E]
+    exchange: object = None
 
 
-class MACE(torch.nn.Module):
+class MACE(Placed, torch.nn.Module):
     """MACE's parameters, drawn from ``generator`` (on ``device``) in the
     reference's order: ``embed``; each layer's ``radial`` (a path each),
     ``mix_a``, ``msg`` and ``res`` (an l each), then its ``prod_w`` (an
@@ -137,14 +155,39 @@ class MACE(torch.nn.Module):
                                                device=dev))
             self.layers = hold([self._layer_init(gen, dev)
                                 for _ in range(cfg.n_layers)])
-            dims = ([C, C // 2, 1] if cfg.head == "energy"
-                    else [C, C, cfg.n_classes])
-            self.readout = hold(L.mlp_init(gen, dims, device=dev))
-        return self.params()
+            self.readout = hold(L.mlp_init(gen, self._readout_dims(),
+                                           device=dev))
+        return self._record_shapes()
 
     def params(self) -> dict:
         return {"embed": self.embed.live(), "layers": live(self.layers),
                 "readout": live(self.readout)}
+
+    def _readout_dims(self):
+        C = self.cfg.channels
+        return ([C, C // 2, 1] if self.cfg.head == "energy"
+                else [C, C, self.cfg.n_classes])
+
+    def param_axes(self) -> dict:
+        """The logical axes of each leaf of ``params()``: the reference's
+        (``nn.axes_tree`` of its ``init_params``).  Only the readout's
+        ``"mlp"`` axes resolve onto a mesh."""
+        cfg = self.cfg
+        ls = range(cfg.lmax + 1)
+        paths = _paths(cfg.lmax)
+        layer = {"radial": {f"p{l1}{l2}{l3}": {"w": (None, "embed")}
+                            for (l1, l2, l3) in paths},
+                 "mix_a": {f"l{l}": ("embed", "embed") for l in ls},
+                 "prod_w": {f"o{o}_p{l1}{l2}{l3}": ("embed",)
+                            for o in range(2, cfg.correlation + 1)
+                            for (l1, l2, l3) in paths},
+                 "msg": {f"l{l}": ("embed", "embed") for l in ls},
+                 "res": {f"l{l}": ("embed", "embed") for l in ls}}
+        return {"embed": {"w": ("features", "embed"), "b": ("embed",)},
+                "layers": [layer for _ in range(cfg.n_layers)],
+                "readout": {"layers": [
+                    {"w": ("embed" if i == 0 else "mlp", "mlp"),
+                     "b": ("mlp",)} for i in range(2)]}}
 
     # -------------------------------------------------------- interact
     def _interaction(self, lp, h, edges: Edges):
@@ -152,14 +195,23 @@ class MACE(torch.nn.Module):
         cfg = self.cfg
         C = cfg.channels
         N, E = h[0].shape[0], edges.send.shape[0]
+        ex = edges.exchange
+        n_sum = N if ex is None else N + ex.n_remote   # own ++ remote
         scale = cfg.avg_neighbors ** 0.5
 
         # ---- A-basis: sum_j R(r_ij) (h_j^{l1} x Y^{l2})^{l3}
-        A = {l: torch.zeros((N, C, 2 * l + 1), dtype=h[0].dtype,
+        A = {l: torch.zeros((n_sum, C, 2 * l + 1), dtype=h[0].dtype,
                             device=h[0].device)
              for l in range(cfg.lmax + 1)}
-        hj = {l1: ops.gather(x.reshape(N, -1), edges.send, edges.send_order)
-              .view(E, C, 2 * l1 + 1) for l1, x in h.items()}
+        # one gather an l1; on a share from its own ++ halo rows, every
+        # l1's halo fetched in one exchange.  (One gather of every l1 side
+        # by side launches fewer kernels but holds one more [E, C·Σ(2l+1)]
+        # buffer in the backward: +0.78 GB at minibatch_lg on one card.)
+        hx = h if ex is None else _split_rows(
+            _dist.halo_rows(_cat_rows(h), ex), h, C)
+        hj = {l1: ops.gather(x.reshape(x.shape[0], -1), edges.send,
+                             edges.send_order).view(E, C, 2 * l1 + 1)
+              for l1, x in hx.items()}
         for (l1, l2, l3) in _paths(cfg.lmax):
             if l1 not in h:
                 continue
@@ -167,8 +219,11 @@ class MACE(torch.nn.Module):
             msg = cg_product(hj[l1], edges.sh[l2][:, None, :],
                              l1, l2, l3)                         # [E, C, m3]
             msg = msg * (R * edges.emask[:, None])[..., None]
-            A[l3] = A[l3] + ops.segment_sum(msg, edges.recv, N,
+            A[l3] = A[l3] + ops.segment_sum(msg, edges.recv, n_sum,
                                             edges.recv_order) / scale
+        if ex is not None:
+            # the remote rows' partial sums to their owners
+            A = _split_rows(_dist.sum_to_owners(_cat_rows(A), ex), A, C)
         A = {l: torch.einsum("ncm,cd->ndm", A[l],
                              lp["mix_a"][f"l{l}"].to(A[l].dtype))
              for l in A}
@@ -198,26 +253,45 @@ class MACE(torch.nn.Module):
 
     # --------------------------------------------------------- forward
     def _on_device(self, batch) -> dict:
-        return {k: torch.as_tensor(v, device=self.device)
+        dev = self.device
+        return {k: (v.map(lambda a: torch.as_tensor(a, device=dev))
+                    if k == "exchange" else torch.as_tensor(v, device=dev))
                 for k, v in batch.items()}
+
+    def local_batch(self, batch, mesh) -> dict:
+        """This data rank's share of the graph ``batch`` (host arrays or
+        tensors) on the model's device: ``data.graphs.partition_graph``
+        on the ``"data"`` axis of ``mesh``.  The Trainer calls it in
+        place of cutting the batch's rows, which a graph does not have
+        (its senders index the whole graph)."""
+        return self._on_device(partition_graph(
+            batch, int(mesh.shape["data"]), mesh.data_index,
+            graph_labels=self.cfg.head == "energy"))
 
     def _edges(self, batch) -> Edges:
         """The batch's edge geometry and the sorted orders of its senders
         and receivers (``ops.segment_order``: on the card one sort and
         one host synchronisation each, raising on an index outside the
-        nodes)."""
+        nodes).  On a share the senders index its own ++ halo rows and
+        the receivers its own ++ remote rows, whose positions it holds in
+        that order after the halo's."""
         cfg = self.cfg
         pos = batch["positions"]
-        N = pos.shape[0]
+        ex = batch.get("exchange")
         send, recv = batch["senders"].long(), batch["receivers"].long()
-        send_order = ops.segment_order(send, N)
-        recv_order = ops.segment_order(recv, N)
+        if ex is None:
+            pos_s = pos_r = pos
+        else:
+            pos_s = pos[:ex.n_own + ex.n_halo]
+            pos_r = torch.cat([pos[:ex.n_own], pos[ex.n_own + ex.n_halo:]])
+        send_order = ops.segment_order(send, pos_s.shape[0])
+        recv_order = ops.segment_order(recv, pos_r.shape[0])
         emask = batch["edge_mask"].to(pos.dtype)
-        vec = pos[recv] - pos[send]
+        vec = pos_r[recv] - pos_s[send]
         r = torch.linalg.vector_norm(vec, dim=-1)
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.r_cut)         # [E, n_rbf]
         sh = spherical_harmonics(vec, cfg.lmax)           # {l: [E, 2l+1]}
-        return Edges(send, recv, send_order, recv_order, rbf, sh, emask)
+        return Edges(send, recv, send_order, recv_order, rbf, sh, emask, ex)
 
     def node_features(self, p, batch):
         batch = self._on_device(batch)
@@ -232,19 +306,40 @@ class MACE(torch.nn.Module):
         h = self.node_features(p, batch)
         return h[0][..., 0]                               # [N, C] invariant
 
+    def _readout(self, p, s):
+        """The readout tower, tensor-parallel where the ambient
+        ``"model"`` mesh split its weights."""
+        return L.mlp(p["readout"], s, dims=self._readout_dims())
+
     def _energy(self, p, s, batch):
         """The per-graph energy [G]: the readout a node, masked, summed
-        over each graph (``ops.segment_sum`` over ``graph_id``)."""
-        node_e = L.mlp(p["readout"], s)[..., 0] * batch["node_mask"]
+        over each graph (``ops.segment_sum`` over ``graph_id``); on a
+        share, the ranks' partial sums summed over ``"data"``."""
+        node_e = self._readout(p, s)[..., 0] * batch["node_mask"]
         gid = batch["graph_id"].long()
         n = self.cfg.n_graphs
-        return ops.segment_sum(node_e, gid, n, ops.segment_order(gid, n))
+        e = ops.segment_sum(node_e, gid, n, ops.segment_order(gid, n))
+        return e if "exchange" not in batch else \
+            _dist.sum_partials_over_data(e)
 
     # ------------------------------------------------------------ loss
+    def loss_counts(self, batch) -> dict:
+        """What each loss term is a mean over, on this rank: the energy
+        head's graphs it scores (a share's ``label_mask``; every graph of
+        a whole batch), the node head's real own nodes."""
+        if self.cfg.head == "energy":
+            m = batch.get("label_mask")
+            return {"graphs": torch.tensor(len(batch["labels"])) if m is None
+                    else torch.sum(torch.as_tensor(m))}
+        return {"nodes": torch.sum(torch.as_tensor(batch["node_mask"]))}
+
     def train_loss(self, p, batch, generator=None):
         """(loss, metrics): the energy head's mean squared error
         (``loss``, ``mae``) or the node head's masked mean cross-entropy
-        (``loss``, ``acc``)."""
+        (``loss``, ``acc``).  Where the data group installed its counts
+        (``dist.loss_count``), each mean is this rank's sum over the
+        whole batch's count: over the graphs it scores, or its own
+        nodes."""
         del generator
         cfg = self.cfg
         batch = self._on_device(batch)
@@ -252,15 +347,24 @@ class MACE(torch.nn.Module):
         nmask = batch["node_mask"]
         if cfg.head == "energy":
             err = self._energy(p, s, batch) - batch["labels"]
-            loss = torch.mean(torch.square(err))
+            n = _dist.loss_count("graphs")
+            if n is None:
+                loss = torch.mean(torch.square(err))
+                return loss, {"loss": loss.detach(),
+                              "mae": torch.mean(torch.abs(err)).detach()}
+            w = batch.get("label_mask")
+            w = torch.ones_like(err) if w is None else w
+            loss = torch.sum(torch.square(err) * w) / n
             return loss, {"loss": loss.detach(),
-                          "mae": torch.mean(torch.abs(err)).detach()}
+                          "mae": (torch.sum(torch.abs(err) * w) / n).detach()}
         labels = batch["labels"].long()
-        logits = L.mlp(p["readout"], s)                   # [N, n_classes]
+        logits = self._readout(p, s)                      # [N, n_classes]
         lse = torch.logsumexp(logits, -1)
         picked = torch.gather(logits, -1, labels[:, None])[..., 0]
         ce = (lse - picked) * nmask
-        count = torch.clamp(torch.sum(nmask), min=1.0)
+        n = _dist.loss_count("nodes")
+        count = torch.clamp(torch.sum(nmask) if n is None
+                            else n.to(nmask.dtype), min=1.0)
         loss = torch.sum(ce) / count
         acc = torch.sum((torch.argmax(logits, -1) == labels) * nmask) / count
         return loss, {"loss": loss.detach(), "acc": acc.detach()}
@@ -272,4 +376,20 @@ class MACE(torch.nn.Module):
         s = self.scalars(p, batch)
         if self.cfg.head == "energy":
             return self._energy(p, s, batch)
-        return L.mlp(p["readout"], s)
+        return self._readout(p, s)
+
+
+def _cat_rows(x: dict):
+    """{l: [n, C, 2l+1]} -> [n, C·Σ(2l+1)], the l's side by side in
+    ascending order (one exchange moves them all)."""
+    rows = [x[l].reshape(x[l].shape[0], -1) for l in sorted(x)]
+    return rows[0] if len(rows) == 1 else torch.cat(rows, 1)
+
+
+def _split_rows(flat, like: dict, C: int) -> dict:
+    """``_cat_rows``' inverse: views of ``flat`` [n, W] per l of
+    ``like``."""
+    ls = sorted(like)
+    parts = torch.split(flat, [C * (2 * l + 1) for l in ls], 1)
+    return {l: x.reshape(flat.shape[0], C, 2 * l + 1)
+            for l, x in zip(ls, parts)}

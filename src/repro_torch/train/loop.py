@@ -10,7 +10,10 @@ duplicate raises), and the step comes from the step-builder registry:
 
   * plain / microbatch: one device, or with ``mesh`` plain data
     parallelism — each rank takes its rows of the batch (by its index
-    on the ``"data"`` axis), and the loss is the whole batch's, as the
+    on the ``"data"`` axis; a model with a ``local_batch(batch, mesh)``
+    hook places the batch itself: MACE's share of a graph, which has no
+    rows to cut, so it takes no elastic spec and no microbatches), and
+    the loss is the whole batch's, as the
     reference's one step over the global batch is: before the forward
     the counts each loss term is a mean over (``model.loss_counts``)
     are summed over ``"data"`` in one small ``all_reduce`` and installed
@@ -221,6 +224,17 @@ class Trainer:
                 f"(which resolve to {derived}); set the policy in one "
                 f"place")
         self.spec = spec
+        # a model that places its own batch on the data ranks (a graph's
+        # shares: MACE's ``local_batch``) has no rows to cut
+        self._local_batch = getattr(model, "local_batch", None)
+        if self._local_batch is not None and (spec.elastic
+                                              or spec.microbatches > 1):
+            raise ValueError(
+                f"{type(model).__name__} trains on a graph batch, which "
+                f"has no rows to split: it takes neither an elastic spec "
+                f"(grad_compression / grad_accum_shards / fsdp), which "
+                f"cuts the batch into virtual shards of rows, nor "
+                f"microbatches={spec.microbatches}")
         self._use_dp = spec.elastic
         self._fsdp = spec.fsdp
         if self._use_dp and mesh is None:
@@ -511,8 +525,10 @@ class Trainer:
         detached = [x for x in floats if not x.requires_grad]
         for x in detached:
             x.requires_grad_(True)
-        rows = None
-        if self._counted:
+        rows, share = None, None
+        if self._counted and self._local_batch is not None:
+            share = self._local_batch        # the model's own placement
+        elif self._counted:
             rows = (mesh.data_index, self._world)
             if cfg.batch_size % self._world:
                 raise ValueError(
@@ -522,8 +538,11 @@ class Trainer:
         try:
             for step in range(start_step, cfg.steps):
                 t0 = time.perf_counter()
-                batch = {k: torch.as_tensor(v, device=dev)
-                         for k, v in self.data_fn(step).items()}
+                if share is not None:        # this rank's share
+                    batch = share(self.data_fn(step), mesh)
+                else:
+                    batch = {k: torch.as_tensor(v, device=dev)
+                             for k, v in self.data_fn(step).items()}
                 if rows is not None:         # this rank's rows
                     batch = {k: v[rows[0] * (v.shape[0] // rows[1]):
                                   (rows[0] + 1) * (v.shape[0] // rows[1])]
@@ -543,7 +562,7 @@ class Trainer:
                             if torch.is_floating_point(x):
                                 x.copy_(n)
                 del new, batch
-                if rows is not None:
+                if self._counted:
                     # the loss's metrics are this rank's shares: summed;
                     # the optimizer's (grad_norm, lr) are every rank's
                     keys = [k for k in mets if k not in OPT_STATS]

@@ -364,7 +364,8 @@ def accumulate_grads(loss_fn, n: int, values, batch, rng=None,
     (``rng(None)`` when n == 1; no generator when ``rng`` is None); the
     metrics are the slices' mean.  The body of the plain and microbatch
     steps.  With n == 1 the batch is taken whole, so its fields may have
-    different leading sizes (a graph's nodes and edges)."""
+    different leading sizes (a graph's nodes and edges) or be no array
+    at all (a graph share's exchange plan)."""
     import torch
 
     from repro_torch.nn.module import tree_leaves
@@ -372,11 +373,14 @@ def accumulate_grads(loss_fn, n: int, values, batch, rng=None,
     if floats is None:
         floats = [x for x in tree_leaves(values)
                   if torch.is_floating_point(x)]
-    rows = {int(v.shape[0]) for v in batch.values()}
-    if n > 1 and (len(rows) != 1 or next(iter(rows)) % n):
-        raise ValueError(f"microbatches={n} must divide the batch into "
-                         f"equal slices; batch rows {sorted(rows)}")
-    size = next(iter(rows)) // n
+    size = None
+    if n > 1:
+        rows = {int(v.shape[0]) for v in batch.values()}
+        if len(rows) != 1 or next(iter(rows)) % n:
+            raise ValueError(f"microbatches={n} must divide the batch "
+                             f"into equal slices; batch rows "
+                             f"{sorted(rows)}")
+        size = next(iter(rows)) // n
     acc, slices = None, []
     for i in range(n):
         mb = batch if n == 1 else {k: v[i * size:(i + 1) * size]

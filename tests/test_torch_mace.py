@@ -246,7 +246,8 @@ def test_config_matches_reference():
 
 def test_make_batch_pads_each_shape():
     """molecule and full_graph_sm padded as SHAPES pads them (the real
-    rows the reference's generators' bits); ogb_products waits for 10e."""
+    rows the reference's generators' bits); ogb_products raises: it
+    needs more cards than a run has."""
     mol = T_arch.make_batch("molecule", seed=2)
     want = J_graphs.molecule_batch(2, batch=128, n_nodes=30, n_edges=64,
                                    d_feat=16)
@@ -258,7 +259,7 @@ def test_make_batch_pads_each_shape():
     cora = T_arch.make_batch("full_graph_sm")
     assert cora["edge_mask"].sum() == 10556 and cora["node_mask"].sum() == 2708
     assert cora["features"].shape == (3072, 1433)
-    with pytest.raises(NotImplementedError, match="10e"):
+    with pytest.raises(NotImplementedError, match="needs more cards"):
         T_arch.make_batch("ogb_products")
     with pytest.raises(ValueError, match="does not fit"):
         T_arch.pad_graph(cora, "molecule")
@@ -484,11 +485,25 @@ def test_serve_cli_serves_mace_on_the_cpu(capsys):
 @pytest.mark.parametrize("cli,flags", [
     ("train", ["--devices", "2"]), ("train", ["--model-axis", "2"]),
     ("train", ["--mesh", "2"]), ("serve", ["--mesh", "2"])])
-def test_clis_refuse_mace_on_a_mesh(cli, flags):
+def test_clis_refuse_mace_on_a_mesh(cli, flags, capfd):
+    """The flag sets the CLIs once refused for MACE now run it on a mesh
+    of two gloo ranks (the name is kept from then): rank 0 prints the
+    train CLI's closing line, or the serve CLI's line with ``mesh=2``.
+    tests/test_torch_mace_mesh.py holds the mesh runs against the
+    reference."""
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{cli}")
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        mod.main(["--arch", "mace", "--device", "cpu", *flags])
+    common = ["--arch", "mace", "--device", "cpu", *flags]
+    if cli == "train":
+        assert mod.main([*common, "--steps", "2"]) is None   # spawned
+        D = 1 if "--model-axis" in flags else 2
+        assert (f"done at step 2 on cpu, mesh {{'data': {D}, 'model': "
+                f"{3 - D}}}") in capfd.readouterr().out
+        return
+    res = mod.main([*common, "--requests", "3", "--batch-size", "32"])
+    assert res["path"] == "serve" and res["n"] == 3
+    out = capfd.readouterr().out
+    assert "mace: batch=32 n=3 path=serve" in out and "mesh=2" in out
 
 
 def test_example_trains_and_stays_invariant():

@@ -322,8 +322,10 @@ def test_cli_flags_and_defaults_match_the_reference():
                                     "--model-axis", "2"],
                                    ["--arch", "mace", "--devices", "2"]])
 def test_cli_unported_flags_raise(flags, capfd):
-    """What the CLI still refuses: MACE on more than one rank (item
-    10e; MACE trains on one device, tests/test_torch_mace.py).  An LM
+    """What the CLI once refused now trains (the name is kept from
+    then): MACE on two data ranks (item 10e), its losses within 1e-5
+    relative of the single-device CLI's (tests/test_torch_mace_mesh.py
+    holds MACE on every mesh shape against the reference).  An LM
     trains on a mesh (item 10c): qwen3-14b on two data ranks, its loss
     within 1e-5 relative of the single-device CLI's
     (tests/test_torch_lm_mesh.py holds the LMs on every mesh shape).
@@ -336,8 +338,10 @@ def test_cli_unported_flags_raise(flags, capfd):
     common = ["--n-items", "50", "--batch-size", "8", "--eval-every", "0"]
     argv = ["--device", "cpu", "--steps", "1", *common, *flags]
     if "mace" in flags:
-        with pytest.raises(NotImplementedError, match="item 10e"):
-            T_cli.main(argv)
+        from test_torch_lm_train import cli_losses
+        want = cli_losses("mace", [], capfd, steps=2)
+        got = cli_losses("mace", flags[2:], capfd, steps=2)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
         return
     if "qwen3-14b" in flags:
         from test_torch_lm_train import cli_losses
