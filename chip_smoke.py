@@ -453,6 +453,17 @@ Phases 39-40 run last, MACE on a ``(data, model)`` mesh at full width
      rank's
      outputs within 1e-5 of the largest of the unsharded ``serve_loop``
      on the same requests, the bag backward every call.
+ 41. The dry run (``launch/dryrun.py``): the fake process group exists;
+     two-tower-retrieval-jpq serve_p99, stablelm-1.6b train_4k at phase
+     33's cut (4 layers, B = 2) and MACE minibatch_lg traced at mesh (1,
+     1) on fake ``cuda`` and fake ``cpu`` tensors, each then run for real
+     on the card from a clean start (``dryrun_phase``): FLOPs by dtype,
+     collectives and kernel op calls equal three ways, the trace's peak
+     (the cuBLAS workspaces in it) within 10% of the real step's and of
+     phases 33 and 36's peaks; the roofline terms printed beside the
+     measured step; each kernel op's call through
+     ``torch.ops.repro_torch`` timed against its bare ctypes launch
+     (``op_overheads``).
 Then JSON lines of the serving runs, the CTR serving runs, CTR
 training, the request server (``{"server": ...}``), phase 27's
 ``{"mesh_serve": ...}``, phase 28's ``{"model_axis_train": ...}``,
@@ -460,7 +471,9 @@ phase 29's ``{"ctr_model_axis": ...}``, phase 30's
 ``{"elastic_mesh": ...}``, phase 31's ``{"server_mesh": ...}``,
 phases 32-34's ``{"lm": ...}``, phases 35-36's ``{"mace": ...}``,
 phases 37-38's ``{"lm_mesh": ...}``, phases 39-40's
-``{"mace_mesh": ...}`` and the per-kernel numbers (eight kernels; rows 3-5b also carry phases
+``{"mace_mesh": ...}``, phase 41's ``{"dryrun": ...}`` and the
+per-kernel numbers (eight kernels, each with phase 41's
+``op_overhead``; rows 3-5b also carry phases
 33's ``lm_shape`` and ``lm_launches`` and phase 37's ``lm_mesh_shape``
 (a rank's shape, its launches a rank and run), the bag backward phase
 36's ``mace_shape`` and phase 39's ``mace_mesh_shape`` and
@@ -485,15 +498,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+# the card's rates and each kernel's least work: one definition, read by
+# the bounds here and by the dry run's tally
+from repro_torch.kernels import cost as _cost  # noqa: E402
+from repro_torch.kernels.cost import (FADD_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                                      bound, bound_of)
+
 B, M, BC = 512, 8, 256            # serve_p99 batch, code length, centroids
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# fp32 outside the tensor cores: 67 TFLOP/s on the data sheet counts an
-# FMA as 2 flops (132 SMs x 128 lanes x 2 x 1.98 GHz), so plain adds and
-# maxes issue at half that.  A lookup in a per-query table (the LUT
-# gather) goes through shared memory, 32 lanes per SM per clock: a
-# quarter of the add rate.
-FADD_PER_S = 67e12 / 2
-LOOKUP_PER_S = 67e12 / 8
 REQUESTS = 20
 U = 2.0 ** -24                     # fp32 unit roundoff
 
@@ -578,15 +589,6 @@ def odd_address(torch, x):
     out = buf[1:].view(x.shape)
     out.copy_(x)
     return out
-
-
-def bound(bytes_, ops):
-    """(bound ms, bound_by): bytes over HBM against each operation type
-    over its own rate (``ops``: {name: (count, rate)})."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = max([n / r * 1e3 for n, r in ops.values()], default=0.0)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def bits_equal(a, b):
@@ -725,30 +727,15 @@ def slice_kernel_errs(torch, dev, model, params, seq, what):
 
 def train_kernel_work(T, N, b, dk):
     """The least work of each training kernel at T positions over N code
-    rows of ``M`` codes, ``b`` centroids of ``dk`` floats a split:
-    {name: (bytes, {op type: (count, rate)})}, inputs read once and
-    outputs written once."""
-    lut_b, out_b = T * M * b * 4, T * N * 4
-    # the ids, the code rows they name, the centroids, the output
-    look_b = T * 8 + T * M + M * b * dk * 4 + T * M * dk * 4
-    return {
-        "jpq_scores": (N * M + lut_b + out_b,
-                       {"LUT lookups": (T * N * M, LOOKUP_PER_S),
-                        "fp32 adds": (T * N * (M - 1), FADD_PER_S)}),
-        "jpq_scores_bwd": (out_b + N * M + lut_b,
-                           {"histogram updates": (T * N * M, LOOKUP_PER_S),
-                            "fp32 adds": (T * N * M, FADD_PER_S)}),
-        "jpq_lookup": (look_b, {}),
-        "jpq_lookup_bwd": (look_b, {"fp32 adds": (T * M * dk, FADD_PER_S)}),
-    }
+    rows of ``M`` uint8 codes (``kernels/cost.train_kernel_work``)."""
+    return _cost.train_kernel_work(T, N, M, b, dk)
 
 
 def topk_work(Bq, N, k):
     """(bytes, fp32 adds, LUT lookups) of the unpruned fused top-k of
-    ``Bq`` queries over N code rows: the codes and LUTs read once, the
-    values and ids written once, one lookup and add a (query, item,
-    split)."""
-    return N * M + Bq * M * BC * 4 + Bq * k * 8, Bq * N * M, Bq * N * M
+    ``Bq`` queries over N rows of ``M`` uint8 codes, ``BC`` centroids a
+    split (``kernels/cost.topk_work``)."""
+    return _cost.topk_work(Bq, N, k, M, BC)
 
 
 def pruned_work(torch, st, skip, Bq, k):
@@ -773,19 +760,6 @@ def pruned_work(torch, st, skip, Bq, k):
     bytes_ = (items * (M + 4) + nt * M * BC * 4 + Bq * M * BC * 4 + Bq * 4
               + 2 * Bq * k * 8)
     return bytes_, adds, lookups, items
-
-
-def bound_of(bytes_, adds, lookups):
-    """(bound ms, bound_by, (bytes ms, adds ms, lookups ms)) of a top-k
-    sweep: its bytes over HBM against its fp32 adds and its LUT lookups,
-    each over its own rate."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_adds = adds / FADD_PER_S * 1e3
-    t_lookups = lookups / LOOKUP_PER_S * 1e3
-    t_ops = max(t_adds, t_lookups)
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations",
-            (t_bytes, t_adds, t_lookups))
 
 
 def full_two_tower(arch, device):
@@ -7659,6 +7633,253 @@ def mace_mesh_phases(torch, np, dev, smi, one_card):
             "kernels": kernels, "launches": launches}
 
 
+# phase 41: the dry run's cells held against one real step each, at
+# (1, 1): (arch, shape, config changes, batch cut (B, S) or None); the
+# LM takes phase 33's depth and batch
+DRYRUN_CELLS = (("two-tower-retrieval-jpq", "serve_p99", None, None),
+                ("stablelm-1.6b", "train_4k",
+                 {"n_layers": LM_TRAIN_LAYERS}, (LM_TRAIN_B, LM_TRAIN_S)),
+                ("mace", "minibatch_lg", None, None))
+DRYRUN_PEAK_TOL = 0.10
+
+
+def host_us(torch, fn, n):
+    """Host microseconds a call of ``fn`` takes to return, over ``n``
+    calls issued back to back (the card works behind them)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def op_overheads(torch, dev):
+    """Each kernel operator's host time a call through
+    ``torch.ops.repro_torch`` against its bare ctypes launch (the CUDA
+    implementation called directly), at the smallest shape the earlier
+    phases time each kernel at, in turns (op, bare, bare, op; medians of
+    5 rounds): {op: {shape, op_us, bare_us, overhead_us}}."""
+    import numpy as np
+
+    from repro_torch.kernels import library
+    from repro_torch.kernels.embedding_bag import cuda as ec
+    from repro_torch.kernels.jpq_lookup import cuda as lc
+    from repro_torch.kernels.jpq_scores import cuda as sc
+    from repro_torch.kernels.jpq_topk import cuda as kc
+    from repro_torch.kernels.jpq_topk import ops as tk
+    g = torch.Generator(device=dev).manual_seed(41)
+    N = 1_000_448
+    codes = torch.randint(0, BC, (N, M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    P8 = tk.canonicalise_lut(torch.randn((8, M, BC), generator=g,
+                                         device=dev))
+    st = tk.prepare_pruning(codes, BC, tk.prune_block_n(N))
+    cold = (torch.full((8,), -float("inf"), device=dev),
+            torch.full((8, 10), -float("inf"), device=dev),
+            torch.zeros((8, 10), dtype=torch.int32, device=dev))
+    P256 = torch.randn((256, M, BC), generator=g, device=dev)
+    dS = torch.randn((256, N), generator=g, device=dev)
+    ids = torch.randint(0, N, (1600,), generator=g, device=dev)
+    cent = torch.randn((M, BC, 64), generator=g, device=dev)
+    dout = torch.randn((1600, M, 64), generator=g, device=dev)
+    table = torch.randn((N, 256), generator=g, device=dev)
+    bag = torch.randint(0, N, (512, 50), generator=g, device=dev)
+    w = torch.rand((512, 50), generator=g, device=dev)
+    dbag = torch.randn((512, 256), generator=g, device=dev)
+    order = ec.sort_ids(bag, N)
+    op = library.op
+    cases = {
+        "jpq_topk": ("B 8, k 10, N 1,000,448",
+                     lambda: op("jpq_topk")(P8, codes, 10, None),
+                     lambda: kc.jpq_topk(P8, codes, 10)),
+        "jpq_topk_pruned": (
+            "B 8, k 10",
+            lambda: op("jpq_topk_pruned")(
+                P8, st.codes, st.ids, st.present, *cold, 10, st.block_n,
+                False),
+            lambda: kc.jpq_topk_pruned(
+                P8, st.codes, st.ids, st.present, *cold, k=10,
+                block_n=st.block_n, tie_break_ids=False)),
+        "jpq_scores": ("T 256", lambda: op("jpq_scores")(P256, codes),
+                       lambda: sc.jpq_scores(P256, codes)),
+        "jpq_scores_bwd": ("T 256",
+                           lambda: op("jpq_scores_bwd")(dS, codes, BC),
+                           lambda: sc.jpq_scores_bwd(dS, codes, BC)),
+        "jpq_lookup": ("T 1,600, dk 64",
+                       lambda: op("jpq_lookup")(ids, codes, cent),
+                       lambda: lc.jpq_lookup(ids, codes, cent)),
+        "jpq_lookup_bwd": ("T 1,600, dk 64",
+                           lambda: op("jpq_lookup_bwd")(ids, codes, dout,
+                                                        BC),
+                           lambda: lc.jpq_lookup_bwd(ids, codes, dout, BC)),
+        "embedding_bag": ("512 bags x 50, d 256",
+                          lambda: op("embedding_bag")(table, bag, w),
+                          lambda: ec.launch(table, bag, w)),
+        "bag_sort_ids": ("25,600 ids, V 1,000,448",
+                         lambda: op("bag_sort_ids")(bag, N, False),
+                         lambda: ec.sort_tensors(bag, N, False)),
+        "bag_backward": (
+            "512 bags x 50, d 256",
+            lambda: op("bag_backward")(bag, w, dbag, N, order.perm,
+                                       order.offs, order.work,
+                                       order.counters, order.n_long, 0),
+            lambda: ec._launch_kernels(order, w, dbag, 50, 256, N, dev,
+                                       False)),
+    }
+    out = {}
+    for name, (shape, via_op, bare) in cases.items():
+        n = 20 if name.startswith("jpq_scores") else 100
+        via_op(), bare()
+        rounds = [(host_us(torch, via_op, n), host_us(torch, bare, n),
+                   host_us(torch, bare, n), host_us(torch, via_op, n))
+                  for _ in range(5)]
+        op_us = float(np.median([r[0] for r in rounds]
+                                + [r[3] for r in rounds]))
+        bare_us = float(np.median([r[1] for r in rounds]
+                                  + [r[2] for r in rounds]))
+        out[name] = {"shape": shape, "op_us": op_us, "bare_us": bare_us,
+                     "overhead_us": op_us - bare_us}
+        print(f"   {name} ({shape}): {op_us:.1f} us a call through the "
+              f"op, {bare_us:.1f} bare, overhead {op_us - bare_us:.1f} us")
+    del codes, P8, st, P256, dS, table, bag, dbag, order
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(torch, np, dev, smi, earlier_gb):
+    """Phase 41: the dry run (``launch/dryrun.py``) on the card's torch.
+    The fake process group exists; each of ``DRYRUN_CELLS`` is traced at
+    mesh (1, 1) on fake ``cuda`` tensors and on fake ``cpu`` ones, then
+    run for real on the card from a clean start: the cuBLAS workspaces
+    freed just before, so the step makes them as the trace counts them,
+    and the peak reset.  The real step runs under the same tally, then
+    once more for its step time.  Held: the three FLOP counts by dtype
+    equal, the collectives and kernel op calls equal, and the fake
+    trace's peak (the cuBLAS workspaces in it) within
+    ``DRYRUN_PEAK_TOL`` of the real step's ``max_memory_allocated``
+    less what was allocated before it, plus its arguments (the model's
+    values, state and inputs, as the tally counts them); and where
+    ``earlier_gb`` holds the cell (the ``max_memory_allocated`` of the
+    phase that runs it for real: a Trainer's run from a clean card,
+    phases 33 and 36), within ``DRYRUN_PEAK_TOL`` of that too.  Then
+    each kernel op's per-call overhead (``op_overheads``).  Returns the
+    phase's record."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_bundle
+    from repro_torch.configs import mace_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = phase("dry run: three cells on fake cuda tensors against one real "
+               "step each, kernel ops' call overhead")
+    check(FakeStore is not None, "no fake process group in this torch")
+    rows = {}
+    for arch, shape, changes, cut in DRYRUN_CELLS:
+        t_cell = time.perf_counter()
+        host = batch = None
+        if arch == "mace":
+            host = mace_arch.make_batch(shape, seed=0)
+        elif cut is not None:
+            z = np.zeros(cut, np.int32)
+            batch = {"tokens": z, "targets": z}
+        kw = {"changes": changes, "host_batch": host, "batch": batch}
+        traces = {}
+        for d in ("cuda", "cpu"):
+            fm = mesh_mod.make_fake_mesh(1, 1, device=d)
+            try:
+                traces[d] = dryrun.trace_cell(arch, shape, fm, d, **kw)
+            finally:
+                fm.close()
+        # the same cell's step on the card from a clean start: the
+        # tallied step with no cuBLAS workspace made yet and the peak
+        # reset just before, then a timed one
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_mod.HostMesh(1, 1, device=dev)
+        bundle = get_bundle(arch)
+        model = dryrun.make_model(bundle, shape, dev, changes)
+        fn, args, _ = dryrun.build_cell_args(
+            bundle, bundle.cells[shape], model, mesh, host_batch=host,
+            batch=batch)
+        del model
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        real, real_mem, real_coll = dryrun.trace_step(fn, args, mesh)
+        torch.cuda.synchronize()
+        measured = (torch.cuda.max_memory_allocated(dev) - base
+                    + real_mem["argument_size_in_bytes"])
+        _, step_ms = _timed(torch, lambda: fn(*args))
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        fake, fake_mem, fake_coll, trace_s = traces["cuda"]
+        cpu, _, cpu_coll, _ = traces["cpu"]
+        check(fake["flops_by_dtype"] == real["flops_by_dtype"]
+              == cpu["flops_by_dtype"],
+              f"{arch} {shape}: FLOPs differ: fake cuda "
+              f"{fake['flops_by_dtype']}, real {real['flops_by_dtype']}, "
+              f"fake cpu {cpu['flops_by_dtype']}")
+        check(fake_coll == real_coll == cpu_coll,
+              f"{arch} {shape}: collectives differ")
+        check(fake["kernel_calls"] == real["kernel_calls"],
+              f"{arch} {shape}: kernel op calls differ: fake "
+              f"{fake['kernel_calls']}, real {real['kernel_calls']}")
+        predicted = fake_mem["peak_bytes"]
+        rel = predicted / measured - 1.0
+        earlier = earlier_gb.get(f"{arch}:{shape}")
+        rel_earlier = (None if earlier is None
+                       else predicted / (earlier * 1e9) - 1.0)
+        terms = {"compute_s": mesh_mod.compute_s(fake["flops_by_dtype"]),
+                 "memory_s": mesh_mod.memory_s(fake["bytes"]),
+                 "collective_s": 0.0}
+        rows[f"{arch}:{shape}"] = {
+            "cut": {"config": changes, "batch": cut},
+            "flops_by_dtype": fake["flops_by_dtype"],
+            "bytes": fake["bytes"], "kernel_calls": fake["kernel_calls"],
+            "collectives": fake_coll,
+            "predicted_peak_gb": predicted / 1e9,
+            "argument_gb": fake_mem["argument_size_in_bytes"] / 1e9,
+            "workspace_gb": fake_mem["workspace_bytes"] / 1e9,
+            "real_tally_peak_gb": real_mem["peak_bytes"] / 1e9,
+            "measured_peak_gb": measured / 1e9,
+            "peak_rel_err": rel, "earlier_phase_peak_gb": earlier,
+            "earlier_phase_rel_err": rel_earlier,
+            "roofline_terms_s": terms,
+            "bottleneck": max(terms, key=terms.get),
+            "measured_step_ms": step_ms, "trace_s": trace_s,
+            "cell_s": time.perf_counter() - t_cell}
+        print(f"   {arch} {shape}: FLOPs {sum(fake['flops_by_dtype'].values()):.4e} "
+              f"{fake['flops_by_dtype']} equal on fake cuda, the real step "
+              f"and fake cpu; bytes {fake['bytes']:.4e}; peak predicted "
+              f"{predicted / 1e9:.4f} GB (arguments "
+              f"{fake_mem['argument_size_in_bytes'] / 1e9:.4f}, cuBLAS "
+              f"workspaces {fake_mem['workspace_bytes'] / 1e9:.4f}), "
+              f"measured {measured / 1e9:.4f} ({rel:+.2%}; real step's "
+              f"tally {real_mem['peak_bytes'] / 1e9:.4f}); the earlier "
+              f"phase's {earlier} GB"
+              + ("" if earlier is None else f" ({rel_earlier:+.2%})")
+              + "; terms "
+              f"{ {k: f'{v * 1e3:.3f} ms' for k, v in terms.items()} } "
+              f"beside a measured step of {step_ms:.2f} ms; trace "
+              f"{trace_s:.1f} s, cell {rows[f'{arch}:{shape}']['cell_s']:.1f} s")
+        check(abs(rel) <= DRYRUN_PEAK_TOL,
+              f"{arch} {shape}: predicted peak {predicted / 1e9:.4f} GB is "
+              f"{rel:+.2%} off the measured {measured / 1e9:.4f} GB")
+        if earlier is not None:
+            check(abs(rel_earlier) <= DRYRUN_PEAK_TOL,
+                  f"{arch} {shape}: predicted peak {predicted / 1e9:.4f} GB "
+                  f"is {rel_earlier:+.2%} off the earlier phase's {earlier} "
+                  f"GB")
+    overhead = op_overheads(torch, dev)
+    done(t0)
+    return {"cells": rows, "op_overhead": overhead, "card": smi}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8067,6 +8288,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     mace_mesh = mace_mesh_phases(torch, np, dev, smi, mace["train"])
     close_pools()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(torch, np, dev, smi, {
+        "stablelm-1.6b:train_4k": lm["train"]["a"]["peak_gb"],
+        "mace:minibatch_lg": mace["train"]["minibatch_lg"]["peak_gb"]})
+    op_of = {"embedding_bag_backward": "bag_backward"}
+    for entry in kernels:                 # phase 41's call overheads
+        entry["op_overhead"] = dry["op_overhead"][
+            op_of.get(entry["name"], entry["name"])]
     for entry in kernels:                 # phase 39: a rank's share
         if entry["name"] == "embedding_bag_backward":
             entry["mace_mesh_shape"] = mace_mesh["kernels"]
@@ -8150,6 +8380,7 @@ def main() -> int:
     print(json.dumps({"mace_mesh": {k: mace_mesh[k] for k in (
         "runs", "serve", "peaks_gb", "card_used_before_gb", "walls_s")},
         "card": smi}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

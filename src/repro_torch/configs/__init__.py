@@ -1,1 +1,2 @@
-from repro_torch.configs.registry import get_bundle, list_archs  # noqa: F401
+from repro_torch.configs.registry import (ARCHS, JPQ_VARIANTS,  # noqa: F401
+                                         get_bundle, list_archs)

@@ -1,5 +1,6 @@
 """mace [arXiv:2206.07697]: 2L C=128 l_max=2 correlation=3 n_rbf=8, the
-reference's ``configs/mace_arch.py`` less its XLA dry-run cells.
+reference's ``configs/mace_arch.py``: one dry-run train cell a shape,
+whose specs are ``graph_specs`` with the reference's logical axes.
 
 Four graph shapes; each needs its own head/feature width, so
 ``make_model(shape=...)`` is shape-aware.  Node/edge counts are padded
@@ -14,7 +15,8 @@ shape's padded batch on the host:
                  still fills)
   ogb_products   2,449,029 nodes and 61,859,140 edges: raises, since no
                  mesh of one card or four holds it at full width (its
-                 messages alone are 158.4 GB a path in fp32)
+                 messages alone are 158.4 GB a path in fp32); the dry
+                 run traces it (``launch/dryrun.py``)
 RecJPQ is inapplicable here (no id-embedding table).
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchBundle
+from repro_torch.configs.base import ArchBundle, Cell, Spec, train_step_builder
 from repro_torch.data.graphs import (GraphConfig, make_graph, molecule_batch,
                                      pad_block, sample_block, to_csr)
 from repro_torch.models.mace import MACE, MACEConfig
@@ -81,6 +83,26 @@ def graph_specs(shape: str) -> dict:
     return specs
 
 
+# each field's logical axes (the reference's ``_graph_specs``)
+GRAPH_AXES = {"positions": ("nodes", None), "features": ("nodes", "features"),
+              "senders": ("edges",), "receivers": ("edges",),
+              "edge_mask": ("edges",), "node_mask": ("nodes",),
+              "graph_id": ("nodes",)}
+
+
+def cell_specs(shape: str) -> dict:
+    """``graph_specs`` as the cell's ``Spec``s: torch dtypes and the
+    reference's logical axes (the energy head's per-graph labels
+    replicated, the node labels on ``"nodes"``)."""
+    head = SHAPES[shape][3]
+    out = {}
+    for k, (shp, dt) in graph_specs(shape).items():
+        axes = GRAPH_AXES.get(k) or ((None,) if head == "energy"
+                                     else ("nodes",))
+        out[k] = Spec(shp, getattr(torch, np.dtype(dt).name), axes)
+    return out
+
+
 def pad_graph(batch: dict, shape: str) -> dict:
     """A whole-graph batch padded to ``shape``'s node and edge counts:
     zeros beyond the real rows (pad edges 0 -> 0, masks 0); the energy
@@ -107,8 +129,9 @@ def make_batch(shape: str, seed: int = 0) -> dict:
             "C, 5] is 158.4 GB in fp32 (9.9 GB in a 1/16 share, and a "
             "training step holds several a path and layer), so no D that "
             "one card or four hold runs it at full width; the reference "
-            "never executes it either (only its dry run's cells, which "
-            "the port leaves out)")
+            "never executes it either, only its dry run's cells (the "
+            "port's: python -m repro_torch.launch.dryrun --arch mace "
+            "--shape ogb_products)")
     n, e, f, head, ncls, ng = SHAPES[shape]
     if shape == "molecule":
         return pad_graph(molecule_batch(seed, batch=ng, n_nodes=30,
@@ -155,7 +178,10 @@ def bundle() -> ArchBundle:
         dev, gen = _gen(device, seed)
         return MACE(SMOKE, generator=gen, device=dev), smoke_batch()
 
+    cells = {shape: Cell(shape_name=shape, kind="train",
+                         specs=cell_specs(shape), build=train_step_builder)
+             for shape in SHAPES}
     return ArchBundle(name="mace", family="gnn", make_model=make_model,
                       make_smoke=make_smoke,
                       description="E(3)-equivariant higher-order MPNN",
-                      config=model_cfg("molecule"))
+                      config=model_cfg("molecule"), cells=cells)

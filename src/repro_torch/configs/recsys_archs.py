@@ -15,6 +15,11 @@ The full configs are the reference's (``configs/recsys_archs.py``):
 Weights are random, drawn from a seeded generator on the device.
 ``make_smoke`` builds the reference's smoke config and its request
 template, draw for draw.
+
+Each bundle's four dry-run cells are the reference's: train_batch
+(B=65,536 training step), serve_p99 (B=512 online), serve_bulk
+(B=262,144 offline scoring), retrieval_cand (1 context vs 1,000,000
+candidates).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchBundle
+from repro_torch.configs.base import (ArchBundle, Cell, Spec, serve_builder,
+                                      train_step_builder)
 from repro_torch.core import EmbeddingConfig
 from repro_torch.models.recsys import (DIEN, DIENConfig, DLRM, DLRMConfig, FM,
                                        FMConfig, TwoTower, TwoTowerConfig)
@@ -39,7 +45,11 @@ def _gen(device, seed):
     return dev, torch.Generator(device=dev).manual_seed(int(seed))
 
 
-def _bundle(name, kind, cls, cfg, smoke_cfg, smoke_batch, description):
+I32, F32 = torch.int32, torch.float32
+
+
+def _bundle(name, kind, cls, cfg, smoke_cfg, smoke_batch, description,
+            cells):
     """An ``ArchBundle`` whose models are ``cls(cfg)`` (full width) and
     ``cls(smoke_cfg)`` with the template ``smoke_batch()``."""
     def make_model(device="cuda", seed: int = 0):
@@ -53,7 +63,7 @@ def _bundle(name, kind, cls, cfg, smoke_cfg, smoke_batch, description):
 
     suffix = "-jpq" if kind == "jpq" else ""
     return ArchBundle(f"{name}{suffix}", "recsys", make_model, make_smoke,
-                      f"{description} [{kind}]")
+                      f"{description} [{kind}]", cells=cells)
 
 
 def _smoke_emb(emb, kind):
@@ -75,8 +85,31 @@ def two_tower_bundle(kind: str = "full") -> ArchBundle:
                 "pos_item": r.integers(1, 201, (4,)),
                 "logq": np.zeros(4, np.float32)}
 
+    def hist_spec(B):
+        return Spec((B, cfg.hist_len), I32, ("batch", "seq"))
+
+    cells = {
+        "train_batch": Cell(
+            "train_batch", "train",
+            {"user_hist": hist_spec(65536),
+             "pos_item": Spec((65536,), I32, ("batch",)),
+             "logq": Spec((65536,), F32, ("batch",))},
+            train_step_builder),
+        "serve_p99": Cell("serve_p99", "serve",
+                          {"user_hist": hist_spec(512)},
+                          serve_builder("retrieve")),
+        "serve_bulk": Cell("serve_bulk", "serve",
+                           {"user_hist": hist_spec(262144)},
+                           serve_builder("bulk_retrieve")),
+        "retrieval_cand": Cell(
+            "retrieval_cand", "serve", {"user_hist": hist_spec(1)},
+            serve_builder("retrieve"),
+            note="1 query vs 1M candidates through emb.logits "
+                 "(JPQ partial-score path when kind=jpq)"),
+    }
     return _bundle("two-tower-retrieval", kind, TwoTower, cfg, scfg,
-                   smoke_batch, "sampled-softmax retrieval, item table")
+                   smoke_batch, "sampled-softmax retrieval, item table",
+                   cells)
 
 
 FM_VOCABS = [N_CANDIDATES] + [100_000] * 19 + [10_000] * 19
@@ -96,8 +129,28 @@ def fm_bundle(kind: str = "full") -> ArchBundle:
         return {"sparse": r.integers(0, 64, (8, 6)),
                 "label": r.integers(0, 2, (8,))}
 
+    def batch_specs(B):
+        return {"sparse": Spec((B, 39), I32, ("batch", None)),
+                "label": Spec((B,), I32, ("batch",))}
+
+    cells = {
+        "train_batch": Cell("train_batch", "train", batch_specs(65536),
+                            train_step_builder),
+        "serve_p99": Cell("serve_p99", "serve",
+                          {"sparse": Spec((512, 39), I32, ("batch", None))},
+                          serve_builder("serve")),
+        "serve_bulk": Cell("serve_bulk", "serve",
+                           {"sparse": Spec((262144, 39), I32,
+                                           ("batch", None))},
+                           serve_builder("serve")),
+        "retrieval_cand": Cell(
+            "retrieval_cand", "serve",
+            {"sparse_rest": Spec((1, 38), I32, ("batch", None))},
+            serve_builder("candidate_scores"),
+            note="factorised full-catalogue scoring via emb.logits"),
+    }
     return _bundle("fm", kind, FM, cfg, scfg, smoke_batch,
-                   "factorisation machine")
+                   "factorisation machine", cells)
 
 
 DLRM_VOCABS = [N_CANDIDATES if i == 0 else
@@ -120,8 +173,32 @@ def dlrm_bundle(kind: str = "full") -> ArchBundle:
                 "sparse": r.integers(0, 32, (8, 4)),
                 "label": r.integers(0, 2, (8,))}
 
+    def batch_specs(B, label=True):
+        d = {"dense": Spec((B, 13), F32, ("batch", None)),
+             "sparse": Spec((B, 26), I32, ("batch", None))}
+        if label:
+            d["label"] = Spec((B,), I32, ("batch",))
+        return d
+
+    cells = {
+        "train_batch": Cell("train_batch", "train", batch_specs(65536),
+                            train_step_builder),
+        "serve_p99": Cell("serve_p99", "serve", batch_specs(512, False),
+                          serve_builder("serve")),
+        "serve_bulk": Cell("serve_bulk", "serve",
+                           batch_specs(262144, False),
+                           serve_builder("serve")),
+        "retrieval_cand": Cell(
+            "retrieval_cand", "serve",
+            {"dense": Spec((1, 13), F32, ("batch", None)),
+             "sparse_rest": Spec((1, 25), I32, ("batch", None)),
+             "candidates": Spec((N_CANDIDATES,), I32, ("items",))},
+            serve_builder("score_candidates"),
+            note="chunked lax.map over 1M candidates (non-factorisable "
+                 "top-MLP)"),
+    }
     return _bundle("dlrm-rm2", kind, DLRM, cfg, scfg, smoke_batch,
-                   "DLRM dot-interaction CTR")
+                   "DLRM dot-interaction CTR", cells)
 
 
 def dien_bundle(kind: str = "full") -> ArchBundle:
@@ -140,5 +217,30 @@ def dien_bundle(kind: str = "full") -> ArchBundle:
                 "target": r.integers(1, 101, (4,)),
                 "label": r.integers(0, 2, (4,))}
 
+    S = cfg.seq_len
+
+    def batch_specs(B, train=True):
+        d = {"hist": Spec((B, S), I32, ("batch", "seq")),
+             "target": Spec((B,), I32, ("batch",))}
+        if train:
+            d["label"] = Spec((B,), I32, ("batch",))
+            d["hist_neg"] = Spec((B, S), I32, ("batch", "seq"))
+        return d
+
+    cells = {
+        "train_batch": Cell("train_batch", "train", batch_specs(65536),
+                            train_step_builder),
+        "serve_p99": Cell("serve_p99", "serve", batch_specs(512, False),
+                          serve_builder("serve")),
+        "serve_bulk": Cell("serve_bulk", "serve",
+                           batch_specs(262144, False),
+                           serve_builder("serve")),
+        "retrieval_cand": Cell(
+            "retrieval_cand", "serve",
+            {"hist": Spec((1, S), I32, ("batch", "seq")),
+             "candidates": Spec((N_CANDIDATES,), I32, ("items",))},
+            serve_builder("score_candidates"),
+            note="interest GRU once, AUGRU per candidate chunk"),
+    }
     return _bundle("dien", kind, DIEN, cfg, scfg, smoke_batch,
-                   "interest-evolution CTR")
+                   "interest-evolution CTR", cells)

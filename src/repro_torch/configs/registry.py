@@ -47,6 +47,15 @@ def _mace():
 _LOADERS["mace"] = _mace
 
 
+# the 10 assigned archs (the 40-cell dry-run grid), and the paper's
+# technique at production scale beside them
+ARCHS = ["mixtral-8x7b", "olmoe-1b-7b", "stablelm-12b", "qwen3-14b",
+         "stablelm-1.6b", "mace", "two-tower-retrieval", "fm",
+         "dlrm-rm2", "dien"]
+JPQ_VARIANTS = ["two-tower-retrieval-jpq", "fm-jpq", "dlrm-rm2-jpq",
+                "dien-jpq"]
+
+
 def list_archs():
     return sorted(_LOADERS)
 

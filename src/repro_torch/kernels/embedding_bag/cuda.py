@@ -128,9 +128,12 @@ def launch(table, ids, weights=None):
 
 
 def embedding_bag(table, ids, weights=None):
-    """``launch``, then refuse the result if any id was outside [0, V)."""
-    out, bad = launch(table, ids, weights)
-    n_bad = int(bad.sum())
+    """``launch`` through ``repro_torch::embedding_bag``, then refuse the
+    result if any id was outside [0, V) (not on fake tensors, which
+    hold no ids to count)."""
+    from repro_torch.kernels.library import has_data, op
+    out, bad = op("embedding_bag")(table, ids, weights)
+    n_bad = int(bad.sum()) if has_data(bad) else 0
     if n_bad:
         raise IndexError(f"embedding_bag: {n_bad} ids outside "
                          f"[0, {table.shape[0]})")
@@ -154,14 +157,18 @@ class Order(NamedTuple):
     n_bad: int              # bad, read on the host
 
 
-def sort_ids(ids, V: int, *, wrap: bool = False) -> Order:
-    """The order the backward walks, for ids (any shape, int32/int64,
-    contiguous, on the card) over a V-row table: their flat positions
-    sorted stably by id, the row offsets and the long runs (``Order``).
-    ``wrap``: a negative id counts from the end, as ``table[ids]`` reads
-    it; otherwise, like any id outside [0, V), it sets ``bad``.  Reads
-    the long runs' count and ``bad`` on the host: the one host
-    synchronisation of a backward call."""
+def work_rows(P: int, V: int) -> int:
+    """The long-run list's length for P ids over V rows: the most long
+    runs there can be, plus one."""
+    return min(V, P // (LONG_RUN + 1)) + 1
+
+
+def sort_tensors(ids, V: int, wrap: bool = False):
+    """The index preparation's kernels alone (the CUDA implementation of
+    ``repro_torch::bag_sort_ids``): ids (any shape, int32/int64,
+    contiguous, on the card) -> (perm, offs, work, meta [4] int32: the
+    long runs' count, long_kernel's two counters, the out-of-range
+    flag), nothing read back."""
     if not isinstance(ids, torch.Tensor) or not ids.is_cuda:
         raise ValueError("sort_ids runs on CUDA tensors; "
                          "ref.sort_ids_ref takes CPU ones")
@@ -186,8 +193,7 @@ def sort_ids(ids, V: int, *, wrap: bool = False) -> Order:
     temp = torch.empty((max(temp_bytes, 1),), dtype=torch.uint8, device=dev)
     perm = torch.empty((P,), dtype=pos_t, device=dev)
     offs = torch.empty((V + 1,), dtype=pos_t, device=dev)
-    work = torch.empty((min(V, P // (LONG_RUN + 1)) + 1,), dtype=torch.int32,
-                       device=dev)
+    work = torch.empty((work_rows(P, V),), dtype=torch.int32, device=dev)
     meta = torch.empty((4,), dtype=torch.int32, device=dev)  # counters, bad
     rc = _build.launch(
         _build.fn(_LIB, "embedding_bag_sort_launch", _SORT_SIG), dev,
@@ -197,19 +203,39 @@ def sort_ids(ids, V: int, *, wrap: bool = False) -> Order:
         meta.data_ptr(), meta.data_ptr() + 12)
     if rc:
         _build.raise_on(rc, _LIB)
-    n_long, _, _, n_bad = meta.tolist()
-    return Order(perm, offs, work, meta[:3], meta[3:], V, n_long, n_bad)
+    return perm, offs, work, meta
 
 
-def launch_backward(ids, weights, dout, V: int, order=None, *,
-                    wrap: bool = False, rows_only: bool = False):
-    """The backward kernels alone: ids [n_bags, L] int32/int64, weights
-    [n_bags, L] f32 or None (unit weights), dout [n_bags, d] f32, on the
-    card -> (dtable [V, d] f32, bad [1] int32: 1 if an id lies outside
-    [0, V), not yet read).  ``order``: ``sort_ids(ids, V, wrap=wrap)``,
-    made here when None.  ``rows_only``: the short-run kernel alone,
-    the long runs' rows left unwritten (for timing the kernels apart;
-    not counted as a launch)."""
+def order_of(perm, offs, work, meta, V: int) -> Order:
+    """The ``Order`` of the sort's outputs, its counts read on the host
+    (the one synchronisation of a backward call).  Fake tensors have no
+    counts to read: every run that could be long is taken as long, and
+    no id as out of range."""
+    from repro_torch.kernels.library import has_data
+    if has_data(meta):
+        n_long, _, _, n_bad = meta.tolist()
+    else:
+        n_long, n_bad = work.shape[0] - 1, 0
+    return Order(perm, offs, work, meta[:3], meta[3:], int(V), n_long, n_bad)
+
+
+def sort_ids(ids, V: int, *, wrap: bool = False) -> Order:
+    """The order the backward walks, for ids (any shape, int32/int64,
+    contiguous, on the card) over a V-row table: their flat positions
+    sorted stably by id, the row offsets and the long runs (``Order``),
+    through ``repro_torch::bag_sort_ids``.  ``wrap``: a negative id
+    counts from the end, as ``table[ids]`` reads it; otherwise, like any
+    id outside [0, V), it sets ``bad``.  Reads the long runs' count and
+    ``bad`` on the host: the one host synchronisation of a backward
+    call."""
+    from repro_torch.kernels.library import op
+    if not isinstance(ids, torch.Tensor) or not ids.is_cuda:
+        raise ValueError("sort_ids runs on CUDA tensors; "
+                         "ref.sort_ids_ref takes CPU ones")
+    return order_of(*op("bag_sort_ids")(ids, int(V), bool(wrap)), V)
+
+
+def _check_backward(ids, weights, dout, V):
     if not dout.is_cuda:
         raise ValueError("embedding_bag_backward runs on CUDA tensors; the "
                          "plain version in repro_torch.kernels."
@@ -218,20 +244,14 @@ def launch_backward(ids, weights, dout, V: int, order=None, *,
     _check_f32(dout, "dout", "[n_bags, d]")
     _check_ids(ids, weights, dev)
     n_bags, L = ids.shape
-    d = dout.shape[1]
     if dout.shape[0] != n_bags:
         raise ValueError(f"dout rows {dout.shape[0]} != n_bags {n_bags}")
-    V = int(V)
-    if V < 1:
+    if int(V) < 1:
         raise ValueError(f"V={V} must be >= 1")
-    P = n_bags * L
-    if P == 0:                                   # nothing to walk: no launch
-        return (torch.zeros((V, d), dtype=torch.float32, device=dev),
-                torch.zeros((1,), dtype=torch.int32, device=dev))
-    if order is None:
-        order = sort_ids(ids, V, wrap=wrap)
-    elif order.V != V or order.perm.shape != (P,):
-        raise ValueError("order must be sort_ids(ids, V)")
+    return dev, n_bags, L, dout.shape[1], int(V)
+
+
+def _launch_kernels(order, weights, dout, L, d, V, dev, rows_only):
     dtable = torch.empty((V, d), dtype=torch.float32, device=dev)
     rc = _build.launch(
         _build.fn(_LIB, "embedding_bag_backward_launch", _BWD_SIG), dev,
@@ -243,8 +263,54 @@ def launch_backward(ids, weights, dout, V: int, order=None, *,
         LONG_BLOCKS_PER_SM * _build.sm_count(dev), int(rows_only))
     if rc:
         _build.raise_on(rc, _LIB)
-    if not rows_only:
-        launches["embedding_bag_backward"] += 1
+    return dtable
+
+
+def backward_op(ids, weights, dout, V, perm, offs, work, counters, n_long,
+                mode):
+    """The CUDA implementation of ``repro_torch::bag_backward``: the
+    backward kernels on the order (``perm``, ``offs``, ``work``,
+    ``counters``, ``n_long``: ``sort_ids``' of these ids, which the
+    card's callers make first and check; ``mode`` names the plain
+    version the CPU runs)."""
+    dev, n_bags, L, d, V = _check_backward(ids, weights, dout, V)
+    if n_bags * L == 0:                          # nothing to walk: no launch
+        return torch.zeros((V, d), dtype=torch.float32, device=dev)
+    if perm is None:
+        raise ValueError("bag_backward on the card takes the order "
+                         "sort_ids made of its ids")
+    order = Order(perm, offs, work, counters, None, V, int(n_long), 0)
+    dtable = _launch_kernels(order, weights, dout, L, d, V, dev, False)
+    launches["embedding_bag_backward"] += 1
+    return dtable
+
+
+def launch_backward(ids, weights, dout, V: int, order=None, *,
+                    wrap: bool = False, rows_only: bool = False):
+    """The backward kernels alone: ids [n_bags, L] int32/int64, weights
+    [n_bags, L] f32 or None (unit weights), dout [n_bags, d] f32, on the
+    card -> (dtable [V, d] f32, bad [1] int32: 1 if an id lies outside
+    [0, V), not yet read).  ``order``: ``sort_ids(ids, V, wrap=wrap)``,
+    made here when None.  The kernels run through
+    ``repro_torch::bag_backward``; ``rows_only``: the short-run kernel
+    alone, the long runs' rows left unwritten (for timing the kernels
+    apart; launched directly and not counted as a launch)."""
+    dev, n_bags, L, d, V = _check_backward(ids, weights, dout, V)
+    P = n_bags * L
+    if P == 0:                                   # nothing to walk: no launch
+        return (torch.zeros((V, d), dtype=torch.float32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+    if order is None:
+        order = sort_ids(ids, V, wrap=wrap)
+    elif order.V != V or order.perm.shape != (P,):
+        raise ValueError("order must be sort_ids(ids, V)")
+    if rows_only:
+        return (_launch_kernels(order, weights, dout, L, d, V, dev, True),
+                order.bad)
+    from repro_torch.kernels.library import op
+    dtable = op("bag_backward")(ids, weights, dout, V, order.perm,
+                                order.offs, order.work, order.counters,
+                                order.n_long, 1 if wrap else 0)
     return dtable, order.bad
 
 

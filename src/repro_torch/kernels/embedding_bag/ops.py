@@ -2,7 +2,9 @@
 the reference's signature and combiner handling, differentiable with
 respect to the table.
 
-Chosen by where the table (in the backward: the gradient) lies:
+The operators ``repro_torch::embedding_bag``, ``bag_sort_ids`` and
+``bag_backward`` (``kernels/library``) choose by where the table (in the
+backward: the gradient) lies:
   a CUDA tensor - the hand-written Hopper kernels (``csrc/embedding_bag.cu``)
   a CPU tensor  - their plain PyTorch versions (``ref``)
 There is no fallback to the plain version on the card.
@@ -49,12 +51,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.embedding_bag import cuda as _cuda
-from repro_torch.kernels.embedding_bag import ref as _ref
+from repro_torch.kernels.library import op
 
 
 def _forward(table, ids, weights):
-    impl = _cuda.embedding_bag if table.is_cuda else _ref.embedding_bag_ref
-    return impl(table, ids, weights)
+    if table.is_cuda:
+        return _cuda.embedding_bag(table, ids, weights)
+    return op("embedding_bag")(table, ids, weights)[0]
+
+
+def _plain_backward(ids, weights, dout, V, mode):
+    """``repro_torch::bag_backward`` with no order: on the CPU the plain
+    version of mode 0 (the bag), 1 (a gather) or 2 (a row block)."""
+    return op("bag_backward")(ids, weights, dout, int(V), None, None, None,
+                              None, 0, mode)
 
 
 class EmbeddingBag(torch.autograd.Function):
@@ -72,9 +82,12 @@ class EmbeddingBag(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None
         ids, weights = ctx.saved_tensors
-        impl = _cuda.embedding_bag_backward if dout.is_cuda \
-            else _ref.embedding_bag_backward_ref
-        return impl(ids, weights, dout.contiguous(), ctx.V), None, None
+        if dout.is_cuda:
+            grad = _cuda.embedding_bag_backward(ids, weights,
+                                                dout.contiguous(), ctx.V)
+        else:
+            grad = _plain_backward(ids, weights, dout, ctx.V, 0)
+        return grad, None, None
 
 
 class TableGather(torch.autograd.Function):
@@ -100,7 +113,7 @@ class TableGather(torch.autograd.Function):
         if dout.is_cuda:
             grad = _cuda.gather_backward(ids, dout.float(), ctx.V, ctx.order)
         else:
-            grad = _ref.gather_backward_ref(ids, dout.float(), ctx.V)
+            grad = _plain_backward(ids, None, dout.float(), ctx.V, 1)
         return grad.to(ctx.dtype), None, None
 
 
@@ -110,7 +123,7 @@ def _segment_sum(data, ids, n, order):
     plain ``index_add_`` in ascending position on the CPU."""
     ids = ids.reshape(-1, 1)
     if not data.is_cuda:
-        return _ref.embedding_bag_backward_ref(ids, None, data, n)
+        return _plain_backward(ids, None, data, n, 0)
     ids = ids if ids.is_contiguous() else ids.contiguous()
     if order is None:
         return _cuda.embedding_bag_backward(ids, None, data, n)
@@ -151,10 +164,12 @@ class BlockBag(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None, None
         marked, weights = ctx.saved_tensors
-        impl = _cuda.block_backward if dout.is_cuda \
-            else _ref.block_backward_ref
-        return impl(marked, weights, dout.contiguous(), ctx.V), None, None, \
-            None
+        if dout.is_cuda:
+            grad = _cuda.block_backward(marked, weights, dout.contiguous(),
+                                        ctx.V)
+        else:
+            grad = _plain_backward(marked, weights, dout, ctx.V, 2)
+        return grad, None, None, None
 
 
 class BlockGather(torch.autograd.Function):
@@ -178,10 +193,13 @@ class BlockGather(torch.autograd.Function):
             return None, None, None, None
         (marked,) = ctx.saved_tensors
         d = dout.shape[-1]
-        impl = _cuda.block_backward if dout.is_cuda \
-            else _ref.block_backward_ref
-        grad = impl(marked.reshape(-1, 1), None,
-                    dout.reshape(-1, d).float().contiguous(), ctx.V)
+        flat = dout.reshape(-1, d).float().contiguous()
+        if dout.is_cuda:
+            grad = _cuda.block_backward(marked.reshape(-1, 1), None, flat,
+                                        ctx.V)
+        else:
+            grad = _plain_backward(marked.reshape(-1, 1), None, flat, ctx.V,
+                                   2)
         return grad.to(ctx.dtype), None, None, None
 
 

@@ -1,7 +1,8 @@
 """Public wrappers for jpq_lookup: RecJPQ item vectors rebuilt from the
 codes, differentiable in the centroids.
 
-Chosen by where the centroids lie:
+The operators ``repro_torch::jpq_lookup`` / ``jpq_lookup_bwd``
+(``kernels/library``) choose by where the centroids lie:
   a CUDA tensor - the hand-written Hopper kernels (``csrc/jpq_lookup.cu``),
                   forward and a deterministic backward
   a CPU tensor  - their plain PyTorch versions (``ref``)
@@ -11,24 +12,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.jpq_lookup import cuda as _cuda
-from repro_torch.kernels.jpq_lookup import ref as _ref
+from repro_torch.kernels.library import op
 
 
 def jpq_lookup_rows(ids, codes, centroids):
-    """ids [T], codes [N, m], centroids [m, b, dk] -> [T, m, dk]."""
-    if centroids.is_cuda:
-        return _cuda.jpq_lookup(ids.contiguous(), codes,
-                                centroids.contiguous())
-    return _ref.jpq_lookup_ref(ids, codes, centroids)
+    """ids [T], codes [N, m], centroids [m, b, dk] -> [T, m, dk]
+    (``repro_torch::jpq_lookup``)."""
+    return op("jpq_lookup")(ids, codes, centroids)
 
 
 def jpq_lookup_rows_bwd(ids, codes, dout, b: int):
-    """ids [T], codes [N, m], dout [T, m, dk] -> dcent [m, b, dk]."""
-    if dout.is_cuda:
-        return _cuda.jpq_lookup_bwd(ids.contiguous(), codes,
-                                    dout.contiguous(), b)
-    return _ref.jpq_lookup_bwd_ref(ids, codes, dout, b)
+    """ids [T], codes [N, m], dout [T, m, dk] -> dcent [m, b, dk]
+    (``repro_torch::jpq_lookup_bwd``)."""
+    return op("jpq_lookup_bwd")(ids, codes, dout, int(b))
 
 
 class JPQLookup(torch.autograd.Function):

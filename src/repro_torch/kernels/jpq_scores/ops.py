@@ -2,8 +2,9 @@
 differentiable in the LUT.
 
 ``jpq_scores(h, centroids, codes)`` is the reference's public entry: the
-LUT from the query vectors, then the same kernels.  Chosen by where the
-LUT lies:
+LUT from the query vectors, then the same kernels.  The operators
+``repro_torch::jpq_scores`` / ``jpq_scores_bwd`` (``kernels/library``)
+choose by where the LUT lies:
   a CUDA tensor - the hand-written Hopper kernels (``csrc/jpq_scores.cu``),
                   forward and a deterministic backward
   a CPU tensor  - their plain PyTorch versions (``ref``)
@@ -16,22 +17,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.jpq_scores import cuda as _cuda
 from repro_torch.kernels.jpq_scores import ref as _ref
+from repro_torch.kernels.library import op
 
 
 def jpq_scores_lut(partial, codes):
-    """partial [T, m, b], codes [N, m] -> scores [T, N]."""
-    if partial.is_cuda:
-        return _cuda.jpq_scores(partial.contiguous(), codes)
-    return _ref.jpq_scores_lut_ref(partial, codes)
+    """partial [T, m, b], codes [N, m] -> scores [T, N]
+    (``repro_torch::jpq_scores``)."""
+    return op("jpq_scores")(partial, codes)
 
 
 def jpq_scores_lut_bwd(dS, codes, b: int):
-    """dS [T, N], codes [N, m] -> dP [T, m, b]."""
-    if dS.is_cuda:
-        return _cuda.jpq_scores_bwd(dS.contiguous(), codes, b)
-    return _ref.jpq_scores_lut_bwd_ref(dS, codes, b)
+    """dS [T, N], codes [N, m] -> dP [T, m, b]
+    (``repro_torch::jpq_scores_bwd``)."""
+    return op("jpq_scores_bwd")(dS, codes, int(b))
 
 
 class JPQScores(torch.autograd.Function):

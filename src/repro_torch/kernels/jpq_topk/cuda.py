@@ -106,6 +106,17 @@ def range_plan(B: int, G: int, N: int, sms: int, step: int):
     return split(r)
 
 
+def range_count(B: int, N: int, k: int, m: int, b: int, dev,
+                chunk: int | None = None) -> int:
+    """Item ranges of ``jpq_topk``'s call on ``dev`` (its candidate
+    scratch is ``[B, ranges, k]`` int64): ``chunk`` items a range, or
+    the ranges ``range_plan`` picks for the card's SMs."""
+    if chunk is None:
+        chunk = range_plan(B, group(k, m, b), N, _build.sm_count(dev),
+                           step())[1]
+    return -(-N // int(chunk))
+
+
 # the launch shape of the unpruned kernel's last call, as the library
 # launched it: B, N, G queries a block, item ranges, items a range,
 # blocks, warps a block, and the SM count the plan was made for
@@ -150,10 +161,20 @@ def jpq_topk(partial, codes, k: int, *, chunk: int | None = None):
     return out_v, out_i
 
 
+# queries a block of the pruned kernel (``csrc/jpq_topk_pruned.cu``'s
+# group): the shape of its skip map, known before the library loads
+PRUNED_GROUP = 4
+
+
 def pruned_group_size() -> int:
     """Queries a block of the pruned kernel sweeps together, as the
-    library reports it: the skip map has ``ceil(B / group)`` rows."""
-    return _build.fn("jpq_topk_pruned", "jpq_topk_pruned_group_size", [])()
+    library reports it: the skip map has ``ceil(B / group)`` rows.
+    Raises if it is not ``PRUNED_GROUP``, which shapes the fake op."""
+    g = _build.fn("jpq_topk_pruned", "jpq_topk_pruned_group_size", [])()
+    if g != PRUNED_GROUP:
+        raise RuntimeError(f"jpq_topk_pruned: the library's group {g} is "
+                           f"not PRUNED_GROUP = {PRUNED_GROUP}")
+    return g
 
 
 def jpq_topk_pruned(partial, codes, ids, present, floor, init_vals,

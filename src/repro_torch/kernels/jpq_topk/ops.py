@@ -1,6 +1,8 @@
 """Public wrappers for the fused PQTopK serving path.
 
-Two backends behind one call, chosen by where the LUT lies:
+Two backends behind one call, the operators ``repro_torch::jpq_topk``
+and ``jpq_topk_pruned`` (``kernels/library``), chosen by where the LUT
+lies:
   "cuda" - the hand-written Hopper kernels (``csrc/jpq_topk.cu``,
            ``csrc/jpq_topk_pruned.cu``), for a CUDA tensor
   "scan" - their plain PyTorch versions (``jpq_topk_scan``,
@@ -165,12 +167,10 @@ def jpq_topk_lut(partial, codes, k: int, *, block_n: int | None = None,
         if return_stats or warm is not None:
             raise ValueError("stats and warm floors are pruned-path "
                              "features: pass prune=True or a PruneState")
-        if not partial.is_cuda:
-            bn = block_n or scan_block_n(N)
-            return jpq_topk_scan(partial, codes, k,
-                                 block_n=min(bn, _ceil_mult(N, 128)))
-        from repro_torch.kernels.jpq_topk import cuda as _cuda
-        return _cuda.jpq_topk(partial, codes, k, chunk=block_n)
+        # the kernel's item range on the card, the plain scan's tile on
+        # the CPU (default: scan_block_n(N))
+        from repro_torch.kernels.library import op
+        return op("jpq_topk")(partial, codes, k, block_n)
 
     # a prebuilt state's own tile size wins over the default (an
     # explicit block_n still forces a rebuild)
@@ -226,15 +226,12 @@ def pruned_sweep(partial, st: PruneState, k: int, *, block_n: int,
         carry = (torch.full((B, k), -float("inf"), dtype=torch.float32,
                             device=dev),
                  torch.zeros((B, k), dtype=torch.int32, device=dev))
-    if not partial.is_cuda:
-        return jpq_topk_scan_pruned(
-            partial, st.codes, st.ids, st.present, floor, carry[0],
-            carry[1], k=k, block_n=block_n, tie_break_ids=st.tie_break_ids)
-    from repro_torch.kernels.jpq_topk import cuda as _cuda
-    v, i, skip_map = _cuda.jpq_topk_pruned(
+    from repro_torch.kernels.library import op
+    v, i, skip_map = op("jpq_topk_pruned")(
         partial, st.codes, st.ids, st.present, floor, carry[0], carry[1],
-        k=k, block_n=block_n, tie_break_ids=st.tie_break_ids)
-    # a tile counts skipped when every query group skipped it
+        k, int(block_n), bool(st.tie_break_ids))
+    # a tile counts skipped when every query group skipped it (the plain
+    # version sweeps all B rows as one group)
     return v, i, skip_map.min(dim=0).values
 
 

@@ -16,7 +16,12 @@ The transport is the caller's choice, never a fallback:
   * ``"gloo-staged"`` CUDA tensors of ranks that share one card
     (``spawn(..., share_card=True)``): NCCL refuses two ranks on one
     device, so every collective of ``HostMesh`` copies the payload to
-    host memory, runs gloo there and copies the result back.
+    host memory, runs gloo there and copies the result back;
+  * ``"fake"``        torch's fake process group in one process, standing
+    for one rank of a mesh of any size (``make_fake_mesh``): the
+    collectives move nothing, their results keep their shapes, and the
+    records below count them as the real ones would.  The dry run
+    (``launch/dryrun.py``) traces a rank's step over it on fake tensors.
 A tensor on the wrong side of its transport raises.
 
 Every collective of the port goes through ``HostMesh``: ``all_gather``
@@ -24,7 +29,12 @@ and ``all_reduce`` (the model code's), ``broadcast`` (a tensor, or a
 small dict of tensors, from one rank: the request server's batches),
 and ``all_gather_bytes`` / ``all_to_all_bytes`` (exact byte movement
 over one axis, synchronous or issued with a handle that ``wait``s: the
-elastic exchange's payloads).  ``comm`` counts them all.
+elastic exchange's payloads).  ``comm`` counts them all, and
+``comm_by`` splits the same counts by (op, axis, dtype) with the
+reference's spellings (``dist/tally.collective_bytes`` reads it).
+
+The roofline constants at the end are one H100's (``compute_s``,
+``memory_s``, ``collective_s``), the dry run's terms.
 
 The group is initialised from a ``FileStore`` in a temporary directory,
 so nothing needs a network.  ``make_host_mesh`` makes a world of one in
@@ -47,7 +57,15 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
-TRANSPORTS = ("gloo", "nccl", "gloo-staged")
+TRANSPORTS = ("gloo", "nccl", "gloo-staged", "fake")
+# the reference's HLO spellings: HostMesh's calls -> collective ops, and
+# torch dtypes -> HLO element types
+OP_NAMES = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+            "all_to_all": "all-to-all", "broadcast": "collective-broadcast"}
+HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16", torch.float64: "f64", torch.int8: "s8",
+              torch.uint8: "u8", torch.int16: "s16", torch.int32: "s32",
+              torch.int64: "s64", torch.bool: "pred"}
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -60,7 +78,9 @@ class HostMesh:
     size 1).  ``comm`` counts the collectives it ran: calls, the bytes
     of their results on this rank, and host seconds (staging included;
     for NCCL, the enqueue; for an issued collective, its issue and its
-    ``wait``)."""
+    ``wait``); ``comm_by`` the same calls and bytes by ``(op, axis,
+    dtype)``: op as the reference's HLO spells it (``OP_NAMES``), axis
+    ``"data"``, ``"model"`` or ``"world"``, dtype as HLO spells it."""
 
     def __init__(self, data: int, model: int = 1, *, rank: int = 0,
                  group=None, device="cpu", owned_dir: Optional[str] = None,
@@ -76,6 +96,7 @@ class HostMesh:
             raise ValueError(f"transport {self.transport!r} not in "
                              f"{TRANSPORTS}")
         self.comm = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.comm_by: dict = {}
         self._owned_dir = owned_dir
 
     @property
@@ -100,7 +121,21 @@ class HostMesh:
             return self.group, n
         return self.groups[axes[0]], n
 
+    def _record(self, op: str, axes, out) -> None:
+        """Count one collective: ``comm``'s calls and bytes, and
+        ``comm_by``'s entry of (op, axis, dtype)."""
+        axes = tuple(a for a in axes if self.shape[a] > 1)
+        axis = axes[0] if len(axes) == 1 else "world"
+        nbytes = out.numel() * out.element_size()
+        self.comm["calls"] += 1
+        self.comm["bytes"] += nbytes
+        key = (OP_NAMES[op], axis, HLO_DTYPES.get(out.dtype, str(out.dtype)))
+        calls, total = self.comm_by.get(key, (0, 0))
+        self.comm_by[key] = (calls + 1, total + nbytes)
+
     def _check_side(self, x) -> None:
+        if self.transport == "fake":
+            return
         want_cuda = self.transport != "gloo"
         if x.is_cuda != want_cuda:
             raise ValueError(
@@ -108,9 +143,10 @@ class HostMesh:
                 f"transport (gloo: CPU tensors; nccl and gloo-staged: "
                 f"CUDA tensors)")
 
-    def _collective(self, x, fn):
+    def _collective(self, x, fn, op: str, axes):
         """Run ``fn`` on ``x`` over this mesh's transport: in place on
-        the tensor for gloo and NCCL, on a host copy for gloo-staged."""
+        the tensor for gloo, NCCL and fake, on a host copy for
+        gloo-staged; recorded as ``op`` over ``axes``."""
         self._check_side(x)
         if self.transport == "gloo-staged":
             torch.cuda.synchronize(x.device)   # time the exchange alone
@@ -119,12 +155,11 @@ class HostMesh:
             out = fn(x.cpu()).to(x.device)
         else:
             out = fn(x)
-        self.comm["calls"] += 1
-        self.comm["bytes"] += out.numel() * out.element_size()
+        self._record(op, axes, out)
         self.comm["seconds"] += time.perf_counter() - t0
         return out
 
-    def _issue(self, x, out_shape, fn, async_op: bool):
+    def _issue(self, x, out_shape, fn, async_op: bool, op: str, axis: str):
         """Issue ``fn(src, out)`` (a ``torch.distributed`` call with
         ``async_op=True`` that writes ``out``, shaped ``out_shape``)
         on ``x``; returns (the result, its handle).  On gloo-staged the
@@ -142,8 +177,7 @@ class HostMesh:
         work = fn(src, out)
         result = (torch.empty(out_shape, dtype=x.dtype, device=x.device)
                   if staged else out)
-        self.comm["calls"] += 1
-        self.comm["bytes"] += out.numel() * out.element_size()
+        self._record(op, (axis,), out)
         self.comm["seconds"] += time.perf_counter() - t0
         handle = _Work(self, work, (result, out) if staged else None)
         if not async_op:
@@ -164,7 +198,8 @@ class HostMesh:
         def fn(src, out):
             return dist.all_gather(list(out.unbind(0)), src, group=group,
                                    async_op=True)
-        return self._issue(buf, (n, buf.numel()), fn, async_op)
+        return self._issue(buf, (n, buf.numel()), fn, async_op, "all_gather",
+                           axis)
 
     def all_to_all_bytes(self, buf, axis: str = "data", *,
                          async_op: bool = False):
@@ -178,7 +213,8 @@ class HostMesh:
         def fn(src, out):
             return dist.all_to_all_single(out.view(-1), src.view(-1),
                                           group=group, async_op=True)
-        return self._issue(buf, tuple(buf.shape), fn, async_op)
+        return self._issue(buf, tuple(buf.shape), fn, async_op, "all_to_all",
+                           axis)
 
     def broadcast(self, x, src: int = 0, axis: Optional[str] = None):
         """Rank ``src``'s ``x`` (``src`` its index on ``axis``, or its
@@ -193,8 +229,9 @@ class HostMesh:
         if n == 1:
             return x
         root = self._global_rank(src, axis)
+        axes = AXES if axis is None else (axis,)
         if not isinstance(x, dict) and x is not None:
-            return self._broadcast_tensor(x, root, group)
+            return self._broadcast_tensor(x, root, group, axes)
         dev = self.device
         if self.rank == root:
             keys = list(x)
@@ -210,11 +247,11 @@ class HostMesh:
                                  dtype=torch.int64, device=dev)
         else:
             sizes = torch.zeros(2, dtype=torch.int64, device=dev)
-        sizes = self._broadcast_tensor(sizes, root, group)
+        sizes = self._broadcast_tensor(sizes, root, group, axes)
         n_head, n_buf = (int(v) for v in sizes.cpu())
         if self.rank != root:
             buf = torch.empty(n_buf, dtype=torch.uint8, device=dev)
-        buf = self._broadcast_tensor(buf, root, group)
+        buf = self._broadcast_tensor(buf, root, group, axes)
         head = json.loads(bytes(buf[:n_head].cpu().numpy()))
         out, off = {}, n_head
         for key, dtype, shape in head:
@@ -225,12 +262,12 @@ class HostMesh:
             off += nb
         return out
 
-    def _broadcast_tensor(self, x, root: int, group):
+    def _broadcast_tensor(self, x, root: int, group, axes):
         def fn(t):
             t = t.clone()
             dist.broadcast(t, root, group=group)
             return t
-        return self._collective(x, fn)
+        return self._collective(x, fn, "broadcast", axes)
 
     def _global_rank(self, index: int, axis: Optional[str]) -> int:
         """The world rank of the rank at ``index`` on ``axis`` through
@@ -255,7 +292,7 @@ class HostMesh:
             parts = [torch.empty_like(t) for _ in range(n)]
             dist.all_gather(parts, t, group=group)
             return torch.cat(parts, dim)
-        return self._collective(x, fn)
+        return self._collective(x, fn, "all_gather", (axis,))
 
     def all_reduce(self, x, axes, op: str = "sum"):
         """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of
@@ -269,10 +306,14 @@ class HostMesh:
             t = t.clone()
             dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
             return t
-        return self._collective(x, fn)
+        return self._collective(x, fn, "all_reduce", axes)
 
     def close(self) -> None:
         """Tear down a process group this mesh initialised."""
+        if self.transport == "fake" and self._owned_dir is not None:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            self._owned_dir = None
         if self._owned_dir is not None:
             if dist.is_initialized():
                 _leave()
@@ -313,6 +354,80 @@ class _Done:
 
 
 _DONE = _Done()
+
+
+def make_fake_mesh(data: int, model: int = 1, *, rank: int = 0,
+                   device="cpu") -> HostMesh:
+    """Rank ``rank`` of a ``(data, model)`` mesh over torch's fake process
+    group, in this process (no other rank runs): the world of
+    ``data * model`` and the axis groups of ``axis_groups``, on the
+    ``"fake"`` transport.  ``close()`` tears the group down; no other
+    process group may be running."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = int(data) * int(model)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    if dist.is_initialized():
+        raise ValueError("a process group is already running: a fake mesh "
+                         "needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    return HostMesh(data, model, rank=rank, group=dist.group.WORLD,
+                    device=device, transport="fake", owned_dir="fake",
+                    groups=axis_groups(data, model, rank))
+
+
+# the production meshes of the dry run: the reference's 256-chip pod, and
+# its two pods, whose ("pod", "data") batch axes the port joins into one
+# "data" axis of 32 (the reference's rules shard every batch axis over
+# both jointly)
+PRODUCTION_MESHES = {"pod16x16": (16, 16), "pod2x16x16": (32, 16)}
+
+# One H100 SXM5 80GB (NVIDIA's data sheet, dense, at its 700 W limit):
+# tensor-core bf16 / fp16, fp32 outside the tensor cores (the port keeps
+# TF32 off, ``repro_torch.fp32_matmuls``), fp64; HBM3; NVLink 4 a
+# direction within an 8-card node; one InfiniBand NDR port a card
+# across nodes.
+PEAK_FLOPS = {"bfloat16": 989.4e12, "float16": 989.4e12,
+              "float32": 67e12, "float64": 34e12}
+HBM_BW = 3.35e12
+NVLINK_BW = 450e9
+IB_BW = 50e9
+CARDS_PER_NODE = 8
+
+
+def compute_s(flops_by_dtype: dict) -> float:
+    """Each dtype's FLOPs over that dtype's peak, summed (a dtype with
+    no rate of its own, e.g. an integer, at fp32's)."""
+    return sum(n / PEAK_FLOPS.get(dt, PEAK_FLOPS["float32"])
+               for dt, n in flops_by_dtype.items())
+
+
+def memory_s(nbytes: float) -> float:
+    """Bytes over HBM."""
+    return nbytes / HBM_BW
+
+
+def axis_link(data: int, model: int, axis: str) -> float:
+    """The bandwidth a card's collectives over ``axis`` (``"data"``,
+    ``"model"`` or ``"world"``) of a ``(data, model)`` mesh get: NVLink
+    where every group of the axis lies in one node of
+    ``CARDS_PER_NODE`` consecutive ranks, else InfiniBand."""
+    if axis == "model":
+        groups = [[d * model + m for m in range(model)] for d in range(data)]
+    elif axis == "data":
+        groups = [[d * model + m for d in range(data)] for m in range(model)]
+    else:
+        groups = [list(range(data * model))]
+    inside = all(len({r // CARDS_PER_NODE for r in g}) == 1 for g in groups)
+    return NVLINK_BW if inside else IB_BW
+
+
+def collective_s(bytes_by_axis: dict, data: int, model: int) -> float:
+    """Each axis's collective bytes over the link its groups cross,
+    summed."""
+    return sum(n / axis_link(data, model, axis)
+               for axis, n in bytes_by_axis.items())
 
 
 def backend_for(device) -> str:

@@ -102,16 +102,27 @@ def product_paths(lmax: int = LMAX):
     return tuple(paths)
 
 
-@functools.lru_cache(maxsize=None)
+_GAUNT: dict = {}
+
+
 def gaunt_tensor(l1: int, l2: int, l3: int, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
     """``gaunt(l1, l2, l3)`` rounded to ``dtype`` on ``device``, made
     once per (path, device, dtype) and shared by every call (read only).
     Made outside inference mode even when first asked for inside it, so
-    a later step that takes a gradient may save it."""
-    with torch.inference_mode(False):
-        return torch.as_tensor(gaunt(l1, l2, l3), dtype=dtype,
-                               device=device)
+    a later step that takes a gradient may save it
+    (``nn.module.cached_constant``)."""
+    from repro_torch.nn.module import cached_constant
+
+    def make():
+        with torch.inference_mode(False):
+            return torch.as_tensor(gaunt(l1, l2, l3), dtype=dtype,
+                                   device=device)
+    return cached_constant(_GAUNT, (l1, l2, l3, torch.device(device), dtype),
+                           make)
+
+
+gaunt_tensor.cache_clear = _GAUNT.clear
 
 
 # -------------------------------------------------------- torch kernels

@@ -22,6 +22,16 @@ def fan(shape, in_axis: int = -2, out_axis: int = -1):
     return shape[in_axis] * receptive, shape[out_axis] * receptive
 
 
+def _trunc_normal(t, gen):
+    """``t`` drawn from the standard normal truncated to [-2, 2].  A fake
+    tensor (the dry run's trace) holds no values: it is left as it is,
+    since the draw's rejection loop reads its samples on the host."""
+    from repro_torch.kernels.library import has_data
+    if has_data(t):
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t
+
+
 def lecun_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
                  device="cuda", in_axis: int = -2, out_axis: int = -1):
     """Truncated normal on [-2, 2] scaled by sqrt(1 / fan_in) — the
@@ -29,8 +39,8 @@ def lecun_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
     ``[d, H, Dh]`` (in_axis 0, out_axis 2) fan_in is d·H, for
     ``[H, Dh, d]`` (in_axis 1) it is Dh·H = d."""
     fan_in, _ = fan(shape, in_axis, out_axis)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    t = _trunc_normal(torch.empty(shape, dtype=torch.float32,
+                                  device=device), gen)
     return (math.sqrt(1.0 / max(1.0, fan_in)) * t).to(dtype)
 
 
@@ -39,8 +49,8 @@ def glorot_normal(gen: torch.Generator, shape, *, dtype=torch.float32,
     """Truncated normal on [-2, 2] scaled by sqrt(2 / (fan_in +
     fan_out)) — the reference's ``nn.glorot_normal``."""
     fan_in, fan_out = fan(shape, in_axis, out_axis)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    t = _trunc_normal(torch.empty(shape, dtype=torch.float32,
+                                  device=device), gen)
     return (math.sqrt(2.0 / max(1.0, fan_in + fan_out)) * t).to(dtype)
 
 
@@ -216,13 +226,16 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     float64 to fp32 (as XLA's fp32 ``pow`` rounds it; torch's fp32
     ``pow`` is an ulp off for some entries), the reciprocal in fp32.  At
     position 524,287 one ulp of a frequency moves its angle by up to
-    0.06 rad.  Made on the CPU once a (head_dim, theta, device)."""
-    key = (int(head_dim), float(theta), str(torch.device(device)))
-    if key not in _FREQS:
+    0.06 rad.  Made on the CPU once a (head_dim, theta, device)
+    (``nn.module.cached_constant``)."""
+    from repro_torch.nn.module import cached_constant
+
+    def make():
         half = head_dim // 2
         e = torch.arange(half, dtype=torch.float32) / half
-        _FREQS[key] = (1.0 / (float(theta) ** e.double()).float()).to(device)
-    return _FREQS[key]
+        return (1.0 / (float(theta) ** e.double()).float()).to(device)
+    return cached_constant(_FREQS, (int(head_dim), float(theta),
+                                    str(torch.device(device))), make)
 
 
 def rope_angles(positions, head_dim: int, theta: float = 10000.0):

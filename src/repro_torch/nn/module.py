@@ -1,8 +1,30 @@
 """Parameter holders: a reference parameter subtree as an ``nn.Module``,
-the leaves of a ``params()`` tree, its shapes, and its size."""
+the leaves of a ``params()`` tree, its shapes, and its size; and the
+cache of the constant tensors a step reads (``cached_constant``)."""
 from __future__ import annotations
 
+import weakref
+
 import torch
+
+# each fake mode's own constants (the dry run's traces), dropped with it
+_FAKE_CONSTANTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cached_constant(cache: dict, key, make):
+    """``make()`` once per ``key`` in ``cache``, then the same tensor.
+    Under a fake mode (the dry run's trace) the tensor is fake and is
+    kept in that mode's own cache instead, so a trace makes it once as a
+    real run does, and no fake tensor outlives its mode or reaches a
+    real step."""
+    from torch._guards import detect_fake_mode
+    mode = detect_fake_mode()
+    if mode is not None:
+        key = (id(cache), key)
+        cache = _FAKE_CONSTANTS.setdefault(mode, {})
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
 
 
 class Tensors(torch.nn.Module):

@@ -169,6 +169,15 @@ def counted_loss(model, mesh, loss_fn=None):
     return fn
 
 
+def _storage_key(t):
+    """What tells ``t``'s storage from another's: its address, or for a
+    fake tensor (the dry run's trace), which has none, the storage
+    object itself."""
+    from repro_torch.kernels.library import has_data
+    st = t.untyped_storage()
+    return st.data_ptr() if has_data(t) else id(st)
+
+
 def _spec_leaves(specs):
     """The placement specs (tuples) of a specs tree, in leaf order."""
     if isinstance(specs, dict):
@@ -298,8 +307,7 @@ class Trainer:
 
         def apply_dp(values, opt_state, grads, grad_norm=None):
             flat = [g for g in tree_leaves(grads) if g is not None]
-            if len({g.untyped_storage().data_ptr() for g in flat}) \
-                    == len(flat):
+            if len({_storage_key(g) for g in flat}) == len(flat):
                 sum_over_ranks(flat, mesh, inplace=True)
             else:                 # aliased gradients: summed as copies
                 by_id = dict(zip(map(id, flat), sum_over_ranks(flat, mesh)))

@@ -57,7 +57,9 @@ def test_port_files_found():
                 ("dist", "rules.py"), ("dist", "compression.py"),
                 ("launch", "mesh.py"), ("models", "mace.py"),
                 ("models", "equivariant.py"), ("data", "graphs.py"),
-                ("configs", "mace_arch.py")):
+                ("configs", "mace_arch.py"), ("launch", "dryrun.py"),
+                ("dist", "tally.py"), ("kernels", "library.py"),
+                ("kernels", "cost.py")):
         assert os.path.join(PORT, *mod) in files
 
 
