@@ -3392,11 +3392,18 @@ def bag_bwd_row(torch, ids, w, dout, V, iters, what, smi, clock_hz,
         bytes_, {"fp32 adds and multiplies": (ops, FADD_PER_S)})
     row["bytes_bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
     row["chain_ms"] = row["longest_chain"] * 4 / clock_hz * 1e3
+    # 20 launches: at minibatch_lg's [E, 640] 5 of them (1.6 ms of
+    # device work) traced nothing in 6 sessions of one whole run
     row["device_ms"], top = device_profile(
         torch, lambda _: ec.launch_backward(ids, w, dout, V, order=order),
-        range(5 if n > B else 20))
-    check(row["device_ms"] > 0, f"the profiler traced no device time for "
-          f"the embedding_bag backward ({what})")
+        range(20))
+    row["device_from"] = "profiler"
+    if row["device_ms"] == 0:
+        # the profiler traced nothing in any session: the same launches'
+        # CUDA-event time (gaps between them included) stands in
+        print(f"   ({what}: device time from CUDA events)")
+        row["device_ms"], top = row["ms"], []
+        row["device_from"] = "cuda events"
     row["device_top"] = top
     row["shape"] = {"V": V, "d": d, "n_bags": n, "L": L,
                     "weights": "gather" if gather else w is not None}
@@ -4135,7 +4142,6 @@ def tp_rank(mesh, codes_np, batches, jobs, out_dir):
                 name = f"step_{step:010d}"
                 shutil.copytree(os.path.join(src, name),
                                 os.path.join(job["ckpt"], name))
-        mesh.all_reduce(torch.zeros(1, device=dev), ("data", "model"))
         trainer = Trainer(model, OptConfig(lr=3e-3), TrainConfig(
             steps=job["steps"], batch_size=TRAIN_B, log_every=1,
             eval_every=0, ckpt_dir=job.get("ckpt"), ckpt_every=TP_CKPT_AT),

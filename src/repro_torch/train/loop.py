@@ -41,10 +41,11 @@ v)`` for virtual shard ``v`` (``step_generator``); no generator state is
 carried from step to step, so a resumed run draws the masks the
 uninterrupted run drew.  Checkpoints are the reference's format
 (``repro_torch.ckpt``): ``values``, ``opt``, ``early_stop`` and, on the
-elastic path, ``err``; rank 0 writes them.  On a ``"model"`` mesh every
-split leaf and its moments are gathered first, so a checkpoint holds
-whole leaves under the reference's keys, and a restore cuts each
-rank's blocks: a run saved at ``(1, 2)`` resumes at ``(1, 1)`` or
+elastic path, ``err``; rank 0 writes them and picks the step every
+rank of a mesh restores (``Trainer._restore_step``).  On a ``"model"``
+mesh every split leaf and its moments are gathered first, so a
+checkpoint holds whole leaves under the reference's keys, and a restore
+cuts each rank's blocks: a run saved at ``(1, 2)`` resumes at ``(1, 1)`` or
 ``(1, 2)``.  A model without a ``placement`` does not train on one.
 
 The elastic step on a ``(D, S)`` mesh replicates the model over
@@ -334,11 +335,11 @@ class Trainer:
             self.spec, loss_fn=loss_fn, mesh=self.mesh, apply_fn=apply_fn,
             has_aux=True, shapes=shapes)
 
-    def _restore(self, params, opt_state):
-        """Load the latest checkpoint: the values into ``params`` in
-        place, and (opt_state, step, best metric, stale rounds).  On a
-        ``"model"`` mesh the checkpoint's whole leaves are read on the
-        host and each rank keeps its blocks."""
+    def _restore(self, params, opt_state, step=None):
+        """Load checkpoint ``step`` (None: the latest): the values into
+        ``params`` in place, and (opt_state, step, best metric, stale
+        rounds).  On a ``"model"`` mesh the checkpoint's whole leaves are
+        read on the host and each rank keeps its blocks."""
         d = self.cfg.ckpt_dir
         opt = {**opt_state, "step": np.int32(0)}
         like = {"values": params, "opt": opt}
@@ -347,7 +348,7 @@ class Trainer:
                     "opt": {**opt, "m": self._tree_blocks(opt["m"],
                                                           _whole_like),
                             "v": self._tree_blocks(opt["v"], _whole_like)}}
-        state, step = restore_checkpoint(d, like)
+        state, step = restore_checkpoint(d, like, step=step)
         if self._split:
             state["values"] = self._tree_blocks(state["values"], local_block)
             for k in ("m", "v"):
@@ -370,6 +371,22 @@ class Trainer:
             step=step, strict=False)
         return opt, step, float(es["early_stop"]["best"]), \
             int(es["early_stop"]["stale"])
+
+    def _restore_step(self) -> Optional[int]:
+        """The checkpoint step this run resumes from (None: a fresh
+        start).  On a mesh rank 0 alone reads the directory, which holds
+        every write it made committed (a run drains its writer before it
+        returns), and broadcasts the step (-1: none) over the world, so
+        no rank reads it while rank 0's writer may still be committing
+        and every rank restores the same step."""
+        mesh = self.mesh
+        if mesh is None or mesh.world_size == 1:
+            return latest_step(self.cfg.ckpt_dir)
+        step = latest_step(self.cfg.ckpt_dir) if self._rank == 0 else None
+        x = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                         device=mesh.device)
+        step = int(mesh.broadcast(x, 0).item())
+        return None if step < 0 else step
 
     def _agree_preempted(self) -> bool:
         """Whether any rank was sent SIGTERM (every rank stops at the
@@ -406,11 +423,16 @@ class Trainer:
         there is restored first (after its TrainSpec stamp is checked:
         values, optimizer state, error state, early-stop state) and the
         run goes on from its step; a fresh start takes an empty
-        directory.  After the run ``err_state`` holds the ``[V, ...]``
-        error rows and ``opt_state`` the optimizer state.  On a
-        ``"model"`` mesh the model's leaves are cut to this rank's blocks
-        first (``params`` must be ``model.params()``; the returned tree
-        holds the blocks, and so does ``opt_state``)."""
+        directory.  On a mesh every rank resumes from the step rank 0
+        finds, its latest complete one (broadcast over the world), and
+        when ``run`` returns on any rank the run's last checkpoint is
+        committed (rank 0 drains its writer, then a world barrier), so
+        a caller on any rank may read, copy or resume the directory
+        with no barrier of its own.  After the run ``err_state`` holds
+        the ``[V, ...]`` error rows and ``opt_state`` the optimizer
+        state.  On a ``"model"`` mesh the model's leaves are cut to this
+        rank's blocks first (``params`` must be ``model.params()``; the
+        returned tree holds the blocks, and so does ``opt_state``)."""
         # the tree goes over in a box, so no frame of this call keeps the
         # whole leaves alive once ``_run`` has cut them to their blocks
         box = [params]
@@ -449,19 +471,21 @@ class Trainer:
         if cfg.ckpt_dir:
             if self._rank == 0:
                 ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep_ckpts)
-            if latest_step(cfg.ckpt_dir) is not None:
+            resume = self._restore_step()
+            if resume is not None:
                 # the layout stamp is checked before any array is read,
                 # so a wrong --grad-accum-shards / --fsdp fails with the
                 # spec's error rather than a bare shape mismatch
-                stamp = checkpoint_metadata(cfg.ckpt_dir).get("train_spec")
+                stamp = checkpoint_metadata(cfg.ckpt_dir, resume).get(
+                    "train_spec")
                 spec_mod.check_restore_layout(stamp, self.spec, self._accum)
                 opt_state, start_step, best_metric, stale = self._restore(
-                    params, opt_state)
+                    params, opt_state, resume)
                 if elastic:
                     # strict=False: a checkpoint without "err" (written
                     # by a plain run) resumes from zero error state
                     tree, _ = restore_checkpoint(
-                        cfg.ckpt_dir, {"err": err_full}, step=start_step,
+                        cfg.ckpt_dir, {"err": err_full}, step=resume,
                         strict=False)
                     err_full = tree["err"]
 
@@ -615,6 +639,10 @@ class Trainer:
                 save(done_step)
             if ckpt:
                 ckpt.wait()                    # drain the async writer
+            if cfg.ckpt_dir and mesh is not None and mesh.world_size > 1:
+                # no rank returns before rank 0's last write is committed
+                mesh.all_reduce(torch.zeros(1, device=mesh.device),
+                                ("data", "model"))
             sync_params()
             self.opt_state = full_opt()
             if elastic:

@@ -172,7 +172,6 @@ def _worker(mesh, inp_path, out_path):
                  steps=2)
         if mesh.rank == 0:
             shutil.copytree(os.path.join(ck, "B"), os.path.join(ck, "C"))
-        mesh.all_reduce(torch.zeros(1), "model")         # a barrier
         out[("resumed", name)] = _trainer(
             mesh, name, values, batch, ckpt_dir=os.path.join(ck, "B"),
             steps=4)

@@ -279,7 +279,6 @@ def _worker(mesh, inp_path, out_path):
         out["preempted_at"] = tr.done_step
         if mesh.rank == 0:
             shutil.copytree(ck["B"], ck["C"])
-        mesh.all_reduce(torch.zeros(1), "model")         # a barrier
         out["resumed"] = _trainer(mesh, case, values, batches,
                                   ckpt_dir=ck["B"], steps=4)[:3]
     if mesh.rank == 0:
